@@ -14,7 +14,9 @@ non-zero. The last line is the contract line
 Phases:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, build
   2. kernel vs plain version at the paper's dataset shapes (depth 5,
-     kernels r and c): exact on integer-lattice data, stated tolerance
+     kernels r and c; m and mse on lattice data), without a weight and
+     with a weight of zeros and fractions plus NaN-producing trees:
+     exact on integer-lattice data and hit counts, stated tolerance
      elsewhere; warm median time of kernel and plain version, and the
      bound (the larger of bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s)
   3. main path: kat7 (Table 2, CLASSIFY_SET, kernel c), 30 generations on
@@ -42,6 +44,7 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.core import engine  # noqa: E402
 from repro_torch.core import primitives as prim  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import trees  # noqa: E402
@@ -108,14 +111,58 @@ def _bound_ms(op, F, D, weight):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _nan_rows(F, weight):
+    """Hand-made depth-5 rows (x_f*x_f) - (x_f*x_f), NaN wherever x_f
+    overflows: on x0 at point 0, which `weight` zeroes (fitness must stay
+    finite), and for F > 1 on x1 at point 1, which it weighs (fitness
+    must be +inf). Sets weight[0] = 0 and weight[1] = 1; the caller puts
+    the overflowing values into X."""
+    rows = []
+    for f in range(min(F, 2)):
+        op = np.zeros(63, np.int32)
+        arg = np.zeros(63, np.int32)
+        op[:7] = [prim.opcode_of("sub"), prim.opcode_of("mul"),
+                  prim.opcode_of("mul"), 2, 2, 2, 2]
+        arg[3:7] = f
+        rows.append((op, arg))
+    weight[0], weight[min(1, len(weight) - 1)] = 0.0, 1.0
+    return (torch.from_numpy(np.stack([r[0] for r in rows])).to(DEV),
+            torch.from_numpy(np.stack([r[1] for r in rows])).to(DEV))
+
+
+def _compare(got, want, kname, lattice, tag):
+    """Hold the kernel's moments against the plain version's -> (max abs
+    err, max rel err). c/m sums of hits times weights in {0, 1/4, 1/2,
+    1} are exact below 2**22 in any order; lattice r/mse sums are sums of
+    non-negative exact integers, exact below 2**24 (every partial sum is
+    bounded by the total); real-valued r/mse sums are taken in another
+    order -> rtol 1e-4."""
+    g, w = got[:, 0].cpu().numpy(), want[:, 0].cpu().numpy()
+    if not np.array_equal(np.isfinite(g), np.isfinite(w)):
+        raise AssertionError(f"{tag}: non-finite rows differ")
+    fin = np.isfinite(w)
+    err = float(np.abs(g[fin] - w[fin]).max(initial=0.0))
+    rel = float((np.abs(g[fin] - w[fin])
+                 / np.maximum(np.abs(w[fin]), 1.0)).max(initial=0.0))
+    if kname in ("c", "m") or lattice:
+        exact = fin & (np.abs(w) < (2 ** 22 if kname in ("c", "m") else 2 ** 24))
+        if not np.array_equal(g[exact], w[exact]):
+            raise AssertionError(f"{tag}: kernel != plain, max err {err}")
+    np.testing.assert_allclose(g[fin], w[fin], rtol=1e-4, atol=1e-3, err_msg=tag)
+    return err, rel
+
+
 def kernel_vs_plain():
     """-> ({(shape, kernel): timings}, {shape: max |kernel - plain|},
-    max relative error over every comparison)."""
+    max relative error over every comparison). Every shape runs without
+    a weight and with one of zeros and fractions (the padding-mask and
+    `sample_weight` path), each with kernels r and c, plus m and mse on
+    lattice data."""
     rng = np.random.RandomState(0)
     results, max_err, max_rel = {}, {}, 0.0
     for name, P, F, D in SHAPES:
         for lattice in (True, False):
-            for kname in ("r", "c"):
+            for kname in ("r", "c", "m", "mse") if lattice else ("r", "c"):
                 if lattice:
                     fn_set = prim.FunctionSet.make(("add", "sub", "mul"))
                     X = rng.randint(-1, 2, size=(F, D)).astype(np.float32)
@@ -133,26 +180,28 @@ def kernel_vs_plain():
                           fn_codes=tuple(int(c) for c in fn_set.opcodes))
                 got = gp_eval.eval_fitness(op, arg, Xd, yd, None, consts, **kw)
                 want = gp_eval.eval_fitness_plain(op, arg, Xd, yd, None, consts, **kw)
-                torch.cuda.synchronize()
-                g, w = got[:, 0].cpu().numpy(), want[:, 0].cpu().numpy()
-                if not np.array_equal(np.isfinite(g), np.isfinite(w)):
-                    raise AssertionError(f"{name} {kname}: non-finite rows differ")
-                fin = np.isfinite(w)
-                err = float(np.abs(g[fin] - w[fin]).max(initial=0.0))
-                rel = float((np.abs(g[fin] - w[fin])
-                             / np.maximum(np.abs(w[fin]), 1.0)).max(initial=0.0))
-                max_err[name] = max(max_err.get(name, 0.0), err)
-                max_rel = max(max_rel, rel)
-                if kname == "c" or (lattice and fin.any()):
-                    # hit counts are exact integers; lattice r sums are exact
-                    # below 2**24 (every partial sum is bounded by the total)
-                    exact = np.abs(w) < 2 ** 24 if kname == "r" else fin
-                    if not np.array_equal(g[exact & fin], w[exact & fin]):
-                        raise AssertionError(f"{name} {kname} lattice={lattice}: "
-                                             f"kernel != plain, max err {err}")
-                # r on real data: sums in another order -> rtol 1e-4
-                np.testing.assert_allclose(g[fin], w[fin], rtol=1e-4, atol=1e-3,
-                                           err_msg=f"{name} {kname}")
+                err, rel = _compare(got, want, kname, lattice,
+                                    f"{name} {kname} lattice={lattice}")
+
+                wt = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), size=D)
+                nop, narg = _nan_rows(F, wt)
+                Xw = X.copy()
+                Xw[0, 0] = 1e30
+                if F > 1:
+                    Xw[1, min(1, D - 1)] = 1e30
+                opw, argw = torch.cat([op, nop]), torch.cat([arg, narg])
+                Xwd, wd = torch.from_numpy(Xw).to(DEV), torch.from_numpy(wt).to(DEV)
+                got_w = gp_eval.eval_fitness(opw, argw, Xwd, yd, wd, consts, **kw)
+                want_w = gp_eval.eval_fitness_plain(opw, argw, Xwd, yd, wd, consts, **kw)
+                err_w, rel_w = _compare(got_w, want_w, kname, lattice,
+                                        f"{name} {kname} lattice={lattice} weighted")
+                nan_fit = got_w[P:, 0].cpu().numpy()
+                if not (np.isfinite(nan_fit[0]) and np.isinf(nan_fit[1:]).all()):
+                    raise AssertionError(f"{name} {kname}: NaN at a zero-weight point "
+                                         f"must be masked, at a weighted one +inf: "
+                                         f"{nan_fit}")
+                max_err[name] = max(max_err.get(name, 0.0), err, err_w)
+                max_rel = max(max_rel, rel, rel_w)
                 if lattice:
                     continue
                 reps = 20 if P * D < 1e7 else 5
@@ -264,12 +313,12 @@ def profile_main_path():
 def main():
     if "--profile" in sys.argv[1:]:
         print(card_line(), flush=True)
-        build.build(["gp_eval"])
+        build.load("gp_eval")
         profile_main_path()
         return
     card = card_line()
     t0 = time.perf_counter()
-    build.build(["gp_eval"])
+    build.load("gp_eval")
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in build.BUILD_INFO["gp_eval"]["ptxas"].splitlines()
              if "registers" in ln or "Compiling" in ln]
@@ -293,6 +342,12 @@ def main():
     resid = q.best_fitness
     if not math.isfinite(resid):
         raise AssertionError("kepler quickstart: non-finite residual")
+    # a session given a config picks the card's backend as the default one does
+    configured = GPSession.from_dataset("kepler", config=engine.GPConfig(
+        pop_size=8, tree_spec=trees.TreeSpec(n_features=1)))
+    if configured.backend != "cuda" or q.backend != "cuda":
+        raise AssertionError(f"sessions on the card resolved to {q.backend!r} and "
+                             f"{configured.backend!r}, not 'cuda'")
     emit("quickstart", best=q.best_expression(), residual=resid, backend=q.backend)
 
     main = perf[("kat7", "c")]

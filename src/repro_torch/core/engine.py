@@ -11,9 +11,11 @@ the host synchronises once per block.
 
 `lax.cond` in the elite cache and the freeze become `torch.where`
 selects, which give the same values: the cache evaluates the whole
-population in one fused-kernel launch and takes the head rows from the
+population in one fused-kernel call and takes the head rows from the
 cache on a hit (every evaluation path is row-independent, so this is
-bitwise the reference's split evaluation).
+bitwise the reference's split evaluation). So the port evaluates all P
+rows every generation: the `tree_evals` counter (P minus the rows a hit
+serves) is the reference's count of evaluations, not the card's.
 
 Inside a block nothing may synchronise with the host: no `.item()`,
 `bool(t)`, `int(t)`, boolean-mask indexing or `torch.nonzero` on a
@@ -56,7 +58,8 @@ class GPConfig:
     elitism: int = 1
     parsimony: float = 0.0  # bloat pressure: selection fitness += p * size
     stop_fitness: float | None = None  # early termination threshold
-    eval_impl: str = "torch"  # a backend name in repro_torch.gp.backends
+    eval_impl: str = "auto"  # a backend name in repro_torch.gp.backends; auto:
+    # the CUDA kernel on a CUDA device, the plain version on the CPU
     data_tile: int = 1024  # upper bound of the kernel's data tile
     elite_cache: bool = True  # skip re-evaluating unchanged elites
     dedup: str = "exact"  # no-op on heap genomes (postfix dedup: ROADMAP)

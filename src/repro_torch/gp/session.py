@@ -118,11 +118,9 @@ class GPSession:
         self.device = resolve_device(device)
         explicit_features = (config is not None or "tree_spec" in overrides
                              or "n_features" in overrides)
-        explicit_impl = config is not None or "eval_impl" in overrides
         self._cfg = make_config(config, **overrides)
-        if backend is None:
-            backend = self._cfg.eval_impl if explicit_impl else "auto"
-        self._backend = _backends.get_backend(backend, self.device)
+        self._backend = _backends.get_backend(backend or self._cfg.eval_impl,
+                                              self.device)
         if self._backend.name == "cuda" and self.device.type != "cuda":
             raise ValueError("backend 'cuda' runs the CUDA kernel and needs a CUDA "
                              "device; use backend='torch' with device='cpu'")

@@ -49,49 +49,30 @@ def nvcc() -> str:
     return found
 
 
-def _target(name: str) -> tuple[Path, Path]:
+def _compile(name: str) -> Path:
+    """The library of `csrc/<name>.cu`, compiled unless already built."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return src, build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
-
-
-def _start(name: str):
-    """Start `nvcc` for one source unless its library is built; returns
-    (process or None, temporary output, target path, start time)."""
-    src, lib = _target(name)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    lib = build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
-        return None, tmp, lib, time.perf_counter()
+        BUILD_INFO[name] = {"seconds": 0.0, "ptxas": "", "path": str(lib)}
+        return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, lib, time.perf_counter()
-
-
-def _finish(name: str, proc, tmp: Path, lib: Path, t0: float) -> None:
-    if proc is None:
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": str(lib)})
-        return
-    out, _ = proc.communicate()
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": out,
+    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stdout,
                         "path": str(lib)}
-
-
-def build(names) -> None:
-    """Compile every named source at once (one `nvcc` each, in parallel)."""
-    started = [(n, *_start(n)) for n in names]
-    for name, *rest in started:
-        _finish(name, *rest)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu`, compiling it on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(BUILD_INFO[name]["path"])
+        lib = _LIBS[name] = ctypes.CDLL(str(_compile(name)))
     return lib

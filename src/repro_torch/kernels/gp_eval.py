@@ -20,8 +20,8 @@ give the card several hundred blocks.
 
 On a CPU tensor the wrapper runs `eval_fitness_plain`, the plain PyTorch
 version of the same function; on a CUDA tensor it launches the kernel or
-raises. `launches` counts kernel launches (the tests and `chip_smoke.py`
-read it).
+raises. `launches` counts the kernel's calls (the tests and
+`chip_smoke.py` read it).
 """
 from __future__ import annotations
 
@@ -32,10 +32,13 @@ import torch
 
 from repro_torch.core import fitness as fit
 from repro_torch.core import primitives as prim
-from repro_torch.core.eval import evaluate_population
 from repro_torch.core.trees import TreeSpec
+from repro_torch.kernels import ref as _ref
 
-launches = 0  # kernel launches by `eval_fitness` (one per call on a CUDA tensor)
+# calls of the kernel by `eval_fitness`, one per call on a CUDA tensor; a
+# call is two CUDA launches (eval + ordered tile merge) when D spans more
+# than one data tile, one otherwise
+launches = 0
 
 _FN = None
 
@@ -69,21 +72,14 @@ def _fn_set(fn_codes) -> prim.FunctionSet:
 def eval_fitness_plain(op, arg, X, y, weight, const_table, *, max_depth: int,
                        kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
                        data_tile: int = 1024, fn_codes=None):
-    """Plain PyTorch version of the kernel: `evaluate_population` per data
-    tile, the registered kernel's `moments` on it, tiles merged in order
-    (the reference kernel's j == 0 store / j != 0 merge)."""
+    """Plain PyTorch version of the kernel: `kernels/ref.py`'s
+    `moments_ref_tiled` at the kernel's data tile (`evaluate_population`
+    per tile, the registered kernel's `moments` on it, tiles merged in
+    order: the reference kernel's j == 0 store / j != 0 merge)."""
     spec = TreeSpec(max_depth=max_depth, fn_set=_fn_set(fn_codes))
     fspec = fit.FitnessSpec(kernel, n_classes=n_classes, precision=precision)
-    kern = fit.get_kernel(kernel)
-    D = X.shape[1]
-    w = torch.ones_like(y, dtype=torch.float32) if weight is None else weight.float()
-    out = None
-    for lo in range(0, max(D, 1), data_tile):
-        preds = evaluate_population(op, arg, X[:, lo:lo + data_tile], const_table, spec)
-        part = kern.moments(preds, y[lo:lo + data_tile].float(), w[lo:lo + data_tile],
-                            fspec)
-        out = part if out is None else kern.merge_moments(out, part, fspec)
-    return out
+    return _ref.moments_ref_tiled(op, arg, X, y, const_table, spec, fspec,
+                                  weight=weight, tile=data_tile)
 
 
 def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,

@@ -130,6 +130,34 @@ def test_from_dataset_kepler_runs():
     assert ts.generation == 5 and isinstance(ts.best_expression(), str)
 
 
+def test_default_config_picks_the_device_backend(monkeypatch):
+    """A default `GPConfig` resolves its backend from the device: the
+    kernel on a CUDA device, the plain version on the CPU, whichever
+    entry point it reaches (a session given the config, `from_dataset`
+    with it, or the engine called directly)."""
+    from repro_torch.core.trees import TreeSpec
+    from repro_torch.gp import backends
+
+    cfg = tengine.GPConfig(pop_size=8, tree_spec=TreeSpec(n_features=1))
+    assert cfg.eval_impl == "auto"
+    assert backends.get_backend(cfg.eval_impl, "cuda").name == "cuda"
+    assert backends.get_backend(cfg.eval_impl, "cpu").name == "torch"
+    assert GPSession(config=cfg, device="cpu").backend == "torch"
+    s = GPSession.from_dataset("kepler", config=cfg, device="cpu")
+    assert s.backend == "torch" and s.config.eval_impl == "torch"
+    with pytest.raises(ValueError, match="cuda"):
+        GPSession(config=tengine.GPConfig(eval_impl="cuda"), device="cpu")
+    seen = []
+    real = backends.get_backend
+    monkeypatch.setattr(backends, "get_backend",
+                        lambda name, device=None: seen.append(
+                            real(name, device).name) or real(name, device))
+    X, y = torch.ones(1, 9), torch.ones(9)
+    state = tengine.init_state(cfg, prng.PRNGKey(0), device="cpu")
+    tengine.evolve_step(cfg, state, X, y)
+    assert seen == ["torch"]
+
+
 def test_not_ported_options_raise():
     for kw in (dict(islands=2), dict(topology=object()), dict(chunk_rows=8),
                dict(checkpoint_dir="x"), dict(tracer=object()),
