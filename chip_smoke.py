@@ -4,30 +4,48 @@
 
 Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc/`,
 holds each against its plain PyTorch version on the card, drives the
-port's main path (`GPSession` with its defaults: heap trees of depth 5,
-one device, elite cache, K-generation blocks) through the user's entry
-points, and checks the results against the same sessions run on the CPU.
-Every phase prints one JSON line; any failure raises, so the exit code is
-non-zero. The last line is the contract line
+port's paths (`GPSession` with its defaults: heap trees of depth 5, one
+device, elite cache, K-generation blocks; then postfix genomes with and
+without subexpression dedup) through the user's entry points, and checks
+the results against the same sessions run on the CPU. Every phase prints
+one JSON line; any failure raises, so the exit code is non-zero. The
+last line is the contract line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
 Phases:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, build
-  2. kernel vs plain version at the paper's dataset shapes (depth 5,
-     kernels r and c; m and mse on lattice data), without a weight and
-     with a weight of zeros and fractions plus NaN-producing trees:
-     exact on integer-lattice data and hit counts, stated tolerance
-     elsewhere; warm median time of kernel and plain version, and the
-     bound (the larger of bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s)
+  2. every kernel vs its plain version at the paper's dataset shapes
+     (depth 5, kernels r and c; m and mse on lattice data), without a
+     weight and with a weight of zeros and fractions plus NaN-producing
+     trees: B1 on the heap population; B2, the unique table, B3 and B4
+     on its postfix form and dedup plan, and the semantic tier's probe
+     predictions on its first 32 points. Exact on integer-lattice data
+     and hit counts (and the unique table and probe predictions on
+     lattice and CLASSIFY_SET trees), rtol 1e-4 elsewhere. On the card
+     B1 == B2 == B3 == B4 bitwise (heap vs postfix, dedup on vs off),
+     KITCHEN_SINK included.
+     Warm median time of each kernel and plain version, and the bound
+     (the larger of bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s)
   3. main path: kat7 (Table 2, CLASSIFY_SET, kernel c), 30 generations on
      the card; one block under torch.cuda.set_sync_debug_mode("error");
      history bitwise equal to the CPU run; launches counted
   4. ligo: the same over 5 generations
   5. the kepler quickstart (KITCHEN_SINK, pop 200, 30 generations)
+  6. postfix kat7 at full width, 30 generations each: dedup="exact" with
+     the default cap (100: the table overflows and B2 does the work), with
+     dedup="off" (B2), dedup_cap=1400 (B3) and dedup_cap=6301 (B4), then
+     dedup="semantic" (cap 100, and the probe kernel); per-kernel
+     launches and the dedup counters of each run, each generation's
+     counter row showing the branch it took (the table overflowed in
+     every generation of the cap-100 runs and in none of the others),
+     its first 10 generations bitwise equal to the CPU's, the exact/off
+     histories equal to each other, no synchronisation in a block
 
-`python3 chip_smoke.py --profile` instead profiles three main-path
-generations with torch.profiler (where a generation's time goes).
+`python3 chip_smoke.py --profile` instead profiles three kat7 generations
+of the heap main path and of four postfix paths with torch.profiler
+(where a generation's time goes).
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -45,11 +63,13 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import engine  # noqa: E402
+from repro_torch.core import eval as eval_mod  # noqa: E402
 from repro_torch.core import primitives as prim  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import trees  # noqa: E402
 from repro_torch.gp import GPSession  # noqa: E402
 from repro_torch.kernels import build, gp_eval, ops  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -85,10 +105,12 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-# --- phase 2: the kernel against its plain version ---------------------------
+# --- phase 2: each kernel against its plain version ---------------------------
 
 SHAPES = [("kepler", 200, 1, 9), ("kat7", 100, 9, 10_000),
           ("ligo", 100, 1_373, 4_000), ("large", 1024, 8, 32_768)]
+POSTFIX_KERNELS = ("eval_fitness_postfix", "unique_table", "eval_fitness_from_subtrees",
+                   "eval_fitness_from_preds", "predict_postfix")
 
 
 def _population(P, F, fn_set, seed, p_const=0.2):
@@ -97,18 +119,61 @@ def _population(P, F, fn_set, seed, p_const=0.2):
     return spec, op, arg
 
 
+def _ms_bound(nbytes, n_ops):
+    """(bound ms, "bytes" | "operations"): the larger of the bytes over
+    the card's memory rate and the f32 operations over its peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _bound_ms(op, F, D, weight):
-    """Least time for the work of one call on this card: bytes read once
-    (op, arg, X, y, weight, constants) and written once (f32[P]), against
-    the f32 operations these trees need (one per function node per point,
-    plus three per tree and point for the epilogue). -> (ms, "bytes" |
-    "operations")."""
+    """Least time for B1's or B2's work on one call: bytes read once (op,
+    arg, X, y, weight, constants) and written once (f32[P]), against the
+    f32 operations these trees need (one per function node per point,
+    plus three per tree and point for the epilogue)."""
     P, N = op.shape
     nbytes = 2 * P * N * 4 + F * D * 4 + D * 4 + (D * 4 if weight is not None else 0)
     nbytes += 8 * 4 + P * 4
-    n_ops = D * (int((op >= 3).sum()) + 3 * P)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return _ms_bound(nbytes, D * (int((op >= 3).sum()) + 3 * P))
+
+
+def _gather_bound_ms(P, D, rows_read):
+    """B3/B4: the prediction rows they must read (`rows_read` distinct
+    rows of D floats), y, root or nothing, and f32[P] out; three f32
+    operations per tree and point (the epilogue)."""
+    return _ms_bound(rows_read * D * 4 + D * 4 + 2 * P * 4, 3 * P * D)
+
+
+def _live_rows(plan):
+    """The unique-table rows anything reads: the n_unique live slots and
+    the reserved all-EMPTY slot cap - 1 (every slot on overflow)."""
+    U = plan.uop.shape[0]
+    n = int(plan.n_unique)
+    if n > U - 1:
+        return torch.arange(U, device=DEV)
+    return torch.cat([torch.arange(n, device=DEV), torch.tensor([U - 1], device=DEV)])
+
+
+def _unique_bound_ms(plan, D):
+    """The unique table: the live plan entries read once (5 int32 and
+    the int64 order per slot, plus n_unique), the feature rows its
+    terminals name, the live rows and the reserved one written once (the
+    rows anything reads); one f32 operation per function slot and
+    point."""
+    live = _live_rows(plan)
+    valid = plan.ulen > 0
+    feats = int(torch.unique(plan.uarg[valid & (plan.uop == prim.FEATURE)]).numel())
+    nbytes = live.numel() * (5 * 4 + 8) + 4 + feats * D * 4 + live.numel() * D * 4
+    return _ms_bound(nbytes, D * int((valid & (plan.ulen >= 2)).sum()))
+
+
+def _predict_bound_ms(op, F, D, C):
+    """The probe predictions: op/arg, X[:, :D] and the constants read
+    once, f32[P, D] written once; one f32 operation per function node
+    and point."""
+    P, N = op.shape
+    nbytes = 2 * P * N * 4 + F * D * 4 + C * 4 + P * D * 4
+    return _ms_bound(nbytes, D * int((op >= 3).sum()))
 
 
 def _nan_rows(F, weight):
@@ -131,7 +196,7 @@ def _nan_rows(F, weight):
 
 
 def _compare(got, want, kname, lattice, tag):
-    """Hold the kernel's moments against the plain version's -> (max abs
+    """Hold a kernel's moments against the plain version's -> (max abs
     err, max rel err). c/m sums of hits times weights in {0, 1/4, 1/2,
     1} are exact below 2**22 in any order; lattice r/mse sums are sums of
     non-negative exact integers, exact below 2**24 (every partial sum is
@@ -152,12 +217,94 @@ def _compare(got, want, kname, lattice, tag):
     return err, rel
 
 
+def _compare_table(got, want, exact, tag):
+    """Predictions (the unique table's read rows, the probe's) against
+    their plain version: bitwise where the trees use no sin/cos/sqrt/log
+    (the device's and torch's versions of those may round apart), rtol
+    1e-4 on the finite values otherwise."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if exact:
+        if not np.array_equal(g, w, equal_nan=True):
+            raise AssertionError(f"{tag}: unique table != plain")
+        return 0.0
+    if not np.array_equal(np.isfinite(g), np.isfinite(w)):
+        raise AssertionError(f"{tag}: unique table: non-finite entries differ")
+    fin = np.isfinite(w)
+    np.testing.assert_allclose(g[fin], w[fin], rtol=1e-4, atol=1e-3, err_msg=tag)
+    return float(np.abs(g[fin] - w[fin]).max(initial=0.0))
+
+
+def _same_bits(a, b, tag):
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"{tag}: not bitwise equal")
+
+
+def _postfix_case(op, arg, Xd, yd, wd, consts, fn_set, cap, kw, tag):
+    """B2, the unique table, B3, B4 and the probe predictions on the
+    postfix form of (op, arg), each against its plain version and B2-B4
+    against each other: -> (postfix op, arg, plan, uniq, preds, {kernel:
+    (out, err)})."""
+    pop, parg = trees.heap_to_postfix(op, arg)
+    spec = trees.TreeSpec(max_depth=5, n_features=Xd.shape[0], fn_set=fn_set,
+                          genome="postfix")
+    plan = eval_mod.build_dedup_plan(pop, parg, spec, cap)
+    if bool(plan.overflow):
+        raise AssertionError(f"{tag}: the plan overflows its cap {cap}")
+    codes = kw["fn_codes"]
+    fk = {k: v for k, v in kw.items() if k not in ("max_depth", "fn_codes", "lattice")}
+    b2 = gp_eval.eval_fitness_postfix(pop, parg, Xd, yd, wd, consts, stack_size=6,
+                                      fn_codes=codes, **fk)
+    b2_plain = gp_eval.eval_fitness_postfix_plain(pop, parg, Xd, yd, wd, consts,
+                                                  stack_size=6, fn_codes=codes, **fk)
+    uniq = gp_eval.unique_table(plan, Xd, consts, fn_codes=codes)
+    uniq_plain = gp_eval.unique_table_plain(plan, Xd, consts, fn_codes=codes)
+    transcendental = any(prim.FN_NAMES[c - 3] in ("sin", "cos", "sqrt", "log")
+                         for c in codes)
+    live = _live_rows(plan)
+    u_err = _compare_table(uniq[live], uniq_plain[live], not transcendental,
+                           tag + " unique_table")
+    Xp = Xd[:, :min(Xd.shape[1], 32)].contiguous()
+    probe = gp_eval.predict_postfix(pop, parg, Xp, consts, stack_size=6, fn_codes=codes)
+    probe_plain = gp_eval.predict_postfix_plain(pop, parg, Xp, consts, stack_size=6,
+                                                fn_codes=codes)
+    p_err = _compare_table(probe, probe_plain, not transcendental, tag + " predict_postfix")
+    b3 = gp_eval.eval_fitness_from_subtrees(plan.root, uniq, yd, wd, **fk)
+    b3_plain = gp_eval.eval_fitness_from_subtrees_plain(plan.root, uniq, yd, wd, **fk)
+    preds = uniq.index_select(0, plan.root.long())
+    b4 = gp_eval.eval_fitness_from_preds(preds, yd, wd, **fk)
+    b4_plain = gp_eval.eval_fitness_from_preds_plain(preds, yd, wd, **fk)
+    kname, lattice = kw["kernel"], kw["lattice"]
+    res = {"unique_table": (uniq, u_err), "predict_postfix": (probe, p_err)}
+    for name, got, want in (("eval_fitness_postfix", b2, b2_plain),
+                            ("eval_fitness_from_subtrees", b3, b3_plain),
+                            ("eval_fitness_from_preds", b4, b4_plain)):
+        res[name] = (got, _compare(got, want, kname, lattice, f"{tag} {name}")[0])
+    _same_bits(b3, b2, tag + ": dedup on (B3) vs off (B2)")
+    _same_bits(b4, b2, tag + ": dedup on (B4) vs off (B2)")
+    return pop, parg, plan, uniq, preds, res
+
+
+def _table_cap(name, op, arg, spec):
+    """The dedup cap of the kernel comparisons: P*N + 1, the cap no
+    population can overflow (kat7: 6,301, as on the B4 path); at "large"
+    the population's own unique count + 1, which keeps the f32[cap, D]
+    table at a few hundred MB instead of 8 GB."""
+    P, N = op.shape
+    if name != "large":
+        return P * N + 1
+    pop, parg = trees.heap_to_postfix(op, arg)
+    pspec = dataclasses.replace(spec, genome="postfix")
+    return int(eval_mod.dedup_stats(pop, parg, pspec, P * N + 1)[0]) + 1
+
+
 def kernel_vs_plain():
-    """-> ({(shape, kernel): timings}, {shape: max |kernel - plain|},
-    max relative error over every comparison). Every shape runs without
-    a weight and with one of zeros and fractions (the padding-mask and
-    `sample_weight` path), each with kernels r and c, plus m and mse on
-    lattice data."""
+    """-> ({(shape, kernel): {kernel name: timings}}, {(shape, kernel name):
+    max |kernel - plain|}, max relative error of B1 over every
+    comparison). Every shape runs without a weight and with one of zeros
+    and fractions (the padding-mask and `sample_weight` path), each with
+    kernels r and c, plus m and mse on lattice data. The postfix kernels
+    take the postfix form of B1's population and its dedup plan
+    (`_table_cap`: no overflow)."""
     rng = np.random.RandomState(0)
     results, max_err, max_rel = {}, {}, 0.0
     for name, P, F, D in SHAPES:
@@ -180,8 +327,14 @@ def kernel_vs_plain():
                           fn_codes=tuple(int(c) for c in fn_set.opcodes))
                 got = gp_eval.eval_fitness(op, arg, Xd, yd, None, consts, **kw)
                 want = gp_eval.eval_fitness_plain(op, arg, Xd, yd, None, consts, **kw)
-                err, rel = _compare(got, want, kname, lattice,
-                                    f"{name} {kname} lattice={lattice}")
+                tag = f"{name} {kname} lattice={lattice}"
+                err, rel = _compare(got, want, kname, lattice, tag)
+                pkw = dict(kw, lattice=lattice)
+                cap = _table_cap(name, op, arg, spec)
+                pop, parg, plan, uniq, preds, pres = _postfix_case(
+                    op, arg, Xd, yd, None, consts, fn_set, cap, pkw, tag)
+                _same_bits(pres["eval_fitness_postfix"][0], got, tag + ": heap (B1) vs "
+                           "postfix (B2)")
 
                 wt = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), size=D)
                 nop, narg = _nan_rows(F, wt)
@@ -193,54 +346,115 @@ def kernel_vs_plain():
                 Xwd, wd = torch.from_numpy(Xw).to(DEV), torch.from_numpy(wt).to(DEV)
                 got_w = gp_eval.eval_fitness(opw, argw, Xwd, yd, wd, consts, **kw)
                 want_w = gp_eval.eval_fitness_plain(opw, argw, Xwd, yd, wd, consts, **kw)
-                err_w, rel_w = _compare(got_w, want_w, kname, lattice,
-                                        f"{name} {kname} lattice={lattice} weighted")
+                err_w, rel_w = _compare(got_w, want_w, kname, lattice, tag + " weighted")
                 nan_fit = got_w[P:, 0].cpu().numpy()
                 if not (np.isfinite(nan_fit[0]) and np.isinf(nan_fit[1:]).all()):
                     raise AssertionError(f"{name} {kname}: NaN at a zero-weight point "
                                          f"must be masked, at a weighted one +inf: "
                                          f"{nan_fit}")
-                max_err[name] = max(max_err.get(name, 0.0), err, err_w)
+                *_, pres_w = _postfix_case(opw, argw, Xwd, yd, wd, consts, fn_set,
+                                           _table_cap(name, opw, argw, spec), pkw,
+                                           tag + " weighted")
+                _same_bits(pres_w["eval_fitness_postfix"][0], got_w,
+                           tag + " weighted: heap (B1) vs postfix (B2)")
+                max_err[name, "eval_fitness"] = max(max_err.get((name, "eval_fitness"),
+                                                                0.0), err, err_w)
+                for k in POSTFIX_KERNELS:
+                    max_err[name, k] = max(max_err.get((name, k), 0.0), pres[k][1],
+                                           pres_w[k][1])
                 max_rel = max(max_rel, rel, rel_w)
                 if lattice:
                     continue
                 reps = 20 if P * D < 1e7 else 5
-                ms = time_ms(lambda: gp_eval.eval_fitness(op, arg, Xd, yd, None,
-                                                          consts, **kw), 50)
-                plain_ms = time_ms(lambda: gp_eval.eval_fitness_plain(
-                    op, arg, Xd, yd, None, consts, **kw), reps)
-                bound, bound_by = _bound_ms(op, F, D, None)
-                results[(name, kname)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                              bound_by=bound_by)
+                fk = {k: v for k, v in kw.items() if k not in ("max_depth", "fn_codes")}
+                codes = kw["fn_codes"]
+                # the probe at the path's shape: one elite row and one cached
+                # row (elitism 1) on the first 32 points
+                Xp = Xd[:, :min(D, 32)].contiguous()
+                pop2, parg2 = pop[:2].contiguous(), parg[:2].contiguous()
+                timed = {
+                    "eval_fitness": (
+                        lambda: gp_eval.eval_fitness(op, arg, Xd, yd, None, consts, **kw),
+                        lambda: gp_eval.eval_fitness_plain(op, arg, Xd, yd, None, consts,
+                                                           **kw),
+                        _bound_ms(op, F, D, None)),
+                    "eval_fitness_postfix": (
+                        lambda: gp_eval.eval_fitness_postfix(
+                            pop, parg, Xd, yd, None, consts, stack_size=6,
+                            fn_codes=codes, **fk),
+                        lambda: gp_eval.eval_fitness_postfix_plain(
+                            pop, parg, Xd, yd, None, consts, stack_size=6,
+                            fn_codes=codes, **fk),
+                        _bound_ms(pop, F, D, None)),
+                    "unique_table": (
+                        lambda: gp_eval.unique_table(plan, Xd, consts, fn_codes=codes),
+                        lambda: gp_eval.unique_table_plain(plan, Xd, consts,
+                                                           fn_codes=codes),
+                        _unique_bound_ms(plan, D)),
+                    "eval_fitness_from_subtrees": (
+                        lambda: gp_eval.eval_fitness_from_subtrees(plan.root, uniq, yd,
+                                                                   None, **fk),
+                        lambda: gp_eval.eval_fitness_from_subtrees_plain(
+                            plan.root, uniq, yd, None, **fk),
+                        _gather_bound_ms(P, D, int(torch.unique(plan.root).numel()))),
+                    "eval_fitness_from_preds": (
+                        lambda: gp_eval.eval_fitness_from_preds(preds, yd, None, **fk),
+                        lambda: gp_eval.eval_fitness_from_preds_plain(preds, yd, None,
+                                                                      **fk),
+                        _gather_bound_ms(P, D, P)),
+                    "predict_postfix": (
+                        lambda: gp_eval.predict_postfix(pop2, parg2, Xp, consts,
+                                                        stack_size=6, fn_codes=codes),
+                        lambda: gp_eval.predict_postfix_plain(pop2, parg2, Xp, consts,
+                                                              stack_size=6,
+                                                              fn_codes=codes),
+                        _predict_bound_ms(pop2, F, Xp.shape[1], consts.shape[0])),
+                }
+                row = {}
+                for kern_name, (fn, plain_fn, (bound, bound_by)) in timed.items():
+                    row[kern_name] = dict(ms=time_ms(fn, 50),
+                                          plain_ms=time_ms(plain_fn, reps),
+                                          bound_ms=bound, bound_by=bound_by)
+                results[(name, kname)] = row
                 emit("kernel", shape=name, P=P, F=F, D=D, kernel=kname, tile=tile,
-                     fn_set=fn_set.name, max_abs_err=err, max_rel_err=rel, ms=ms,
-                     plain_ms=plain_ms,
-                     bound_ms=bound, bound_by=bound_by,
-                     fn_nodes=int((op >= 3).sum()))
+                     fn_set=fn_set.name, dedup_cap=cap,
+                     n_unique=int(plan.n_unique), max_abs_err=err, max_rel_err=rel,
+                     fn_nodes=int((op >= 3).sum()),
+                     **{k: {kk: round(vv, 6) if isinstance(vv, float) else vv
+                            for kk, vv in v.items()} for k, v in row.items()})
     return results, max_err, max_rel
 
 
-# --- phases 3-5: the main path --------------------------------------------------
+# --- phases 3-6: the paths ------------------------------------------------------
 
 
-def _history_vs_cpu(dataset, gens, pop, gpu_history):
+def _history_vs_cpu(dataset, gens, pop, gpu_history, **kw):
     """The same session on the CPU: its history must equal the card's
     bit for bit (the c kernel's hit counts are exact integers, and every
     draw comes from the same threefry key)."""
-    cpu = GPSession.from_dataset(dataset, pop_size=pop, generations=gens, device="cpu")
+    cpu = GPSession.from_dataset(dataset, pop_size=pop, generations=gens, device="cpu",
+                                 **kw)
     cpu.init(key=prng.PRNGKey(0))
     cpu.evolve(gens)
     a = np.asarray(gpu_history[:gens], np.float32)
     b = np.asarray(cpu.history, np.float32)
     if not np.array_equal(a, b):
         first = int(np.nonzero(a != b)[0][0])
-        raise AssertionError(f"{dataset}: card and CPU histories part at "
+        raise AssertionError(f"{dataset} {kw}: card and CPU histories part at "
                              f"generation {first}: {a[first]} vs {b[first]}")
     return b
 
 
-def run_dataset(dataset, pop, gens, cpu_gens, block_check):
-    sess = GPSession.from_dataset(dataset, pop_size=pop, generations=gens)
+def run_dataset(dataset, pop, gens, cpu_gens, block_check, expect=("eval_fitness",),
+                overflow=None, **kw):
+    """Drive `GPSession.from_dataset(dataset, **kw)` for `gens`
+    generations on the card with the launch counts set to 0 just before
+    and read just after: every kernel in `expect` must have launched,
+    every other kernel not at all. With dedup on, `overflow` (True or
+    False) is what each generation's counter row must show: the unique
+    table overflowed its cap (B2 did the work, nothing saved) in every
+    generation, or in none (the table and B3/B4 did it)."""
+    sess = GPSession.from_dataset(dataset, pop_size=pop, generations=gens, **kw)
     assert sess.backend == "cuda", sess.backend
     sess.init(key=prng.PRNGKey(0))
     torch.cuda.synchronize()
@@ -249,19 +463,40 @@ def run_dataset(dataset, pop, gens, cpu_gens, block_check):
     sess.evolve()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = gp_eval.launches
-    if launches <= 0:
-        raise AssertionError(f"{dataset}: the CUDA kernel was never launched")
+    launches = dict(gp_eval.launches)
+    for name, n in launches.items():
+        if (n > 0) != (name in expect):
+            raise AssertionError(f"{dataset} {kw}: kernel {name} launched {n} times; "
+                                 f"this path must launch exactly {expect}")
     hist = np.asarray(sess.history, np.float32)
     if not (np.isfinite(hist).all() and (np.diff(hist) <= 0).all()):
         raise AssertionError(f"{dataset}: best fitness not finite/non-increasing")
-    _history_vs_cpu(dataset, cpu_gens, pop, sess.history)
-    out = dict(dataset=dataset, pop=pop, generations=gens, rows=sess.n_rows,
-               launches=launches, host_syncs=sess.stats["host_syncs"],
+    _history_vs_cpu(dataset, cpu_gens, pop, sess.history, **kw)
+    out = dict(dataset=dataset, options=kw, pop=pop, generations=gens, rows=sess.n_rows,
+               launches={k: v for k, v in launches.items() if v},
+               host_syncs=sess.stats["host_syncs"],
                wall_s=wall, gens_per_s=gens / wall,
                tree_rows_per_s=sess.stats["tree_row_evals"] / wall,
                best_fitness=float(hist[-1]), cpu_bitwise_generations=cpu_gens,
-               best=sess.best_expression())
+               best=sess.best_expression(), history=hist.tolist())
+    if sess.config.tree_spec.genome == "postfix" and sess.config.dedup != "off":
+        cap = eval_mod.resolve_dedup_cap(sess.config.dedup_cap, pop,
+                                         sess.config.tree_spec.num_nodes)
+        rows = np.asarray(sess.counter_history)
+        uniq = rows[:, counters.UNIQUE_SUBTREES]
+        saved = rows[:, counters.SUBTREE_EVALS_SAVED]
+        over = uniq > cap - 1
+        if len(rows) != gens or not np.array_equal(saved == 0, over):
+            raise AssertionError(f"{dataset} {kw}: counter rows disagree with the "
+                                 f"cap {cap}: unique {uniq}, saved {saved}")
+        if not (over == overflow).all():
+            raise AssertionError(f"{dataset} {kw}: the table must overflow in "
+                                 f"{'every' if overflow else 'no'} generation; "
+                                 f"unique per generation {uniq.tolist()}")
+        out.update(dedup_cap=cap, unique_subtrees=int(uniq.sum()),
+                   subtree_evals_saved=int(saved.sum()),
+                   unique_per_generation=uniq.tolist(),
+                   overflowed_generations=int(over.sum()))
     if block_check:
         syncs = sess.stats["host_syncs"]
         torch.cuda.synchronize()
@@ -276,38 +511,85 @@ def run_dataset(dataset, pop, gens, cpu_gens, block_check):
     return out
 
 
+_B2_GATED = ("eval_fitness_postfix", "unique_table")  # + B3 or B4: the dedup path
+POSTFIX_RUNS = (  # (label, session options, kernels the run must launch, overflow)
+    ("exact_cap100", {}, _B2_GATED + ("eval_fitness_from_subtrees",), True),
+    ("off", {"dedup": "off"}, ("eval_fitness_postfix",), None),
+    ("exact_cap1400", {"dedup_cap": 1400}, _B2_GATED + ("eval_fitness_from_subtrees",),
+     False),
+    ("exact_cap6301", {"dedup_cap": 6301}, _B2_GATED + ("eval_fitness_from_preds",),
+     False),
+    ("semantic", {"dedup": "semantic"},
+     _B2_GATED + ("eval_fitness_from_subtrees", "predict_postfix"), True),
+)
+
+
+def postfix_paths():
+    """Phase 6 -> {label: run}: kat7 with postfix genomes at full width
+    (P = 100, depth 5, F = 9, D = 10,000, kernel c, CLASSIFY_SET), 30
+    generations per run. Every exact/off run's history must equal the
+    dedup-off run's (dedup is bitwise); the semantic tier's is
+    tolerance-pinned (rtol 1e-5 against dedup off)."""
+    runs = {}
+    for label, kw, expect, overflow in POSTFIX_RUNS:
+        run = run_dataset("kat7", 100, 30, 10, block_check=True, expect=expect,
+                          overflow=overflow, genome="postfix", **kw)
+        runs[label] = run
+        emit("postfix_path", run=label, **run)
+    off = np.asarray(runs["off"]["history"], np.float32)
+    for label, run in runs.items():
+        h = np.asarray(run["history"], np.float32)
+        if label == "semantic":
+            np.testing.assert_allclose(h, off, rtol=1e-5, err_msg="semantic vs off")
+        elif not np.array_equal(h, off):
+            raise AssertionError(f"postfix {label}: history differs from dedup off")
+    return runs
+
+
+PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
+            ("postfix_exact_cap100", {"genome": "postfix"}),
+            ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
+            ("postfix_semantic", {"genome": "postfix", "dedup": "semantic"}))
+_OUR_KERNELS = ("eval_partial_kernel", "postfix_partial_kernel", "from_subtrees_kernel",
+                "from_preds_kernel", "unique_table_kernel", "postfix_predict_kernel",
+                "merge_tiles")
+
+
 def profile_main_path():
-    """`--profile`: where a main-path generation spends its time. Times
-    3 warm kat7 generations with torch.profiler (CPU + CUDA activities)
-    and prints the device busy time, the CUDA launches, the fused eval
-    kernel's device time and the busiest device ops."""
+    """`--profile`: where a generation spends its time, on the heap main
+    path and on the postfix paths (dedup off, exact with the default cap,
+    exact with cap 6,301, semantic). Times 3 warm kat7 generations of
+    each with torch.profiler (CPU + CUDA activities) and prints the
+    device busy time, the CUDA launches, the port's kernels' device time
+    and the busiest device ops."""
     from torch.profiler import ProfilerActivity, profile
 
-    sess = GPSession.from_dataset("kat7", pop_size=100, generations=3)
-    sess.init(key=prng.PRNGKey(0))
-    sess.evolve(2)  # warm: kernel library loaded, device tables made
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.evolve(3)
+    for label, kw in PROFILED:
+        sess = GPSession.from_dataset("kat7", pop_size=100, generations=3, **kw)
+        sess.init(key=prng.PRNGKey(0))
+        sess.evolve(2)  # warm: kernel library loaded, device tables made
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sess.evolve(3)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
 
-    kernels = [e for e in events if dev_us(e) > 0]
-    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
-    fused = sum(dev_us(e) for e in kernels
-                if "eval_partial_kernel" in e.key or "merge_tiles" in e.key)
-    busy = sum(dev_us(e) for e in kernels)
-    top = sorted(events, key=lambda e: e.count, reverse=True)[:12]
-    emit("profile", dataset="kat7", generations=3, wall_ms_per_gen=1e3 * wall / 3,
-         device_busy_ms_per_gen=busy / 3e3, idle_share=1 - busy / (1e6 * wall),
-         cuda_launches_per_gen=launches / 3, fused_eval_ms_per_gen=fused / 3e3,
-         top_ops_by_count=[(e.key, e.count // 3, dev_us(e) / 3e3) for e in top])
+        kernels = [e for e in events if dev_us(e) > 0]
+        launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+        ours = sum(dev_us(e) for e in kernels if any(k in e.key for k in _OUR_KERNELS))
+        busy = sum(dev_us(e) for e in kernels)
+        top = sorted(events, key=lambda e: e.count, reverse=True)[:12]
+        emit("profile", path=label, dataset="kat7", generations=3,
+             wall_ms_per_gen=1e3 * wall / 3, device_busy_ms_per_gen=busy / 3e3,
+             idle_share=1 - busy / (1e6 * wall), cuda_launches_per_gen=launches / 3,
+             port_kernels_ms_per_gen=ours / 3e3,
+             top_ops_by_count=[(e.key, e.count // 3, dev_us(e) / 3e3) for e in top])
 
 
 def main():
@@ -328,9 +610,7 @@ def main():
 
     perf, max_err, max_rel = kernel_vs_plain()
 
-    gp_eval.reset_launches()
     main_run = run_dataset("kat7", 100, 30, 10, block_check=True)
-    main_launches = main_run["launches"]
     emit("main_path", **main_run)
 
     emit("ligo", **run_dataset("ligo", 100, 5, 5, block_check=False))
@@ -350,16 +630,29 @@ def main():
                              f"{configured.backend!r}, not 'cuda'")
     emit("quickstart", best=q.best_expression(), residual=resid, backend=q.backend)
 
+    runs = postfix_paths()
+    # each kernel's launches come from the path whose work it does
+    paths = {"eval_fitness": main_run, "eval_fitness_postfix": runs["off"],
+             "eval_fitness_from_subtrees": runs["exact_cap1400"],
+             "eval_fitness_from_preds": runs["exact_cap6301"],
+             "unique_table": runs["exact_cap6301"], "predict_postfix": runs["semantic"]}
+    replaces = {"eval_fitness": "src/repro/kernels/gp_eval.py:423",
+                "eval_fitness_postfix": "src/repro/kernels/gp_eval.py:227",
+                "eval_fitness_from_subtrees": "src/repro/kernels/gp_eval.py:308",
+                "eval_fitness_from_preds": "src/repro/kernels/gp_eval.py:377",
+                "unique_table": "src/repro/core/eval.py:248",
+                "predict_postfix": "src/repro/core/eval.py:79"}
     main = perf[("kat7", "c")]
     print(json.dumps({"kernels": [{
-        "name": "eval_fitness", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gp_eval.cu",
-        "replaces": "src/repro/kernels/gp_eval.py:423",
-        "launches": main_launches, "max_abs_err": max_err["kat7"],
-        "max_rel_err": max_rel,
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "replaces": replaces[name],
+        "launches": paths[name]["launches"][name],
+        "max_abs_err": max_err["kat7", name],
+        **({"max_rel_err": max_rel} if name == "eval_fitness" else {}),
+        "ms": main[name]["ms"], "plain_ms": main[name]["plain_ms"],
+        "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
+        "library_ms": None} for name in gp_eval.KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

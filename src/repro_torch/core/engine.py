@@ -31,12 +31,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import eval as _eval
 from repro_torch.core import evolve as ev
 from repro_torch.core import fitness as fit
 from repro_torch.core import primitives as prim
 from repro_torch.core import prng
 from repro_torch.core.trees import (TreeSpec, depth_table, generate_population,
-                                    tree_sizes)
+                                    heap_to_postfix, postorder_table, tree_sizes)
 from repro_torch.device import constant, resolve_device
 from repro_torch.obs import counters as _tc
 
@@ -45,8 +46,14 @@ from repro_torch.obs import counters as _tc
 class GPConfig:
     """Run-time parameters (paper Table 2 defaults).
 
-    `dedup` is kept for parity with the reference and is a no-op on heap
-    genomes, as it is there."""
+    `dedup` is the population-wide subexpression dedup of postfix
+    genomes (a no-op on heap genomes, as in the reference):
+      "off"       evaluate every tree;
+      "exact"     evaluate each distinct subexpression once (bitwise the
+                  same fitness);
+      "semantic"  exact, and the elite cache also hits on equal outputs
+                  over the first 32 data columns (tolerance-pinned).
+    `dedup_cap` is the unique table's rows; 0 = max(64, pop_size)."""
 
     name: str = "karoo"
     pop_size: int = 100
@@ -62,7 +69,7 @@ class GPConfig:
     # the CUDA kernel on a CUDA device, the plain version on the CPU
     data_tile: int = 1024  # upper bound of the kernel's data tile
     elite_cache: bool = True  # skip re-evaluating unchanged elites
-    dedup: str = "exact"  # no-op on heap genomes (postfix dedup: ROADMAP)
+    dedup: str = "exact"
     dedup_cap: int = 0
 
     def __post_init__(self):
@@ -141,13 +148,32 @@ def state_to_numpy(state: GPState) -> dict:
     return out
 
 
+def _dedup_kwargs(cfg: GPConfig, fn) -> dict:
+    """The dedup kwargs to forward to a backend callable: {} when dedup is
+    off, or when the callable takes no such arguments (a user-registered
+    backend keeps working; it never dedups)."""
+    import inspect
+
+    if cfg.dedup == "off":
+        return {}
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return {}
+    if "dedup" in params or any(p.kind == p.VAR_KEYWORD for p in params.values()):
+        return {"dedup": cfg.dedup, "dedup_cap": cfg.dedup_cap}
+    return {}
+
+
 def _eval_fitness(cfg: GPConfig, op, arg, X, y, weight, const_table):
-    """Dispatch to the EvalBackend registered under `cfg.eval_impl`."""
+    """Dispatch to the EvalBackend registered under `cfg.eval_impl`, with
+    `cfg.dedup`/`cfg.dedup_cap` for backends that take them."""
     from repro_torch.gp.backends import get_backend
 
     backend = get_backend(cfg.eval_impl, op.device)
     return backend.fitness(op, arg, X, y, const_table, cfg.tree_spec, cfg.fitness,
-                           weight=weight, data_tile=cfg.data_tile)
+                           weight=weight, data_tile=cfg.data_tile,
+                           **_dedup_kwargs(cfg, backend.fitness))
 
 
 def init_state(cfg: GPConfig, key, seeds=None, feature_names=None,
@@ -191,6 +217,8 @@ def _device_tables(cfg: GPConfig, dev) -> None:
         constant(ops, dev, np.int32)
     constant(cfg.mix.probs(), dev)
     constant(_FROZEN_ROW, dev)
+    if spec.genome == "postfix" or cfg.dedup == "semantic":  # heap_to_postfix
+        constant(np.argsort(postorder_table(spec.num_nodes)), dev, np.int64)
 
 
 def _cache_hit(state: GPState):
@@ -199,9 +227,23 @@ def _cache_hit(state: GPState):
             & (state.arg[:E] == state.cache_arg).all())
 
 
-def _cached_fitness(state: GPState, eval_rows):
+def _semantic_hit(state_slice, cache_slice, cache_fit, probe):
+    """Semantic-tier cache predicate: the head rows give bitwise the same
+    outputs as the cached rows on the probe batch (`probe(op, arg) ->
+    f32[rows, Dp]`), and the cached fitness is all finite (so the zero
+    cache, whose all-EMPTY rows probe to 0.0 like an x - x elite, never
+    serves its +inf). A false hit needs two genomes equal on every probe
+    point yet different elsewhere: the contract is tolerance-pinned."""
+    (s_op, s_arg), (c_op, c_arg) = state_slice, cache_slice
+    E = s_op.shape[0]  # both slices in one probe call
+    out = probe(torch.cat([s_op, c_op]), torch.cat([s_arg, c_arg]))
+    return (out[:E] == out[E:]).all() & torch.isfinite(cache_fit).all()
+
+
+def _cached_fitness(state: GPState, eval_rows, probe=None):
     """Evaluate `state`'s population, serving rows [:E] from the elite
-    fitness cache when the cached genomes match exactly.
+    fitness cache when the cached genomes match exactly, or (with a
+    `probe`, dedup="semantic") when their probe outputs match.
 
     `eval_rows(op, arg) -> f32[rows]`. The population is evaluated in
     one call and the head selected: the cached value IS last
@@ -211,8 +253,44 @@ def _cached_fitness(state: GPState, eval_rows):
     full = eval_rows(state.op, state.arg)
     if not E:
         return full
-    head = torch.where(_cache_hit(state), state.cache_fit, full[:E])
+    hit = _cache_hit(state)
+    if probe is not None:
+        hit = hit | _semantic_hit((state.op[:E], state.arg[:E]),
+                                  (state.cache_op, state.cache_arg), state.cache_fit,
+                                  probe)
+    head = torch.where(hit, state.cache_fit, full[:E])
     return torch.cat([head, full[E:]])
+
+
+_PROBE_COLS = 32  # semantic-tier fingerprint batch (first Dp data columns)
+
+
+def _probe_fn(cfg: GPConfig, X, const_table):
+    """Semantic-tier fingerprint closure, or None unless
+    cfg.dedup == "semantic": the rows' predictions on the first
+    min(D, 32) data columns, so no extra state rides GPState. They come
+    from the postfix predict kernel (`kernels/gp_eval.predict_postfix`,
+    heap rows converted first: the same predictions), which runs its
+    plain version on CPU tensors; `eval_impl="torch"` takes the plain
+    evaluator on any device."""
+    if cfg.dedup != "semantic":
+        return None
+    from repro_torch.kernels import gp_eval
+
+    spec = cfg.tree_spec
+    Xp = X[:, :min(X.shape[1], _PROBE_COLS)].float().contiguous()
+    const_table = const_table.float().contiguous()
+    fn_codes = tuple(int(c) for c in spec.fn_set.opcodes)
+
+    def probe(o, a):
+        if cfg.eval_impl == "torch":
+            return _eval.evaluate_population(o, a, Xp, const_table, spec)
+        if spec.genome != "postfix":
+            o, a = heap_to_postfix(o, a)
+        return gp_eval.predict_postfix(o.contiguous(), a.contiguous(), Xp, const_table,
+                                       stack_size=spec.stack_size, fn_codes=fn_codes)
+
+    return probe
 
 
 def _new_cache(state: GPState, fitness, sel_fitness, E: int):
@@ -230,7 +308,8 @@ def _step_body(cfg: GPConfig, state: GPState, X, y, weight) -> GPState:
     `evolve_block`, so K block steps are bitwise K single steps."""
     const_table = cfg.tree_spec.const_table(state.op.device)
     fitness = _cached_fitness(
-        state, lambda o, a: _eval_fitness(cfg, o, a, X, y, weight, const_table))
+        state, lambda o, a: _eval_fitness(cfg, o, a, X, y, weight, const_table),
+        probe=_probe_fn(cfg, X, const_table))
     # best tracked on RAW fitness; selection may add parsimony pressure
     i = torch.argmin(fitness).reshape(1)  # first minimum, as jnp.argmin
     f_i = torch.index_select(fitness, 0, i)[0]
@@ -270,7 +349,9 @@ _FROZEN_ROW[_tc.FROZEN] = 1
 def _counter_row(cfg: GPConfig, state: GPState, done=None):
     """int32[C] telemetry row for one generation (columns:
     repro_torch.obs.counters), computed from the PRE-step state. A frozen
-    step reports [0, 0, 1, 0, 0, 0, 0]."""
+    step reports [0, 0, 1, 0, 0, 0, 0]. The dedup columns come from
+    `eval.dedup_stats` on the pre-step population: 0 when dedup is off,
+    on heap genomes, and (saved) on overflow."""
     dev = state.op.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     E = state.cache_op.shape[0]
@@ -280,7 +361,12 @@ def _counter_row(cfg: GPConfig, state: GPState, done=None):
     else:
         hit, queries = zero, zero
     evals = cfg.pop_size - hit * E
-    row = torch.stack([hit, queries, zero, zero, evals, zero, zero])
+    if cfg.dedup == "off" or cfg.tree_spec.genome != "postfix":
+        saved = uniq = zero
+    else:
+        cap = _eval.resolve_dedup_cap(cfg.dedup_cap, *state.op.shape)
+        uniq, saved = _eval.dedup_stats(state.op, state.arg, cfg.tree_spec, cap)
+    row = torch.stack([hit, queries, zero, zero, evals, saved, uniq])
     if done is None:
         return row
     return torch.where(done, constant(_FROZEN_ROW, dev), row)

@@ -1,6 +1,6 @@
-"""Genetic operators on heap-tensor populations, in PyTorch.
+"""Genetic operators on heap-tensor and postfix populations, in PyTorch.
 
-Port of the heap half of `repro/core/evolve.py`. Karoo GP's tournament
+Port of `repro/core/evolve.py`. Karoo GP's tournament
 selection, reproduction, mutation and crossover run branch-free over the
 whole population, so a generation is a fixed sequence of tensor ops with
 no host round-trip. Subtree crossover/mutation are integer path
@@ -12,7 +12,8 @@ arithmetic on heap indices:
   s, depth k below a) to source slot ((b+1) << k) + s - 1.
 
 Transplants that would overflow the depth ceiling are repaired by demoting
-dangling max-depth function nodes to terminals.
+dangling max-depth function nodes to terminals. On postfix genomes the
+same operators are array splices of whole subexpressions.
 
 Ordering matches the reference: argsort is stable, argmin/argmax take
 the first occurrence, and every gather clips its index.
@@ -26,7 +27,8 @@ import torch
 
 from repro_torch.core import primitives as prim
 from repro_torch.core import prng
-from repro_torch.core.trees import TreeSpec, depth_table, generate_population
+from repro_torch.core.trees import (TreeSpec, depth_table, generate_population,
+                                    subtree_spans, tree_sizes)
 from repro_torch.device import constant
 
 # --- random node choice ------------------------------------------------------
@@ -72,6 +74,70 @@ def _transplant(op_t, arg_t, op_s, arg_s, a, b, spec: TreeSpec):
     new_arg = torch.where(dangling, (t + new_arg) % spec.n_features,
                           new_arg).to(torch.int32)
     return new_op, new_arg
+
+
+# --- postfix splicing (crossover + branch mutation on linear genomes) --------
+
+
+def _splice_pop(op_a, arg_a, op_b, arg_b, sa, ea, sb, eb, spec: TreeSpec):
+    """Replace the subexpression [sa[p], ea[p]] of postfix program A[p]
+    with the subexpression [sb[p], eb[p]] of program B[p], for every row
+    p at once: arange-mask splicing. Offspring longer than N or deeper
+    than the operand stack (P5) are rejected: the row keeps parent A."""
+    N = spec.num_nodes
+    dev = op_a.device
+    t = torch.arange(N, dtype=torch.int64, device=dev)
+    sa, ea, sb, eb = (v.long()[:, None] for v in (sa, ea, sb, eb))
+    len_a = (op_a != prim.EMPTY).sum(-1, keepdim=True)
+    lb = eb - sb + 1
+    new_len = len_a - (ea - sa + 1) + lb
+    in_pre = t < sa
+    in_ins = (t >= sa) & (t < sa + lb)
+    in_tail = (t >= sa + lb) & (t < new_len)
+    idx_b = (sb + t - sa).clamp(0, N - 1)
+    idx_tail = (t - lb + (ea - sa + 1)).clamp(0, N - 1)
+    cand_op = torch.where(in_pre, op_a, torch.where(
+        in_ins, torch.gather(op_b, 1, idx_b),
+        torch.where(in_tail, torch.gather(op_a, 1, idx_tail), prim.EMPTY)))
+    cand_arg = torch.where(in_pre, arg_a, torch.where(
+        in_ins, torch.gather(arg_b, 1, idx_b),
+        torch.where(in_tail, torch.gather(arg_a, 1, idx_tail), 0)))
+    # both spans are whole subexpressions, so the splice stays balanced;
+    # only the length and peak-depth bounds can break
+    S = torch.cumsum(1 - constant(prim.ARITY, dev)[cand_op.long()], dim=-1)
+    peak = torch.where(t < new_len, S, 0).amax(-1, keepdim=True)
+    ok = (new_len <= N) & (peak <= spec.stack_size)
+    return (torch.where(ok, cand_op, op_a).to(torch.int32),
+            torch.where(ok, cand_arg, arg_a).to(torch.int32))
+
+
+def _random_subexpr(key, op):
+    """(start, end) of a uniform random subexpression per postfix row:
+    every active position ends exactly one subexpression."""
+    end = _random_active_node(key, op)
+    start = torch.gather(subtree_spans(op), 1, end.long()[:, None])[:, 0]
+    return start, end
+
+
+def crossover_postfix(key, op_a, arg_a, op_b, arg_b, spec: TreeSpec):
+    """Subtree crossover on linear genomes: splice a random subexpression
+    of B over a random subexpression of A."""
+    ka, kb = prng.split(key)
+    sa, ea = _random_subexpr(ka, op_a)
+    sb, eb = _random_subexpr(kb, op_b)
+    return _splice_pop(op_a, arg_a, op_b, arg_b, sa, ea, sb, eb, spec)
+
+
+def mutate_branch_postfix(key, op, arg, spec: TreeSpec):
+    """Branch mutation on linear genomes: splice a fresh random program
+    (its whole stream [0, len-1]) over a random subexpression."""
+    P = op.shape[0]
+    kp, kg = prng.split(key)
+    sa, ea = _random_subexpr(kp, op)
+    fresh_op, fresh_arg = generate_population(kg, P, spec)
+    sb = torch.zeros((P,), dtype=torch.int32, device=op.device)
+    eb = tree_sizes(fresh_op) - 1
+    return _splice_pop(op, arg, fresh_op, fresh_arg, sa, ea, sb, eb, spec)
 
 
 # --- operators ----------------------------------------------------------------
@@ -170,8 +236,13 @@ def next_generation_arrays(key, op, arg, fitness, spec: TreeSpec, probs,
     op_a, arg_a = _rows(op, parent_a), _rows(arg, parent_a)
     op_b, arg_b = _rows(op, parent_b), _rows(arg, parent_b)
 
-    op_x, arg_x = crossover(k_x, op_a, arg_a, op_b, arg_b, spec)
-    op_mb, arg_mb = mutate_branch(k_mb, op_a, arg_a, spec)
+    if spec.genome == "postfix":
+        op_x, arg_x = crossover_postfix(k_x, op_a, arg_a, op_b, arg_b, spec)
+        op_mb, arg_mb = mutate_branch_postfix(k_mb, op_a, arg_a, spec)
+    else:
+        op_x, arg_x = crossover(k_x, op_a, arg_a, op_b, arg_b, spec)
+        op_mb, arg_mb = mutate_branch(k_mb, op_a, arg_a, spec)
+    # point mutation is arity-preserving in place: valid on both forms
     op_mp, arg_mp = mutate_point(k_mp, op_a, arg_a, spec)
 
     c = choice[:, None]

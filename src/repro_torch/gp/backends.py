@@ -26,7 +26,11 @@ class EvalBackend:
 
     evaluate: (op[P,N], arg[P,N], X[F,D], const_table[C], tree_spec) -> preds[P,D]
     fitness:  (op, arg, X, y, const_table, tree_spec, fit_spec,
-               weight=None, data_tile=...) -> f32[P]
+               weight=None, data_tile=..., dedup="off", dedup_cap=0) -> f32[P]
+
+    `dedup`/`dedup_cap` engage the exact-tier subexpression dedup on
+    postfix genomes (bitwise the same fitness); a backend whose fitness
+    takes no such arguments simply never dedups.
     """
 
     name: str
@@ -83,12 +87,12 @@ def _evaluate(op, arg, X, const_table, tree_spec):
 
 def _fitness(impl):
     def fn(op, arg, X, y, const_table, tree_spec, fit_spec, weight=None,
-           data_tile=1024):
+           data_tile=1024, dedup="off", dedup_cap=0):
         from repro_torch.kernels import ops
 
         return ops.fitness(op, arg, X, y, const_table, tree_spec, fit_spec,
                            weight=weight, data_tile=data_tile, impl=impl,
-                           device=op.device)
+                           device=op.device, dedup=dedup, dedup_cap=dedup_cap)
     return fn
 
 
@@ -98,4 +102,4 @@ register_backend(EvalBackend(
 register_backend(EvalBackend(
     name="cuda", evaluate=_evaluate, fitness=_fitness("cuda"),
     fused_fitness=True,
-    description="hand-written fused eval+fitness CUDA kernel (sm_90a)"))
+    description="hand-written fused eval+fitness CUDA kernels (sm_90a)"))

@@ -100,8 +100,9 @@ class GPSession:
     Lifecycle: `ingest(X, y)` → `init(key=)` → `evolve(n)` (or `fit`,
     which chains all three). `device=` (default: the card) places the
     data and state; the `auto` backend is `cuda` there and `torch` on
-    the CPU. `history` (floats, one per generation run) and `stats` are
-    host-side and free to read."""
+    the CPU. `history` (floats, one per generation run),
+    `counter_history` (that generation's telemetry row from `evolve()`)
+    and `stats` are host-side and free to read."""
 
     _STOP_CHECK_SPAN = 32  # block cap when only stop_fitness is armed
 
@@ -132,6 +133,7 @@ class GPSession:
         self._gen_dirty = False  # mirror stale (raw evolve_block + stop_fitness)
         self.state: GPState | None = None
         self.history: list[float] = []
+        self.counter_history: list[list[int]] = []
         self.stats = {"host_syncs": 0, "blocks": 0, "cache_hits": 0,
                       "cache_queries": 0, "cache_hit_rate": 0.0, "frozen": 0,
                       "migrations": 0, "tree_evals": 0, "tree_row_evals": 0}
@@ -230,6 +232,7 @@ class GPSession:
         key = key if key is not None else prng.PRNGKey(0)
         self.state = engine.init_state(self._cfg, key, device=self.device)
         self.history = []
+        self.counter_history = []
         self._gen_host = 0
         self._gen_dirty = False
         return self
@@ -349,6 +352,7 @@ class GPSession:
             self._gen_host = gen_now
             rows = hist[:ran]
             self.history.extend(float(b) for b in rows)
+            self.counter_history.extend(crows[:ran].tolist())
             stopped = ran < K or (cfg.stop_fitness is not None and ran
                                   and rows[ran - 1] <= np.float32(cfg.stop_fitness))
             last = stopped or gen_now >= target
@@ -379,7 +383,8 @@ class GPSession:
         """The champion tree decoded to an infix string (one host sync)."""
         op, arg = self._champion()
         return to_string(op, arg, feature_names=self.feature_names,
-                         const_table=self._cfg.tree_spec.const_table_numpy())
+                         const_table=self._cfg.tree_spec.const_table_numpy(),
+                         genome=self._cfg.tree_spec.genome)
 
     def predict(self, X, *, layout: str = "rows") -> np.ndarray:
         """Best tree evaluated on new data: X [rows, features] (or

@@ -1,27 +1,45 @@
-"""Fused GP population evaluation + fitness moments: the CUDA kernel's wrapper.
+"""GP population evaluation + fitness moments: the CUDA kernels' wrappers.
 
-`eval_fitness` replaces `repro/kernels/gp_eval.py::eval_fitness_pallas`
-(TPU body `_eval_fitness_kernel`): every heap tree of the population is
-evaluated against every data point and reduced to its fitness moments
-f32[P, M] in one fused pass, so the [pop, nodes, data] intermediate of
-the plain path never reaches device memory.
+Each wrapper replaces one TPU kernel of `repro/kernels/gp_eval.py` and
+returns the tree's fitness moments f32[P, M] (M = 1), merged over data
+tiles in order:
 
-The kernel is hand-written CUDA C++ for Hopper (`csrc/gp_eval.cu`,
+    eval_fitness               B1  eval_fitness_pallas: heap trees
+    eval_fitness_postfix       B2  eval_fitness_pallas_postfix: postfix streams
+    eval_fitness_from_subtrees B3  eval_fitness_pallas_from_subtrees:
+                                   preds = uniq[root], gathered in the kernel
+    eval_fitness_from_preds    B4  eval_fitness_pallas_from_preds: preds given
+
+and two kernels stand in for jnp code of the reference, with the same
+device functions as B2, so dedup on/off stay bitwise on the card for
+every function set: `unique_table` computes the dedup layer's
+unique-subtree table f32[U, D] (`core/eval.evaluate_unique_subtrees`),
+and `predict_postfix` the semantic tier's probe predictions f32[P, D]
+(`core/eval.evaluate_population_postfix`).
+
+The kernels are hand-written CUDA C++ for Hopper (`csrc/gp_eval.cu`,
 sm_90a), built by `kernels/build.py` at first use and called through
-ctypes on PyTorch's current stream. What bounds it on the card: it reads
-only op/arg (P·N·8 bytes), X (F·D·4), y and w (D·8) and writes P·4
-bytes, while it executes one interpreted node per active tree node per
-data point (a few integer and f32 instructions and a uniform branch
-each), so instruction issue, not memory, is the limit. The design keeps
+ctypes on PyTorch's current stream. What bounds them on the card: B1/B2
+read only op/arg (P·N·8 bytes), X (F·D·4), y and w (D·8) and write P·4
+bytes, while they execute one interpreted node per active tree node per
+data point, so instruction issue, not memory, is the limit; they keep
 each tree's instruction list in shared memory and its operand stack in
-registers, so X, y and w are the only device-memory reads in the loop,
-and it splits the data axis into tiles so that even P=100 populations
-give the card several hundred blocks.
+registers. B3/B4 read one prediction row per tree (P·D·4 bytes) plus y
+and w: memory-bound, near the launch floor at the paper's shapes. The
+unique table is a chain of n_unique + 1 dependent slot evaluations per
+point; its latency bounds it. The probe's predictions are B2's
+interpreter on a few rows and 32 points: the launch bounds them.
 
-On a CPU tensor the wrapper runs `eval_fitness_plain`, the plain PyTorch
-version of the same function; on a CUDA tensor it launches the kernel or
-raises. `launches` counts the kernel's calls (the tests and
-`chip_smoke.py` read it).
+B2-B4 and the unique table take an optional device flag `gate` (a bool
+tensor, e.g. `DedupPlan.overflow`) and `run_when`: with a gate they do
+their work only where `gate == run_when` and otherwise leave `out`
+untouched, so the dedup path launches both branches of the reference's
+`lax.cond` into one output with no host read.
+
+On CPU tensors each wrapper runs its plain PyTorch version (the
+`*_plain` function beside it); on CUDA tensors it launches the kernel or
+raises. `launches[name]` counts each wrapper's kernel calls on CUDA
+tensors (the tests and `chip_smoke.py` read it).
 """
 from __future__ import annotations
 
@@ -30,37 +48,62 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core import eval as _eval
 from repro_torch.core import fitness as fit
 from repro_torch.core import primitives as prim
 from repro_torch.core.trees import TreeSpec
 from repro_torch.kernels import ref as _ref
 
-# calls of the kernel by `eval_fitness`, one per call on a CUDA tensor; a
-# call is two CUDA launches (eval + ordered tile merge) when D spans more
-# than one data tile, one otherwise
-launches = 0
+KERNELS = ("eval_fitness", "eval_fitness_postfix", "eval_fitness_from_subtrees",
+           "eval_fitness_from_preds", "unique_table", "predict_postfix")
+# calls of each kernel by its wrapper, one per call on CUDA tensors; a
+# fitness call is two CUDA launches (partials + ordered tile merge) when
+# D spans more than one data tile, one otherwise
+launches = dict.fromkeys(KERNELS, 0)
+STACK_TEMPLATES = (8, 12)  # register-stack sizes compiled into csrc/gp_eval.cu
 
-_FN = None
+_LIB = None
+_vp, _i, _f32, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_ARGTYPES = {
+    "gp_eval_fitness": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
+                        _f32, _f32, _i, _vp, _vp, _vp],
+    "gp_eval_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
+                        _f32, _f32, _i, _vp, _i, _vp, _vp, _vp],
+    "gp_fitness_from_subtrees": [_vp, _i, _vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i,
+                                 _vp, _i, _vp, _vp, _vp],
+    "gp_fitness_from_preds": [_vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i, _vp, _i, _vp,
+                              _vp, _vp],
+    "gp_unique_table": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _i, _vp, _i, _u,
+                        _vp, _i, _vp, _vp],
+    "gp_predict_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _i, _u, _vp, _vp],
+}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for k in launches:
+        launches[k] = 0
 
 
-def _fn():
-    """The kernel's C entry point, built and bound on first use."""
-    global _FN
-    if _FN is None:
+def _lib():
+    """The kernels' library, built and bound on first use."""
+    global _LIB
+    if _LIB is None:
         from repro_torch.kernels import build
 
-        f = build.load("gp_eval").gp_eval_fitness
-        vp, i, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        f.argtypes = [vp, vp, i, i, i, vp, i, i, vp, vp, vp, i, ctypes.c_uint, i,
-                      f32, f32, i, vp, vp, vp]
-        f.restype = i
-        _FN = f
-    return _FN
+        lib = build.load("gp_eval")
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _call(name: str, entry: str, *args) -> None:
+    err = getattr(_lib(), entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    launches[name] += 1
 
 
 def _fn_set(fn_codes) -> prim.FunctionSet:
@@ -69,23 +112,90 @@ def _fn_set(fn_codes) -> prim.FunctionSet:
     return prim.FunctionSet(np.asarray(fn_codes, np.int32))
 
 
+def _fit_spec(kernel, n_classes, precision) -> fit.FitnessSpec:
+    return fit.FitnessSpec(kernel, n_classes=n_classes, precision=precision)
+
+
+def _device_kernel(kernel: str):
+    kern = fit.get_kernel(kernel)
+    if kern.device_id is None or kern.n_moments != 1:
+        raise NotImplementedError(
+            f"fitness kernel {kernel!r} has no device form in csrc/gp_eval.cu")
+    return kern
+
+
+def _check(dev, **tensors) -> None:
+    """Each (name -> (tensor, dtype, shape)) must be a contiguous tensor of
+    that dtype and shape on `dev` (None: an absent optional input)."""
+    for name, spec in tensors.items():
+        t, dt, shape = spec
+        if t is None:
+            continue
+        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
+                or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of shape "
+                             f"{tuple(shape)} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _tile_buffers(P: int, D: int, data_tile: int, out, dev):
+    """(tiles, partial, out) for a fitness launch; `out` is made when the
+    caller gives none."""
+    if data_tile <= 0 or P > 65535:
+        raise ValueError(f"unsupported launch: P={P} (<= 65535), data_tile={data_tile}")
+    if out is None:
+        out = torch.empty((P, 1), dtype=torch.float32, device=dev)
+    elif out.shape != (P, 1) or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError("out must be a contiguous float32 [P, 1] tensor")
+    tiles = -(-D // data_tile)
+    partial = torch.empty((P * tiles if tiles > 1 else 1,), dtype=torch.float32,
+                          device=dev)
+    return tiles, partial, out
+
+
+def _gated(result, gate, run_when: bool, out):
+    """The plain versions' form of the kernels' gate: `result` where
+    `gate == run_when`, else `out` unchanged."""
+    if gate is None:
+        return result
+    if out is None:
+        raise ValueError("a gated call needs `out`")
+    return torch.where(gate == run_when, result, out)
+
+
+def _gate_args(gate, run_when: bool, dev):
+    if gate is None:
+        return None, 0
+    _check(dev, gate=(gate, torch.bool, ()))
+    return gate.data_ptr(), int(bool(run_when))
+
+
+# --- B1: heap trees -------------------------------------------------------------
+
+
 def eval_fitness_plain(op, arg, X, y, weight, const_table, *, max_depth: int,
                        kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
                        data_tile: int = 1024, fn_codes=None):
-    """Plain PyTorch version of the kernel: `kernels/ref.py`'s
-    `moments_ref_tiled` at the kernel's data tile (`evaluate_population`
-    per tile, the registered kernel's `moments` on it, tiles merged in
-    order: the reference kernel's j == 0 store / j != 0 merge)."""
+    """Plain PyTorch version of B1: `kernels/ref.py`'s `moments_ref_tiled`
+    at the kernel's data tile (`evaluate_population` per tile, the
+    registered kernel's `moments` on it, tiles merged in order: the
+    reference kernel's j == 0 store / j != 0 merge)."""
     spec = TreeSpec(max_depth=max_depth, fn_set=_fn_set(fn_codes))
-    fspec = fit.FitnessSpec(kernel, n_classes=n_classes, precision=precision)
-    return _ref.moments_ref_tiled(op, arg, X, y, const_table, spec, fspec,
+    return _ref.moments_ref_tiled(op, arg, X, y, const_table, spec,
+                                  _fit_spec(kernel, n_classes, precision),
                                   weight=weight, tile=data_tile)
 
 
 def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
                  kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
                  gather: str | None = None, data_tile: int = 1024, fn_codes=None):
-    """Fused eval+moments → f32[P, M] (M = 1 for the built-in kernels).
+    """B1: fused heap eval+moments -> f32[P, M] (M = 1 for the built-in
+    kernels).
 
     op, arg:  int32[P, N]   heap population, N = 2**(max_depth+1) - 1
     X:        f32[F, D]     feature-major data (any D: the kernel masks
@@ -105,45 +215,242 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
                                   max_depth=max_depth, kernel=kernel,
                                   n_classes=n_classes, precision=precision,
                                   data_tile=data_tile, fn_codes=fn_codes)
-    kern = fit.get_kernel(kernel)
-    if kern.device_id is None or kern.n_moments != 1:
-        raise NotImplementedError(
-            f"fitness kernel {kernel!r} has no device form in csrc/gp_eval.cu")
+    kern = _device_kernel(kernel)
     P, N = op.shape
     F, D = X.shape
     dev = op.device
-    for name, t, dt in (("arg", arg, torch.int32), ("op", op, torch.int32),
-                        ("X", X, torch.float32), ("y", y, torch.float32),
-                        ("const_table", const_table, torch.float32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dt} tensor on {dev}, got "
-                             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    if weight is not None and (weight.device != dev or weight.dtype != torch.float32
-                               or not weight.is_contiguous() or weight.shape != (D,)):
-        raise ValueError("weight must be a contiguous float32 [D] tensor on the "
-                         "population's device")
-    if arg.shape != (P, N) or y.shape != (D,) or N != 2 ** (max_depth + 1) - 1:
-        raise ValueError(f"shape mismatch: op {tuple(op.shape)}, arg "
-                         f"{tuple(arg.shape)}, X {tuple(X.shape)}, y {tuple(y.shape)}, "
-                         f"max_depth {max_depth}")
-    if not 0 <= max_depth <= 10 or P > 65535 or data_tile <= 0:
-        raise ValueError(f"unsupported launch: max_depth={max_depth} (<= 10), "
-                         f"P={P} (<= 65535), data_tile={data_tile}")
-    out = torch.empty((P, 1), dtype=torch.float32, device=dev)
+    _check(dev, op=(op, torch.int32, (P, N)), arg=(arg, torch.int32, (P, N)),
+           X=(X, torch.float32, (F, D)), y=(y, torch.float32, (D,)),
+           weight=(weight, torch.float32, (D,)),
+           const_table=(const_table, torch.float32, const_table.shape))
+    if N != 2 ** (max_depth + 1) - 1 or not 0 <= max_depth <= 10:
+        raise ValueError(f"op has {N} slots; max_depth={max_depth} (<= 10) needs "
+                         f"{2 ** (max_depth + 1) - 1}")
+    tiles, partial, out = _tile_buffers(P, D, data_tile, None, dev)
     if P == 0:
         return out
-    tiles = -(-D // data_tile)
-    partial = torch.empty((P * tiles if tiles > 1 else 1,), dtype=torch.float32,
-                          device=dev)
-    mask = _fn_set(fn_codes).mask
-    global launches
-    err = _fn()(op.data_ptr(), arg.data_ptr(), P, N, max_depth, X.data_ptr(), F, D,
-                y.data_ptr(), None if weight is None else weight.data_ptr(),
-                const_table.data_ptr(), const_table.shape[0], mask, kern.device_id,
-                float(n_classes - 1), float(np.float32(precision)), data_tile,
-                partial.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gp_eval_fitness launch failed: CUDA error {err}")
-    launches += 1
+    _call("eval_fitness", "gp_eval_fitness", op.data_ptr(), arg.data_ptr(), P, N,
+          max_depth, X.data_ptr(), F, D, y.data_ptr(), _ptr(weight),
+          const_table.data_ptr(), const_table.shape[0], _fn_set(fn_codes).mask,
+          kern.device_id, float(n_classes - 1), float(np.float32(precision)), data_tile,
+          partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+# --- B2: postfix streams --------------------------------------------------------
+
+
+def eval_fitness_postfix_plain(op, arg, X, y, weight, const_table, *, stack_size: int,
+                               kernel: str = "r", n_classes: int = 3,
+                               precision: float = 1e-4, data_tile: int = 1024,
+                               fn_codes=None):
+    """Plain PyTorch version of B2: the stack machine
+    (`evaluate_population_postfix`) per data tile, moments merged in
+    order."""
+    # a spec whose stack_size (max_depth + 1) is the kernel's
+    spec = TreeSpec(max_depth=stack_size - 1, fn_set=_fn_set(fn_codes), genome="postfix")
+    return _ref.moments_ref_tiled(op, arg, X, y, const_table, spec,
+                                  _fit_spec(kernel, n_classes, precision),
+                                  weight=weight, tile=data_tile)
+
+
+def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
+                         kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
+                         data_tile: int = 1024, fn_codes=None, gate=None,
+                         run_when: bool = True, out=None):
+    """B2: fused postfix eval+moments -> f32[P, 1].
+
+    op, arg:    int32[P, N]  postfix streams (any N)
+    stack_size               the programs' operand-stack bound
+                             (TreeSpec.stack_size, invariant P5); the
+                             kernel's register stack is the smallest of
+                             STACK_TEMPLATES that holds it
+    gate, run_when, out      see the module docstring
+    Other arguments as `eval_fitness`."""
+    if not op.is_cuda:
+        res = eval_fitness_postfix_plain(op, arg, X, y, weight, const_table,
+                                         stack_size=stack_size, kernel=kernel,
+                                         n_classes=n_classes, precision=precision,
+                                         data_tile=data_tile, fn_codes=fn_codes)
+        return _gated(res, gate, run_when, out)
+    kern = _device_kernel(kernel)
+    if not 1 <= stack_size <= max(STACK_TEMPLATES):
+        raise ValueError(f"stack_size={stack_size} exceeds the kernel's register "
+                         f"stacks {STACK_TEMPLATES} (max_depth <= "
+                         f"{max(STACK_TEMPLATES) - 1})")
+    P, N = op.shape
+    F, D = X.shape
+    dev = op.device
+    _check(dev, op=(op, torch.int32, (P, N)), arg=(arg, torch.int32, (P, N)),
+           X=(X, torch.float32, (F, D)), y=(y, torch.float32, (D,)),
+           weight=(weight, torch.float32, (D,)),
+           const_table=(const_table, torch.float32, const_table.shape))
+    tiles, partial, out = _tile_buffers(P, D, data_tile, out, dev)
+    if P == 0:
+        return out
+    g, rw = _gate_args(gate, run_when, dev)
+    _call("eval_fitness_postfix", "gp_eval_postfix", op.data_ptr(), arg.data_ptr(), P,
+          N, stack_size, X.data_ptr(), F, D, y.data_ptr(), _ptr(weight),
+          const_table.data_ptr(), const_table.shape[0], _fn_set(fn_codes).mask,
+          kern.device_id, float(n_classes - 1), float(np.float32(precision)), data_tile,
+          g, rw, partial.data_ptr(), out.data_ptr(),
+          torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# --- B3 / B4: moments over the unique-subtree table -----------------------------
+
+
+def eval_fitness_from_subtrees_plain(root, uniq, y, weight, *, kernel: str = "r",
+                                     n_classes: int = 3, precision: float = 1e-4,
+                                     data_tile: int = 1024):
+    """Plain PyTorch version of B3: preds = uniq[clamp(root)], moments per
+    data tile merged in order."""
+    preds = uniq[root.long().clamp(0, uniq.shape[0] - 1)]
+    return eval_fitness_from_preds_plain(preds, y, weight, kernel=kernel,
+                                         n_classes=n_classes, precision=precision,
+                                         data_tile=data_tile)
+
+
+def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
+                               n_classes: int = 3, precision: float = 1e-4,
+                               data_tile: int = 1024, gate=None, run_when: bool = False,
+                               out=None):
+    """B3: moments of preds = uniq[clamp(root, 0, U-1)] -> f32[P, 1], the
+    gather done in the kernel.
+
+    root:  int32[P]     unique-slot id per tree (DedupPlan.root)
+    uniq:  f32[U, D]    unique-subexpression values (`unique_table`)"""
+    if not root.is_cuda:
+        res = eval_fitness_from_subtrees_plain(root, uniq, y, weight, kernel=kernel,
+                                               n_classes=n_classes, precision=precision,
+                                               data_tile=data_tile)
+        return _gated(res, gate, run_when, out)
+    kern = _device_kernel(kernel)
+    (P,) = root.shape
+    U, D = uniq.shape
+    dev = root.device
+    _check(dev, root=(root, torch.int32, (P,)), uniq=(uniq, torch.float32, (U, D)),
+           y=(y, torch.float32, (D,)), weight=(weight, torch.float32, (D,)))
+    tiles, partial, out = _tile_buffers(P, D, data_tile, out, dev)
+    if P == 0:
+        return out
+    g, rw = _gate_args(gate, run_when, dev)
+    _call("eval_fitness_from_subtrees", "gp_fitness_from_subtrees", root.data_ptr(), P,
+          uniq.data_ptr(), U, D, y.data_ptr(), _ptr(weight), kern.device_id,
+          float(n_classes - 1), float(np.float32(precision)), data_tile, g, rw,
+          partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def eval_fitness_from_preds_plain(preds, y, weight, *, kernel: str = "r",
+                                  n_classes: int = 3, precision: float = 1e-4,
+                                  data_tile: int = 1024):
+    """Plain PyTorch version of B4: moments of preds per data tile,
+    merged in order."""
+    return _ref.moments_tiled(lambda lo, hi: preds[:, lo:hi], preds.shape[1], y,
+                              _fit_spec(kernel, n_classes, precision), weight=weight,
+                              tile=data_tile)
+
+
+def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: int = 3,
+                            precision: float = 1e-4, data_tile: int = 1024, gate=None,
+                            run_when: bool = False, out=None):
+    """B4: moments of pre-gathered predictions preds f32[P, D] -> f32[P, 1]."""
+    if not preds.is_cuda:
+        res = eval_fitness_from_preds_plain(preds, y, weight, kernel=kernel,
+                                            n_classes=n_classes, precision=precision,
+                                            data_tile=data_tile)
+        return _gated(res, gate, run_when, out)
+    kern = _device_kernel(kernel)
+    P, D = preds.shape
+    dev = preds.device
+    _check(dev, preds=(preds, torch.float32, (P, D)), y=(y, torch.float32, (D,)),
+           weight=(weight, torch.float32, (D,)))
+    tiles, partial, out = _tile_buffers(P, D, data_tile, out, dev)
+    if P == 0:
+        return out
+    g, rw = _gate_args(gate, run_when, dev)
+    _call("eval_fitness_from_preds", "gp_fitness_from_preds", preds.data_ptr(), P, D,
+          y.data_ptr(), _ptr(weight), kern.device_id, float(n_classes - 1),
+          float(np.float32(precision)), data_tile, g, rw, partial.data_ptr(),
+          out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# --- the unique-subtree table ---------------------------------------------------
+
+
+def unique_table_plain(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None):
+    """Plain PyTorch version of the unique-table kernel:
+    `core/eval.evaluate_unique_subtrees`."""
+    spec = TreeSpec(fn_set=_fn_set(fn_codes), genome="postfix")
+    return _eval.evaluate_unique_subtrees(plan, X, const_table, spec)
+
+
+def unique_table(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None, gate=None,
+                 run_when: bool = False):
+    """f32[U, D] value of every unique subexpression of `plan`, U = the
+    plan's cap: rows [0, n_unique) and the reserved all-EMPTY row U - 1
+    (0.0), the rows anything reads. The kernel leaves the other unused
+    rows unwritten (the plain version holds 0.0 there), and every row on
+    overflow is written, from clamped operands. With a gate, the kernel
+    fills the table only where `gate == run_when` (the table is then
+    left unwritten: its readers are gated the same way)."""
+    if not plan.uop.is_cuda:
+        return unique_table_plain(plan, X, const_table, fn_codes=fn_codes)
+    (U,) = plan.uop.shape
+    F, D = X.shape
+    dev = plan.uop.device
+    _check(dev, **{f: (getattr(plan, f), torch.int32, (U,))
+                   for f in ("uop", "uarg", "ulhs", "urhs", "ulen")},
+           n_unique=(plan.n_unique, torch.int32, ()), X=(X, torch.float32, (F, D)),
+           const_table=(const_table, torch.float32, const_table.shape))
+    order = torch.sort(plan.ulen, stable=True).indices  # slots by ascending span length
+    uniq = torch.empty((U, D), dtype=torch.float32, device=dev)
+    g, rw = _gate_args(gate, run_when, dev)
+    _call("unique_table", "gp_unique_table", plan.uop.data_ptr(), plan.uarg.data_ptr(),
+          plan.ulhs.data_ptr(), plan.urhs.data_ptr(), plan.ulen.data_ptr(),
+          order.data_ptr(), plan.n_unique.data_ptr(), U, X.data_ptr(), F, D,
+          const_table.data_ptr(),
+          const_table.shape[0], _fn_set(fn_codes).mask, g, rw, uniq.data_ptr(),
+          torch.cuda.current_stream(dev).cuda_stream)
+    return uniq
+
+
+# --- postfix predictions (the semantic tier's probe) ----------------------------
+
+
+def predict_postfix_plain(op, arg, X, const_table, *, stack_size: int, fn_codes=None):
+    """Plain PyTorch version of the predict kernel: the stack machine
+    `core/eval.evaluate_population_postfix`."""
+    spec = TreeSpec(max_depth=stack_size - 1, fn_set=_fn_set(fn_codes), genome="postfix")
+    return _eval.evaluate_population_postfix(op, arg, X, const_table, spec)
+
+
+def predict_postfix(op, arg, X, const_table, *, stack_size: int, fn_codes=None):
+    """f32[P, D] predictions of postfix streams op/arg int32[P, N] on
+    X f32[F, D]: B2's interpreter without the epilogue (the semantic
+    dedup tier's probe). `stack_size` and `fn_codes` as for B2."""
+    if not op.is_cuda:
+        return predict_postfix_plain(op, arg, X, const_table, stack_size=stack_size,
+                                     fn_codes=fn_codes)
+    if not 1 <= stack_size <= max(STACK_TEMPLATES):
+        raise ValueError(f"stack_size={stack_size} exceeds the kernel's register "
+                         f"stacks {STACK_TEMPLATES}")
+    P, N = op.shape
+    F, D = X.shape
+    dev = op.device
+    _check(dev, op=(op, torch.int32, (P, N)), arg=(arg, torch.int32, (P, N)),
+           X=(X, torch.float32, (F, D)),
+           const_table=(const_table, torch.float32, const_table.shape))
+    if P > 65535:
+        raise ValueError(f"unsupported launch: P={P} (<= 65535)")
+    preds = torch.empty((P, D), dtype=torch.float32, device=dev)
+    if P == 0 or D == 0:
+        return preds
+    _call("predict_postfix", "gp_predict_postfix", op.data_ptr(), arg.data_ptr(), P, N,
+          stack_size, X.data_ptr(), F, D, const_table.data_ptr(), const_table.shape[0],
+          _fn_set(fn_codes).mask, preds.data_ptr(),
+          torch.cuda.current_stream(dev).cuda_stream)
+    return preds

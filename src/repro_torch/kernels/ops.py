@@ -1,11 +1,12 @@
-"""Public wrappers for the GP eval+fitness kernel.
+"""Public wrappers for the GP eval+fitness kernels.
 
-Port of `repro/kernels/ops.py` (heap genomes). Picks the data tile for
-Hopper, composes the weight mask, passes the run's function set, and
-dispatches on `impl`:
+Port of `repro/kernels/ops.py`. Picks the data tile for Hopper, passes
+the weight mask and the run's function set, and dispatches on `impl`:
 
-    impl="cuda"   the fused kernel (kernels/gp_eval.py; its plain version
-                  when the tensors lie on the CPU)
+    impl="cuda"   the fused kernels (kernels/gp_eval.py; their plain
+                  versions when the tensors lie on the CPU): B1 for heap
+                  genomes; for postfix ones B2, or with dedup the unique
+                  table and B3/B4, B2 taking over on overflow
     impl="torch"  the plain oracle (kernels/ref.py)
 
 Two surfaces, as in the reference:
@@ -15,12 +16,15 @@ Two surfaces, as in the reference:
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core import eval as _eval
 from repro_torch.core import fitness as fit
 from repro_torch.core.fitness import FitnessSpec
 from repro_torch.core.trees import TreeSpec
 from repro_torch.device import resolve_device
+from repro_torch.kernels import gp_eval
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.gp_eval import eval_fitness
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 BLOCK_THREADS = 256  # threads per block of csrc/gp_eval.cu
@@ -48,28 +52,93 @@ def pick_tiles(n_features: int, n_nodes: int, pop: int, data: int,
     return BLOCK_THREADS, tile
 
 
+# The reference's TPU budget test for its dedup kernels, kept for
+# correspondence: on the TPU the f32[cap, Db] unique table had to fit
+# VMEM beside the postfix kernel's working set at the plain tile pick.
+_TPU_VMEM_BUDGET = 12 * 2**20
+_TPU_POP_TILE = 8
+_TPU_DATA_TILE = 1024  # the reference's starting data tile (its GPConfig default)
+
+
+def _tpu_postfix_vmem(n_features: int, stack_size: int, Db: int, dedup_rows: int) -> int:
+    return 4 * (n_features * Db + _TPU_POP_TILE * (stack_size + 8) * Db + dedup_rows * Db)
+
+
+def _tpu_dedup_fits(n_features: int, stack_size: int, data: int, cap: int) -> bool:
+    """Whether the reference runs its in-VMEM gather kernel (B3) rather
+    than the spill kernel (B4) for this configuration: its
+    `pick_tiles_postfix` data tile from its default start of 1024, then
+    its `_postfix_vmem` charged with the cap's rows, against its 12 MiB
+    budget. The rule is the TPU's; the port follows it so that a
+    configuration runs the counterpart of the kernel the reference runs.
+    (kat7: B3 up to a cap of 1,415, B4 above.) It does not read the
+    port's `data_tile`, which bounds the card's tile instead."""
+    Db = _TPU_DATA_TILE
+    while (Db * 2 <= data and Db < 2048
+           and _tpu_postfix_vmem(n_features, stack_size, Db * 2, 0) <= _TPU_VMEM_BUDGET):
+        Db *= 2
+    while Db > 128 and _tpu_postfix_vmem(n_features, stack_size, Db, 0) > _TPU_VMEM_BUDGET:
+        Db //= 2
+    return _tpu_postfix_vmem(n_features, stack_size, Db, cap) <= _TPU_VMEM_BUDGET
+
+
 def _fused_moments(op, arg, X, y, const_table, tree_spec: TreeSpec,
-                   fit_spec: FitnessSpec, weight, data_tile: int, gather):
-    """Run the fused kernel: f32[P, M] moments — the counterpart of the
-    reference's `_moments_padded`. The kernel masks the ragged last data
-    tile itself and takes any row count, so neither X (F·D floats, 22 MB
-    for ligo) nor the population is copied into a padded buffer every
-    generation; a caller's `weight` (0.0 on dataset padding) is the only
-    mask."""
-    if tree_spec.genome != "tree":
-        raise NotImplementedError("postfix genomes are not ported yet "
-                                  "(ROADMAP queue A item 5, kernel B2)")
+                   fit_spec: FitnessSpec, weight, data_tile: int, gather,
+                   dedup: str = "off", dedup_cap: int = 0):
+    """Run the fused kernels: f32[P, M] moments — the counterpart of the
+    reference's `_moments_padded`. The kernels mask the ragged last data
+    tile themselves and take any row count, so neither X (F·D floats,
+    22 MB for ligo) nor the population is copied into a padded buffer
+    every generation; a caller's `weight` (0.0 on dataset padding) is the
+    only mask.
+
+    Every kernel takes the same `pick_tiles` tile, partial layout and
+    ordered tile merge, so dedup on/off and heap/postfix are bitwise on
+    the card. The reference sorts postfix rows by length so that a TPU
+    pop tile's trip count is its own longest program; with one tree per
+    block the port needs no sort (moments are per row).
+
+    Dedup (postfix, `dedup != "off"`): the plan is built on the device,
+    then the unique table and B3 (or B4, where the reference's TPU rule
+    says the table would spill) run when `plan.overflow` is False and B2
+    when it is True, both into one output: the reference's
+    `lax.cond(plan.overflow, ...)` with no host read. On CPU tensors the
+    plain versions run both branches and select the same way."""
     P, N = op.shape
     F, D = X.shape
     _, tile = pick_tiles(F, N, P, D, data_tile)
     fn_codes = tuple(int(c) for c in tree_spec.fn_set.opcodes)
-    return eval_fitness(
-        op.contiguous(), arg.contiguous(), X.float().contiguous(),
-        y.float().contiguous(), None if weight is None else weight.float().contiguous(),
-        const_table.float().contiguous(), max_depth=tree_spec.max_depth,
-        kernel=fit_spec.kernel, n_classes=fit_spec.n_classes,
-        precision=fit_spec.precision, gather=gather, data_tile=tile,
-        fn_codes=fn_codes)
+    X = X.float().contiguous()
+    y = y.float().contiguous()
+    weight = None if weight is None else weight.float().contiguous()
+    const_table = const_table.float().contiguous()
+    fk = dict(kernel=fit_spec.kernel, n_classes=fit_spec.n_classes,
+              precision=fit_spec.precision, data_tile=tile)
+    if tree_spec.genome != "postfix":
+        return gp_eval.eval_fitness(op.contiguous(), arg.contiguous(), X, y, weight,
+                                    const_table, max_depth=tree_spec.max_depth,
+                                    gather=gather, fn_codes=fn_codes, **fk)
+    S = tree_spec.stack_size
+    plain = dict(stack_size=S, fn_codes=fn_codes, **fk)
+    if dedup == "off":
+        return gp_eval.eval_fitness_postfix(op.contiguous(), arg.contiguous(), X, y,
+                                            weight, const_table, **plain)
+    cap = _eval.resolve_dedup_cap(dedup_cap, P, N)
+    plan = _eval.build_dedup_plan(op, arg, tree_spec, cap)
+    gate = plan.overflow
+    out = torch.empty((P, 1), dtype=torch.float32, device=op.device)
+    uniq = gp_eval.unique_table(plan, X, const_table, fn_codes=fn_codes, gate=gate,
+                                run_when=False)
+    if _tpu_dedup_fits(F, S, D, cap):
+        out = gp_eval.eval_fitness_from_subtrees(plan.root, uniq, y, weight, gate=gate,
+                                                 run_when=False, out=out, **fk)
+    else:
+        preds = uniq.index_select(0, plan.root.long().clamp(0, cap - 1))
+        out = gp_eval.eval_fitness_from_preds(preds, y, weight, gate=gate,
+                                              run_when=False, out=out, **fk)
+    return gp_eval.eval_fitness_postfix(op.contiguous(), arg.contiguous(), X, y, weight,
+                                        const_table, gate=gate, run_when=True, out=out,
+                                        **plain)
 
 
 def _check_device(op, device):
@@ -84,24 +153,27 @@ def _check_device(op, device):
 
 def moments(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSpec,
             *, weight=None, data_tile: int = 4096, gather: str | None = None,
-            impl: str = "cuda", device=None):
-    """f32[P, M] phase-1 moments of every tree against (X:[F,D], y:[D])."""
+            impl: str = "cuda", device=None, dedup: str = "off", dedup_cap: int = 0):
+    """f32[P, M] phase-1 moments of every tree against (X:[F,D], y:[D]).
+    Any `dedup != "off"` engages the exact-tier subexpression dedup on
+    postfix genomes (bitwise the same moments)."""
     _check_device(op, device)
     if fit.get_kernel(fit_spec.kernel).moments is None:
         raise ValueError(f"fitness kernel {fit_spec.kernel!r} defines no moment "
                          f"pass; it cannot accumulate across data tiles")
     if impl == "torch":
         return _ref.moments_ref_tiled(op, arg, X, y, const_table, tree_spec,
-                                      fit_spec, weight=weight)
+                                      fit_spec, weight=weight, dedup=dedup,
+                                      dedup_cap=dedup_cap)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     return _fused_moments(op, arg, X, y, const_table, tree_spec, fit_spec,
-                          weight, data_tile, gather)
+                          weight, data_tile, gather, dedup, dedup_cap)
 
 
 def fitness(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSpec,
             *, weight=None, data_tile: int = 4096, gather: str | None = None,
-            impl: str = "cuda", device=None):
+            impl: str = "cuda", device=None, dedup: str = "off", dedup_cap: int = 0):
     """f32[P] fitness (minimize) of every tree against (X:[F,D], y:[D]).
 
     `device=` (default: the card) must be where the tensors lie. `weight`
@@ -110,7 +182,9 @@ def fitness(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSp
     kern = fit.get_kernel(fit_spec.kernel)
     if impl == "torch":
         return _ref.fitness_ref_tiled(op, arg, X, y, const_table, tree_spec,
-                                      fit_spec, weight=weight)
+                                      fit_spec, weight=weight, dedup=dedup,
+                                      dedup_cap=dedup_cap)
     m = moments(op, arg, X, y, const_table, tree_spec, fit_spec, weight=weight,
-                data_tile=data_tile, gather=gather, impl=impl, device=op.device)
+                data_tile=data_tile, gather=gather, impl=impl, device=op.device,
+                dedup=dedup, dedup_cap=dedup_cap)
     return kern.reduce_moments(m, fit_spec)

@@ -129,3 +129,67 @@ def test_block_equals_steps_and_partition():
         assert torch.equal(a, b)
     assert c_l[:, 2].tolist() == [0, 0, 1, 1, 1, 1]
     assert torch.equal(h_l[2:], h_l[1].expand(4))
+
+
+def _postfix_configs(dedup, cap):
+    """(reference cfg, port cfg, X, y): postfix genomes of depth 4 on
+    lattice data (add/sub/mul, small integers, kernel r), pop 16, two
+    elites; every sum is exact, so trajectories compare bitwise."""
+    rng = np.random.RandomState(1)
+    X = rng.randint(-2, 3, size=(3, 96)).astype(np.float32)
+    y = rng.randint(-2, 3, size=96).astype(np.float32)
+    names = ("add", "sub", "mul")
+    tree_kw = dict(max_depth=4, n_features=3, p_const=0.0, genome="postfix")
+    kw = dict(pop_size=16, elitism=2, dedup=dedup, dedup_cap=cap)
+    jcfg = jengine.GPConfig(tree_spec=jtrees.TreeSpec(
+        fn_set=jprim.FunctionSet.make(names), **tree_kw), eval_impl="pallas", **kw)
+    tcfg = tengine.GPConfig(tree_spec=ttrees.TreeSpec(
+        fn_set=tprim.FunctionSet.make(names), **tree_kw), eval_impl="cuda", **kw)
+    return jcfg, tcfg, X, y
+
+
+@pytest.mark.parametrize("dedup,cap", [("off", 0), ("exact", 0), ("exact", 20),
+                                       ("exact", 100_000)])
+def test_postfix_evolve_block_bitwise_vs_reference(dedup, cap):
+    """Postfix `evolve_block` against the reference's Pallas path: state,
+    history and the counter stream (dedup columns included) bit for bit,
+    with dedup off, with a cap that overflows (20) and two that do not.
+    The reference runs its B2/B3 kernels in interpret mode."""
+    jcfg, tcfg, X, y = _postfix_configs(dedup, cap)
+    jstate = jengine.init_state(jcfg, jax.random.PRNGKey(5))
+    _assert_state_equal(jstate, tengine.init_state(tcfg, prng.PRNGKey(5), device="cpu"))
+    tstate = tengine.state_from_numpy(jstate)
+    Xj, yj = jnp.asarray(X), jnp.asarray(y)
+    Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
+    for _ in range(2):
+        jstate, jh, jc = jengine.evolve_block(jcfg, jstate, Xj, yj, None, n_steps=4)
+        tstate, th, tc = tengine.evolve_block(tcfg, tstate, Xt, yt, None, n_steps=4)
+        _assert_state_equal(jstate, tstate)
+        np.testing.assert_array_equal(np.asarray(jh), th.numpy())
+        np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    ttrees.check_invariants(tstate.op, tcfg.tree_spec)
+    uniq = tc[:, 6]
+    assert (uniq > 0).all() if dedup == "exact" else (uniq == 0).all()
+    if cap == 20:
+        assert (tc[:, 5] == 0).all()  # overflow: nothing saved
+
+
+def test_postfix_state_carried_in_and_dedup_on_off():
+    """A reference postfix GPState carries in through state_from_numpy bit
+    for bit and back out; from it, the port's dedup on and off runs are
+    bitwise equal in everything but the dedup counter columns."""
+    import dataclasses
+
+    jcfg, tcfg, X, y = _postfix_configs("exact", 0)
+    jstate = jengine.init_state(jcfg, jax.random.PRNGKey(8))
+    tstate = tengine.state_from_numpy(jstate, device="cpu")
+    _assert_state_equal(jstate, tstate)
+    for name, leaf in tengine.state_to_numpy(tstate).items():
+        np.testing.assert_array_equal(leaf, np.asarray(getattr(jstate, name)))
+    Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
+    s_on, h_on, c_on = tengine.evolve_block(tcfg, tstate, Xt, yt, None, n_steps=5)
+    off = dataclasses.replace(tcfg, dedup="off")
+    s_off, h_off, c_off = tengine.evolve_block(off, tstate, Xt, yt, None, n_steps=5)
+    for a, b in zip(s_on, s_off):
+        assert torch.equal(a, b)
+    assert torch.equal(h_on, h_off) and torch.equal(c_on[:, :5], c_off[:, :5])

@@ -161,7 +161,30 @@ def test_default_config_picks_the_device_backend(monkeypatch):
 def test_not_ported_options_raise():
     for kw in (dict(islands=2), dict(topology=object()), dict(chunk_rows=8),
                dict(checkpoint_dir="x"), dict(tracer=object()),
-               dict(kernel="pearson"), dict(backend="scalar"),
-               dict(genome="postfix")):
+               dict(kernel="pearson"), dict(backend="scalar")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPSession(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("dedup", ["off", "exact"])
+def test_postfix_session_matches_reference_on_lattice(dedup):
+    """GPSession(genome="postfix") walks the reference session's
+    trajectory (same history, champion, predictions and score), and its
+    stats carry the dedup columns."""
+    rng = np.random.RandomState(4)
+    X = rng.randint(-2, 3, size=(80, 3)).astype(np.float32)
+    y = rng.randint(-2, 3, size=80).astype(np.float32)
+    kw = dict(pop_size=16, generations=6, kernel="r", max_depth=4, p_const=0.0,
+              fn_set="add,sub,mul", genome="postfix", dedup=dedup, block_size=3)
+    js = JSession(backend="jnp", **kw).fit(X, y, key=jax.random.PRNGKey(2))
+    ts = GPSession(device="cpu", **kw).fit(X, y, key=prng.PRNGKey(2))
+    assert ts.history == js.history
+    text = ts.best_expression()
+    assert text == js.best_expression() and "∅" not in text
+    np.testing.assert_array_equal(ts.predict(X), np.asarray(js.predict(X)))
+    assert ts.score(X, y) == pytest.approx(js.score(X, y), rel=1e-6)
+    assert (ts.stats["unique_subtrees"] > 0) == (dedup == "exact")
+    rows = np.asarray(ts.counter_history)  # one row per generation, summing to stats
+    assert rows.shape == (len(ts.history), 7)
+    assert rows[:, -1].sum() == ts.stats["unique_subtrees"]
+    assert rows[:, -2].sum() == ts.stats["subtree_evals_saved"]

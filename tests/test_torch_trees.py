@@ -67,5 +67,10 @@ def test_check_invariants_catches_faults():
 
 
 def test_postfix_genome_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrees.TreeSpec(genome="postfix")
+    """The postfix genome is ported now: the spec takes it, with the
+    reference's operand-stack bound, and still refuses unknown forms."""
+    spec = ttrees.TreeSpec(max_depth=4, genome="postfix")
+    assert spec.stack_size == jtrees.TreeSpec(max_depth=4, genome="postfix").stack_size == 5
+    assert spec != ttrees.TreeSpec(max_depth=4)
+    with pytest.raises(ValueError, match="genome"):
+        ttrees.TreeSpec(genome="linear")
