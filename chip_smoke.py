@@ -14,6 +14,7 @@ last line is the contract line
 
 Phases:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, build
+     and ptxas -v (registers, shared memory, spills of every kernel)
   2. every kernel vs its plain version at the paper's dataset shapes
      (depth 5, kernels r and c; m and mse on lattice data), without a
      weight and with a weight of zeros and fractions plus NaN-producing
@@ -24,8 +25,14 @@ Phases:
      lattice and CLASSIFY_SET trees), rtol 1e-4 elsewhere. On the card
      B1 == B2 == B3 == B4 bitwise (heap vs postfix, dedup on vs off),
      KITCHEN_SINK included.
-     Warm median time of each kernel and plain version, and the bound
-     (the larger of bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s)
+     Each kernel's warm median time per call (CUDA events: `ms`), its
+     device time per call (torch.profiler: `device_ms`) and CUDA launches
+     per call, the plain version's time, and the bound (the larger of
+     bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s). Then the unique table
+     under each of its schedules (staged at the default and at the
+     narrowest tile, and the scan), bitwise against its plain version,
+     and an ungated call on a plan that overflows its cap, which must
+     run without a fault
   3. main path: kat7 (Table 2, CLASSIFY_SET, kernel c), 30 generations on
      the card; one block under torch.cuda.set_sync_debug_mode("error");
      history bitwise equal to the CPU run; launches counted
@@ -41,9 +48,16 @@ Phases:
      its first 10 generations bitwise equal to the CPU's, the exact/off
      histories equal to each other, no synchronisation in a block
 
-`python3 chip_smoke.py --profile` instead profiles three kat7 generations
-of the heap main path and of four postfix paths with torch.profiler
-(where a generation's time goes).
+Options:
+  --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
+                parent commit, `git archive` unpacked into a directory
+                that .gitignore lists) before and after this tree's, in
+                a child process, and prints "ab" lines: the unique
+                table's and B2's ms and device_ms in both trees at every
+                shape, beside the bound
+  --profile     instead profiles three kat7 generations of the heap main
+                path and of four postfix paths with torch.profiler (where
+                a generation's time goes; the port's kernels by name)
 """
 import dataclasses
 import json
@@ -87,6 +101,53 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, calls: int = 20) -> dict:
+    """The device's own time per call of `fn`, from torch.profiler over
+    `calls` warm calls: the mean device time of the recorded kernels (the
+    tracer may drop a few) times the CUDA launches per call that the host
+    side counts -> {"device_ms", "cuda_launches_per_call",
+    "device_kernels" (short names), "recorded_share",
+    "device_ms_source"}. Where the profiler sees no device time, the
+    CUDA-event time of `calls` calls queued back to back, over `calls`
+    (which holds the host's launch time too)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, recorded, launches, names = 0.0, 0, 0, set()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+        if "LaunchKernel" in e.key:
+            launches += e.count
+        elif us > 0:
+            total += us
+            recorded += e.count
+            m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
+            names.add(m.group(1) if m else e.key[:40])
+    if recorded:
+        per_call = launches / calls
+        return dict(device_ms=total / recorded * per_call / 1e3,
+                    cuda_launches_per_call=per_call, device_kernels=sorted(names),
+                    recorded_share=recorded / max(launches, 1),
+                    device_ms_source="torch.profiler")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return dict(device_ms=start.elapsed_time(end) / calls, cuda_launches_per_call=None,
+                device_kernels=[], recorded_share=None,
+                device_ms_source="cuda events, queued calls")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -155,15 +216,14 @@ def _live_rows(plan):
 
 
 def _unique_bound_ms(plan, D):
-    """The unique table: the live plan entries read once (5 int32 and
-    the int64 order per slot, plus n_unique), the feature rows its
-    terminals name, the live rows and the reserved one written once (the
-    rows anything reads); one f32 operation per function slot and
-    point."""
+    """The unique table: the live plan entries read once (5 int32 per
+    slot, plus n_unique), the feature rows its terminals name, the live
+    rows and the reserved one written once (the rows anything reads); one
+    f32 operation per function slot and point."""
     live = _live_rows(plan)
     valid = plan.ulen > 0
     feats = int(torch.unique(plan.uarg[valid & (plan.uop == prim.FEATURE)]).numel())
-    nbytes = live.numel() * (5 * 4 + 8) + 4 + feats * D * 4 + live.numel() * D * 4
+    nbytes = live.numel() * 5 * 4 + 4 + feats * D * 4 + live.numel() * D * 4
     return _ms_bound(nbytes, D * int((valid & (plan.ulen >= 2)).sum()))
 
 
@@ -412,7 +472,7 @@ def kernel_vs_plain():
                 }
                 row = {}
                 for kern_name, (fn, plain_fn, (bound, bound_by)) in timed.items():
-                    row[kern_name] = dict(ms=time_ms(fn, 50),
+                    row[kern_name] = dict(ms=time_ms(fn, 50), **device_ms(fn),
                                           plain_ms=time_ms(plain_fn, reps),
                                           bound_ms=bound, bound_by=bound_by)
                 results[(name, kname)] = row
@@ -423,6 +483,136 @@ def kernel_vs_plain():
                      **{k: {kk: round(vv, 6) if isinstance(vv, float) else vv
                             for kk, vv in v.items()} for k, v in row.items()})
     return results, max_err, max_rel
+
+
+# --- the unique table's schedules, and B2's points per thread ------------------
+
+def _table_case(name, P, F, D, seed):
+    """A CLASSIFY_SET population at one of SHAPES, its postfix form, the
+    plan at `_table_cap` and at cap 100 (which overflows), and the data."""
+    rng = np.random.RandomState(seed)
+    spec, op, arg = _population(P, F, prim.CLASSIFY_SET, seed=seed)
+    Xd = torch.from_numpy(rng.randn(F, D).astype(np.float32)).to(DEV)
+    yd = torch.from_numpy((rng.rand(D) > 0.5).astype(np.float32)).to(DEV)
+    pop, parg = trees.heap_to_postfix(op, arg)
+    pspec = dataclasses.replace(spec, genome="postfix")
+    plan = eval_mod.build_dedup_plan(pop, parg, pspec, _table_cap(name, op, arg, spec))
+    over = eval_mod.build_dedup_plan(pop, parg, pspec, 100)
+    codes = tuple(int(c) for c in prim.CLASSIFY_SET.opcodes)
+    return pop, parg, plan, over, Xd, yd, spec.const_table(DEV), codes
+
+
+def _table_budgets(n, max_len):
+    """Shared memory budgets for the table kernel with n live slots whose
+    longest span is max_len: the default, the least that stages one
+    point's values (tiles of one point), and 1 KB (the scan)."""
+    return gp_eval.TABLE_SMEM_BYTES, (gp_eval.table_words(n, max_len) + n) * 4, 1024
+
+
+def table_modes():
+    """The unique table's schedules (`gp_eval.table_schedule`), forced
+    through gp_eval.TABLE_SMEM_BYTES: staged at the default tile and at
+    one point a tile, and the scan; each bitwise equal to the plain
+    version on the read rows of a CLASSIFY_SET plan at every shape. Then,
+    with each, an ungated call on a plan that overflows its cap (100),
+    which must run without a fault."""
+    saved = gp_eval.TABLE_SMEM_BYTES
+    out = []
+    try:
+        for name, P, F, D in SHAPES:
+            _, _, plan, over, Xd, _, consts, codes = _table_case(name, P, F, D, 7)
+            if not bool(over.overflow) or bool(plan.overflow):
+                raise AssertionError(f"{name}: the plans must overflow at cap 100 only")
+            live = _live_rows(plan)
+            want = gp_eval.unique_table_plain(plan, Xd, consts, fn_codes=codes)[live]
+            U, n, max_len = plan.uop.shape[0], int(plan.n_unique), int(plan.ulen.max())
+            held = []
+            for budget in _table_budgets(n, max_len):
+                gp_eval.TABLE_SMEM_BYTES = budget
+                blocks, smem = gp_eval.table_geometry(D)
+                label = "%s, %d points a tile" % gp_eval.table_schedule(n, max_len, D, blocks,
+                                                                          smem)
+                got = gp_eval.unique_table(plan, Xd, consts, fn_codes=codes)[live]
+                _compare_table(got, want, True, f"{name} table, {label}, smem {smem}")
+                o = gp_eval.unique_table(over, Xd, consts, fn_codes=codes)
+                torch.cuda.synchronize()
+                if o.shape != (over.uop.shape[0], D):
+                    raise AssertionError(f"{name}: overflow table shape {o.shape}")
+                held.append(dict(smem_bytes=smem, schedule=label))
+            gp_eval.TABLE_SMEM_BYTES = saved
+            out.append(dict(shape=name, n_unique=n, cap=U,
+                            overflow_n_unique=int(over.n_unique),
+                            blocks_and_smem_bytes=gp_eval.table_geometry(D), held=held))
+    finally:
+        gp_eval.TABLE_SMEM_BYTES = saved
+    emit("table_modes", overflow_call="ran without a fault with every budget",
+         shapes=out)
+
+
+# --- the parent commit's phase 2, for an A/B inside one call --------------------
+
+_PARENT_SHIM = """
+import json, sys
+sys.path.insert(0, {root!r})
+sys.argv = ["chip_smoke.py"]
+import chip_smoke as cs
+import torch
+{device_ms}
+timed = []
+_time_ms, _emit = cs.time_ms, cs.emit
+def time_ms(fn, reps):
+    ms = _time_ms(fn, reps)
+    if reps == 50:  # a kernel (its plain version takes fewer reps)
+        timed.append(device_ms(fn))
+    return ms
+def emit(phase, **kw):
+    if phase == "kernel":
+        names = [k for k, v in kw.items() if isinstance(v, dict) and "ms" in v]
+        for k, dev in zip(names, timed):
+            kw[k].update(dev)
+        timed.clear()
+    _emit(phase, **kw)
+cs.time_ms, cs.emit = time_ms, emit
+cs.build.load("gp_eval")
+cs.kernel_vs_plain()
+"""
+
+
+def parent_phase2(root):
+    """Phase 2 (`kernel_vs_plain`) of another tree of the repo, e.g. the
+    parent commit unpacked with `git archive`, in a child process (both
+    trees name their package repro_torch), with `device_ms` added to its
+    timings -> {(shape, kernel): row}."""
+    import inspect
+
+    code = _PARENT_SHIM.format(root=str(Path(root).resolve()),
+                               device_ms=inspect.getsource(device_ms))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=root, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"parent phase 2 failed:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    rows = {}
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("{"):
+            rec = json.loads(ln)
+            if rec.get("phase") == "kernel":
+                rows[rec["shape"], rec["kernel"]] = rec
+    return rows
+
+
+def ab_lines(label, rows, perf):
+    """One "ab" line per shape: the table's and B2's ms and device_ms in
+    the other tree (`label`) and in this one, beside the bound."""
+    for (shape, kname), mine in perf.items():
+        other = rows.get((shape, kname), {})
+        emit("ab", other=label, shape=shape, kernel=kname, **{
+            k: {"other": {f: other.get(k, {}).get(f) for f in ("ms", "device_ms",
+                                                               "cuda_launches_per_call")},
+                "this": {f: mine[k].get(f) for f in ("ms", "device_ms",
+                                                     "cuda_launches_per_call")},
+                "bound_ms": mine[k]["bound_ms"]}
+            for k in ("unique_table", "eval_fitness_postfix")})
 
 
 # --- phases 3-6: the paths ------------------------------------------------------
@@ -582,14 +772,24 @@ def profile_main_path():
 
         kernels = [e for e in events if dev_us(e) > 0]
         launches = sum(e.count for e in events if "LaunchKernel" in e.key)
-        ours = sum(dev_us(e) for e in kernels if any(k in e.key for k in _OUR_KERNELS))
+        mine = [e for e in kernels if any(k in e.key for k in _OUR_KERNELS)]
+        ours = sum(dev_us(e) for e in mine)
         busy = sum(dev_us(e) for e in kernels)
         top = sorted(events, key=lambda e: e.count, reverse=True)[:12]
         emit("profile", path=label, dataset="kat7", generations=3,
              wall_ms_per_gen=1e3 * wall / 3, device_busy_ms_per_gen=busy / 3e3,
              idle_share=1 - busy / (1e6 * wall), cuda_launches_per_gen=launches / 3,
              port_kernels_ms_per_gen=ours / 3e3,
+             port_kernels=[(next(k for k in _OUR_KERNELS if k in e.key), e.count / 3,
+                            dev_us(e) / 3e3) for e in mine],
              top_ops_by_count=[(e.key, e.count // 3, dev_us(e) / 3e3) for e in top])
+
+
+def _ptxas_lines():
+    """ptxas -v's lines for each kernel: name, registers, shared memory,
+    spills."""
+    return [ln.strip() for ln in build.BUILD_INFO["gp_eval"]["ptxas"].splitlines()
+            if any(k in ln for k in ("registers", "Compiling", "spill"))]
 
 
 def main():
@@ -602,13 +802,17 @@ def main():
     t0 = time.perf_counter()
     build.load("gp_eval")
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.BUILD_INFO["gp_eval"]["ptxas"].splitlines()
-             if "registers" in ln or "Compiling" in ln]
     emit("card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-         build_s=build_s, ptxas=ptxas)
+         build_s=build_s, ptxas=_ptxas_lines())
 
+    parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
+    before = parent_phase2(parent) if parent else None
     perf, max_err, max_rel = kernel_vs_plain()
+    if parent:
+        ab_lines("parent, before", before, perf)
+        ab_lines("parent, after", parent_phase2(parent), perf)
+    table_modes()
 
     main_run = run_dataset("kat7", 100, 30, 10, block_check=True)
     emit("main_path", **main_run)
@@ -650,7 +854,8 @@ def main():
         "launches": paths[name]["launches"][name],
         "max_abs_err": max_err["kat7", name],
         **({"max_rel_err": max_rel} if name == "eval_fitness" else {}),
-        "ms": main[name]["ms"], "plain_ms": main[name]["plain_ms"],
+        "ms": main[name]["ms"], "device_ms": main[name]["device_ms"],
+        "plain_ms": main[name]["plain_ms"],
         "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
         "library_ms": None} for name in gp_eval.KERNELS]}), flush=True)
     print(card, flush=True)

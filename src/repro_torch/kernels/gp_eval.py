@@ -24,10 +24,13 @@ read only op/arg (P·N·8 bytes), X (F·D·4), y and w (D·8) and write P·4
 bytes, while they execute one interpreted node per active tree node per
 data point, so instruction issue, not memory, is the limit; they keep
 each tree's instruction list in shared memory and its operand stack in
-registers. B3/B4 read one prediction row per tree (P·D·4 bytes) plus y
-and w: memory-bound, near the launch floor at the paper's shapes. The
-unique table is a chain of n_unique + 1 dependent slot evaluations per
-point; its latency bounds it. The probe's predictions are B2's
+registers, and B2 loads the list with all its threads and carries up to
+four points per thread through it at once. B3/B4 read one
+prediction row per tree (P·D·4 bytes) plus y and w: memory-bound, near
+the launch floor at the paper's shapes. The unique table writes
+n_unique rows of D floats; its persistent blocks group the slots by
+subtree height in shared memory, so a tile of points costs one barrier
+per height (`unique_table`). The probe's predictions are B2's
 interpreter on a few rows and 32 points: the launch bounds them.
 
 B2-B4 and the unique table take an optional device flag `gate` (a bool
@@ -56,11 +59,16 @@ from repro_torch.kernels import ref as _ref
 
 KERNELS = ("eval_fitness", "eval_fitness_postfix", "eval_fitness_from_subtrees",
            "eval_fitness_from_preds", "unique_table", "predict_postfix")
-# calls of each kernel by its wrapper, one per call on CUDA tensors; a
-# fitness call is two CUDA launches (partials + ordered tile merge) when
-# D spans more than one data tile, one otherwise
+# calls of each kernel by its wrapper, one per call on CUDA tensors. A B1,
+# B3 or B4 call is two CUDA launches (partials + ordered tile merge) when
+# D spans more than one data tile, one otherwise; a B2 or table call is
+# always one.
 launches = dict.fromkeys(KERNELS, 0)
 STACK_TEMPLATES = (8, 12)  # register-stack sizes compiled into csrc/gp_eval.cu
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# the unique table: dynamic shared memory of its persistent block (nearly
+# all of an SM's 228 KB)
+TABLE_SMEM_BYTES = 226 * 1024
 
 _LIB = None
 _vp, _i, _f32, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
@@ -68,15 +76,18 @@ _ARGTYPES = {
     "gp_eval_fitness": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
                         _f32, _f32, _i, _vp, _vp, _vp],
     "gp_eval_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
-                        _f32, _f32, _i, _vp, _i, _vp, _vp, _vp],
+                        _f32, _f32, _i, _vp, _i, _vp, _vp, _vp, _vp],
     "gp_fitness_from_subtrees": [_vp, _i, _vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i,
                                  _vp, _i, _vp, _vp, _vp],
     "gp_fitness_from_preds": [_vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i, _vp, _i, _vp,
                               _vp, _vp],
-    "gp_unique_table": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _i, _vp, _i, _u,
-                        _vp, _i, _vp, _vp],
+    "gp_unique_table": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _i, _vp, _i, _u, _vp, _i,
+                        _i, _i, _vp, _vp],
     "gp_predict_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _i, _u, _vp, _vp],
 }
+
+
+_TICKETS: dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -258,7 +269,9 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
                          kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
                          data_tile: int = 1024, fn_codes=None, gate=None,
                          run_when: bool = True, out=None):
-    """B2: fused postfix eval+moments -> f32[P, 1].
+    """B2: fused postfix eval+moments -> f32[P, 1], one CUDA launch (the
+    tiles' partials are summed in tile order inside the kernel, by the
+    block that draws a tree's last ticket; `_tickets`).
 
     op, arg:    int32[P, N]  postfix streams (any N)
     stack_size               the programs' operand-stack bound
@@ -290,12 +303,23 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
         return out
     g, rw = _gate_args(gate, run_when, dev)
     _call("eval_fitness_postfix", "gp_eval_postfix", op.data_ptr(), arg.data_ptr(), P,
-          N, stack_size, X.data_ptr(), F, D, y.data_ptr(), _ptr(weight),
-          const_table.data_ptr(), const_table.shape[0], _fn_set(fn_codes).mask,
-          kern.device_id, float(n_classes - 1), float(np.float32(precision)), data_tile,
-          g, rw, partial.data_ptr(), out.data_ptr(),
+          N, stack_size, X.data_ptr(), F, D, y.data_ptr(),
+          _ptr(weight), const_table.data_ptr(), const_table.shape[0],
+          _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
+          float(np.float32(precision)), data_tile, g, rw, partial.data_ptr(),
+          _tickets(P, dev).data_ptr(), out.data_ptr(),
           torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+def _tickets(P: int, dev) -> torch.Tensor:
+    """B2's per-tree ticket counters on `dev`: int32 zeros, made once (and
+    again only for a larger P); every launch leaves them zero. Launches
+    that share them must run in stream order, as the port's do."""
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < P:
+        t = _TICKETS[dev] = torch.zeros(max(P, 1024), dtype=torch.int32, device=dev)
+    return t
 
 
 # --- B3 / B4: moments over the unique-subtree table -----------------------------
@@ -388,15 +412,70 @@ def unique_table_plain(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None):
     return _eval.evaluate_unique_subtrees(plan, X, const_table, spec)
 
 
+def table_geometry(D: int) -> tuple[int, int]:
+    """(blocks, dynamic shared memory bytes per block) of the unique-table
+    kernel on D points: one persistent block per SM (no more than there
+    are points), each with TABLE_SMEM_BYTES."""
+    return min(SMS, D), TABLE_SMEM_BYTES
+
+
+def table_words(n_live: int, max_len: int) -> int:
+    """32-bit words of the table kernel's shared memory before the slots'
+    values: each live slot's place, word and operands (3), and the counts
+    and bounds of its (height, kind) bins (heights below max_len, 32
+    kinds), rounded up to 16 bytes."""
+    cap = min(max(max_len - 1, 0), n_live)
+    return -(-(3 * n_live + 2 * ((cap + 1) * 32 + 1)) // 4) * 4
+
+
+def table_schedule(n_live: int, max_len: int, D: int, blocks: int,
+                   smem_bytes: int) -> tuple[str, int]:
+    """(schedule, points per tile) that the table kernel takes for n_live
+    live slots whose longest span is max_len: "staged" (metadata and the
+    slots' values at a tile's points in shared memory, the tile as wide
+    as fits, up to 32) or "scan" (nothing staged, 32 points a tile: more
+    than 65,535 live slots, or too little shared memory for one point's
+    values). The kernel decides on the device (`unique_table_kernel` and
+    `table_tile` in csrc/gp_eval.cu); this mirrors it for reports and
+    tests."""
+    words = table_words(n_live, max_len)
+    if n_live > 65535 or 4 * n_live * 4 > smem_bytes or (words + n_live) * 4 > smem_bytes:
+        return "scan", 32
+    free = smem_bytes // 4 - words
+    w = 32
+    while w > 1 and (n_live * w > free or -(-D // w) < blocks):
+        w //= 2
+
+    def share(t):
+        return -(-(-(-D // t)) // blocks) * t
+
+    if w > 1 and 8 * share(w // 2) <= 7 * share(w):
+        w //= 2
+    return "staged", w
+
+
 def unique_table(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None, gate=None,
                  run_when: bool = False):
     """f32[U, D] value of every unique subexpression of `plan`, U = the
     plan's cap: rows [0, n_unique) and the reserved all-EMPTY row U - 1
-    (0.0), the rows anything reads. The kernel leaves the other unused
-    rows unwritten (the plain version holds 0.0 there), and every row on
-    overflow is written, from clamped operands. With a gate, the kernel
-    fills the table only where `gate == run_when` (the table is then
-    left unwritten: its readers are gated the same way)."""
+    (0.0), the rows anything reads.
+
+    One launch, no sort: one persistent block per SM (`table_geometry`)
+    stages the live slots' metadata in shared memory, reading n_unique on
+    the device (the host never does), groups the slots by subtree height
+    (a slot's operands are lower), then evaluates its tiles of points one
+    height at a time with every value in shared memory, and writes each
+    tile's rows once (`table_schedule`). A plan with more than 65,535
+    live slots, or too many for one point's values to fit, takes the
+    kernel's slower scan over span lengths instead.
+
+    The kernel leaves the other unused rows unwritten (the plain version
+    holds 0.0 there). On overflow (n_unique > U - 1) every row is written,
+    from operand ids clamped to [0, U - 1]; nothing reads those rows (the
+    session path gates them off), and an ungated call must only run
+    without a fault. With a gate, the kernel fills the table only where
+    `gate == run_when` (the table is then left unwritten: its readers are
+    gated the same way)."""
     if not plan.uop.is_cuda:
         return unique_table_plain(plan, X, const_table, fn_codes=fn_codes)
     (U,) = plan.uop.shape
@@ -406,15 +485,14 @@ def unique_table(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None, gate=N
                    for f in ("uop", "uarg", "ulhs", "urhs", "ulen")},
            n_unique=(plan.n_unique, torch.int32, ()), X=(X, torch.float32, (F, D)),
            const_table=(const_table, torch.float32, const_table.shape))
-    order = torch.sort(plan.ulen, stable=True).indices  # slots by ascending span length
     uniq = torch.empty((U, D), dtype=torch.float32, device=dev)
+    blocks, smem = table_geometry(D)
     g, rw = _gate_args(gate, run_when, dev)
     _call("unique_table", "gp_unique_table", plan.uop.data_ptr(), plan.uarg.data_ptr(),
           plan.ulhs.data_ptr(), plan.urhs.data_ptr(), plan.ulen.data_ptr(),
-          order.data_ptr(), plan.n_unique.data_ptr(), U, X.data_ptr(), F, D,
-          const_table.data_ptr(),
-          const_table.shape[0], _fn_set(fn_codes).mask, g, rw, uniq.data_ptr(),
-          torch.cuda.current_stream(dev).cuda_stream)
+          plan.n_unique.data_ptr(), U, X.data_ptr(), F, D, const_table.data_ptr(),
+          const_table.shape[0], _fn_set(fn_codes).mask, g, rw, blocks, smem,
+          uniq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return uniq
 
 

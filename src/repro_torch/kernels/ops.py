@@ -26,7 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import gp_eval
 from repro_torch.kernels import ref as _ref
 
-SMS = 132  # streaming multiprocessors of an H100 SXM
+SMS = gp_eval.SMS
 BLOCK_THREADS = 256  # threads per block of csrc/gp_eval.cu
 _MIN_BLOCKS = 4 * SMS
 

@@ -382,3 +382,112 @@ def test_semantic_trajectory_vs_reference_within_tolerance():
                                    rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(s_sem.fitness, s_off.fitness, rtol=1e-5, atol=1e-5)
     assert s_sem.best_fitness.item() == pytest.approx(float(js.best_fitness), rel=1e-5)
+
+
+# --- the unique-table kernel's schedule: what it relies on ---------------------
+
+
+def _paper_plan(P, F, fn_set, seed):
+    """A heap population of depth 5 (`generate_population`), its postfix
+    form and its dedup plan at the cap no population can overflow
+    (P·N + 1), as `chip_smoke.py` builds them for the table kernel."""
+    spec = ttrees.TreeSpec(max_depth=5, n_features=F, fn_set=getattr(tprim, fn_set))
+    op, arg = ttrees.generate_population(prng.PRNGKey(seed), P, spec)
+    pop, parg = ttrees.heap_to_postfix(op, arg)
+    pspec = dataclasses.replace(spec, genome="postfix")
+    plan = teval.build_dedup_plan(pop, parg, pspec, P * pop.shape[1] + 1)
+    assert not bool(plan.overflow)
+    return pspec, plan
+
+
+def _heights(plan):
+    """Subtree height of every live slot (terminals 0), slot by slot in
+    ascending span length; -1 on the other slots."""
+    n = int(plan.n_unique)
+    uop, ulen = plan.uop.numpy(), plan.ulen.numpy()
+    ulhs, urhs = plan.ulhs.numpy(), plan.urhs.numpy()
+    h = np.full(len(uop), -1)
+    for s in sorted(range(n), key=lambda s: ulen[s]):
+        h[s] = 0 if ulen[s] == 1 else 1 + max(h[ulhs[s]], h[urhs[s]])
+    return h
+
+
+@pytest.mark.parametrize("fn_set", ["CLASSIFY_SET", "KITCHEN_SINK"])
+@pytest.mark.parametrize("P,F", [(100, 9), (1024, 8)])  # kat7, "large"
+def test_plan_invariants_the_table_schedule_relies_on(P, F, fn_set):
+    """The unique-table kernel groups the live slots by subtree height and
+    evaluates one height at a time. That is sound because the live slots
+    are exactly [0, n_unique), each function slot's operands have strictly
+    shorter spans (so a slot's height is above its operands' and every
+    live operand is reached first), and heights stay within max_depth (6
+    groups at depth 5)."""
+    spec, plan = _paper_plan(P, F, fn_set, seed=P + F)
+    n, cap = int(plan.n_unique), plan.uop.shape[0]
+    ulen = plan.ulen.numpy()
+    np.testing.assert_array_equal(np.flatnonzero(ulen > 0), np.arange(n))
+    arity = tprim.ARITY[plan.uop.numpy()[:n]]
+    fn = np.flatnonzero(arity >= 1)
+    for ids in (plan.ulhs.numpy()[fn], plan.urhs.numpy()[fn]):
+        assert ((ids >= 0) & (ids < n)).all()
+        assert (ulen[ids] < ulen[fn]).all()
+    h = _heights(plan)
+    assert (h[:n] >= 0).all() and (h[n:] == -1).all()
+    assert h.max() <= spec.max_depth
+    assert (ulen[:n] >= h[:n] + 1).all()  # a height is below the span length
+    assert cap - 1 >= n  # the reserved all-EMPTY slot stays free
+
+
+def _table_by_groups(plan, X, ct, fn_set, key, rng):
+    """The table evaluated one group of slots at a time (groups in
+    ascending `key`), and inside a group slot by slot in the order `rng`
+    gives (None: reversed): the schedule the kernel's blocks follow."""
+    vals = torch.zeros((plan.uop.shape[0], X.shape[1]))
+    n = int(plan.n_unique)
+    uarg = plan.uarg.long()
+    for g in np.unique(key[:n]):
+        slots = np.flatnonzero(key[:n] == g)
+        slots = slots[::-1] if rng is None else rng.permutation(slots)
+        for s in slots.tolist():
+            if plan.ulen[s] == 1:
+                a = uarg[s]
+                vals[s] = (X[a.clamp(0, X.shape[0] - 1)] if plan.uop[s] == tprim.FEATURE
+                           else ct[a.clamp(0, ct.shape[0] - 1)].expand(X.shape[1]))
+            else:
+                vals[s] = tprim.apply_function(plan.uop[s:s + 1, None],
+                                               vals[plan.ulhs[s:s + 1].long()],
+                                               vals[plan.urhs[s:s + 1].long()], fn_set)[0]
+    return vals
+
+
+@pytest.mark.parametrize("order", ["reversed", "shuffled"])
+@pytest.mark.parametrize("group_by", ["height", "span length"])
+@pytest.mark.parametrize("fn_set", ["CLASSIFY_SET", "KITCHEN_SINK"])
+def test_table_by_groups_in_any_order_is_bitwise_the_plain_table(fn_set, group_by, order):
+    """Evaluating the table group by group, in any order inside a group,
+    gives `unique_table_plain` bit for bit (every slot applies the same
+    primitive to the same operand bits), for height groups (the kernel's)
+    and span-length groups (the plain version's)."""
+    spec, plan = _paper_plan(100, 9, fn_set, seed=3)
+    X = torch.from_numpy(np.random.RandomState(5).randn(9, 48).astype(np.float32))
+    ct = spec.const_table()
+    key = _heights(plan) if group_by == "height" else plan.ulen.numpy()
+    rng = None if order == "reversed" else np.random.RandomState(11)
+    got = _table_by_groups(plan, X, ct, spec.fn_set, key, rng)
+    want = gp_eval.unique_table_plain(plan, X, ct, fn_codes=tuple(spec.fn_set.opcodes))
+    live = np.r_[np.arange(int(plan.n_unique)), plan.uop.shape[0] - 1]
+    np.testing.assert_array_equal(got[live].numpy().view(np.int32),
+                                  want[live].numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("n_live,max_len,D,tile", [
+    (757, 61, 9, 1), (632, 60, 10_000, 16), (1138, 60, 4_000, 16), (4844, 62, 32_768, 8)])
+def test_table_schedule_at_the_chip_shapes(n_live, max_len, D, tile):
+    """The table kernel's geometry at the four `chip_smoke.py` shapes
+    (their plans' live slots and longest spans): one block per SM (no
+    more than the points), every block with a tile of points, and every
+    slot's values for the tile in shared memory."""
+    blocks, smem = gp_eval.table_geometry(D)
+    assert blocks == min(gp_eval.SMS, D) and smem <= 227 * 1024
+    assert gp_eval.table_schedule(n_live, max_len, D, blocks, smem) == ("staged", tile)
+    assert -(-D // tile) >= blocks
+    assert gp_eval.table_schedule(70_000, max_len, D, blocks, smem)[0] == "scan"
