@@ -20,19 +20,23 @@ Phases:
      weight and with a weight of zeros and fractions plus NaN-producing
      trees: B1 on the heap population; B2, the unique table, B3 and B4
      on its postfix form and dedup plan, and the semantic tier's probe
-     predictions on its first 32 points. Exact on integer-lattice data
+     predictions on its first 32 points and on all D. Exact on integer-lattice data
      and hit counts (and the unique table and probe predictions on
      lattice and CLASSIFY_SET trees), rtol 1e-4 elsewhere. On the card
      B1 == B2 == B3 == B4 bitwise (heap vs postfix, dedup on vs off),
      KITCHEN_SINK included.
      Each kernel's warm median time per call (CUDA events: `ms`), its
-     device time per call (torch.profiler: `device_ms`) and CUDA launches
-     per call, the plain version's time, and the bound (the larger of
+     device time per call (torch.profiler, a window that recorded no
+     kernel taken again up to 3 times: `device_ms`) and CUDA launches
+     per call (B1, B2, the table and the probe must make one, of their
+     own kernel), the plain version's time, and the bound (the larger of
      bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s). Then the unique table
      under each of its schedules (staged at the default and at the
      narrowest tile, and the scan), bitwise against its plain version,
      and an ungated call on a plan that overflows its cap, which must
-     run without a fault
+     run without a fault; and B1 and B2 with 1, 2 and 4 points a thread
+     (data tiles of 256, 512 and 1024 points), B1 == B2 bitwise and B1
+     against its plain version on lattice data
   3. main path: kat7 (Table 2, CLASSIFY_SET, kernel c), 30 generations on
      the card; one block under torch.cuda.set_sync_debug_mode("error");
      history bitwise equal to the CPU run; launches counted
@@ -52,9 +56,9 @@ Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
                 parent commit, `git archive` unpacked into a directory
                 that .gitignore lists) before and after this tree's, in
-                a child process, and prints "ab" lines: the unique
-                table's and B2's ms and device_ms in both trees at every
-                shape, beside the bound
+                a child process, and prints "ab" lines: B1's, the
+                probe's and B2's ms, device_ms and CUDA launches per
+                call in both trees at every shape, beside the bound
   --profile     instead profiles three kat7 generations of the heap main
                 path and of four postfix paths with torch.profiler (where
                 a generation's time goes; the port's kernels by name)
@@ -103,41 +107,43 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, calls: int = 20) -> dict:
+def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
     """The device's own time per call of `fn`, from torch.profiler over
     `calls` warm calls: the mean device time of the recorded kernels (the
     tracer may drop a few) times the CUDA launches per call that the host
     side counts -> {"device_ms", "cuda_launches_per_call",
     "device_kernels" (short names), "recorded_share",
-    "device_ms_source"}. Where the profiler sees no device time, the
-    CUDA-event time of `calls` calls queued back to back, over `calls`
-    (which holds the host's launch time too)."""
+    "device_ms_source", "profiler_windows"}. A window in which the tracer
+    recorded no kernel is taken again, up to `windows` in all; after that
+    the device time is the CUDA-event time of `calls` calls queued back to
+    back, over `calls` (which holds the host's launch time too)."""
     import re
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, recorded, launches, names = 0.0, 0, 0, set()
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-        if "LaunchKernel" in e.key:
-            launches += e.count
-        elif us > 0:
-            total += us
-            recorded += e.count
-            m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
-            names.add(m.group(1) if m else e.key[:40])
-    if recorded:
+    for window in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, recorded, launches, names = 0.0, 0, 0, set()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+            if "LaunchKernel" in e.key:
+                launches += e.count
+            elif us > 0:
+                total += us
+                recorded += e.count
+                m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
+                names.add(m.group(1) if m else e.key[:40])
         per_call = launches / calls
-        return dict(device_ms=total / recorded * per_call / 1e3,
-                    cuda_launches_per_call=per_call, device_kernels=sorted(names),
-                    recorded_share=recorded / max(launches, 1),
-                    device_ms_source="torch.profiler")
+        if recorded:
+            return dict(device_ms=total / recorded * per_call / 1e3,
+                        cuda_launches_per_call=per_call, device_kernels=sorted(names),
+                        recorded_share=recorded / max(launches, 1),
+                        device_ms_source="torch.profiler", profiler_windows=window)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -145,9 +151,9 @@ def device_ms(fn, calls: int = 20) -> dict:
         fn()
     end.record()
     end.synchronize()
-    return dict(device_ms=start.elapsed_time(end) / calls, cuda_launches_per_call=None,
-                device_kernels=[], recorded_share=None,
-                device_ms_source="cuda events, queued calls")
+    return dict(device_ms=start.elapsed_time(end) / calls, cuda_launches_per_call=per_call,
+                device_kernels=[], recorded_share=0.0,
+                device_ms_source="cuda events, queued calls", profiler_windows=windows)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -323,11 +329,14 @@ def _postfix_case(op, arg, Xd, yd, wd, consts, fn_set, cap, kw, tag):
     live = _live_rows(plan)
     u_err = _compare_table(uniq[live], uniq_plain[live], not transcendental,
                            tag + " unique_table")
-    Xp = Xd[:, :min(Xd.shape[1], 32)].contiguous()
-    probe = gp_eval.predict_postfix(pop, parg, Xp, consts, stack_size=6, fn_codes=codes)
-    probe_plain = gp_eval.predict_postfix_plain(pop, parg, Xp, consts, stack_size=6,
-                                                fn_codes=codes)
-    p_err = _compare_table(probe, probe_plain, not transcendental, tag + " predict_postfix")
+    p_err = 0.0
+    # the probe at its path's width (the first 32 points), then at the full D
+    for Xp in (Xd[:, :min(Xd.shape[1], 32)].contiguous(), Xd):
+        probe = gp_eval.predict_postfix(pop, parg, Xp, consts, stack_size=6, fn_codes=codes)
+        probe_plain = gp_eval.predict_postfix_plain(pop, parg, Xp, consts, stack_size=6,
+                                                    fn_codes=codes)
+        p_err = max(p_err, _compare_table(probe, probe_plain, not transcendental,
+                                          f"{tag} predict_postfix, D={Xp.shape[1]}"))
     b3 = gp_eval.eval_fitness_from_subtrees(plan.root, uniq, yd, wd, **fk)
     b3_plain = gp_eval.eval_fitness_from_subtrees_plain(plan.root, uniq, yd, wd, **fk)
     preds = uniq.index_select(0, plan.root.long())
@@ -475,6 +484,7 @@ def kernel_vs_plain():
                     row[kern_name] = dict(ms=time_ms(fn, 50), **device_ms(fn),
                                           plain_ms=time_ms(plain_fn, reps),
                                           bound_ms=bound, bound_by=bound_by)
+                _one_launch(row, f"{name} {kname}")
                 results[(name, kname)] = row
                 emit("kernel", shape=name, P=P, F=F, D=D, kernel=kname, tile=tile,
                      fn_set=fn_set.name, dedup_cap=cap,
@@ -485,7 +495,7 @@ def kernel_vs_plain():
     return results, max_err, max_rel
 
 
-# --- the unique table's schedules, and B2's points per thread ------------------
+# --- the unique table's schedules, and B1's and B2's points per thread ---------
 
 def _table_case(name, P, F, D, seed):
     """A CLASSIFY_SET population at one of SHAPES, its postfix form, the
@@ -549,30 +559,58 @@ def table_modes():
          shapes=out)
 
 
+def points_per_thread():
+    """B1 and B2 with V, the points a thread carries through the program
+    at once, forced to 1, 2 and 4 through the data tile (256, 512 and
+    1024 points: V = tile / 256) at every shape. On lattice data
+    (add/sub/mul trees, X in {-1, 0, 1}) with kernels r and c each B1
+    call is held against its plain version at that tile (`_compare`:
+    exact where the sums are) and is bitwise B2's on the postfix form; on
+    KITCHEN_SINK trees and real-valued data (kernel r) B1 == B2 bitwise."""
+    rng = np.random.RandomState(3)
+    held = []
+    for name, P, F, D in SHAPES:
+        for lattice in (True, False):
+            if lattice:
+                fn_set = prim.FunctionSet.make(("add", "sub", "mul"))
+                X = rng.randint(-1, 2, size=(F, D)).astype(np.float32)
+            else:
+                fn_set = prim.KITCHEN_SINK
+                X = rng.randn(F, D).astype(np.float32)
+            y = rng.randint(0, 3, size=D).astype(np.float32)
+            spec, op, arg = _population(P, F, fn_set, seed=P + F + D + 1,
+                                        p_const=0.0 if lattice else 0.2)
+            pop, parg = trees.heap_to_postfix(op, arg)
+            Xd, yd = torch.from_numpy(X).to(DEV), torch.from_numpy(y).to(DEV)
+            consts = spec.const_table(DEV)
+            for tile in (256, 512, 1024):
+                for kname in ("r", "c") if lattice else ("r",):
+                    kw = dict(kernel=kname, n_classes=3, data_tile=tile,
+                              fn_codes=tuple(int(c) for c in fn_set.opcodes))
+                    tag = f"{name} {kname} lattice={lattice} tile={tile}"
+                    b1 = gp_eval.eval_fitness(op, arg, Xd, yd, None, consts, max_depth=5, **kw)
+                    b2 = gp_eval.eval_fitness_postfix(pop, parg, Xd, yd, None, consts,
+                                                      stack_size=6, **kw)
+                    _same_bits(b1, b2, tag + ": B1 vs B2")
+                    if lattice:
+                        want = gp_eval.eval_fitness_plain(op, arg, Xd, yd, None, consts,
+                                                          max_depth=5, **kw)
+                        _compare(b1, want, kname, True, tag + ": B1 vs plain")
+                    held.append(f"{tag} V={tile // 256}")
+    emit("points_per_thread", held=held,
+         checks="B1 == B2 bitwise; B1 vs plain on lattice data (exact where the sums are)")
+
+
 # --- the parent commit's phase 2, for an A/B inside one call --------------------
 
 _PARENT_SHIM = """
-import json, sys
+import sys
 sys.path.insert(0, {root!r})
 sys.argv = ["chip_smoke.py"]
 import chip_smoke as cs
 import torch
 {device_ms}
-timed = []
-_time_ms, _emit = cs.time_ms, cs.emit
-def time_ms(fn, reps):
-    ms = _time_ms(fn, reps)
-    if reps == 50:  # a kernel (its plain version takes fewer reps)
-        timed.append(device_ms(fn))
-    return ms
-def emit(phase, **kw):
-    if phase == "kernel":
-        names = [k for k, v in kw.items() if isinstance(v, dict) and "ms" in v]
-        for k, dev in zip(names, timed):
-            kw[k].update(dev)
-        timed.clear()
-    _emit(phase, **kw)
-cs.time_ms, cs.emit = time_ms, emit
+cs.device_ms = device_ms
 cs.build.load("gp_eval")
 cs.kernel_vs_plain()
 """
@@ -581,8 +619,8 @@ cs.kernel_vs_plain()
 def parent_phase2(root):
     """Phase 2 (`kernel_vs_plain`) of another tree of the repo, e.g. the
     parent commit unpacked with `git archive`, in a child process (both
-    trees name their package repro_torch), with `device_ms` added to its
-    timings -> {(shape, kernel): row}."""
+    trees name their package repro_torch), its device times taken by this
+    tree's `device_ms` -> {(shape, kernel): row}."""
     import inspect
 
     code = _PARENT_SHIM.format(root=str(Path(root).resolve()),
@@ -601,18 +639,21 @@ def parent_phase2(root):
     return rows
 
 
+AB_KERNELS = ("eval_fitness", "predict_postfix", "eval_fitness_postfix")
+
+
 def ab_lines(label, rows, perf):
-    """One "ab" line per shape: the table's and B2's ms and device_ms in
-    the other tree (`label`) and in this one, beside the bound."""
+    """One "ab" line per shape: B1's, the probe's and B2's ms, device_ms
+    and CUDA launches per call in the other tree (`label`) and in this
+    one, beside the bound."""
+    fields = ("ms", "device_ms", "cuda_launches_per_call", "device_ms_source")
     for (shape, kname), mine in perf.items():
         other = rows.get((shape, kname), {})
         emit("ab", other=label, shape=shape, kernel=kname, **{
-            k: {"other": {f: other.get(k, {}).get(f) for f in ("ms", "device_ms",
-                                                               "cuda_launches_per_call")},
-                "this": {f: mine[k].get(f) for f in ("ms", "device_ms",
-                                                     "cuda_launches_per_call")},
+            k: {"other": {f: other.get(k, {}).get(f) for f in fields},
+                "this": {f: mine[k].get(f) for f in fields},
                 "bound_ms": mine[k]["bound_ms"]}
-            for k in ("unique_table", "eval_fitness_postfix")})
+            for k in AB_KERNELS})
 
 
 # --- phases 3-6: the paths ------------------------------------------------------
@@ -785,6 +826,25 @@ def profile_main_path():
              top_ops_by_count=[(e.key, e.count // 3, dev_us(e) / 3e3) for e in top])
 
 
+# the kernels whose call is one CUDA launch of one kernel at every shape
+ONE_LAUNCH = {"eval_fitness": "eval_partial_kernel",
+              "eval_fitness_postfix": "postfix_partial_kernel",
+              "unique_table": "unique_table_kernel",
+              "predict_postfix": "postfix_predict_kernel"}
+
+
+def _one_launch(row, tag):
+    """Each kernel of ONE_LAUNCH made one CUDA launch per timed call (the
+    host-side count under the profiler), and the profiler recorded only
+    its own kernel: B1 no longer ends with `merge_tiles_kernel`."""
+    for name, kernel in ONE_LAUNCH.items():
+        got = row[name]
+        if got["cuda_launches_per_call"] != 1.0 or got["device_kernels"] not in ([], [kernel]):
+            raise AssertionError(f"{tag} {name}: {got['cuda_launches_per_call']} CUDA launches "
+                                 f"per call of {got['device_kernels']}; want one "
+                                 f"{kernel}")
+
+
 def _ptxas_lines():
     """ptxas -v's lines for each kernel: name, registers, shared memory,
     spills."""
@@ -813,6 +873,7 @@ def main():
         ab_lines("parent, before", before, perf)
         ab_lines("parent, after", parent_phase2(parent), perf)
     table_modes()
+    points_per_thread()
 
     main_run = run_dataset("kat7", 100, 30, 10, block_check=True)
     emit("main_path", **main_run)

@@ -37,7 +37,7 @@ from repro_torch.core import fitness as fit
 from repro_torch.core import primitives as prim
 from repro_torch.core import prng
 from repro_torch.core.trees import (TreeSpec, depth_table, generate_population,
-                                    heap_to_postfix, postorder_table, tree_sizes)
+                                    heap_to_postfix, postorder_slots, tree_sizes)
 from repro_torch.device import constant, resolve_device
 from repro_torch.obs import counters as _tc
 
@@ -218,7 +218,9 @@ def _device_tables(cfg: GPConfig, dev) -> None:
     constant(cfg.mix.probs(), dev)
     constant(_FROZEN_ROW, dev)
     if spec.genome == "postfix" or cfg.dedup == "semantic":  # heap_to_postfix
-        constant(np.argsort(postorder_table(spec.num_nodes)), dev, np.int64)
+        constant(postorder_slots(spec.num_nodes), dev, np.int64)
+    if spec.genome != "postfix":  # the B1 kernel's slot order
+        constant(postorder_slots(spec.num_nodes), dev, np.int32)
 
 
 def _cache_hit(state: GPState):

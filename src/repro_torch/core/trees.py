@@ -35,6 +35,7 @@ reference's too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -197,6 +198,17 @@ def postorder_table(num_nodes: int) -> np.ndarray:
     return pos
 
 
+@functools.lru_cache(maxsize=None)
+def postorder_slots(num_nodes: int) -> np.ndarray:
+    """The heap slots in full-heap postorder, argsort(postorder_table(N)):
+    read-only int32[N]. A heap row read in this order and compacted to its
+    non-EMPTY slots is its tree's postfix program (`heap_to_postfix`; the
+    B1 kernel loads its rows this way)."""
+    slots = np.argsort(postorder_table(num_nodes)).astype(np.int32)
+    slots.flags.writeable = False
+    return slots
+
+
 def heap_to_postfix(op, arg):
     """Heap populations -> postfix streams, int32[..., N] -> int32[..., N].
 
@@ -205,7 +217,7 @@ def heap_to_postfix(op, arg):
     active slots); the EMPTY tail pads to N."""
     N = op.shape[-1]
     lead = op.shape[:-1]
-    perm = constant(np.argsort(postorder_table(N)), op.device, np.int64)
+    perm = constant(postorder_slots(N), op.device, np.int64)
     op_po = op.reshape(-1, N)[:, perm]
     arg_po = arg.reshape(-1, N)[:, perm]
     active = op_po != prim.EMPTY

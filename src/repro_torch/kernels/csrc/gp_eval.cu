@@ -22,31 +22,39 @@
 // give bitwise-equal predictions for every function set.
 //
 // Design (rethought for the card rather than copied from the TPU grid):
-//   * Grid (data tiles, trees) for B1-B4. A B1/B2 block lays its tree's
-//     active instructions out in shared memory once: B1 (thread 0) walks
-//     the heap in postorder, which is the tree's own postorder because
-//     pruning removes whole subtrees; in B2 all threads load the postfix
-//     stream at once and a warp ballot plus a prefix over the warps place
-//     its non-EMPTY slots (the reference's EMPTY-hold), so no serial copy.
+//   * Grid (data tiles, trees) for B1-B4. B1 and B2 are one block body
+//     (`fitness_block`) under two kernel names. A block lays its tree's
+//     active instructions out in shared memory once, with all its threads
+//     at once: position t of the program reads slot t of a postfix row
+//     (B2) or slot slots[t] of a heap row (B1; slots = the full heap's
+//     postorder, a device constant), and a warp ballot plus a prefix over
+//     the warps place the non-EMPTY slots. Pruning removes whole
+//     subtrees, so a heap row compacted that way is exactly its tree's
+//     postorder, the postfix form `heap_to_postfix` gives.
 //   * Each thread walks that instruction list with a register stack of S
-//     floats (S >= the program's stack depth): B1 one point at a time, B2
-//     V points together (4 by default: one decode for four points, four X
-//     loads in flight). Every node applies the same f32 operation to the same
-//     operand values as the reference, so predictions are bitwise equal
-//     to it for add/sub/mul/div/neg/abs/sqrt/square/min/max trees, and
-//     heap and postfix forms of one tree agree bitwise.
+//     floats (S >= the program's stack depth), V points together (up to
+//     4: one decode for V points, V X loads in flight). Every node applies
+//     the same f32 operation to the same operand values as the reference,
+//     so predictions are bitwise equal to it for
+//     add/sub/mul/div/neg/abs/sqrt/square/min/max trees, and heap and
+//     postfix forms of one tree agree bitwise.
 //   * All threads of a block run the same tree, so the opcode branches
 //     never diverge inside a warp; X is feature-major, so the threads of
 //     a warp read neighbouring addresses of one feature row.
 //   * The epilogue folds each point into a per-thread partial in a fixed
 //     order (thread t: points t, t + 256, ... of the tile); the block
 //     reduces with a fixed shuffle tree into one partial per (tree,
-//     tile), and the partials are summed in tile order: by a second small
-//     kernel after B1, B3 and B4, and inside B2 by the block that draws a
-//     tree's last ticket (an int32 counter per tree). No float atomics:
+//     tile), and the partials are summed in tile order: inside B1/B2 by
+//     the block that draws a tree's last ticket (an int32 counter per
+//     tree), by a second small kernel after B3 and B4. No float atomics:
 //     results never change from run to run. B1-B4 share the epilogue, the
 //     reduction and the merge order, so at one tile geometry their
 //     moments are bitwise alike.
+//   * The probe (gp_predict_postfix) has a few rows and 32 points: one
+//     warp per row, up to 8 rows a block. A warp loads its row by ballot
+//     into its own slice of shared memory, then gathers its feature
+//     terminals' values at its 32 points with cp.async, all in flight at
+//     once, so the interpreter then reads only shared memory.
 //   * B2-B4, their merges and the unique table take an optional device
 //     flag `gate` and run only when (*gate != 0) == run_when, else every
 //     block returns at once. The dedup path launches both branches of
@@ -68,7 +76,7 @@
 // interpreter overhead, not memory, sets the time; the design keeps the
 // operands in registers and the instruction list in shared memory so
 // that nothing but X, y and w is read from device memory inside the
-// loop, and B2 decodes each instruction once for four points. B3/B4 read
+// loop, and they decode each instruction once for V points. B3/B4 read
 // one f32 row per tree and tile plus y and w: memory (and, at kat7, the
 // launch) bounds them. The unique table must write n_unique rows of D
 // floats, which bounds it at large D; per tile it pays one barrier per
@@ -164,49 +172,35 @@ __device__ __forceinline__ bool gated_off(const unsigned char* gate, int run_whe
   return gate != nullptr && ((*gate != 0) != (run_when != 0));
 }
 
-// Instruction `len` of a block's list in shared memory: the opcode, and
-// the clamped feature row, the constant's value or the function-set flag.
-__device__ __forceinline__ void put_instr(int* s_code, int* s_idx, float* s_val, int len,
-                                          int o, int a, int F, const float* consts, int C,
-                                          unsigned fn_mask) {
-  s_code[len] = o;
-  if (o == kFeature) {
-    s_idx[len] = min(max(a, 0), F - 1);
-  } else if (o == kConst) {
-    s_val[len] = consts[min(max(a, 0), C - 1)];
-  } else {
-    s_idx[len] = (o < 32) ? static_cast<int>((fn_mask >> o) & 1u) : 0;
-  }
+// Whether function opcode o is in the run's function set (its flag, 0 or 1).
+__device__ __forceinline__ int fn_enabled(int o, unsigned fn_mask) {
+  return (o >= 0 && o < 32) ? static_cast<int>((fn_mask >> o) & 1u) : 0;
 }
 
-// One point's prediction: the instruction list run on a register stack
-// of S floats (slot 0 = top). An empty list predicts 0.
-template <int S>
-__device__ __forceinline__ float run_program(const int* s_code, const int* s_idx,
-                                             const float* s_val, int len,
-                                             const float* __restrict__ X, int D, int d) {
-  float st[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) st[k] = 0.0f;
-  for (int t = 0; t < len; ++t) {
-    const int o = s_code[t];
-    if (o == kFeature || o == kConst) {
-      const float v = (o == kFeature) ? __ldg(X + static_cast<size_t>(s_idx[t]) * D + d)
-                                      : s_val[t];
-#pragma unroll
-      for (int k = S - 1; k > 0; --k) st[k] = st[k - 1];
-      st[0] = v;
-    } else if (arity_of(o) == 1) {
-      st[0] = s_idx[t] ? apply_fn(o, st[0], 0.0f) : 0.0f;
-    } else {
-      const float r = s_idx[t] ? apply_fn(o, st[1], st[0]) : 0.0f;
-      st[0] = r;
-#pragma unroll
-      for (int k = 1; k < S - 1; ++k) st[k] = st[k + 1];
-      st[S - 1] = 0.0f;
-    }
-  }
-  return len ? st[0] : 0.0f;
+// A program in shared memory: per instruction its opcode, the clamped
+// feature row or the function-set flag (idx), and a constant's value (val).
+struct Program {
+  int* code;
+  int* idx;
+  float* val;
+};
+
+// The program of N slots laid out from `smem` (3N words).
+__device__ __forceinline__ Program program_at(int* smem, int N) {
+  return {smem, smem + N, reinterpret_cast<float*>(smem + 2 * N)};
+}
+
+// Instruction `at` of a program: opcode o, argument a.
+__device__ __forceinline__ void put_instr(const Program& pr, int at, int o, int a, int F,
+                                          const float* __restrict__ consts, int C,
+                                          unsigned fn_mask) {
+  pr.code[at] = o;
+  if (o == kFeature)
+    pr.idx[at] = min(max(a, 0), F - 1);
+  else if (o == kConst)
+    pr.val[at] = __ldg(consts + min(max(a, 0), C - 1));
+  else
+    pr.idx[at] = fn_enabled(o, fn_mask);
 }
 
 // The block's partial of tree p from each thread's running (acc, bad): a
@@ -261,83 +255,18 @@ __device__ __forceinline__ void fold_tile(PredAt pred_at, int p, int D, int chun
   if (threadIdx.x == 0) partial[static_cast<size_t>(p) * gridDim.x + tile] = part;
 }
 
-// B1: heap trees.
-template <int S>
-__global__ void __launch_bounds__(kThreads) eval_partial_kernel(
-    const int* __restrict__ op, const int* __restrict__ arg, int N, int max_depth,
-    const float* __restrict__ X, int F, int D, const float* __restrict__ y,
-    const float* __restrict__ w, const float* __restrict__ consts, int C,
-    unsigned fn_mask, int kernel, float n_classes_m1, float precision, int chunk,
-    float* __restrict__ partial) {
-  extern __shared__ int smem[];
-  int* s_code = smem;                                   // [N] opcode
-  int* s_idx = smem + N;                                // [N] feature row | fn enabled
-  float* s_val = reinterpret_cast<float*>(smem + 2 * N);  // [N] constant value
-  __shared__ int s_len;
-
-  const int p = blockIdx.y;
-  const int* op_p = op + static_cast<size_t>(p) * N;
-  const int* arg_p = arg + static_cast<size_t>(p) * N;
-
-  if (threadIdx.x == 0) {
-    int len = 0;
-    int i = (1 << max_depth) - 1;  // leftmost slot of the deepest level
-    for (;;) {
-      const int o = op_p[i];
-      if (o != kEmpty) {
-        put_instr(s_code, s_idx, s_val, len, o, arg_p[i], F, consts, C, fn_mask);
-        ++len;
-      }
-      if (i == 0) break;
-      if (i & 1) {  // a left child: the right sibling's subtree comes next
-        i += 1;
-        while (2 * i + 1 < N) i = 2 * i + 1;
-      } else {  // a right child: its parent comes next
-        i = (i - 1) >> 1;
-      }
-    }
-    s_len = len;
-  }
-  __syncthreads();
-  const int len = s_len;
-  fold_tile([&](int d) { return run_program<S>(s_code, s_idx, s_val, len, X, D, d); }, p,
-            D, chunk, y, w, kernel, n_classes_m1, precision, partial);
-}
-
-// Thread 0 of a B2 or postfix-predict block: lays row p's postfix program
-// (its non-EMPTY slots in order) out in shared memory as instructions and
-// returns its length.
-__device__ int load_postfix(const int* __restrict__ op, const int* __restrict__ arg, int p,
-                            int N, int F, const float* __restrict__ consts, int C,
-                            unsigned fn_mask, int* smem) {
-  int* s_code = smem;
-  int* s_idx = smem + N;
-  float* s_val = reinterpret_cast<float*>(smem + 2 * N);
-  const int* op_p = op + static_cast<size_t>(p) * N;
-  const int* arg_p = arg + static_cast<size_t>(p) * N;
-  int len = 0;
-  for (int t = 0; t < N; ++t) {
-    const int o = op_p[t];
-    if (o == kEmpty) continue;
-    put_instr(s_code, s_idx, s_val, len, o, arg_p[t], F, consts, C, fn_mask);
-    ++len;
-  }
-  return len;
-}
-
-// All threads of a B2 block lay row p's postfix program out in shared
-// memory at once: each takes one slot per pass of kThreads slots, and a
-// warp ballot plus a prefix over the warps' counts give each non-EMPTY
-// slot its place in the instruction list. Returns the list's length; the
-// list is visible to the block on return.
-__device__ int load_postfix_parallel(const int* __restrict__ op,
-                                     const int* __restrict__ arg, int p, int N, int F,
-                                     const float* __restrict__ consts, int C,
-                                     unsigned fn_mask, int* smem) {
+// All threads of a B1/B2 block lay row p's program out in shared memory at
+// once: in each pass of kThreads positions, thread t takes position t0 + t
+// and reads slot slots[t0 + t] of the row (B1: the heap's full postorder)
+// or slot t0 + t (B2, slots = null: the postfix stream itself), its opcode
+// and argument together; a warp ballot plus a prefix over the warps'
+// counts give each non-EMPTY slot its place in the instruction list.
+// Returns the list's length; the list is visible to the block on return.
+__device__ int load_program(const int* __restrict__ op, const int* __restrict__ arg,
+                            const int* __restrict__ slots, int p, int N, int F,
+                            const float* __restrict__ consts, int C, unsigned fn_mask,
+                            const Program& pr) {
   __shared__ int s_cnt[kWarps];
-  int* s_code = smem;
-  int* s_idx = smem + N;
-  float* s_val = reinterpret_cast<float*>(smem + 2 * N);
   const int* op_p = op + static_cast<size_t>(p) * N;
   const int* arg_p = arg + static_cast<size_t>(p) * N;
   const int lane = threadIdx.x & 31;
@@ -345,14 +274,15 @@ __device__ int load_postfix_parallel(const int* __restrict__ op,
   int len = 0;
   for (int t0 = 0; t0 < N; t0 += kThreads) {
     const int t = t0 + threadIdx.x;
-    const int o = t < N ? __ldg(op_p + t) : kEmpty;
+    const int i = (t < N && slots) ? __ldg(slots + t) : t;
+    const int o = t < N ? __ldg(op_p + i) : kEmpty;
+    const int a = t < N ? __ldg(arg_p + i) : 0;
     const unsigned keep = __ballot_sync(0xffffffffu, o != kEmpty);
     if (lane == 0) s_cnt[warp] = __popc(keep);
     __syncthreads();
     int at = len + __popc(keep & ((1u << lane) - 1u));
     for (int k = 0; k < warp; ++k) at += s_cnt[k];
-    if (o != kEmpty) put_instr(s_code, s_idx, s_val, at, o, __ldg(arg_p + t), F, consts, C,
-                               fn_mask);
+    if (o != kEmpty) put_instr(pr, at, o, a, F, consts, C, fn_mask);
     for (int k = 0; k < kWarps; ++k) len += s_cnt[k];
     __syncthreads();
   }
@@ -391,32 +321,51 @@ __device__ __forceinline__ void apply_fn_v(int op, float (&a)[V], const float (&
 #undef GP_FN_V
 }
 
-// V points' predictions at once (points d[0..V-1]): run_program's stack
-// machine with one decode of each instruction for all V points and V
-// independent X loads in flight per feature terminal. Each point gets the
-// same f32 operations as run_program gives it.
-template <int S, int V>
-__device__ __forceinline__ void run_program_v(const int* s_code, const int* s_idx,
-                                              const float* s_val, int len,
-                                              const float* __restrict__ X, int D,
-                                              const int (&d)[V], float (&pred)[V]) {
+// V points' predictions at once: the instruction list run on a register
+// stack of S floats per point (slot 0 = top), one decode of each
+// instruction for all V points. With Prefetch the next instruction's
+// shared-memory loads are issued before this one runs: that shortens a
+// lone warp's chain of latencies (the probe), while a block with many
+// warps in flight (B1, B2) runs faster without the extra instructions. A
+// feature terminal's values come from `term(idx, k)` for point k (the V
+// calls are independent, so their loads are in flight together); an empty
+// list predicts 0. Every point gets the reference's f32 operation per node.
+template <int S, int V, bool Prefetch, class Term>
+__device__ __forceinline__ void run_program_v(const Program& pr, int len, Term term,
+                                              float (&pred)[V]) {
   float st[V][S];
 #pragma unroll
   for (int k = 0; k < V; ++k) {
 #pragma unroll
     for (int j = 0; j < S; ++j) st[k][j] = 0.0f;
   }
+  int o_next = len ? pr.code[0] : kEmpty;
+  int i_next = len ? pr.idx[0] : 0;
+  float v_next = len ? pr.val[0] : 0.0f;
   for (int t = 0; t < len; ++t) {
-    const int o = s_code[t];
+    int o, idx;
+    float val;
+    if (Prefetch) {
+      o = o_next;
+      idx = i_next;
+      val = v_next;
+      const int u = min(t + 1, len - 1);
+      o_next = pr.code[u];
+      i_next = pr.idx[u];
+      v_next = pr.val[u];
+    } else {
+      o = pr.code[t];
+    }
     if (o == kFeature || o == kConst) {
       float v[V];
       if (o == kFeature) {
-        const float* row = X + static_cast<size_t>(s_idx[t]) * D;
+        if (!Prefetch) idx = pr.idx[t];
 #pragma unroll
-        for (int k = 0; k < V; ++k) v[k] = __ldg(row + d[k]);
+        for (int k = 0; k < V; ++k) v[k] = term(idx, k);
       } else {
+        if (!Prefetch) val = pr.val[t];
 #pragma unroll
-        for (int k = 0; k < V; ++k) v[k] = s_val[t];
+        for (int k = 0; k < V; ++k) v[k] = val;
       }
 #pragma unroll
       for (int k = 0; k < V; ++k) {
@@ -425,7 +374,8 @@ __device__ __forceinline__ void run_program_v(const int* s_code, const int* s_id
         st[k][0] = v[k];
       }
     } else {
-      const int f = s_idx[t] ? o : -1;
+      if (!Prefetch) idx = pr.idx[t];
+      const int f = idx ? o : -1;
       const bool binary = arity_of(o) == 2;
       float a[V], b[V];
 #pragma unroll
@@ -473,64 +423,178 @@ __device__ void merge_partial(float part, int p, int tile, int T,
   tickets[p] = 0;
 }
 
-// B2: postfix streams. The active program is the row's non-EMPTY slots in
-// order (a contiguous prefix under invariant P1; EMPTY slots anywhere are
-// skipped, as the reference's interpreter holds its stack through them).
-// Thread t takes the points tile * chunk + t + k * kThreads, V of them
-// through the program together, and folds them into its partial in
-// increasing k: fold_tile's order, so B1-B4 stay bitwise alike.
+// The arguments of a B1/B2 launch (kernel parameters, passed by value).
+struct FitnessArgs {
+  const int* op;
+  const int* arg;
+  const int* slots;  // B1: the heap's postorder, int32[N]; B2: null
+  int N;
+  const float* X;
+  int F, D;
+  const float* y;
+  const float* w;  // null: all ones
+  const float* consts;
+  int C;
+  unsigned fn_mask;
+  int kernel;
+  float n_classes_m1, precision;
+  int chunk;
+  const unsigned char* gate;  // null: always run
+  int run_when;
+  float* partial;  // P * tiles floats
+  int* tickets;    // P int32 zeros; left zero
+  float* out;      // P floats
+};
+
+// The block body of B1 and B2: tree blockIdx.y's program (`load_program`),
+// then tile blockIdx.x of the points. Thread t takes the points
+// tile * chunk + t + k * kThreads, V of them through the program together,
+// and folds them into its partial in increasing k: fold_tile's order, so
+// B1-B4 stay bitwise alike. The tile's partial goes to `merge_partial`.
 template <int S, int V>
-__global__ void __launch_bounds__(kThreads) postfix_partial_kernel(
-    const int* __restrict__ op, const int* __restrict__ arg, int N,
-    const float* __restrict__ X, int F, int D, const float* __restrict__ y,
-    const float* __restrict__ w, const float* __restrict__ consts, int C,
-    unsigned fn_mask, int kernel, float n_classes_m1, float precision, int chunk,
-    const unsigned char* __restrict__ gate, int run_when, float* __restrict__ partial,
-    int* __restrict__ tickets, float* __restrict__ out) {
-  if (gated_off(gate, run_when)) return;
-  extern __shared__ int smem[];
+__device__ __forceinline__ void fitness_block(const FitnessArgs& a) {
+  if (gated_off(a.gate, a.run_when)) return;
+  extern __shared__ __align__(16) int smem[];
+  const Program pr = program_at(smem, a.N);
   const int p = blockIdx.y;
-  const int len = load_postfix_parallel(op, arg, p, N, F, consts, C, fn_mask, smem);
-  const int* s_code = smem;
-  const int* s_idx = smem + N;
-  const float* s_val = reinterpret_cast<const float*>(smem + 2 * N);
+  const int len = load_program(a.op, a.arg, a.slots, p, a.N, a.F, a.consts, a.C, a.fn_mask, pr);
+  const float* __restrict__ X = a.X;
+  const int D = a.D;
   const int tile = blockIdx.x;
-  const int d_end = min(D, (tile + 1) * chunk);
+  const int d_end = min(D, (tile + 1) * a.chunk);
   float acc = 0.0f;
   int bad = 0;
-  for (int d0 = tile * chunk + threadIdx.x; d0 < d_end; d0 += V * kThreads) {
+  for (int d0 = tile * a.chunk + threadIdx.x; d0 < d_end; d0 += V * kThreads) {
     int d[V];
     float pred[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) d[k] = min(d0 + k * kThreads, D - 1);
-    run_program_v<S, V>(s_code, s_idx, s_val, len, X, D, d, pred);
+    run_program_v<S, V, false>(
+        pr, len,
+        [&](int row, int k) { return __ldg(X + static_cast<size_t>(row) * D + d[k]); }, pred);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       if (d0 + k * kThreads < d_end)
-        epilogue(kernel, pred[k], __ldg(y + d[k]), w ? __ldg(w + d[k]) : 1.0f,
-                 n_classes_m1, precision, acc, bad);
+        epilogue(a.kernel, pred[k], __ldg(a.y + d[k]), a.w ? __ldg(a.w + d[k]) : 1.0f,
+                 a.n_classes_m1, a.precision, acc, bad);
     }
   }
-  const float part = block_partial(acc, bad, kernel);
-  if (threadIdx.x == 0) merge_partial(part, p, tile, gridDim.x, partial, tickets, out);
+  const float part = block_partial(acc, bad, a.kernel);
+  if (threadIdx.x == 0) merge_partial(part, p, tile, gridDim.x, a.partial, a.tickets, a.out);
 }
 
-// Postfix predictions preds[p, d] with no epilogue: B2's interpreter, for
-// the semantic dedup tier's probe. Grid (point blocks, rows).
+// B1: heap trees (a.slots = the full heap's postorder).
+template <int S, int V>
+__global__ void __launch_bounds__(kThreads) eval_partial_kernel(const FitnessArgs a) {
+  fitness_block<S, V>(a);
+}
+
+// B2: postfix streams. The active program is the row's non-EMPTY slots in
+// order (a contiguous prefix under invariant P1; EMPTY slots anywhere are
+// skipped, as the reference's interpreter holds its stack through them).
+template <int S, int V>
+__global__ void __launch_bounds__(kThreads) postfix_partial_kernel(const FitnessArgs a) {
+  fitness_block<S, V>(a);
+}
+
+// --- the probe: postfix predictions with no epilogue ---------------------------
+
+constexpr int kProbeRows = 8;    // rows (warps) a probe block takes at most
+constexpr int kProbeTerms = 32;  // feature terminals a row gathers up front
+
+// 32-bit words of one probe row's shared memory: its program (3N), its
+// first kProbeTerms feature terminals' rows, and their values at the warp's
+// 32 points.
+__host__ __device__ constexpr size_t probe_row_words(int N) {
+  return 3 * static_cast<size_t>(N) + kProbeTerms + kProbeTerms * 32;
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Predictions preds[p, d] of postfix rows: one warp per row, blockDim.x / 32
+// rows a block. The warp lays its row out in its slice of shared memory by
+// ballot, two rounds of 32 slots at a time with their loads issued
+// together; a feature terminal's operand is its rank among the row's
+// feature terminals (past kProbeTerms: kProbeTerms + its feature row, read
+// from X in the interpreter), a constant's value is copied in by cp.async.
+// Then per 32 points (lane = point) each lane copies its point's value of
+// every gathered terminal with cp.async, all in flight at once, and the
+// warp runs the program on shared memory alone (B2's interpreter, V = 1,
+// with the next instruction prefetched).
 template <int S>
 __global__ void __launch_bounds__(kThreads) postfix_predict_kernel(
-    const int* __restrict__ op, const int* __restrict__ arg, int N,
+    const int* __restrict__ op, const int* __restrict__ arg, int P, int N,
     const float* __restrict__ X, int F, int D, const float* __restrict__ consts, int C,
     unsigned fn_mask, float* __restrict__ preds) {
-  extern __shared__ int smem[];
-  __shared__ int s_len;
-  const int p = blockIdx.y;
-  if (threadIdx.x == 0) s_len = load_postfix(op, arg, p, N, F, consts, C, fn_mask, smem);
-  __syncthreads();
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= D) return;
-  preds[static_cast<size_t>(p) * D + d] = run_program<S>(
-      smem, smem + N, reinterpret_cast<const float*>(smem + 2 * N), s_len, X, D, d);
+  extern __shared__ __align__(16) int smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t p = static_cast<size_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (p >= static_cast<size_t>(P)) return;  // a whole warp: no __syncwarp waits on it
+  int* row_smem = smem + warp * probe_row_words(N);
+  const Program pr = program_at(row_smem, N);                      // [3N]
+  int* s_frow = row_smem + 3 * N;                                  // [kProbeTerms]
+  float* s_term = reinterpret_cast<float*>(s_frow + kProbeTerms);  // [kProbeTerms][32]
+  const int* op_p = op + p * N;
+  const int* arg_p = arg + p * N;
+  const unsigned below = (1u << lane) - 1u;
+  int len = 0, nf = 0;
+  for (int t0 = 0; t0 < N; t0 += 64) {
+    int o[2], a[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + 32 * r + lane;
+      o[r] = t < N ? __ldg(op_p + t) : kEmpty;
+      a[r] = t < N ? __ldg(arg_p + t) : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const unsigned keep = __ballot_sync(0xffffffffu, o[r] != kEmpty);
+      const unsigned feat = __ballot_sync(0xffffffffu, o[r] == kFeature);
+      const int at = len + __popc(keep & below);
+      if (o[r] == kFeature) {
+        const int j = nf + __popc(feat & below);
+        const int row = min(max(a[r], 0), F - 1);
+        if (j < kProbeTerms) s_frow[j] = row;
+        pr.code[at] = kFeature;
+        pr.idx[at] = j < kProbeTerms ? j : kProbeTerms + row;
+      } else if (o[r] == kConst) {
+        pr.code[at] = kConst;
+        cp_async_4(pr.val + at, consts + min(max(a[r], 0), C - 1));
+      } else if (o[r] != kEmpty) {
+        pr.code[at] = o[r];
+        pr.idx[at] = fn_enabled(o[r], fn_mask);
+      }
+      len += __popc(keep);
+      nf += __popc(feat);
+    }
+  }
+  __syncwarp();
+  const int gathered = min(nf, kProbeTerms);
+  float* out = preds + p * D;
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    const int d = min(d0 + lane, D - 1);
+    for (int j = 0; j < gathered; ++j)
+      cp_async_4(s_term + j * 32 + lane, X + static_cast<size_t>(s_frow[j]) * D + d);
+    cp_async_wait_all();
+    __syncwarp();  // every lane's copies (the constants) are visible to the warp
+    float pred[1];
+    run_program_v<S, 1, true>(
+        pr, len,
+        [&](int idx, int) {
+          return idx < kProbeTerms ? s_term[idx * 32 + lane]
+                                   : __ldg(X + static_cast<size_t>(idx - kProbeTerms) * D + d);
+        },
+        pred);
+    if (d0 + lane < D) out[d0 + lane] = pred[0];
+  }
 }
 
 // B3: the tree's prediction row is uniq[clamp(root[p], 0, U - 1)].
@@ -777,7 +841,7 @@ __global__ void __launch_bounds__(kTableThreads) unique_table_kernel(
     unsigned fn_mask, const unsigned char* __restrict__ gate, int run_when, int smem_bytes,
     float* uniq) {
   if (gated_off(gate, run_when)) return;
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   __shared__ int s_cell, s_max_len;
   const int n_live = min(max(__ldg(n_unique), 0), U);
   if (n_live < U) {
@@ -934,59 +998,75 @@ int merge_after(const float* partial, int P, int T, const unsigned char* gate,
   return static_cast<int>(err);
 }
 
+template <int S, int V>
+void launch_fitness(bool heap, dim3 grid, size_t smem, cudaStream_t st, const FitnessArgs& a) {
+  if (heap)
+    eval_partial_kernel<S, V><<<grid, kThreads, smem, st>>>(a);
+  else
+    postfix_partial_kernel<S, V><<<grid, kThreads, smem, st>>>(a);
+}
+
+// One B1 (heap) or B2 launch of P trees: grid (tiles, trees), a register
+// stack of 8 floats when the programs' stack bound allows it, else 12, and
+// V = the thread's points per tile (chunk / kThreads), at most 4.
+int launch_rows(bool heap, int P, int stack_bound, const FitnessArgs& a, cudaStream_t st) {
+  const int V = a.chunk >= 4 * kThreads ? 4 : a.chunk >= 2 * kThreads ? 2 : 1;
+  const dim3 grid((a.D + a.chunk - 1) / a.chunk, P);
+  const size_t smem = static_cast<size_t>(a.N) * 3 * sizeof(int);
+  auto launch = stack_bound <= 8
+                    ? (V == 4 ? launch_fitness<8, 4> : V == 2 ? launch_fitness<8, 2>
+                                                               : launch_fitness<8, 1>)
+                    : (V == 4 ? launch_fitness<12, 4> : V == 2 ? launch_fitness<12, 2>
+                                                                : launch_fitness<12, 1>);
+  launch(heap, grid, smem, st, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int launch_probe(unsigned blocks, int rows, size_t smem, cudaStream_t st, const int* op,
+                 const int* arg, int P, int N, const float* X, int F, int D,
+                 const float* consts, int C, unsigned fn_mask, float* preds) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        postfix_predict_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  postfix_predict_kernel<S><<<blocks, 32 * rows, smem, st>>>(op, arg, P, N, X, F, D, consts,
+                                                             C, fn_mask, preds);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`,
 // never synchronises and allocates nothing: `partial` holds
 // P * ceil(D / chunk) floats (unused when there is one tile), `out` holds
-// P floats. Each returns cudaGetLastError() after its launches (0 on
-// success). `gate` may be null (always run).
+// P floats, `tickets` P int32 zeros (B1/B2 leave them zero). Each returns
+// cudaGetLastError() after its launches (0 on success). `gate` may be null
+// (always run).
 
-// B1. N = 2**(max_depth+1) - 1 heap slots per tree.
-extern "C" int gp_eval_fitness(const int* op, const int* arg, int P, int N, int max_depth,
-                               const float* X, int F, int D, const float* y,
+// B1, one launch. N = 2**(max_depth+1) - 1 heap slots per tree; `slots`
+// int32[N] lists them in the full heap's postorder
+// (argsort(postorder_table(N))).
+extern "C" int gp_eval_fitness(const int* op, const int* arg, const int* slots, int P, int N,
+                               int max_depth, const float* X, int F, int D, const float* y,
                                const float* w, const float* consts, int C,
                                unsigned fn_mask, int kernel, float n_classes_m1,
-                               float precision, int chunk, float* partial, float* out,
-                               void* stream) {
+                               float precision, int chunk, float* partial, int* tickets,
+                               float* out, void* stream) {
   if (P <= 0) return 0;
   if (!valid_fitness_args(kernel, D, chunk, P) || F <= 0 || C <= 0 || max_depth < 0 ||
-      max_depth > 10 || N != (2 << max_depth) - 1)
+      max_depth > 10 || N != (2 << max_depth) - 1 || slots == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int T = (D + chunk - 1) / chunk;
-  const dim3 grid(T, P);
-  const size_t smem = static_cast<size_t>(N) * 3 * sizeof(int);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = (T == 1) ? out : partial;
-  if (max_depth + 1 <= 8) {
-    eval_partial_kernel<8><<<grid, kThreads, smem, st>>>(
-        op, arg, N, max_depth, X, F, D, y, w, consts, C, fn_mask, kernel, n_classes_m1,
-        precision, chunk, dst);
-  } else {
-    eval_partial_kernel<12><<<grid, kThreads, smem, st>>>(
-        op, arg, N, max_depth, X, F, D, y, w, consts, C, fn_mask, kernel, n_classes_m1,
-        precision, chunk, dst);
-  }
-  return merge_after(partial, P, T, nullptr, 0, out, st);
+  const FitnessArgs a{op,    arg,      slots,  N,     X,       F,       D,     y,
+                      w,     consts,   C,      fn_mask, kernel, n_classes_m1, precision,
+                      chunk, nullptr,  0,      partial, tickets, out};
+  return launch_rows(true, P, max_depth + 1, a, static_cast<cudaStream_t>(stream));
 }
 
-template <int S, int V>
-void launch_postfix(dim3 grid, size_t smem, cudaStream_t st, const int* op, const int* arg,
-                    int N, const float* X, int F, int D, const float* y, const float* w,
-                    const float* consts, int C, unsigned fn_mask, int kernel,
-                    float n_classes_m1, float precision, int chunk,
-                    const unsigned char* gate, int run_when, float* partial, int* tickets,
-                    float* out) {
-  postfix_partial_kernel<S, V><<<grid, kThreads, smem, st>>>(
-      op, arg, N, X, F, D, y, w, consts, C, fn_mask, kernel, n_classes_m1, precision,
-      chunk, gate, run_when, partial, tickets, out);
-}
-
-// B2, one launch. Any N; stack_size (the programs' operand-stack bound,
-// invariant P5) picks the register stack, 8 or 12 floats. A thread
-// carries V points through the program at once: its points per tile
-// (chunk / kThreads), at most 4. `tickets` holds P int32 zeros (the
-// kernel leaves them zero).
+// B2, one launch. Any N; stack_size is the programs' operand-stack bound
+// (invariant P5).
 extern "C" int gp_eval_postfix(const int* op, const int* arg, int P, int N, int stack_size,
                                const float* X, int F, int D, const float* y, const float* w,
                                const float* consts, int C, unsigned fn_mask, int kernel,
@@ -997,19 +1077,10 @@ extern "C" int gp_eval_postfix(const int* op, const int* arg, int P, int N, int 
   if (!valid_fitness_args(kernel, D, chunk, P) || F <= 0 || C <= 0 || N <= 0 ||
       stack_size < 1 || stack_size > 12)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int V = chunk >= 4 * kThreads ? 4 : chunk >= 2 * kThreads ? 2 : 1;
-  const int T = (D + chunk - 1) / chunk;
-  const dim3 grid(T, P);
-  const size_t smem = static_cast<size_t>(N) * 3 * sizeof(int);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = stack_size <= 8
-                    ? (V == 4 ? launch_postfix<8, 4> : V == 2 ? launch_postfix<8, 2>
-                                                               : launch_postfix<8, 1>)
-                    : (V == 4 ? launch_postfix<12, 4> : V == 2 ? launch_postfix<12, 2>
-                                                                : launch_postfix<12, 1>);
-  launch(grid, smem, st, op, arg, N, X, F, D, y, w, consts, C, fn_mask, kernel,
-         n_classes_m1, precision, chunk, gate, run_when, partial, tickets, out);
-  return static_cast<int>(cudaGetLastError());
+  const FitnessArgs a{op,    arg,    nullptr,  N,       X,       F,       D,     y,
+                      w,     consts, C,        fn_mask, kernel,  n_classes_m1, precision,
+                      chunk, gate,   run_when, partial, tickets, out};
+  return launch_rows(false, P, stack_size, a, static_cast<cudaStream_t>(stream));
 }
 
 // B3. uniq is f32[U, D], root int32[P].
@@ -1072,23 +1143,21 @@ extern "C" int gp_unique_table(const int* uop, const int* uarg, const int* ulhs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Postfix predictions preds f32[P, D] (no epilogue). stack_size as B2.
+// Postfix predictions preds f32[P, D] (no epilogue). stack_size as B2;
+// `rows` rows (warps) a block, 1..kProbeRows, with rows * probe_row_words(N)
+// 32-bit words of dynamic shared memory (at most 227 KB): the grid is
+// ceil(P / rows) blocks, at most 2**31 - 1.
 extern "C" int gp_predict_postfix(const int* op, const int* arg, int P, int N,
                                   int stack_size, const float* X, int F, int D,
-                                  const float* consts, int C, unsigned fn_mask,
+                                  const float* consts, int C, unsigned fn_mask, int rows,
                                   float* preds, void* stream) {
   if (P <= 0 || D <= 0) return 0;
-  if (F <= 0 || C <= 0 || N <= 0 || P > 65535 || stack_size < 1 || stack_size > 12)
+  const size_t smem = static_cast<size_t>(rows) * probe_row_words(N) * sizeof(int);
+  const long long blocks = (static_cast<long long>(P) + rows - 1) / rows;
+  if (F <= 0 || C <= 0 || N <= 0 || stack_size < 1 || stack_size > 12 || rows < 1 ||
+      rows > kProbeRows || smem > 227 * 1024 || blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((D + kThreads - 1) / kThreads, P);
-  const size_t smem = static_cast<size_t>(N) * 3 * sizeof(int);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stack_size <= 8) {
-    postfix_predict_kernel<8><<<grid, kThreads, smem, st>>>(op, arg, N, X, F, D, consts,
-                                                             C, fn_mask, preds);
-  } else {
-    postfix_predict_kernel<12><<<grid, kThreads, smem, st>>>(op, arg, N, X, F, D, consts,
-                                                              C, fn_mask, preds);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto launch = stack_size <= 8 ? launch_probe<8> : launch_probe<12>;
+  return launch(static_cast<unsigned>(blocks), rows, smem, static_cast<cudaStream_t>(stream),
+                op, arg, P, N, X, F, D, consts, C, fn_mask, preds);
 }

@@ -24,14 +24,18 @@ read only op/arg (P·N·8 bytes), X (F·D·4), y and w (D·8) and write P·4
 bytes, while they execute one interpreted node per active tree node per
 data point, so instruction issue, not memory, is the limit; they keep
 each tree's instruction list in shared memory and its operand stack in
-registers, and B2 loads the list with all its threads and carries up to
-four points per thread through it at once. B3/B4 read one
+registers; both load the list with all their threads (B1 reads its heap
+row in postorder through a slot table, which compacts it to the tree's
+postfix program) and carry up to four points per thread through it at
+once: B1 and B2 are one block body. B3/B4 read one
 prediction row per tree (P·D·4 bytes) plus y and w: memory-bound, near
 the launch floor at the paper's shapes. The unique table writes
 n_unique rows of D floats; its persistent blocks group the slots by
 subtree height in shared memory, so a tile of points costs one barrier
 per height (`unique_table`). The probe's predictions are B2's
-interpreter on a few rows and 32 points: the launch bounds them.
+interpreter on a few rows and 32 points, latency-bound: one warp per row
+loads its program by ballot and gathers its terminals' values into
+shared memory at once before it interprets (`probe_geometry`).
 
 B2-B4 and the unique table take an optional device flag `gate` (a bool
 tensor, e.g. `DedupPlan.overflow`) and `run_when`: with a gate they do
@@ -54,27 +58,35 @@ import torch
 from repro_torch.core import eval as _eval
 from repro_torch.core import fitness as fit
 from repro_torch.core import primitives as prim
-from repro_torch.core.trees import TreeSpec
+from repro_torch.core.trees import TreeSpec, postorder_slots
+from repro_torch.device import constant
 from repro_torch.kernels import ref as _ref
 
 KERNELS = ("eval_fitness", "eval_fitness_postfix", "eval_fitness_from_subtrees",
            "eval_fitness_from_preds", "unique_table", "predict_postfix")
-# calls of each kernel by its wrapper, one per call on CUDA tensors. A B1,
-# B3 or B4 call is two CUDA launches (partials + ordered tile merge) when
-# D spans more than one data tile, one otherwise; a B2 or table call is
-# always one.
+# calls of each kernel by its wrapper, one per call on CUDA tensors. A B3
+# or B4 call is two CUDA launches (partials + ordered tile merge) when D
+# spans more than one data tile, one otherwise; a B1, B2, table or probe
+# call is always one.
 launches = dict.fromkeys(KERNELS, 0)
 STACK_TEMPLATES = (8, 12)  # register-stack sizes compiled into csrc/gp_eval.cu
 SMS = 132  # streaming multiprocessors of an H100 SXM
 # the unique table: dynamic shared memory of its persistent block (nearly
 # all of an SM's 228 KB)
 TABLE_SMEM_BYTES = 226 * 1024
+# the probe: rows (one warp each) a block at most, feature terminals a row
+# gathers into shared memory up front, and the limits of its launch
+PROBE_ROWS = 8
+PROBE_TERMS = 32
+_SMEM_DEFAULT = 48 * 1024  # dynamic shared memory a block gets without opting in
+_SMEM_MAX = 227 * 1024
+_GRID_X_MAX = 2**31 - 1
 
 _LIB = None
 _vp, _i, _f32, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _ARGTYPES = {
-    "gp_eval_fitness": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
-                        _f32, _f32, _i, _vp, _vp, _vp],
+    "gp_eval_fitness": [_vp, _vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
+                        _f32, _f32, _i, _vp, _vp, _vp, _vp],
     "gp_eval_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
                         _f32, _f32, _i, _vp, _i, _vp, _vp, _vp, _vp],
     "gp_fitness_from_subtrees": [_vp, _i, _vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i,
@@ -83,7 +95,7 @@ _ARGTYPES = {
                               _vp, _vp],
     "gp_unique_table": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _i, _vp, _i, _u, _vp, _i,
                         _i, _i, _vp, _vp],
-    "gp_predict_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _i, _u, _vp, _vp],
+    "gp_predict_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _i, _u, _i, _vp, _vp],
 }
 
 
@@ -206,7 +218,9 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
                  kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
                  gather: str | None = None, data_tile: int = 1024, fn_codes=None):
     """B1: fused heap eval+moments -> f32[P, M] (M = 1 for the built-in
-    kernels).
+    kernels), one CUDA launch: B2's block body, its program loaded from
+    the heap row in full-heap postorder (`trees.postorder_slots`, a device
+    constant), the tiles merged in order inside the kernel.
 
     op, arg:  int32[P, N]   heap population, N = 2**(max_depth+1) - 1
     X:        f32[F, D]     feature-major data (any D: the kernel masks
@@ -240,11 +254,14 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
     tiles, partial, out = _tile_buffers(P, D, data_tile, None, dev)
     if P == 0:
         return out
-    _call("eval_fitness", "gp_eval_fitness", op.data_ptr(), arg.data_ptr(), P, N,
-          max_depth, X.data_ptr(), F, D, y.data_ptr(), _ptr(weight),
-          const_table.data_ptr(), const_table.shape[0], _fn_set(fn_codes).mask,
-          kern.device_id, float(n_classes - 1), float(np.float32(precision)), data_tile,
-          partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    slots = constant(postorder_slots(N), dev, np.int32)
+    _call("eval_fitness", "gp_eval_fitness", op.data_ptr(), arg.data_ptr(),
+          slots.data_ptr(), P, N, max_depth, X.data_ptr(), F, D, y.data_ptr(),
+          _ptr(weight), const_table.data_ptr(), const_table.shape[0],
+          _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
+          float(np.float32(precision)), data_tile, partial.data_ptr(),
+          _tickets(P, dev).data_ptr(), out.data_ptr(),
+          torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -313,7 +330,7 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
 
 
 def _tickets(P: int, dev) -> torch.Tensor:
-    """B2's per-tree ticket counters on `dev`: int32 zeros, made once (and
+    """B1's and B2's per-tree ticket counters on `dev`: int32 zeros, made once (and
     again only for a larger P); every launch leaves them zero. Launches
     that share them must run in stream order, as the port's do."""
     t = _TICKETS.get(dev)
@@ -506,10 +523,30 @@ def predict_postfix_plain(op, arg, X, const_table, *, stack_size: int, fn_codes=
     return _eval.evaluate_population_postfix(op, arg, X, const_table, spec)
 
 
+def probe_geometry(P: int, N: int) -> tuple[int, int, int]:
+    """(rows a block, blocks, dynamic shared memory bytes) of the probe
+    kernel for P rows of N slots: one warp per row, as many rows a block
+    as fit the default 48 KB of shared memory, at most PROBE_ROWS and at
+    most P (a lone row may take up to 227 KB). A row's shared memory holds
+    its program (3 words a slot), its first PROBE_TERMS feature terminals'
+    rows and their values at 32 points. Raises where one row does not fit
+    or the grid (ceil(P / rows) blocks, the kernel's int32 row count)
+    passes 2**31 - 1."""
+    row_bytes = 4 * (3 * N + PROBE_TERMS + 32 * PROBE_TERMS)
+    rows = max(1, min(PROBE_ROWS, P, _SMEM_DEFAULT // row_bytes))
+    blocks = -(-P // rows)
+    if row_bytes > _SMEM_MAX or P > _GRID_X_MAX or blocks > _GRID_X_MAX:
+        raise ValueError(f"unsupported probe launch: P={P} rows of N={N} slots "
+                         f"({row_bytes} bytes of shared memory a row, at most "
+                         f"{_SMEM_MAX}; P at most {_GRID_X_MAX})")
+    return rows, blocks, rows * row_bytes
+
+
 def predict_postfix(op, arg, X, const_table, *, stack_size: int, fn_codes=None):
     """f32[P, D] predictions of postfix streams op/arg int32[P, N] on
     X f32[F, D]: B2's interpreter without the epilogue (the semantic
-    dedup tier's probe). `stack_size` and `fn_codes` as for B2."""
+    dedup tier's probe), one warp per row (`probe_geometry`); any D, 32
+    points a warp at a time. `stack_size` and `fn_codes` as for B2."""
     if not op.is_cuda:
         return predict_postfix_plain(op, arg, X, const_table, stack_size=stack_size,
                                      fn_codes=fn_codes)
@@ -522,13 +559,12 @@ def predict_postfix(op, arg, X, const_table, *, stack_size: int, fn_codes=None):
     _check(dev, op=(op, torch.int32, (P, N)), arg=(arg, torch.int32, (P, N)),
            X=(X, torch.float32, (F, D)),
            const_table=(const_table, torch.float32, const_table.shape))
-    if P > 65535:
-        raise ValueError(f"unsupported launch: P={P} (<= 65535)")
+    rows, _, _ = probe_geometry(P, N)
     preds = torch.empty((P, D), dtype=torch.float32, device=dev)
     if P == 0 or D == 0:
         return preds
     _call("predict_postfix", "gp_predict_postfix", op.data_ptr(), arg.data_ptr(), P, N,
           stack_size, X.data_ptr(), F, D, const_table.data_ptr(), const_table.shape[0],
-          _fn_set(fn_codes).mask, preds.data_ptr(),
+          _fn_set(fn_codes).mask, rows, preds.data_ptr(),
           torch.cuda.current_stream(dev).cuda_stream)
     return preds

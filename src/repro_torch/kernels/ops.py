@@ -37,7 +37,7 @@ def pick_tiles(n_features: int, n_nodes: int, pop: int, data: int,
 
     The TPU version sized the tile to a VMEM budget; here a block's
     footprint is tiny (the tree's instruction list in shared memory,
-    N·12 bytes, and its operand stack in registers), so the tile is
+    N·8 bytes, and its operand stack in registers), so the tile is
     chosen for parallelism instead: the largest power of two in
     [BLOCK_THREADS, data_tile] that still gives the grid at least
     four blocks per SM (pop × ceil(data / tile) >= 528). Larger tiles
