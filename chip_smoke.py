@@ -28,15 +28,20 @@ Phases:
      Each kernel's warm median time per call (CUDA events: `ms`), its
      device time per call (torch.profiler, a window that recorded no
      kernel taken again up to 3 times: `device_ms`) and CUDA launches
-     per call (B1, B2, the table and the probe must make one, of their
-     own kernel), the plain version's time, and the bound (the larger of
-     bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s). Then the unique table
-     under each of its schedules (staged at the default and at the
-     narrowest tile, and the scan), bitwise against its plain version,
-     and an ungated call on a plan that overflows its cap, which must
-     run without a fault; and B1 and B2 with 1, 2 and 4 points a thread
-     (data tiles of 256, 512 and 1024 points), B1 == B2 bitwise and B1
-     against its plain version on lattice data
+     per call (every kernel must make one, of its own kernel; no
+     `merge_tiles_kernel` is left), the plain version's time, the bound
+     (the larger of bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s), and for
+     B4 with kernel r the library yardstick `torch.cdist(preds, y[None],
+     p=1)` (`library_ms`). Then the unique table under each of its
+     schedules (staged at the default and at the narrowest tile, and the
+     scan), bitwise against its plain version, and an ungated call on a
+     plan that overflows its cap, which must run without a fault; B1-B4
+     with 1, 2 and 4 points a thread (data tiles of 256, 512 and 1024
+     points), with and without a weight, B1 == B2 == B3 == B4 bitwise
+     and B1 against its plain version on lattice data; and B1-B4 on
+     P = 70,000 trees at the kepler shape (two launches each: at most
+     65,535 trees a launch), each against its plain version and
+     B1 == B2 == B3 == B4 bitwise
   3. main path: kat7 (Table 2, CLASSIFY_SET, kernel c), 30 generations on
      the card; one block under torch.cuda.set_sync_debug_mode("error");
      history bitwise equal to the CPU run; launches counted
@@ -56,9 +61,10 @@ Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
                 parent commit, `git archive` unpacked into a directory
                 that .gitignore lists) before and after this tree's, in
-                a child process, and prints "ab" lines: B1's, the
-                probe's and B2's ms, device_ms and CUDA launches per
-                call in both trees at every shape, beside the bound
+                a child process, and prints "ab" lines: every kernel's
+                (B1-B4, the table, the probe) ms, device_ms and CUDA
+                launches per call in both trees at every shape, beside
+                the bound
   --profile     instead profiles three kat7 generations of the heap main
                 path and of four postfix paths with torch.profiler (where
                 a generation's time goes; the port's kernels by name)
@@ -353,6 +359,23 @@ def _postfix_case(op, arg, Xd, yd, wd, consts, fn_set, cap, kw, tag):
     return pop, parg, plan, uniq, preds, res
 
 
+def _cdist_ms(preds, yd, fk):
+    """B4's library yardstick for kernel r with no weight: one PyTorch call,
+    `torch.cdist(preds, y[None], p=1)`, the same sum of |pred - y| per
+    tree where no NaN is present (held to rtol 1e-4 against B4 on the
+    rows where both are finite: another summation order) -> its warm
+    median ms."""
+    def lib():
+        return torch.cdist(preds, yd[None], p=1)
+
+    got = lib()[:, 0].cpu().numpy()
+    want = gp_eval.eval_fitness_from_preds(preds, yd, None, **fk)[:, 0].cpu().numpy()
+    fin = np.isfinite(got) & np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, atol=1e-3,
+                               err_msg="torch.cdist vs B4")
+    return time_ms(lib, 50)
+
+
 def _table_cap(name, op, arg, spec):
     """The dedup cap of the kernel comparisons: P*N + 1, the cap no
     population can overflow (kat7: 6,301, as on the B4 path); at "large"
@@ -483,7 +506,10 @@ def kernel_vs_plain():
                 for kern_name, (fn, plain_fn, (bound, bound_by)) in timed.items():
                     row[kern_name] = dict(ms=time_ms(fn, 50), **device_ms(fn),
                                           plain_ms=time_ms(plain_fn, reps),
-                                          bound_ms=bound, bound_by=bound_by)
+                                          bound_ms=bound, bound_by=bound_by,
+                                          library_ms=None)
+                if kname == "r":
+                    row["eval_fitness_from_preds"]["library_ms"] = _cdist_ms(preds, yd, fk)
                 _one_launch(row, f"{name} {kname}")
                 results[(name, kname)] = row
                 emit("kernel", shape=name, P=P, F=F, D=D, kernel=kname, tile=tile,
@@ -560,13 +586,15 @@ def table_modes():
 
 
 def points_per_thread():
-    """B1 and B2 with V, the points a thread carries through the program
+    """B1-B4 with V, the points a thread carries through the program
     at once, forced to 1, 2 and 4 through the data tile (256, 512 and
-    1024 points: V = tile / 256) at every shape. On lattice data
-    (add/sub/mul trees, X in {-1, 0, 1}) with kernels r and c each B1
-    call is held against its plain version at that tile (`_compare`:
-    exact where the sums are) and is bitwise B2's on the postfix form; on
-    KITCHEN_SINK trees and real-valued data (kernel r) B1 == B2 bitwise."""
+    1024 points: V = tile / 256) at every shape, without a weight and
+    with one of zeros and fractions (B3/B4 then load three arrays). On
+    lattice data (add/sub/mul trees, X in {-1, 0, 1}) with kernels r and
+    c each unweighted B1 call is held against its plain version at that
+    tile (`_compare`: exact where the sums are); on KITCHEN_SINK trees
+    and real-valued data (kernel r) too, B1 == B2 == B3 == B4 bitwise
+    (B2 on the postfix form, B3 and B4 on its dedup plan's table)."""
     rng = np.random.RandomState(3)
     held = []
     for name, P, F, D in SHAPES:
@@ -578,27 +606,96 @@ def points_per_thread():
                 fn_set = prim.KITCHEN_SINK
                 X = rng.randn(F, D).astype(np.float32)
             y = rng.randint(0, 3, size=D).astype(np.float32)
+            wt = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), size=D)
             spec, op, arg = _population(P, F, fn_set, seed=P + F + D + 1,
                                         p_const=0.0 if lattice else 0.2)
             pop, parg = trees.heap_to_postfix(op, arg)
             Xd, yd = torch.from_numpy(X).to(DEV), torch.from_numpy(y).to(DEV)
             consts = spec.const_table(DEV)
+            codes = tuple(int(c) for c in fn_set.opcodes)
+            plan = eval_mod.build_dedup_plan(pop, parg,
+                                             dataclasses.replace(spec, genome="postfix"),
+                                             _table_cap(name, op, arg, spec))
+            uniq = gp_eval.unique_table(plan, Xd, consts, fn_codes=codes)
+            preds = uniq.index_select(0, plan.root.long())
             for tile in (256, 512, 1024):
                 for kname in ("r", "c") if lattice else ("r",):
-                    kw = dict(kernel=kname, n_classes=3, data_tile=tile,
-                              fn_codes=tuple(int(c) for c in fn_set.opcodes))
-                    tag = f"{name} {kname} lattice={lattice} tile={tile}"
-                    b1 = gp_eval.eval_fitness(op, arg, Xd, yd, None, consts, max_depth=5, **kw)
-                    b2 = gp_eval.eval_fitness_postfix(pop, parg, Xd, yd, None, consts,
-                                                      stack_size=6, **kw)
-                    _same_bits(b1, b2, tag + ": B1 vs B2")
-                    if lattice:
-                        want = gp_eval.eval_fitness_plain(op, arg, Xd, yd, None, consts,
-                                                          max_depth=5, **kw)
-                        _compare(b1, want, kname, True, tag + ": B1 vs plain")
-                    held.append(f"{tag} V={tile // 256}")
+                    for wd in (None, torch.from_numpy(wt).to(DEV)):
+                        fk = dict(kernel=kname, n_classes=3, data_tile=tile)
+                        tag = (f"{name} {kname} lattice={lattice} tile={tile} "
+                               f"weighted={wd is not None}")
+                        b1 = gp_eval.eval_fitness(op, arg, Xd, yd, wd, consts, max_depth=5,
+                                                  fn_codes=codes, **fk)
+                        b2 = gp_eval.eval_fitness_postfix(pop, parg, Xd, yd, wd, consts,
+                                                          stack_size=6, fn_codes=codes, **fk)
+                        b3 = gp_eval.eval_fitness_from_subtrees(plan.root, uniq, yd, wd, **fk)
+                        b4 = gp_eval.eval_fitness_from_preds(preds, yd, wd, **fk)
+                        _same_bits(b1, b2, tag + ": B1 vs B2")
+                        _same_bits(b1, b3, tag + ": B1 vs B3")
+                        _same_bits(b1, b4, tag + ": B1 vs B4")
+                        if lattice and wd is None:
+                            want = gp_eval.eval_fitness_plain(op, arg, Xd, yd, None, consts,
+                                                              max_depth=5, fn_codes=codes,
+                                                              **fk)
+                            _compare(b1, want, kname, True, tag + ": B1 vs plain")
+                        held.append(f"{tag} V={tile // 256}")
     emit("points_per_thread", held=held,
-         checks="B1 == B2 bitwise; B1 vs plain on lattice data (exact where the sums are)")
+         checks="B1 == B2 == B3 == B4 bitwise; B1 vs plain on lattice data (exact "
+                "where the sums are)")
+
+
+def many_trees():
+    """B1-B4 on P = 70,000 trees at the kepler shape (F = 1, D = 9, depth
+    5): more than the 65,535 trees a launch takes (gridDim.y), so each
+    wrapper launches twice (`gp_eval.pop_chunks`). On lattice data
+    (add/sub/mul trees, X in {-1, 0, 1}) with kernels r and c, each
+    kernel is held against its plain version (exact), and B1 == B2 == B3
+    == B4 bitwise (B3/B4 on the population's dedup plan at cap P*N + 1)."""
+    P, F, D = 70_000, 1, 9
+    rng = np.random.RandomState(11)
+    fn_set = prim.FunctionSet.make(("add", "sub", "mul"))
+    codes = tuple(int(c) for c in fn_set.opcodes)
+    Xd = torch.from_numpy(rng.randint(-1, 2, size=(F, D)).astype(np.float32)).to(DEV)
+    yd = torch.from_numpy(rng.randint(0, 3, size=D).astype(np.float32)).to(DEV)
+    spec, op, arg = _population(P, F, fn_set, seed=P, p_const=0.0)
+    consts = spec.const_table(DEV)
+    pop, parg = trees.heap_to_postfix(op, arg)
+    plan = eval_mod.build_dedup_plan(pop, parg, dataclasses.replace(spec, genome="postfix"),
+                                     P * op.shape[1] + 1)
+    uniq = gp_eval.unique_table(plan, Xd, consts, fn_codes=codes)
+    preds = uniq.index_select(0, plan.root.long())
+    held = []
+    for kname in ("r", "c"):
+        fk = dict(kernel=kname, n_classes=3, data_tile=256)
+        tag = f"P={P} kepler {kname}"
+        gp_eval.reset_launches()
+        got = {
+            "eval_fitness": gp_eval.eval_fitness(op, arg, Xd, yd, None, consts, max_depth=5,
+                                                 fn_codes=codes, **fk),
+            "eval_fitness_postfix": gp_eval.eval_fitness_postfix(
+                pop, parg, Xd, yd, None, consts, stack_size=6, fn_codes=codes, **fk),
+            "eval_fitness_from_subtrees": gp_eval.eval_fitness_from_subtrees(
+                plan.root, uniq, yd, None, **fk),
+            "eval_fitness_from_preds": gp_eval.eval_fitness_from_preds(preds, yd, None, **fk)}
+        torch.cuda.synchronize()
+        launched = {k: gp_eval.launches[k] for k in got}
+        if any(n != 2 for n in launched.values()):
+            raise AssertionError(f"{tag}: launches {launched}; want 2 each")
+        want = {
+            "eval_fitness": gp_eval.eval_fitness_plain(op, arg, Xd, yd, None, consts,
+                                                       max_depth=5, fn_codes=codes, **fk),
+            "eval_fitness_postfix": gp_eval.eval_fitness_postfix_plain(
+                pop, parg, Xd, yd, None, consts, stack_size=6, fn_codes=codes, **fk),
+            "eval_fitness_from_subtrees": gp_eval.eval_fitness_from_subtrees_plain(
+                plan.root, uniq, yd, None, **fk),
+            "eval_fitness_from_preds": gp_eval.eval_fitness_from_preds_plain(
+                preds, yd, None, **fk)}
+        for k in got:
+            _compare(got[k], want[k], kname, True, f"{tag} {k}")
+            _same_bits(got[k], got["eval_fitness"], f"{tag}: {k} vs B1")
+        held.append(dict(kernel=kname, launches=launched))
+    emit("many_trees", P=P, F=F, D=D, n_unique=int(plan.n_unique), held=held,
+         checks="each of B1-B4 vs plain (exact); B1 == B2 == B3 == B4 bitwise")
 
 
 # --- the parent commit's phase 2, for an A/B inside one call --------------------
@@ -639,13 +736,14 @@ def parent_phase2(root):
     return rows
 
 
-AB_KERNELS = ("eval_fitness", "predict_postfix", "eval_fitness_postfix")
+AB_KERNELS = ("eval_fitness", "predict_postfix", "eval_fitness_postfix", "unique_table",
+              "eval_fitness_from_subtrees", "eval_fitness_from_preds")
 
 
 def ab_lines(label, rows, perf):
-    """One "ab" line per shape: B1's, the probe's and B2's ms, device_ms
-    and CUDA launches per call in the other tree (`label`) and in this
-    one, beside the bound."""
+    """One "ab" line per shape: every kernel's (B1, the probe, B2, the
+    table, B3, B4) ms, device_ms and CUDA launches per call in the other
+    tree (`label`) and in this one, beside the bound."""
     fields = ("ms", "device_ms", "cuda_launches_per_call", "device_ms_source")
     for (shape, kname), mine in perf.items():
         other = rows.get((shape, kname), {})
@@ -782,8 +880,7 @@ PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"})
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
             ("postfix_semantic", {"genome": "postfix", "dedup": "semantic"}))
 _OUR_KERNELS = ("eval_partial_kernel", "postfix_partial_kernel", "from_subtrees_kernel",
-                "from_preds_kernel", "unique_table_kernel", "postfix_predict_kernel",
-                "merge_tiles")
+                "from_preds_kernel", "unique_table_kernel", "postfix_predict_kernel")
 
 
 def profile_main_path():
@@ -806,6 +903,10 @@ def profile_main_path():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.key_averages()
+        stale = [e.key for e in events if "merge_tiles" in e.key]
+        if stale:
+            raise AssertionError(f"{label}: the profiler recorded {stale}; every port "
+                                 f"kernel merges its tiles inside one launch")
 
         def dev_us(e):
             return getattr(e, "self_device_time_total", None) or getattr(
@@ -829,6 +930,8 @@ def profile_main_path():
 # the kernels whose call is one CUDA launch of one kernel at every shape
 ONE_LAUNCH = {"eval_fitness": "eval_partial_kernel",
               "eval_fitness_postfix": "postfix_partial_kernel",
+              "eval_fitness_from_subtrees": "from_subtrees_kernel",
+              "eval_fitness_from_preds": "from_preds_kernel",
               "unique_table": "unique_table_kernel",
               "predict_postfix": "postfix_predict_kernel"}
 
@@ -836,7 +939,7 @@ ONE_LAUNCH = {"eval_fitness": "eval_partial_kernel",
 def _one_launch(row, tag):
     """Each kernel of ONE_LAUNCH made one CUDA launch per timed call (the
     host-side count under the profiler), and the profiler recorded only
-    its own kernel: B1 no longer ends with `merge_tiles_kernel`."""
+    its own kernel: no call ends with a second, merging kernel."""
     for name, kernel in ONE_LAUNCH.items():
         got = row[name]
         if got["cuda_launches_per_call"] != 1.0 or got["device_kernels"] not in ([], [kernel]):
@@ -874,6 +977,7 @@ def main():
         ab_lines("parent, after", parent_phase2(parent), perf)
     table_modes()
     points_per_thread()
+    many_trees()
 
     main_run = run_dataset("kat7", 100, 30, 10, block_check=True)
     emit("main_path", **main_run)
@@ -908,6 +1012,7 @@ def main():
                 "unique_table": "src/repro/core/eval.py:248",
                 "predict_postfix": "src/repro/core/eval.py:79"}
     main = perf[("kat7", "c")]
+    library = perf[("kat7", "r")]  # B4's yardstick sums kernel r's |pred - y|
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gp_eval.cu",
@@ -918,7 +1023,8 @@ def main():
         "ms": main[name]["ms"], "device_ms": main[name]["device_ms"],
         "plain_ms": main[name]["plain_ms"],
         "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
-        "library_ms": None} for name in gp_eval.KERNELS]}), flush=True)
+        "library_ms": library[name]["library_ms"]} for name in gp_eval.KERNELS]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

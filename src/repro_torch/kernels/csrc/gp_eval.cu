@@ -44,18 +44,26 @@
 //   * The epilogue folds each point into a per-thread partial in a fixed
 //     order (thread t: points t, t + 256, ... of the tile); the block
 //     reduces with a fixed shuffle tree into one partial per (tree,
-//     tile), and the partials are summed in tile order: inside B1/B2 by
-//     the block that draws a tree's last ticket (an int32 counter per
-//     tree), by a second small kernel after B3 and B4. No float atomics:
-//     results never change from run to run. B1-B4 share the epilogue, the
+//     tile), and the partials are summed in tile order inside the kernel
+//     by the block that draws a tree's last ticket (an int32 counter per
+//     tree): every B1-B4 call is one launch. No float atomics: results
+//     never change from run to run. B1-B4 share the epilogue, the
 //     reduction and the merge order, so at one tile geometry their
 //     moments are bitwise alike.
+//   * B3 and B4 have no program: each thread loads all its points of the
+//     tile (t, t + 256, ...; up to 16) at once, so the block's whole slice
+//     of the row, y and w is in flight together, and folds them in that
+//     order. Staging the slice in shared memory first (one bulk copy per
+//     array on an mbarrier, or 16-byte cp.async by every thread) measured
+//     no faster at any shape and slower at most (tools/gather_staging/):
+//     the row is read once, and a staged block waits for its last byte
+//     before any thread folds.
 //   * The probe (gp_predict_postfix) has a few rows and 32 points: one
 //     warp per row, up to 8 rows a block. A warp loads its row by ballot
 //     into its own slice of shared memory, then gathers its feature
 //     terminals' values at its 32 points with cp.async, all in flight at
 //     once, so the interpreter then reads only shared memory.
-//   * B2-B4, their merges and the unique table take an optional device
+//   * B2-B4 and the unique table take an optional device
 //     flag `gate` and run only when (*gate != 0) == run_when, else every
 //     block returns at once. The dedup path launches both branches of
 //     the reference's lax.cond(overflow, ...) that way into one output,
@@ -77,21 +85,23 @@
 // operands in registers and the instruction list in shared memory so
 // that nothing but X, y and w is read from device memory inside the
 // loop, and they decode each instruction once for V points. B3/B4 read
-// one f32 row per tree and tile plus y and w: memory (and, at kat7, the
-// launch) bounds them. The unique table must write n_unique rows of D
-// floats, which bounds it at large D; per tile it pays one barrier per
+// one f32 row per tree plus y and w: memory and the epilogue's
+// instructions bound them at large shapes; at kat7 the launch, one round
+// of loads and the tile merge's atomic at the end do, so each block puts
+// its whole slice in flight at once and the merge costs one atomic round
+// trip, not a second launch. The unique table must write n_unique rows of
+// D floats, which bounds it at large D; per tile it pays one barrier per
 // height and the interpreter's decode per (slot, 8 points), which bound
 // it at the paper's shapes.
 //
 // Numerics that match the reference: build with -fmad=false and without
 // --use_fast_math (IEEE `/` and sqrtf), NaN-propagating min/max written
-// out, rintf (round half to even) for classify, nan_to_num's +-inf ->
-// +-FLT_MAX, `fabsf(b) < 1e-9f` for protected division and
-// `logf(fabsf(a) + 1e-9f)` for log; an opcode outside the function-set
-// mask evaluates to 0, as the reference's select chain does.
+// out, rintf (round half to even) and the clamp to [0, n_classes - 1] for
+// classify (which absorb nan_to_num), `fabsf(b) < 1e-9f` for protected
+// division and `logf(fabsf(a) + 1e-9f)` for log; an opcode outside the
+// function-set mask evaluates to 0, as the reference's select chain does.
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 
 namespace {
@@ -157,10 +167,10 @@ __device__ __forceinline__ void epilogue(int kernel, float pred, float yd, float
   }
   bool hit;
   if (kernel == kC) {
-    float q = pred;  // nan_to_num
-    if (isnan(q)) q = 0.0f;
-    else if (isinf(q)) q = q > 0.0f ? FLT_MAX : -FLT_MAX;
-    hit = fminf(fmaxf(rintf(q), 0.0f), n_classes_m1) == yd;
+    // the reference's clip(rint(nan_to_num(pred)), 0, n_classes - 1): fmaxf
+    // takes 0 over a NaN and the clamp maps +-inf as it maps +-FLT_MAX, so
+    // nan_to_num needs no instructions of its own
+    hit = fminf(fmaxf(rintf(pred), 0.0f), n_classes_m1) == yd;
   } else {
     hit = fabsf(pred - yd) <= precision;
   }
@@ -232,27 +242,6 @@ __device__ __forceinline__ float block_partial(float acc, int bad, int kernel) {
     if (kernel == kC || kernel == kM) part = any_bad ? INFINITY : -tot;
   }
   return part;
-}
-
-// Folds the block's points of tile blockIdx.x (prediction `pred_at(d)`)
-// into tree p's partial: the epilogue per point, in increasing d, then
-// `block_partial`; thread 0 writes the partial.
-template <class PredAt>
-__device__ __forceinline__ void fold_tile(PredAt pred_at, int p, int D, int chunk,
-                                          const float* __restrict__ y,
-                                          const float* __restrict__ w, int kernel,
-                                          float n_classes_m1, float precision,
-                                          float* __restrict__ partial) {
-  const int tile = blockIdx.x;
-  const int d_end = min(D, (tile + 1) * chunk);
-  float acc = 0.0f;
-  int bad = 0;
-  for (int d = tile * chunk + threadIdx.x; d < d_end; d += kThreads) {
-    epilogue(kernel, pred_at(d), __ldg(y + d), w ? __ldg(w + d) : 1.0f, n_classes_m1,
-             precision, acc, bad);
-  }
-  const float part = block_partial(acc, bad, kernel);
-  if (threadIdx.x == 0) partial[static_cast<size_t>(p) * gridDim.x + tile] = part;
 }
 
 // All threads of a B1/B2 block lay row p's program out in shared memory at
@@ -400,11 +389,14 @@ __device__ __forceinline__ void run_program_v(const Program& pr, int len, Term t
 }
 
 // Thread 0 of a fitness block hands its partial to the tile merge inside
-// the kernel: with one tile it is tree p's result; otherwise it stores it,
-// fences, and draws a ticket from tree p's counter. The block that draws
-// the last ticket sums the tree's partials in tile order (the reference's
-// j == 0 store, j != 0 merge; no float atomics, so the result never
-// changes from run to run), writes out[p] and resets the counter to 0.
+// the kernel: with one tile it is tree p's result; otherwise it stores it
+// and draws a ticket from tree p's counter with one acquire-release
+// atomic (the release publishes the partial; the acquire of the last
+// ticket sees every partial, as all the ticket's writes are atomic adds).
+// The block that draws the last ticket sums the tree's partials in tile
+// order (the reference's j == 0 store, j != 0 merge; no float atomics, so
+// the result never changes from run to run), writes out[p] and resets the
+// counter to 0.
 __device__ void merge_partial(float part, int p, int tile, int T,
                               float* __restrict__ partial, int* __restrict__ tickets,
                               float* __restrict__ out) {
@@ -413,9 +405,12 @@ __device__ void merge_partial(float part, int p, int tile, int T,
     return;
   }
   partial[static_cast<size_t>(p) * T + tile] = part;
-  __threadfence();
-  if (atomicAdd(tickets + p, 1) != T - 1) return;
-  __threadfence();
+  int drawn;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(drawn)
+               : "l"(tickets + p)
+               : "memory");
+  if (drawn != T - 1) return;
   const volatile float* row = partial + static_cast<size_t>(p) * T;
   float tot = row[0];
   for (int t = 1; t < T; ++t) tot += row[t];
@@ -449,8 +444,9 @@ struct FitnessArgs {
 // The block body of B1 and B2: tree blockIdx.y's program (`load_program`),
 // then tile blockIdx.x of the points. Thread t takes the points
 // tile * chunk + t + k * kThreads, V of them through the program together,
-// and folds them into its partial in increasing k: fold_tile's order, so
-// B1-B4 stay bitwise alike. The tile's partial goes to `merge_partial`.
+// and folds them into its partial in increasing k: B3's and B4's order
+// (`gather_block`), so B1-B4 stay bitwise alike. The tile's partial goes
+// to `merge_partial`.
 template <int S, int V>
 __device__ __forceinline__ void fitness_block(const FitnessArgs& a) {
   if (gated_off(a.gate, a.run_when)) return;
@@ -597,44 +593,93 @@ __global__ void __launch_bounds__(kThreads) postfix_predict_kernel(
   }
 }
 
-// B3: the tree's prediction row is uniq[clamp(root[p], 0, U - 1)].
-__global__ void __launch_bounds__(kThreads) from_subtrees_kernel(
-    const int* __restrict__ root, const float* __restrict__ uniq, int U, int D,
-    const float* __restrict__ y, const float* __restrict__ w, int kernel,
-    float n_classes_m1, float precision, int chunk, const unsigned char* __restrict__ gate,
-    int run_when, float* __restrict__ partial) {
-  if (gated_off(gate, run_when)) return;
-  const int p = blockIdx.y;
-  const float* row = uniq + static_cast<size_t>(min(max(root[p], 0), U - 1)) * D;
-  fold_tile([&](int d) { return __ldg(row + d); }, p, D, chunk, y, w, kernel,
-            n_classes_m1, precision, partial);
+// --- B3 / B4: the epilogue over gathered prediction rows ------------------------
+
+// The arguments of a B3/B4 launch (kernel parameters, passed by value).
+struct GatherArgs {
+  const int* root;  // B3: int32[P], rows = uniq f32[U, D]; B4: null, rows = preds f32[P, D]
+  const float* rows;
+  int U, D;
+  const float* y;
+  const float* w;  // null: all ones
+  int kernel;
+  float n_classes_m1, precision;
+  int chunk;
+  const unsigned char* gate;  // null: always run
+  int run_when;
+  float* partial;  // P * tiles floats
+  int* tickets;    // P int32 zeros; left zero
+  float* out;      // P floats
+};
+
+// Thread t's points of a tile (n points from `row`, `y`, `w`) through the
+// epilogue of fitness kernel K: points t + k * kThreads in increasing k,
+// V of them loaded at once (all of them for V * kThreads >= n).
+template <int V, int K>
+__device__ __forceinline__ void fold_points(const float* __restrict__ row,
+                                            const float* __restrict__ y,
+                                            const float* __restrict__ w, int n,
+                                            float n_classes_m1, float precision, float& acc,
+                                            int& bad) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += V * kThreads) {
+    float v[V], yv[V], wv[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = min(i0 + k * kThreads, n - 1);
+      v[k] = __ldg(row + i);
+      yv[k] = __ldg(y + i);
+      wv[k] = w ? __ldg(w + i) : 1.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (i0 + k * kThreads < n)
+        epilogue(K, v[k], yv[k], wv[k], n_classes_m1, precision, acc, bad);
+    }
+  }
 }
 
-// B4: the tree's prediction row is preds[p].
-__global__ void __launch_bounds__(kThreads) from_preds_kernel(
-    const float* __restrict__ preds, int D, const float* __restrict__ y,
-    const float* __restrict__ w, int kernel, float n_classes_m1, float precision,
-    int chunk, const unsigned char* __restrict__ gate, int run_when,
-    float* __restrict__ partial) {
-  if (gated_off(gate, run_when)) return;
+// The block body of B3 and B4: tile blockIdx.x of tree blockIdx.y's
+// prediction row (B3: uniq[clamp(root[p], 0, U - 1)], root read once; B4:
+// preds[p]) through the epilogue. Each thread loads all its points of the
+// tile at once (V = tile / kThreads, up to 16), so the block has its whole
+// slice of the row, y and w in flight together, and folds them in B1's and
+// B2's order (`fold_points`); the fitness kernel's branch is taken once per
+// block, not per point. The tile's partial goes to `merge_partial`: one
+// launch a call.
+template <int V>
+__device__ __forceinline__ void gather_block(const GatherArgs& a) {
+  if (gated_off(a.gate, a.run_when)) return;  // before any ticket: they stay zero
   const int p = blockIdx.y;
-  const float* row = preds + static_cast<size_t>(p) * D;
-  fold_tile([&](int d) { return __ldg(row + d); }, p, D, chunk, y, w, kernel,
-            n_classes_m1, precision, partial);
+  const int tile = blockIdx.x;
+  const size_t r = a.root ? static_cast<size_t>(min(max(__ldg(a.root + p), 0), a.U - 1))
+                          : static_cast<size_t>(p);
+  const int lo = tile * a.chunk;
+  const int n = min(a.D, lo + a.chunk) - lo;
+  const float* row = a.rows + r * a.D + lo;
+  const float* y = a.y + lo;
+  const float* w = a.w ? a.w + lo : nullptr;
+  float acc = 0.0f;
+  int bad = 0;
+  switch (a.kernel) {
+    case kR: fold_points<V, kR>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
+    case kC: fold_points<V, kC>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
+    case kM: fold_points<V, kM>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
+    default: fold_points<V, kMse>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad);
+  }
+  const float part = block_partial(acc, bad, a.kernel);
+  if (threadIdx.x == 0) merge_partial(part, p, tile, gridDim.x, a.partial, a.tickets, a.out);
 }
 
-// out[p] = sum over tiles of partial[p, :], in tile order (the reference's
-// j == 0 store, j != 0 merge).
-__global__ void merge_tiles_kernel(const float* __restrict__ partial, int P, int T,
-                                   const unsigned char* __restrict__ gate, int run_when,
-                                   float* __restrict__ out) {
-  if (gated_off(gate, run_when)) return;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const float* row = partial + static_cast<size_t>(p) * T;
-  float tot = row[0];
-  for (int t = 1; t < T; ++t) tot += row[t];
-  out[p] = tot;
+// B3 (a.root != null): the tree's row is uniq[clamp(root[p], 0, U - 1)].
+template <int V>
+__global__ void __launch_bounds__(kThreads) from_subtrees_kernel(const GatherArgs a) {
+  gather_block<V>(a);
+}
+
+// B4 (a.root == null): the tree's row is preds[p].
+template <int V>
+__global__ void __launch_bounds__(kThreads) from_preds_kernel(const GatherArgs a) {
+  gather_block<V>(a);
 }
 
 // --- the unique-subtree table ---------------------------------------------------
@@ -984,18 +1029,23 @@ bool valid_fitness_args(int kernel, int D, int chunk, int P) {
   return kernel >= kR && kernel <= kMse && D > 0 && chunk > 0 && P <= 65535;
 }
 
-// The ordered tile merge after a partial kernel (none when one tile: the
-// partial kernel then wrote `out` directly).
-int merge_after(const float* partial, int P, int T, const unsigned char* gate,
-                int run_when, float* out, cudaStream_t st) {
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (T > 1) {
-    merge_tiles_kernel<<<(P + 127) / 128, 128, 0, st>>>(partial, P, T, gate, run_when,
-                                                        out);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
+template <int V>
+void launch_gather_v(dim3 grid, cudaStream_t st, const GatherArgs& a) {
+  if (a.root)
+    from_subtrees_kernel<V><<<grid, kThreads, 0, st>>>(a);
+  else
+    from_preds_kernel<V><<<grid, kThreads, 0, st>>>(a);
+}
+
+// One B3 (a.root != null) or B4 launch of P trees: grid (tiles, trees), V =
+// the thread's points per tile (chunk / kThreads), at most 16.
+int launch_gather(int P, const GatherArgs& a, cudaStream_t st) {
+  const int per = a.chunk / kThreads;
+  auto launch = per >= 16 ? launch_gather_v<16> : per >= 8 ? launch_gather_v<8>
+              : per >= 4  ? launch_gather_v<4>  : per >= 2 ? launch_gather_v<2>
+                          : launch_gather_v<1>;
+  launch(dim3((a.D + a.chunk - 1) / a.chunk, P), st, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int S, int V>
@@ -1042,9 +1092,10 @@ int launch_probe(unsigned blocks, int rows, size_t smem, cudaStream_t st, const 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`,
 // never synchronises and allocates nothing: `partial` holds
 // P * ceil(D / chunk) floats (unused when there is one tile), `out` holds
-// P floats, `tickets` P int32 zeros (B1/B2 leave them zero). Each returns
-// cudaGetLastError() after its launches (0 on success). `gate` may be null
-// (always run).
+// P floats, `tickets` P int32 zeros (B1-B4 leave them zero). Each returns
+// cudaGetLastError() after its launch (0 on success). `gate` may be null
+// (always run). B1-B4 take at most 65,535 trees a launch (gridDim.y); the
+// wrappers launch more in chunks.
 
 // B1, one launch. N = 2**(max_depth+1) - 1 heap slots per tree; `slots`
 // int32[N] lists them in the full heap's postorder
@@ -1083,38 +1134,33 @@ extern "C" int gp_eval_postfix(const int* op, const int* arg, int P, int N, int 
   return launch_rows(false, P, stack_size, a, static_cast<cudaStream_t>(stream));
 }
 
-// B3. uniq is f32[U, D], root int32[P].
+// B3, one launch. uniq is f32[U, D], root int32[P].
 extern "C" int gp_fitness_from_subtrees(const int* root, int P, const float* uniq, int U,
                                         int D, const float* y, const float* w, int kernel,
                                         float n_classes_m1, float precision, int chunk,
                                         const unsigned char* gate, int run_when,
-                                        float* partial, float* out, void* stream) {
+                                        float* partial, int* tickets, float* out,
+                                        void* stream) {
   if (P <= 0) return 0;
-  if (!valid_fitness_args(kernel, D, chunk, P) || U <= 0)
+  if (!valid_fitness_args(kernel, D, chunk, P) || U <= 0 || root == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int T = (D + chunk - 1) / chunk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  from_subtrees_kernel<<<dim3(T, P), kThreads, 0, st>>>(
-      root, uniq, U, D, y, w, kernel, n_classes_m1, precision, chunk, gate, run_when,
-      (T == 1) ? out : partial);
-  return merge_after(partial, P, T, gate, run_when, out, st);
+  const GatherArgs a{root,  uniq, U,        D,       y,       w,   kernel, n_classes_m1,
+                     precision, chunk, gate, run_when, partial, tickets, out};
+  return launch_gather(P, a, static_cast<cudaStream_t>(stream));
 }
 
-// B4. preds is f32[P, D].
+// B4, one launch. preds is f32[P, D].
 extern "C" int gp_fitness_from_preds(const float* preds, int P, int D, const float* y,
                                      const float* w, int kernel, float n_classes_m1,
                                      float precision, int chunk, const unsigned char* gate,
-                                     int run_when, float* partial, float* out,
+                                     int run_when, float* partial, int* tickets, float* out,
                                      void* stream) {
   if (P <= 0) return 0;
   if (!valid_fitness_args(kernel, D, chunk, P))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int T = (D + chunk - 1) / chunk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  from_preds_kernel<<<dim3(T, P), kThreads, 0, st>>>(
-      preds, D, y, w, kernel, n_classes_m1, precision, chunk, gate, run_when,
-      (T == 1) ? out : partial);
-  return merge_after(partial, P, T, gate, run_when, out, st);
+  const GatherArgs a{nullptr, preds, P,        D,       y,       w,   kernel, n_classes_m1,
+                     precision, chunk, gate, run_when, partial, tickets, out};
+  return launch_gather(P, a, static_cast<cudaStream_t>(stream));
 }
 
 // The unique-subtree table uniq f32[U, D] of a dedup plan (uop, uarg,

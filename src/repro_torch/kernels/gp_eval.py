@@ -28,8 +28,11 @@ registers; both load the list with all their threads (B1 reads its heap
 row in postorder through a slot table, which compacts it to the tree's
 postfix program) and carry up to four points per thread through it at
 once: B1 and B2 are one block body. B3/B4 read one
-prediction row per tree (P·D·4 bytes) plus y and w: memory-bound, near
-the launch floor at the paper's shapes. The unique table writes
+prediction row per tree (P·D·4 bytes) plus y and w: memory-bound at
+large shapes, near the launch floor at the paper's; each thread loads
+all its points of a tile at once, so a block has its whole slice in
+flight. Every B1-B4 call merges its data tiles inside the kernel. The
+unique table writes
 n_unique rows of D floats; its persistent blocks group the slots by
 subtree height in shared memory, so a tile of points costs one barrier
 per height (`unique_table`). The probe's predictions are B2's
@@ -45,8 +48,9 @@ untouched, so the dedup path launches both branches of the reference's
 
 On CPU tensors each wrapper runs its plain PyTorch version (the
 `*_plain` function beside it); on CUDA tensors it launches the kernel or
-raises. `launches[name]` counts each wrapper's kernel calls on CUDA
-tensors (the tests and `chip_smoke.py` read it).
+raises. `launches[name]` counts each wrapper's kernel launches on CUDA
+tensors (the tests and `chip_smoke.py` read it): one a call, or one per
+chunk of at most POP_CHUNK trees for B1-B4 (`pop_chunks`).
 """
 from __future__ import annotations
 
@@ -64,10 +68,9 @@ from repro_torch.kernels import ref as _ref
 
 KERNELS = ("eval_fitness", "eval_fitness_postfix", "eval_fitness_from_subtrees",
            "eval_fitness_from_preds", "unique_table", "predict_postfix")
-# calls of each kernel by its wrapper, one per call on CUDA tensors. A B3
-# or B4 call is two CUDA launches (partials + ordered tile merge) when D
-# spans more than one data tile, one otherwise; a B1, B2, table or probe
-# call is always one.
+# launches of each kernel by its wrapper on CUDA tensors. Each is one CUDA
+# launch of the kernel alone (B1-B4 merge their data tiles inside it); a
+# call makes one, B1-B4 one per POP_CHUNK trees.
 launches = dict.fromkeys(KERNELS, 0)
 STACK_TEMPLATES = (8, 12)  # register-stack sizes compiled into csrc/gp_eval.cu
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -81,6 +84,8 @@ PROBE_TERMS = 32
 _SMEM_DEFAULT = 48 * 1024  # dynamic shared memory a block gets without opting in
 _SMEM_MAX = 227 * 1024
 _GRID_X_MAX = 2**31 - 1
+# B1-B4 put trees on the grid's y dimension: at most this many a launch
+POP_CHUNK = 65535
 
 _LIB = None
 _vp, _i, _f32, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
@@ -90,9 +95,9 @@ _ARGTYPES = {
     "gp_eval_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _vp, _vp, _i, _u, _i,
                         _f32, _f32, _i, _vp, _i, _vp, _vp, _vp, _vp],
     "gp_fitness_from_subtrees": [_vp, _i, _vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i,
-                                 _vp, _i, _vp, _vp, _vp],
-    "gp_fitness_from_preds": [_vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i, _vp, _i, _vp,
-                              _vp, _vp],
+                                 _vp, _i, _vp, _vp, _vp, _vp],
+    "gp_fitness_from_preds": [_vp, _i, _i, _vp, _vp, _i, _f32, _f32, _i, _vp, _i,
+                              _vp, _vp, _vp, _vp],
     "gp_unique_table": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _i, _vp, _i, _u, _vp, _i,
                         _i, _i, _vp, _vp],
     "gp_predict_postfix": [_vp, _vp, _i, _i, _i, _vp, _i, _i, _vp, _i, _u, _i, _vp, _vp],
@@ -166,11 +171,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _at(t, first: int, per_tree: int = 1):
+    """The address of tree `first`'s entries in `t` (`per_tree` elements a
+    tree)."""
+    return t.data_ptr() + first * per_tree * t.element_size()
+
+
+def pop_chunks(P: int, limit: int = POP_CHUNK) -> list[tuple[int, int]]:
+    """(first tree, trees) of each B1-B4 launch for P trees: consecutive
+    runs of at most `limit` trees, in order, covering [0, P) (one launch
+    when P <= limit)."""
+    return [(s, min(limit, P - s)) for s in range(0, P, limit)]
+
+
 def _tile_buffers(P: int, D: int, data_tile: int, out, dev):
     """(tiles, partial, out) for a fitness launch; `out` is made when the
     caller gives none."""
-    if data_tile <= 0 or P > 65535:
-        raise ValueError(f"unsupported launch: P={P} (<= 65535), data_tile={data_tile}")
+    if data_tile <= 0:
+        raise ValueError(f"unsupported launch: data_tile={data_tile}")
     if out is None:
         out = torch.empty((P, 1), dtype=torch.float32, device=dev)
     elif out.shape != (P, 1) or out.dtype != torch.float32 or not out.is_contiguous():
@@ -255,13 +273,14 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
     if P == 0:
         return out
     slots = constant(postorder_slots(N), dev, np.int32)
-    _call("eval_fitness", "gp_eval_fitness", op.data_ptr(), arg.data_ptr(),
-          slots.data_ptr(), P, N, max_depth, X.data_ptr(), F, D, y.data_ptr(),
-          _ptr(weight), const_table.data_ptr(), const_table.shape[0],
-          _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
-          float(np.float32(precision)), data_tile, partial.data_ptr(),
-          _tickets(P, dev).data_ptr(), out.data_ptr(),
-          torch.cuda.current_stream(dev).cuda_stream)
+    tickets = _tickets(P, dev)
+    for s, n in pop_chunks(P):
+        _call("eval_fitness", "gp_eval_fitness", _at(op, s, N), _at(arg, s, N),
+              slots.data_ptr(), n, N, max_depth, X.data_ptr(), F, D, y.data_ptr(),
+              _ptr(weight), const_table.data_ptr(), const_table.shape[0],
+              _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
+              float(np.float32(precision)), data_tile, _at(partial, s, tiles),
+              _at(tickets, s), _at(out, s), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -319,18 +338,19 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
     if P == 0:
         return out
     g, rw = _gate_args(gate, run_when, dev)
-    _call("eval_fitness_postfix", "gp_eval_postfix", op.data_ptr(), arg.data_ptr(), P,
-          N, stack_size, X.data_ptr(), F, D, y.data_ptr(),
-          _ptr(weight), const_table.data_ptr(), const_table.shape[0],
-          _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
-          float(np.float32(precision)), data_tile, g, rw, partial.data_ptr(),
-          _tickets(P, dev).data_ptr(), out.data_ptr(),
-          torch.cuda.current_stream(dev).cuda_stream)
+    tickets = _tickets(P, dev)
+    for s, n in pop_chunks(P):
+        _call("eval_fitness_postfix", "gp_eval_postfix", _at(op, s, N), _at(arg, s, N), n,
+              N, stack_size, X.data_ptr(), F, D, y.data_ptr(),
+              _ptr(weight), const_table.data_ptr(), const_table.shape[0],
+              _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
+              float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles),
+              _at(tickets, s), _at(out, s), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
 def _tickets(P: int, dev) -> torch.Tensor:
-    """B1's and B2's per-tree ticket counters on `dev`: int32 zeros, made once (and
+    """B1-B4's per-tree ticket counters on `dev`: int32 zeros, made once (and
     again only for a larger P); every launch leaves them zero. Launches
     that share them must run in stream order, as the port's do."""
     t = _TICKETS.get(dev)
@@ -340,6 +360,7 @@ def _tickets(P: int, dev) -> torch.Tensor:
 
 
 # --- B3 / B4: moments over the unique-subtree table -----------------------------
+
 
 
 def eval_fitness_from_subtrees_plain(root, uniq, y, weight, *, kernel: str = "r",
@@ -357,8 +378,10 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
                                n_classes: int = 3, precision: float = 1e-4,
                                data_tile: int = 1024, gate=None, run_when: bool = False,
                                out=None):
-    """B3: moments of preds = uniq[clamp(root, 0, U-1)] -> f32[P, 1], the
-    gather done in the kernel.
+    """B3: moments of preds = uniq[clamp(root, 0, U-1)] -> f32[P, 1], one
+    CUDA launch: a block reads root[p] once, its threads load all their
+    points of the tile at once and fold them in B1's and B2's point
+    order; the tiles merge inside the kernel.
 
     root:  int32[P]     unique-slot id per tree (DedupPlan.root)
     uniq:  f32[U, D]    unique-subexpression values (`unique_table`)"""
@@ -377,10 +400,13 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
     if P == 0:
         return out
     g, rw = _gate_args(gate, run_when, dev)
-    _call("eval_fitness_from_subtrees", "gp_fitness_from_subtrees", root.data_ptr(), P,
-          uniq.data_ptr(), U, D, y.data_ptr(), _ptr(weight), kern.device_id,
-          float(n_classes - 1), float(np.float32(precision)), data_tile, g, rw,
-          partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    tickets = _tickets(P, dev)
+    for s, n in pop_chunks(P):
+        _call("eval_fitness_from_subtrees", "gp_fitness_from_subtrees", _at(root, s), n,
+              uniq.data_ptr(), U, D, y.data_ptr(), _ptr(weight), kern.device_id,
+              float(n_classes - 1), float(np.float32(precision)), data_tile, g, rw,
+              _at(partial, s, tiles), _at(tickets, s), _at(out, s),
+              torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -397,7 +423,9 @@ def eval_fitness_from_preds_plain(preds, y, weight, *, kernel: str = "r",
 def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: int = 3,
                             precision: float = 1e-4, data_tile: int = 1024, gate=None,
                             run_when: bool = False, out=None):
-    """B4: moments of pre-gathered predictions preds f32[P, D] -> f32[P, 1]."""
+    """B4: moments of pre-gathered predictions preds f32[P, D] -> f32[P, 1],
+    one CUDA launch: B3's block body on row preds[p]. The gather stays
+    outside, as the reference's XLA-level `uniq[root]` does."""
     if not preds.is_cuda:
         res = eval_fitness_from_preds_plain(preds, y, weight, kernel=kernel,
                                             n_classes=n_classes, precision=precision,
@@ -412,10 +440,12 @@ def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: i
     if P == 0:
         return out
     g, rw = _gate_args(gate, run_when, dev)
-    _call("eval_fitness_from_preds", "gp_fitness_from_preds", preds.data_ptr(), P, D,
-          y.data_ptr(), _ptr(weight), kern.device_id, float(n_classes - 1),
-          float(np.float32(precision)), data_tile, g, rw, partial.data_ptr(),
-          out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    tickets = _tickets(P, dev)
+    for s, n in pop_chunks(P):
+        _call("eval_fitness_from_preds", "gp_fitness_from_preds", _at(preds, s, D), n, D,
+              y.data_ptr(), _ptr(weight), kern.device_id, float(n_classes - 1),
+              float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles),
+              _at(tickets, s), _at(out, s), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
