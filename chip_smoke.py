@@ -6,8 +6,9 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc/`,
 holds each against its plain PyTorch version on the card, drives the
 port's paths (`GPSession` with its defaults: heap trees of depth 5, one
 device, elite cache, K-generation blocks; then postfix genomes with and
-without subexpression dedup) through the user's entry points, and checks
-the results against the same sessions run on the CPU. Every phase prints
+without subexpression dedup; then the two-pass fitness kernels pearson
+and r2 on those paths) through the user's entry points, and checks the
+results against the same sessions run on the CPU. Every phase prints
 one JSON line; any failure raises, so the exit code is non-zero. The
 last line is the contract line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -42,6 +43,15 @@ Phases:
      P = 70,000 trees at the kepler shape (two launches each: at most
      65,535 trees a launch), each against its plain version and
      B1 == B2 == B3 == B4 bitwise
+  2b. the two-pass kernels pearson and r2 on B1-B4 at the four shapes
+     (KITCHEN_SINK trees, real-valued data), without a weight and with one
+     plus the NaN rows: each against its plain version (moments rtol 1e-4
+     with atol 1e-4 x the column's largest value, the non-finite count
+     exactly; fitness within 1e-4, +inf at the same trees), B1 == B2 ==
+     B3 == B4 bitwise, one launch per call of the kernel's own name; at
+     kat7 and large each kernel's device time under r, pearson and r2 on
+     the same inputs, beside the bound; and P = 70,000 trees under pearson
+     (two launches each)
   3. main path: kat7 (Table 2, CLASSIFY_SET, kernel c), 30 generations on
      the card; one block under torch.cuda.set_sync_debug_mode("error");
      history bitwise equal to the CPU run; launches counted
@@ -56,6 +66,13 @@ Phases:
      every generation of the cap-100 runs and in none of the others),
      its first 10 generations bitwise equal to the CPU's, the exact/off
      histories equal to each other, no synchronisation in a block
+  6b. kat7 at full width under pearson, 30 generations each: the heap path
+     (B1), postfix with dedup off (B2) and exact at caps 1,400 (B3) and
+     6,301 (B4), the exact histories equal to the off one bit for bit;
+     and under r2 on the heap path. Each history finite and
+     non-increasing. The dyadic lattice sessions of the CPU tests, card
+     against CPU bit for bit, and kat7's first generation card against
+     CPU within 1e-4 (the CPU takes the whole dataset in one pass)
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -66,8 +83,9 @@ Options:
                 launches per call in both trees at every shape, beside
                 the bound
   --profile     instead profiles three kat7 generations of the heap main
-                path and of four postfix paths with torch.profiler (where
-                a generation's time goes; the port's kernels by name)
+                path and of four postfix paths with torch.profiler, then of
+                the heap and cap-6,301 paths under pearson (where a
+                generation's time goes; the port's kernels by name)
 """
 import dataclasses
 import json
@@ -88,6 +106,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core import eval as eval_mod  # noqa: E402
+from repro_torch.core import fitness as fit  # noqa: E402
 from repro_torch.core import primitives as prim  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import trees  # noqa: E402
@@ -698,6 +717,239 @@ def many_trees():
          checks="each of B1-B4 vs plain (exact); B1 == B2 == B3 == B4 bitwise")
 
 
+# --- phase 2b: the two-pass kernels pearson and r2 on B1-B4 -------------------
+
+TWO_PASS = ("pearson", "r2")
+FITNESS_KERNELS = ("eval_fitness", "eval_fitness_postfix", "eval_fitness_from_subtrees",
+                   "eval_fitness_from_preds")
+# f32 operations of the epilogue per tree and point: r/c three (phase 2);
+# pearson's two passes 8 + 10, r2's 8 + 4 (fold_pass1 / fold_pass2 in
+# csrc/gp_eval.cu)
+EPILOGUE_OPS = {"r": 3, "c": 3, "pearson": 18, "r2": 12}
+
+
+def _two_pass_bounds(kname, op, F, D, weight, rows_read=None):
+    """(B1/B2 bound, B3 bound, B4 bound) for fitness kernel `kname`: the
+    bytes of `_bound_ms` / `_gather_bound_ms` with out f32[P, M], and the
+    epilogue's f32 operations per tree and point."""
+    P = op.shape[0]
+    M = {"pearson": 7, "r2": 5}.get(kname, 1)
+    wb = D * 4 if weight is not None else 0
+    ep = EPILOGUE_OPS[kname] * P * D
+    rows = _ms_bound(2 * op.numel() * 4 + F * D * 4 + D * 4 + wb + 8 * 4 + P * M * 4,
+                     D * int((op >= 3).sum()) + ep)
+    b3 = _ms_bound(rows_read * D * 4 + D * 4 + wb + P * 4 + P * M * 4, ep)
+    b4 = _ms_bound(P * D * 4 + D * 4 + wb + P * M * 4, ep)
+    return rows, b3, b4
+
+
+def _compare_two_pass(got, want, kname, tag):
+    """A two-pass kernel's [P, M] moments against the plain version's: the
+    non-finite count exactly; every other column within rtol 1e-4 with
+    atol 1e-4 x the column's largest |value| (the card sums in another
+    order); the fitness after reduce_moments within 1e-4 absolute (r2's
+    fitness is unbounded: 1e-4 relative as well), +inf at the same trees
+    -> (max |fitness error|, max |fitness error| / max(|fitness|, 1)) over
+    the finite trees."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w.shape or not np.array_equal(np.isfinite(g), np.isfinite(w)):
+        raise AssertionError(f"{tag}: shapes or non-finite moments differ")
+    if not np.array_equal(g[:, -1], w[:, -1]):
+        raise AssertionError(f"{tag}: non-finite counts differ")
+    fin = np.isfinite(w)
+    gz, wz = np.where(fin, g, 0.0), np.where(fin, w, 0.0)
+    atol = 1e-4 * np.abs(wz).max(axis=0, keepdims=True)
+    bad = np.abs(gz - wz) > 1e-4 * np.abs(wz) + atol
+    if bad.any():
+        raise AssertionError(f"{tag}: moments differ at {np.argwhere(bad)[:4].tolist()}: "
+                             f"{gz[bad][:4]} vs {wz[bad][:4]}")
+    fg, fw = fit_reduce(kname, got), fit_reduce(kname, want)
+    if not np.array_equal(np.isposinf(fg), np.isposinf(fw)) or np.isnan(fg).any():
+        raise AssertionError(f"{tag}: +inf fitness sets differ")
+    ok = np.isfinite(fw)
+    rtol = 1e-4 if kname == "r2" else 0.0
+    np.testing.assert_allclose(fg[ok], fw[ok], rtol=rtol, atol=1e-4, err_msg=tag)
+    err = np.abs(fg[ok] - fw[ok])
+    return (float(err.max(initial=0.0)),
+            float((err / np.maximum(np.abs(fw[ok]), 1.0)).max(initial=0.0)))
+
+
+def _fitness_calls(op, arg, pop, parg, plan, uniq, preds, Xd, yd, wd, consts, codes, fk):
+    """{kernel name: (card call, plain call)} of B1-B4 on one case."""
+    return {
+        "eval_fitness": (
+            lambda: gp_eval.eval_fitness(op, arg, Xd, yd, wd, consts, max_depth=5,
+                                         fn_codes=codes, **fk),
+            lambda: gp_eval.eval_fitness_plain(op, arg, Xd, yd, wd, consts, max_depth=5,
+                                               fn_codes=codes, **fk)),
+        "eval_fitness_postfix": (
+            lambda: gp_eval.eval_fitness_postfix(pop, parg, Xd, yd, wd, consts, stack_size=6,
+                                                 fn_codes=codes, **fk),
+            lambda: gp_eval.eval_fitness_postfix_plain(pop, parg, Xd, yd, wd, consts,
+                                                       stack_size=6, fn_codes=codes, **fk)),
+        "eval_fitness_from_subtrees": (
+            lambda: gp_eval.eval_fitness_from_subtrees(plan.root, uniq, yd, wd, **fk),
+            lambda: gp_eval.eval_fitness_from_subtrees_plain(plan.root, uniq, yd, wd, **fk)),
+        "eval_fitness_from_preds": (
+            lambda: gp_eval.eval_fitness_from_preds(preds, yd, wd, **fk),
+            lambda: gp_eval.eval_fitness_from_preds_plain(preds, yd, wd, **fk)),
+    }
+
+
+def two_pass_kernels():
+    """Phase 2b -> ({kernel name: {fitness kernel: timings at kat7}},
+    {(shape, fitness kernel): {kernel name: device ms}} at kat7 and large,
+    {fitness kernel: {kernel name: (max |fitness error|, max relative)}}
+    at kat7). At every
+    shape, B1-B4 under pearson and r2 (KITCHEN_SINK trees, real-valued X
+    and y), without a weight and with one of zeros and fractions plus the
+    NaN rows: each against its plain version (`_compare_two_pass`), and
+    B1 == B2 == B3 == B4 bit for bit. At kat7 and large, each kernel's
+    time under r, pearson and r2 on the same inputs (the one-moment
+    instantiation beside the two-pass one), one CUDA launch per call of
+    the kernel's own name. Then P = 70,000 trees (kepler shape) under
+    pearson: two launches each, against the plain versions, bitwise
+    alike."""
+    rng = np.random.RandomState(21)
+    timed, device, errs = {}, {}, {}
+    held = []
+    for name, P, F, D in SHAPES:
+        X = rng.randn(F, D).astype(np.float32)
+        y = rng.randn(D).astype(np.float32)
+        spec, op, arg = _population(P, F, prim.KITCHEN_SINK, seed=P + F + D + 5)
+        codes = tuple(int(c) for c in prim.KITCHEN_SINK.opcodes)
+        consts = spec.const_table(DEV)
+        _, tile = ops.pick_tiles(F, spec.num_nodes, P, D)
+        wt = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), size=D)
+        nop, narg = _nan_rows(F, wt)
+        Xw = X.copy()
+        Xw[0, 0] = 1e30
+        if F > 1:
+            Xw[1, min(1, D - 1)] = 1e30
+        for weighted in (False, True):
+            o, a = (torch.cat([op, nop]), torch.cat([arg, narg])) if weighted else (op, arg)
+            Xd = torch.from_numpy(Xw if weighted else X).to(DEV)
+            yd = torch.from_numpy(y).to(DEV)
+            wd = torch.from_numpy(wt).to(DEV) if weighted else None
+            pop, parg = trees.heap_to_postfix(o, a)
+            plan = eval_mod.build_dedup_plan(pop, parg, dataclasses.replace(spec, genome="postfix"),
+                                             _table_cap(name, o, a, spec))
+            if bool(plan.overflow):
+                raise AssertionError(f"two-pass {name}: the plan overflows")
+            uniq = gp_eval.unique_table(plan, Xd, consts, fn_codes=codes)
+            preds = uniq.index_select(0, plan.root.long())
+            for kname in TWO_PASS:
+                fk = dict(kernel=kname, n_classes=3, data_tile=tile)
+                tag = f"two-pass {name} {kname} weighted={weighted}"
+                calls = _fitness_calls(o, a, pop, parg, plan, uniq, preds, Xd, yd, wd, consts,
+                                       codes, fk)
+                gp_eval.reset_launches()
+                got = {k: card() for k, (card, _) in calls.items()}
+                torch.cuda.synchronize()
+                if any(gp_eval.launches[k] != 1 for k in calls):
+                    raise AssertionError(f"{tag}: launches {gp_eval.launches}")
+                for k, (_, plain) in calls.items():
+                    err = _compare_two_pass(got[k], plain(), kname, f"{tag} {k}")
+                    if name == "kat7":
+                        by = errs.setdefault(kname, {})
+                        by[k] = tuple(map(max, by.get(k, (0.0, 0.0)), err))
+                    _same_bits(got[k], got["eval_fitness"], f"{tag}: {k} vs B1")
+                if weighted:
+                    f = fit_reduce(kname, got["eval_fitness"])[P:]
+                    if not (np.isfinite(f[0]) and np.isinf(f[1:]).all()):
+                        raise AssertionError(f"{tag}: NaN at a zero-weight point must be "
+                                             f"masked, at a weighted one +inf: {f}")
+                held.append(tag)
+            if weighted or name not in ("kat7", "large"):
+                continue
+            bounds = {k: _two_pass_bounds(k, op, F, D, None,
+                                          int(torch.unique(plan.root).numel()))
+                      for k in ("r",) + TWO_PASS}
+            for kname in ("r",) + TWO_PASS:
+                fk = dict(kernel=kname, n_classes=3, data_tile=tile)
+                calls = _fitness_calls(op, arg, pop, parg, plan, uniq, preds, Xd, yd, None,
+                                       consts, codes, fk)
+                row = {}
+                for k, (card, plain) in calls.items():
+                    b = bounds[kname]
+                    bound, bound_by = b[0] if k in FITNESS_KERNELS[:2] else (
+                        b[1] if k == "eval_fitness_from_subtrees" else b[2])
+                    dm = device_ms(card)
+                    if (dm["cuda_launches_per_call"] != 1.0
+                            or dm["device_kernels"] not in ([], [ONE_LAUNCH[k]])):
+                        raise AssertionError(f"two-pass {name} {kname} {k}: {dm}")
+                    row[k] = dict(device_ms=dm["device_ms"],
+                                  cuda_launches_per_call=dm["cuda_launches_per_call"],
+                                  device_ms_source=dm["device_ms_source"],
+                                  bound_ms=bound, bound_by=bound_by)
+                    if name == "kat7" and kname in TWO_PASS:
+                        row[k].update(ms=time_ms(card, 50), plain_ms=time_ms(plain, 20))
+                        timed.setdefault(k, {})[kname] = row[k]
+                device[name, kname] = {k: v["device_ms"] for k, v in row.items()}
+                emit("two_pass_kernel", shape=name, P=P, F=F, D=D, kernel=kname, tile=tile,
+                     n_unique=int(plan.n_unique), **row)
+    for k, by_kernel in timed.items():  # both weightings' errors are in by now
+        for kname, row in by_kernel.items():
+            row["max_abs_err"], row["max_rel_err"] = errs[kname][k]
+    ratios = {f"{name}/{kname}": {k: device[name, kname][k] / device[name, "r"][k]
+                                   for k in FITNESS_KERNELS}
+              for name in ("kat7", "large") for kname in TWO_PASS}
+    # this PR's predictions (PERF.md §6), reported, not enforced: B3/B4 at
+    # kat7 <= 1.5x and at large <= 1.3x their r time, B1/B2 at kat7 <= 1.2x
+    limits = {("kat7", "eval_fitness"): 1.2, ("kat7", "eval_fitness_postfix"): 1.2,
+              ("kat7", "eval_fitness_from_subtrees"): 1.5,
+              ("kat7", "eval_fitness_from_preds"): 1.5,
+              ("large", "eval_fitness_from_subtrees"): 1.3,
+              ("large", "eval_fitness_from_preds"): 1.3}
+    predictions = {f"{shape}/{kname} {k}": {"over_r": ratios[f"{shape}/{kname}"][k],
+                                            "limit": lim,
+                                            "held": ratios[f"{shape}/{kname}"][k] <= lim}
+                   for (shape, k), lim in limits.items() for kname in TWO_PASS}
+    chunked = _two_pass_many_trees()
+    emit("two_pass", held=held, device_ms_over_r=ratios, predictions=predictions,
+         many_trees=chunked,
+         checks="B1-B4 vs plain (moments rtol 1e-4, atol 1e-4 x column max; fitness "
+                "1e-4); B1 == B2 == B3 == B4 bitwise; one launch per call")
+    return timed, device, errs
+
+
+def fit_reduce(kname, moments):
+    """The fitness f32[P] (host) of a two-pass kernel's [P, M] moments."""
+    return fit.get_kernel(kname).reduce_moments(moments, fit.FitnessSpec(kname)).cpu().numpy()
+
+
+def _two_pass_many_trees():
+    """B1-B4 under pearson on P = 70,000 trees at the kepler shape: two
+    launches each (65,535 trees a launch), each against its plain version,
+    B1 == B2 == B3 == B4 bitwise."""
+    P, F, D = 70_000, 1, 9
+    rng = np.random.RandomState(12)
+    fn_set = prim.FunctionSet.make(("add", "sub", "mul"))
+    codes = tuple(int(c) for c in fn_set.opcodes)
+    Xd = torch.from_numpy(rng.randint(-1, 2, size=(F, D)).astype(np.float32)).to(DEV)
+    yd = torch.from_numpy(rng.randint(0, 3, size=D).astype(np.float32)).to(DEV)
+    spec, op, arg = _population(P, F, fn_set, seed=P + 1, p_const=0.0)
+    consts = spec.const_table(DEV)
+    pop, parg = trees.heap_to_postfix(op, arg)
+    plan = eval_mod.build_dedup_plan(pop, parg, dataclasses.replace(spec, genome="postfix"),
+                                     P * op.shape[1] + 1)
+    uniq = gp_eval.unique_table(plan, Xd, consts, fn_codes=codes)
+    preds = uniq.index_select(0, plan.root.long())
+    fk = dict(kernel="pearson", n_classes=3, data_tile=256)
+    calls = _fitness_calls(op, arg, pop, parg, plan, uniq, preds, Xd, yd, None, consts,
+                           codes, fk)
+    gp_eval.reset_launches()
+    got = {k: card() for k, (card, _) in calls.items()}
+    torch.cuda.synchronize()
+    launched = {k: gp_eval.launches[k] for k in calls}
+    if any(n != 2 for n in launched.values()):
+        raise AssertionError(f"two-pass P={P}: launches {launched}; want 2 each")
+    for k, (_, plain) in calls.items():
+        _compare_two_pass(got[k], plain(), "pearson", f"two-pass P={P} {k}")
+        _same_bits(got[k], got["eval_fitness"], f"two-pass P={P}: {k} vs B1")
+    return dict(P=P, D=D, kernel="pearson", launches=launched)
+
+
 # --- the parent commit's phase 2, for an A/B inside one call --------------------
 
 _PARENT_SHIM = """
@@ -782,7 +1034,9 @@ def run_dataset(dataset, pop, gens, cpu_gens, block_check, expect=("eval_fitness
     every other kernel not at all. With dedup on, `overflow` (True or
     False) is what each generation's counter row must show: the unique
     table overflowed its cap (B2 did the work, nothing saved) in every
-    generation, or in none (the table and B3/B4 did it)."""
+    generation, or in none (the table and B3/B4 did it); None leaves it
+    to the run. The first `cpu_gens` generations must equal the CPU
+    run's bit for bit (0: no CPU run)."""
     sess = GPSession.from_dataset(dataset, pop_size=pop, generations=gens, **kw)
     assert sess.backend == "cuda", sess.backend
     sess.init(key=prng.PRNGKey(0))
@@ -800,7 +1054,8 @@ def run_dataset(dataset, pop, gens, cpu_gens, block_check, expect=("eval_fitness
     hist = np.asarray(sess.history, np.float32)
     if not (np.isfinite(hist).all() and (np.diff(hist) <= 0).all()):
         raise AssertionError(f"{dataset}: best fitness not finite/non-increasing")
-    _history_vs_cpu(dataset, cpu_gens, pop, sess.history, **kw)
+    if cpu_gens:
+        _history_vs_cpu(dataset, cpu_gens, pop, sess.history, **kw)
     out = dict(dataset=dataset, options=kw, pop=pop, generations=gens, rows=sess.n_rows,
                launches={k: v for k, v in launches.items() if v},
                host_syncs=sess.stats["host_syncs"],
@@ -818,7 +1073,7 @@ def run_dataset(dataset, pop, gens, cpu_gens, block_check, expect=("eval_fitness
         if len(rows) != gens or not np.array_equal(saved == 0, over):
             raise AssertionError(f"{dataset} {kw}: counter rows disagree with the "
                                  f"cap {cap}: unique {uniq}, saved {saved}")
-        if not (over == overflow).all():
+        if overflow is not None and not (over == overflow).all():
             raise AssertionError(f"{dataset} {kw}: the table must overflow in "
                                  f"{'every' if overflow else 'no'} generation; "
                                  f"unique per generation {uniq.tolist()}")
@@ -875,10 +1130,92 @@ def postfix_paths():
     return runs
 
 
+TWO_PASS_RUNS = (  # (label, session options, kernels the run must launch, overflow)
+    ("pearson_heap", {"kernel": "pearson"}, ("eval_fitness",), None),
+    ("pearson_off", {"kernel": "pearson", "genome": "postfix", "dedup": "off"},
+     ("eval_fitness_postfix",), None),
+    ("pearson_exact_cap1400", {"kernel": "pearson", "genome": "postfix", "dedup_cap": 1400},
+     _B2_GATED + ("eval_fitness_from_subtrees",), None),
+    ("pearson_exact_cap6301", {"kernel": "pearson", "genome": "postfix", "dedup_cap": 6301},
+     _B2_GATED + ("eval_fitness_from_preds",), False),
+    ("r2_heap", {"kernel": "r2"}, ("eval_fitness",), None),
+)
+
+
+def _dyadic_lattice(kernel):
+    """The CPU tests' lattice session (tests/test_torch_two_pass.py): 16
+    rows of features in {-1, 0, 1}, an integer target, add/sub trees of
+    depth 2 and no constants, where every moment sum is exact in f32: the
+    card's history (tiles merged in the kernel, then reduce_moments) must
+    equal the CPU's (the whole-dataset form) bit for bit."""
+    rng = np.random.RandomState(11)
+    X = rng.randint(-1, 2, size=(16, 3)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + rng.randint(-1, 2, size=16)).astype(np.float32)
+    kw = dict(pop_size=16, generations=8, kernel=kernel, max_depth=2, p_const=0.0,
+              fn_set="add,sub")
+    card = GPSession(**kw).fit(X, y, key=prng.PRNGKey(4))
+    cpu = GPSession(device="cpu", **kw).fit(X, y, key=prng.PRNGKey(4))
+    if card.backend != "cuda" or card.history != cpu.history:
+        raise AssertionError(f"lattice {kernel}: card {card.history} vs CPU {cpu.history}")
+    if not torch.equal(card.state.fitness.cpu(), cpu.state.fitness):
+        raise AssertionError(f"lattice {kernel}: last fitness vectors differ")
+    return card.history
+
+
+def _first_generation_vs_cpu(kernel):
+    """kat7 at full width: the first generation's fitness on the card (the
+    kernel path, tiles merged by the Chan combine) against the CPU's (the
+    whole dataset in one pass) within 1e-4 absolute, +inf at the same
+    trees -> max |difference|."""
+    got = GPSession.from_dataset("kat7", pop_size=100, kernel=kernel)
+    want = GPSession.from_dataset("kat7", pop_size=100, kernel=kernel, device="cpu")
+    for s in (got, want):
+        s.init(key=prng.PRNGKey(0))
+        s.step()
+    g, w = got.state.fitness.cpu().numpy(), want.state.fitness.numpy()
+    if not np.array_equal(np.isposinf(g), np.isposinf(w)) or np.isnan(g).any():
+        raise AssertionError(f"kat7 {kernel}: +inf fitness sets differ")
+    ok = np.isfinite(w)
+    np.testing.assert_allclose(g[ok], w[ok], rtol=1e-4 if kernel == "r2" else 0.0,
+                               atol=1e-4, err_msg=f"kat7 {kernel} first generation")
+    return float(np.abs(g[ok] - w[ok]).max(initial=0.0))
+
+
+def two_pass_paths():
+    """Phase 6b -> {label: run}: kat7 at full width (P = 100, depth 5, F =
+    9, D = 10,000, CLASSIFY_SET), 30 generations each, under pearson on
+    the heap path (B1), on postfix genomes with dedup off (B2) and exact
+    at caps 1,400 (the table + B3) and 6,301 (the table + B4), and under
+    r2 on the heap path: each history finite and non-increasing, no
+    synchronisation in a block, the exact runs' histories equal to the
+    dedup-off run's bit for bit. Then the dyadic lattice sessions card
+    against CPU bit for bit, and kat7's first generation card against CPU
+    within 1e-4."""
+    runs = {}
+    for label, kw, expect, overflow in TWO_PASS_RUNS:
+        run = run_dataset("kat7", 100, 30, 0, block_check=label == "pearson_heap",
+                          expect=expect, overflow=overflow, **kw)
+        runs[label] = run
+        emit("two_pass_path", run=label, **run)
+    off = np.asarray(runs["pearson_off"]["history"], np.float32)
+    for label in ("pearson_exact_cap1400", "pearson_exact_cap6301"):
+        if not np.array_equal(np.asarray(runs[label]["history"], np.float32), off):
+            raise AssertionError(f"{label}: history differs from dedup off")
+    emit("two_pass_vs_cpu",
+         lattice={k: _dyadic_lattice(k) for k in TWO_PASS},
+         kat7_first_generation_max_abs_err={k: _first_generation_vs_cpu(k) for k in TWO_PASS},
+         checks="lattice histories and last fitness vectors card == CPU bitwise; kat7 "
+                "first generation within 1e-4")
+    return runs
+
+
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
             ("postfix_exact_cap100", {"genome": "postfix"}),
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
-            ("postfix_semantic", {"genome": "postfix", "dedup": "semantic"}))
+            ("postfix_semantic", {"genome": "postfix", "dedup": "semantic"}),
+            ("heap_pearson", {"kernel": "pearson"}),
+            ("postfix_exact_cap6301_pearson", {"genome": "postfix", "dedup_cap": 6301,
+                                               "kernel": "pearson"}))
 _OUR_KERNELS = ("eval_partial_kernel", "postfix_partial_kernel", "from_subtrees_kernel",
                 "from_preds_kernel", "unique_table_kernel", "postfix_predict_kernel")
 
@@ -886,7 +1223,8 @@ _OUR_KERNELS = ("eval_partial_kernel", "postfix_partial_kernel", "from_subtrees_
 def profile_main_path():
     """`--profile`: where a generation spends its time, on the heap main
     path and on the postfix paths (dedup off, exact with the default cap,
-    exact with cap 6,301, semantic). Times 3 warm kat7 generations of
+    exact with cap 6,301, semantic), then on the heap and cap-6,301 paths
+    under pearson. Times 3 warm kat7 generations of
     each with torch.profiler (CPU + CUDA activities) and prints the
     device busy time, the CUDA launches, the port's kernels' device time
     and the busiest device ops."""
@@ -955,6 +1293,36 @@ def _ptxas_lines():
             if any(k in ln for k in ("registers", "Compiling", "spill"))]
 
 
+# registers of the one-moment (r/c/m/mse) kernels as built before the
+# two-pass overloads were added (ptxas -v): B1/B2 by <S, V>, B3/B4 by <V>
+ONE_MOMENT_REGISTERS = {(8, 4): 57, (12, 4): 73, (8, 2): 48, (12, 2): 55, (8, 1): 32, (12, 1): 39,
+                  (16,): 64, (8,): 48, (4,): 32, (2,): 32, (1,): 32}
+
+
+def _registers():
+    """{kernel<template args, two-pass flag>: registers} from ptxas -v, and
+    whether every one-moment instantiation kept its ONE_MOMENT_REGISTERS
+    count."""
+    import re
+
+    regs, entry = {}, None
+    for ln in build.BUILD_INFO["gp_eval"]["ptxas"].splitlines():
+        m = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)I(\w*?)EEv", ln)
+        if m:
+            entry = (m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2))),
+                     "Lb1E" in m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+            entry = None
+    b1_b4 = {ONE_LAUNCH[k] for k in FITNESS_KERNELS}
+    fitness = {k: v for k, v in regs.items() if k[0] in b1_b4}
+    same = all(v == ONE_MOMENT_REGISTERS.get(k[1]) for k, v in fitness.items() if not k[2])
+    return {f"{n}<{','.join(map(str, t))}>{' two-pass' if two else ''}": v
+            for (n, t, two), v in sorted(fitness.items())}, same and bool(fitness)
+
+
 def main():
     if "--profile" in sys.argv[1:]:
         print(card_line(), flush=True)
@@ -965,9 +1333,11 @@ def main():
     t0 = time.perf_counter()
     build.load("gp_eval")
     build_s = time.perf_counter() - t0
+    registers, unchanged = _registers()
     emit("card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-         build_s=build_s, ptxas=_ptxas_lines())
+         build_s=build_s, ptxas=_ptxas_lines(), registers=registers,
+         one_moment_registers_unchanged=unchanged)
 
     parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     before = parent_phase2(parent) if parent else None
@@ -975,6 +1345,7 @@ def main():
     if parent:
         ab_lines("parent, before", before, perf)
         ab_lines("parent, after", parent_phase2(parent), perf)
+    two_timed, _, two_errs = two_pass_kernels()
     table_modes()
     points_per_thread()
     many_trees()
@@ -1000,6 +1371,7 @@ def main():
     emit("quickstart", best=q.best_expression(), residual=resid, backend=q.backend)
 
     runs = postfix_paths()
+    two_runs = two_pass_paths()
     # each kernel's launches come from the path whose work it does
     paths = {"eval_fitness": main_run, "eval_fitness_postfix": runs["off"],
              "eval_fitness_from_subtrees": runs["exact_cap1400"],
@@ -1013,6 +1385,30 @@ def main():
                 "predict_postfix": "src/repro/core/eval.py:79"}
     main = perf[("kat7", "c")]
     library = perf[("kat7", "r")]  # B4's yardstick sums kernel r's |pred - y|
+    # under pearson and r2 (B1-B4 only; the table and the probe carry no
+    # fitness kernel): launches on that kernel's session paths (r2 drives
+    # the heap path only), and phase 2b's numbers at kat7
+    two_paths = {"pearson": {"eval_fitness": "pearson_heap",
+                             "eval_fitness_postfix": "pearson_off",
+                             "eval_fitness_from_subtrees": "pearson_exact_cap1400",
+                             "eval_fitness_from_preds": "pearson_exact_cap6301"},
+                 "r2": {"eval_fitness": "r2_heap"}}
+
+    def two_pass_fields(name):
+        if name not in FITNESS_KERNELS:
+            return {k: None for k in TWO_PASS}
+        out = {}
+        for k in TWO_PASS:
+            run = two_paths[k].get(name)
+            t = two_timed[name][k]
+            out[k] = {"launches": two_runs[run]["launches"][name] if run else None,
+                      "max_abs_err": two_errs[k][name][0],
+                      "max_rel_err": two_errs[k][name][1], "ms": t["ms"],
+                      "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                      "library_ms": None}
+        return out
+
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gp_eval.cu",
@@ -1023,7 +1419,8 @@ def main():
         "ms": main[name]["ms"], "device_ms": main[name]["device_ms"],
         "plain_ms": main[name]["plain_ms"],
         "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
-        "library_ms": library[name]["library_ms"]} for name in gp_eval.KERNELS]}),
+        "library_ms": library[name]["library_ms"], **two_pass_fields(name)}
+        for name in gp_eval.KERNELS]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -180,16 +180,21 @@ def init_state(cfg: GPConfig, key, seeds=None, feature_names=None,
                device=None) -> GPState:
     """Fresh state on `device` (default: the card). `key` is a port key
     (`prng.PRNGKey`); the population is drawn from it exactly as the
-    reference draws it."""
-    if seeds:
-        raise NotImplementedError("seed expressions are not ported yet "
-                                  "(ROADMAP queue A: core/parse.py seeds)")
+    reference draws it. `seeds` (expression strings, parsed against the
+    config's TreeSpec with `feature_names`) fill the first slots: Karoo's
+    customized seed populations (`core/parse.seed_population`)."""
     dev = resolve_device(device)
     key = key.to(dev)
     k0, k1 = prng.split(key)
     N = cfg.tree_spec.num_nodes
     E = cache_width(cfg)
-    op, arg = generate_population(k1, cfg.pop_size, cfg.tree_spec)
+    if seeds:
+        from repro_torch.core.parse import seed_population
+
+        op, arg = seed_population(seeds, cfg.tree_spec, cfg.pop_size, k1, feature_names,
+                                  device=dev)
+    else:
+        op, arg = generate_population(k1, cfg.pop_size, cfg.tree_spec)
     _device_tables(cfg, dev)
 
     def i32(*shape):

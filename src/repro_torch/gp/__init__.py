@@ -1,7 +1,8 @@
 """repro_torch.gp — the public GP API of the port.
 
-`GPSession`, the one front door, and the `EvalBackend` registry
-(`torch`: the plain tensor path; `cuda`: the hand-written kernel).
+`GPSession`, the one front door, the `EvalBackend` registry (`torch`:
+the plain tensor path; `cuda`: the hand-written kernel) and the
+sklearn-style `SymbolicRegressor` / `SymbolicClassifier`.
 """
 from repro_torch.core.engine import GPConfig, GPState  # noqa: F401
 from repro_torch.core.evolve import OperatorMix  # noqa: F401
@@ -11,4 +12,5 @@ from repro_torch.core.fitness import (  # noqa: F401
 from repro_torch.gp.backends import (  # noqa: F401
     EvalBackend, auto_select, available_backends, get_backend, register_backend,
 )
+from repro_torch.gp.estimators import SymbolicClassifier, SymbolicRegressor  # noqa: F401
 from repro_torch.gp.session import GPSession, make_config  # noqa: F401

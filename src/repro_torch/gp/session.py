@@ -18,9 +18,11 @@ remaining generations), phase-aligned to the absolute generation, and
 one block length serves every ragged boundary through the dynamic
 `limit`. `stats["host_syncs"]` counts the synchronisations, ≤ ⌈G/K⌉.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): islands, `topology=`, `chunk_rows=`/`stream=`, `checkpoint_dir=`,
-`seeds=`, `tracer=`/`metrics=`, the `scalar` backend, `pearson`/`r2`.
+Every fitness kernel of the reference runs here, the two-pass `pearson`
+and `r2` included, and `init(seeds=)`/`fit(seeds=)` seed the first slots
+with parsed expressions. Not ported yet (each raises NotImplementedError
+naming its ROADMAP item): islands, `topology=`, `chunk_rows=`/`stream=`,
+`checkpoint_dir=`, `tracer=`/`metrics=`, the `scalar` backend.
 """
 from __future__ import annotations
 
@@ -43,22 +45,22 @@ from repro_torch.obs import counters as _tc
 _TREE_KEYS = ("max_depth", "n_features", "n_consts", "fn_set", "p_const",
               "grow_p_fn", "genome")
 _FIT_KEYS = ("kernel", "n_classes", "precision")
+_ISLANDS = "A7, islands (core/islands.py)"
 _NOT_PORTED = {
-    "islands": "islands (core/islands.py)",
-    "island_topology": "islands (core/islands.py)",
-    "island_mixes": "islands (core/islands.py)",
-    "island_tourn_sizes": "islands (core/islands.py)",
-    "island_point_rates": "islands (core/islands.py)",
-    "migrate_every": "islands (core/islands.py)",
-    "migrate_k": "islands (core/islands.py)",
-    "topology": "multi-GPU (MeshTopology)",
-    "chunk_rows": "streaming (data/loader.py ChunkedDataset)",
-    "stream": "streaming (data/loader.py ChunkedDataset)",
-    "checkpoint_dir": "ckpt/checkpoint.py",
-    "checkpoint_every": "ckpt/checkpoint.py",
-    "seeds": "core/parse.py seeds",
-    "tracer": "the obs Tracer/Metrics",
-    "metrics": "the obs Tracer/Metrics",
+    "islands": _ISLANDS,
+    "island_topology": _ISLANDS,
+    "island_mixes": _ISLANDS,
+    "island_tourn_sizes": _ISLANDS,
+    "island_point_rates": _ISLANDS,
+    "migrate_every": _ISLANDS,
+    "migrate_k": _ISLANDS,
+    "topology": "A11, multi-GPU (MeshTopology)",
+    "chunk_rows": "A8, streaming (data/loader.py ChunkedDataset)",
+    "stream": "A8, streaming (data/loader.py ChunkedDataset)",
+    "checkpoint_dir": "A4.4, ckpt/checkpoint.py",
+    "checkpoint_every": "A4.4, ckpt/checkpoint.py",
+    "tracer": "A4.6, the obs Tracer/Metrics",
+    "metrics": "A4.6, the obs Tracer/Metrics",
 }
 
 
@@ -90,7 +92,7 @@ def make_config(config: GPConfig | None = None, **overrides) -> GPConfig:
             config, fitness=dataclasses.replace(config.fitness, **fit_kw))
     if overrides:
         config = dataclasses.replace(config, **overrides)
-    fit.get_kernel(config.fitness.kernel)  # unknown / not-ported kernels fail here
+    fit.get_kernel(config.fitness.kernel)  # unknown kernels fail here
     return config
 
 
@@ -224,13 +226,15 @@ class GPSession:
 
     def init(self, *, key=None, seeds=None) -> "GPSession":
         """Fresh state from `key` (a port key, `core.prng.PRNGKey`;
-        default PRNGKey(0), as in the reference)."""
-        if seeds:
-            _not_ported("seeds")
+        default PRNGKey(0), as in the reference). `seeds` are expression
+        strings (Karoo's customized seed populations), parsed against the
+        session's TreeSpec and feature names into the first slots."""
         if self._X is None:
             raise ValueError("no dataset — call ingest()/fit() first")
         key = key if key is not None else prng.PRNGKey(0)
-        self.state = engine.init_state(self._cfg, key, device=self.device)
+        self.state = engine.init_state(self._cfg, key, seeds=seeds,
+                                       feature_names=self.feature_names,
+                                       device=self.device)
         self.history = []
         self.counter_history = []
         self._gen_host = 0
@@ -400,9 +404,9 @@ class GPSession:
         return preds[0].cpu().numpy()
 
     def score(self, X, y, *, layout: str = "rows") -> float:
-        """The fitness kernel's human-facing metric of the best tree on
-        (X, y): fraction correct for classify/match, mean |err| for
-        regression."""
+        """The fitness kernel's human-facing metric (`FitnessKernel.metric`)
+        of the best tree on (X, y): fraction correct for classify/match,
+        mean |err| for regression, 1 - r² for pearson, R² for r2."""
         preds = torch.from_numpy(self.predict(X, layout=layout))[None]
         metric = fit.get_kernel(self._cfg.fitness.kernel).metric(
             preds, torch.from_numpy(np.asarray(y, np.float32)), self._cfg.fitness)

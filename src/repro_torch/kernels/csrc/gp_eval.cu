@@ -1,8 +1,10 @@
 // GP population evaluation + fitness moments for Hopper (sm_90a).
 //
 // Replaces the four TPU kernels of `repro/kernels/gp_eval.py`, all with
-// the fused moment epilogue of the built-in fitness kernels r / c / m /
-// mse (M = 1), merged across data tiles in a fixed order:
+// the fused moment epilogue of the built-in fitness kernels, merged across
+// data tiles in a fixed order: r / c / m / mse (M = 1 moment, tiles
+// summed) and the two-pass pearson (M = 7) and r2 (M = 5), whose centered
+// moments take two passes over a tile and merge by Chan's formulas:
 //
 //   B1 gp_eval_fitness           <- eval_fitness_pallas (_eval_fitness_kernel):
 //                                   heap trees
@@ -44,12 +46,25 @@
 //   * The epilogue folds each point into a per-thread partial in a fixed
 //     order (thread t: points t, t + 256, ... of the tile); the block
 //     reduces with a fixed shuffle tree into one partial per (tree,
-//     tile), and the partials are summed in tile order inside the kernel
+//     tile), and the partials are merged in tile order inside the kernel
 //     by the block that draws a tree's last ticket (an int32 counter per
 //     tree): every B1-B4 call is one launch. No float atomics: results
 //     never change from run to run. B1-B4 share the epilogue, the
 //     reduction and the merge order, so at one tile geometry their
 //     moments are bitwise alike.
+//   * The two-pass kernels (pearson, r2) are overloads of each kernel
+//     (`<..., true>`), chosen at launch, so r/c/m/mse keep their own
+//     kernels, registers and code. Pass 1 folds Σw, Σy·w, Σx0·w (r2: the
+//     residual sum) and the non-finite count in the order above and
+//     reduces all four at once; every warp finishes that reduction itself
+//     (one barrier, no broadcast) and forms the tile's means; pass 2
+//     revisits the same points in the same order for the centered sums.
+//     B3/B4 still hold the tile's points in registers then; B1/B2, which
+//     run V points through the program at a time, stage the tile's
+//     sanitized predictions in shared memory in pass 1 (r2's pass 2 needs
+//     only y and w). The last block's warp 0 loads the tree's M-float tile
+//     partials at once, a tile a lane, and folds them in tile order with
+//     the reference's Chan combine, in the reference's association.
 //   * B3 and B4 have no program: each thread loads all its points of the
 //     tile (t, t + 256, ...; up to 16) at once, so the block's whole slice
 //     of the row, y and w is in flight together, and folds them in that
@@ -117,6 +132,13 @@ constexpr int kR = 0;
 constexpr int kC = 1;
 constexpr int kM = 2;
 constexpr int kMse = 3;
+constexpr int kPearson = 4;  // two-pass: n, x̄, ȳ, M2x, M2y, Cxy, non-finite count
+constexpr int kR2 = 5;       // two-pass: n, ȳ, M2y, Σ((x0 − y)·w)·(x0 − y), non-finite count
+
+// The moments of fitness kernel K: 7 for pearson, 5 for r2, else 1.
+__host__ __device__ constexpr int n_moments(int kernel) {
+  return kernel == kPearson ? 7 : kernel == kR2 ? 5 : 1;
+}
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
@@ -418,6 +440,207 @@ __device__ void merge_partial(float part, int p, int tile, int T,
   tickets[p] = 0;
 }
 
+// --- the two-pass epilogue of pearson and r2 ------------------------------------
+//
+// Per (tree, tile) the reference's `_pearson_moments` / `_r2_moments` with
+// x0 = isfinite(pred) ? pred : 0, every per-point term in its association
+// (the build keeps each f32 operation separately rounded):
+//   pass 1  Σw, Σy·w, and Σx0·w (pearson) or Σ((x0 − y)·w)·(x0 − y) (r2),
+//           and the count of non-finite predictions at w > 0
+//   pass 2  with ȳ = Σy·w / nz and x̄ = Σx0·w / nz (nz = n, or 1 for n = 0):
+//           M2y = Σ((y − ȳ)·w)·(y − ȳ) and, for pearson, with
+//           dxw = (x0 − x̄)·w, M2x = Σdxw·(x0 − x̄) and Cxy = Σdxw·(y − ȳ)
+
+// Pass 1 of one point into s1 = {Σw, Σy·w, Σx0·w or the residual sum,
+// count}; returns x0.
+template <int K>
+__device__ __forceinline__ float fold_pass1(float pred, float yd, float wd, float (&s1)[4]) {
+  const bool fin = isfinite(pred);
+  const float x0 = fin ? pred : 0.0f;
+  s1[0] += wd;
+  s1[1] += yd * wd;
+  if (K == kPearson) {
+    s1[2] += x0 * wd;
+  } else {
+    const float e = x0 - yd;
+    s1[2] += (e * wd) * e;
+  }
+  s1[3] += (!fin && wd > 0.0f) ? 1.0f : 0.0f;
+  return x0;
+}
+
+__host__ __device__ constexpr int pass2_sums(int K) { return K == kPearson ? 3 : 1; }
+
+// Pass 2 of one point into s2 = {M2y, M2x, Cxy} (r2: {M2y}).
+template <int K>
+__device__ __forceinline__ void fold_pass2(float x0, float yd, float wd, float mx, float my,
+                                           float (&s2)[pass2_sums(K)]) {
+  const float dy = yd - my;
+  s2[0] += (dy * wd) * dy;
+  if constexpr (K == kPearson) {
+    const float dx = x0 - mx;
+    const float dxw = dx * wd;
+    s2[1] += dxw * dx;
+    s2[2] += dxw * dy;
+  }
+}
+
+// The block's totals of M running sums, in every thread: each warp
+// reduces its lanes with the fixed shuffle tree of `block_partial`, and
+// after one barrier every warp reduces the kWarps warp sums itself with a
+// fixed three-level tree (the same order in every warp, so every thread
+// holds the same bits) — no second barrier to broadcast them.
+template <int M>
+__device__ __forceinline__ void block_sums(float (&v)[M]) {
+  static_assert(kWarps == 8, "the final tree reduces 8 warp sums");
+  __shared__ float s_part[M][kWarps];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) v[m] += __shfl_down_sync(0xffffffffu, v[m], off);
+  }
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) s_part[m][threadIdx.x >> 5] = v[m];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float x = s_part[m][lane & (kWarps - 1)];
+#pragma unroll
+    for (int off = kWarps / 2; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    v[m] = __shfl_sync(0xffffffffu, x, 0);
+  }
+}
+
+// The tile's means (x̄, ȳ) from the pass-1 totals s1, in every thread.
+template <int K>
+__device__ __forceinline__ float2 tile_means(const float (&s1)[4]) {
+  const float nz = s1[0] > 0.0f ? s1[0] : 1.0f;
+  return make_float2(K == kPearson ? s1[2] / nz : 0.0f, s1[1] / nz);
+}
+
+// a[i] of a register array, by selects (no local-memory indexing).
+template <int M>
+__device__ __forceinline__ float pick(const float (&a)[M], int i) {
+  float v = a[0];
+#pragma unroll
+  for (int m = 1; m < M; ++m) v = i == m ? a[m] : v;
+  return v;
+}
+
+// a = combine_moments(a, b) by the 32 lanes of a warp with the same a and
+// b: the reference's `_pearson_combine` / `_r2_combine`, built on
+// `_chan_merge` (mean1 + δ·n2 / nz and M2_1 + M2_2 + δ·δ·n1·n2 / nz), every
+// operation in the reference's association. The merge's divisions are
+// independent of each other, so lane i divides the i-th numerator by nz
+// (one IEEE division for all of them at once) and the quotients are
+// broadcast: the same bits as dividing one after another. The all-zeros
+// partial (a tile of padding) is an identity.
+template <int K>
+__device__ __forceinline__ void combine_moments(float (&a)[n_moments(K)],
+                                                const float (&b)[n_moments(K)], int lane) {
+  const float n1 = a[0], n2 = b[0];
+  const float n = n1 + n2;
+  const float nz = n > 0.0f ? n : 1.0f;
+  if constexpr (K == kPearson) {
+    const float dx = b[1] - a[1];
+    const float dy = b[2] - a[2];
+    const float num[5] = {dx * n2, dx * dx * n1 * n2, dy * n2, dy * dy * n1 * n2,
+                          dx * dy * n1 * n2};
+    const float q = pick(num, lane) / nz;
+    a[0] = n;
+    a[1] = a[1] + __shfl_sync(0xffffffffu, q, 0);
+    a[2] = a[2] + __shfl_sync(0xffffffffu, q, 2);
+    a[3] = a[3] + b[3] + __shfl_sync(0xffffffffu, q, 1);
+    a[4] = a[4] + b[4] + __shfl_sync(0xffffffffu, q, 3);
+    a[5] = a[5] + b[5] + __shfl_sync(0xffffffffu, q, 4);
+    a[6] = a[6] + b[6];
+  } else {
+    const float dy = b[1] - a[1];
+    const float num[2] = {dy * n2, dy * dy * n1 * n2};
+    const float q = pick(num, lane) / nz;
+    a[0] = n;
+    a[1] = a[1] + __shfl_sync(0xffffffffu, q, 0);
+    a[2] = a[2] + b[2] + __shfl_sync(0xffffffffu, q, 1);
+    a[3] = a[3] + b[3];
+    a[4] = a[4] + b[4];
+  }
+}
+
+// `merge_partial` for an M-float partial, run by warp 0 with the tile's
+// moments in every lane: they go to partial[(p * T + tile) * M + m]; the
+// block that draws tree p's last ticket folds the T partials in tile order
+// (tile 0 stored, each later tile merged by `combine_moments`: the
+// reference's j == 0 / j != 0) and writes out[p * M + m]. Its lanes load 32
+// tiles' partials at once, one tile a lane, and every lane runs the fold
+// on the values broadcast from lane j (the same bits in every lane).
+template <int K>
+__device__ void merge_moments(const float (&part)[n_moments(K)], int p, int tile, int T,
+                              float* __restrict__ partial, int* __restrict__ tickets,
+                              float* __restrict__ out) {
+  constexpr int M = n_moments(K);
+  const int lane = threadIdx.x & 31;
+  float* o = out + static_cast<size_t>(p) * M;
+  if (T == 1) {
+    if (lane < M) o[lane] = pick(part, lane);
+    return;
+  }
+  int drawn = 0;
+  if (lane == 0) {
+    float* mine = partial + (static_cast<size_t>(p) * T + tile) * M;
+#pragma unroll
+    for (int m = 0; m < M; ++m) mine[m] = part[m];
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(drawn)
+                 : "l"(tickets + p)
+                 : "memory");
+  }
+  drawn = __shfl_sync(0xffffffffu, drawn, 0);
+  if (drawn != T - 1) return;
+  __syncwarp();  // lane 0's acquire orders the other lanes' loads after it
+  const volatile float* row = partial + static_cast<size_t>(p) * T * M;
+  float acc[M];
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    float mine[M];
+    const int t = min(t0 + lane, T - 1);
+#pragma unroll
+    for (int m = 0; m < M; ++m) mine[m] = row[t * M + m];
+    const int n = min(32, T - t0);
+    for (int j = 0; j < n; ++j) {
+      float b[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) b[m] = __shfl_sync(0xffffffffu, mine[m], j);
+      if (t0 + j == 0) {
+#pragma unroll
+        for (int m = 0; m < M; ++m) acc[m] = b[m];
+      } else {
+        combine_moments<K>(acc, b, lane);
+      }
+    }
+  }
+  if (lane < M) o[lane] = pick(acc, lane);
+  if (lane == 0) tickets[p] = 0;
+}
+
+// Reduces pass 2, and warp 0 assembles the tile's moment vector in the
+// reference's column order and hands it to `merge_moments`.
+template <int K>
+__device__ __forceinline__ void two_pass_end(const float (&s1)[4], float (&s2)[pass2_sums(K)],
+                                             float2 mean, int p, int tile, int T,
+                                             float* partial, int* tickets, float* out) {
+  block_sums<pass2_sums(K)>(s2);
+  if (threadIdx.x >= 32) return;
+  if constexpr (K == kPearson) {
+    const float part[7] = {s1[0], mean.x, mean.y, s2[1], s2[0], s2[2], s1[3]};
+    merge_moments<K>(part, p, tile, T, partial, tickets, out);
+  } else {
+    const float part[5] = {s1[0], mean.y, s2[0], s1[2], s1[3]};
+    merge_moments<K>(part, p, tile, T, partial, tickets, out);
+  }
+}
+
 // The arguments of a B1/B2 launch (kernel parameters, passed by value).
 struct FitnessArgs {
   const int* op;
@@ -436,31 +659,26 @@ struct FitnessArgs {
   int chunk;
   const unsigned char* gate;  // null: always run
   int run_when;
-  float* partial;  // P * tiles floats
+  float* partial;  // P * tiles * M floats
   int* tickets;    // P int32 zeros; left zero
-  float* out;      // P floats
+  float* out;      // P * M floats
 };
 
-// The block body of B1 and B2: tree blockIdx.y's program (`load_program`),
-// then tile blockIdx.x of the points. Thread t takes the points
-// tile * chunk + t + k * kThreads, V of them through the program together,
-// and folds them into its partial in increasing k: B3's and B4's order
-// (`gather_block`), so B1-B4 stay bitwise alike. The tile's partial goes
-// to `merge_partial`.
-template <int S, int V>
-__device__ __forceinline__ void fitness_block(const FitnessArgs& a) {
-  if (gated_off(a.gate, a.run_when)) return;
-  extern __shared__ __align__(16) int smem[];
-  const Program pr = program_at(smem, a.N);
-  const int p = blockIdx.y;
-  const int len = load_program(a.op, a.arg, a.slots, p, a.N, a.F, a.consts, a.C, a.fn_mask, pr);
+// B1's and B2's two-pass epilogue (fitness kernel K) of tree p's program
+// on tile blockIdx.x: pass 1 runs V points through the program at a time,
+// as the one-moment body does, and stages each point's x0 in `s_x`
+// (pearson: the tile's `chunk` floats of shared memory); pass 2 reads them
+// back with y and w in the same order.
+template <int S, int V, int K>
+__device__ __forceinline__ void two_pass_rows(const FitnessArgs& a, const Program& pr, int len,
+                                              int p, float* s_x) {
   const float* __restrict__ X = a.X;
   const int D = a.D;
   const int tile = blockIdx.x;
-  const int d_end = min(D, (tile + 1) * a.chunk);
-  float acc = 0.0f;
-  int bad = 0;
-  for (int d0 = tile * a.chunk + threadIdx.x; d0 < d_end; d0 += V * kThreads) {
+  const int lo = tile * a.chunk;
+  const int d_end = min(D, lo + a.chunk);
+  float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int d0 = lo + threadIdx.x; d0 < d_end; d0 += V * kThreads) {
     int d[V];
     float pred[V];
 #pragma unroll
@@ -470,19 +688,81 @@ __device__ __forceinline__ void fitness_block(const FitnessArgs& a) {
         [&](int row, int k) { return __ldg(X + static_cast<size_t>(row) * D + d[k]); }, pred);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      if (d0 + k * kThreads < d_end)
-        epilogue(a.kernel, pred[k], __ldg(a.y + d[k]), a.w ? __ldg(a.w + d[k]) : 1.0f,
-                 a.n_classes_m1, a.precision, acc, bad);
+      if (d0 + k * kThreads < d_end) {
+        const float x0 = fold_pass1<K>(pred[k], __ldg(a.y + d[k]),
+                                       a.w ? __ldg(a.w + d[k]) : 1.0f, s1);
+        if (K == kPearson) s_x[d0 + k * kThreads - lo] = x0;
+      }
     }
   }
-  const float part = block_partial(acc, bad, a.kernel);
-  if (threadIdx.x == 0) merge_partial(part, p, tile, gridDim.x, a.partial, a.tickets, a.out);
+  block_sums<4>(s1);  // its barrier publishes s_x
+  const float2 mean = tile_means<K>(s1);
+  float s2[pass2_sums(K)] = {};
+  for (int i = threadIdx.x; i < d_end - lo; i += kThreads)
+    fold_pass2<K>(K == kPearson ? s_x[i] : 0.0f, __ldg(a.y + lo + i),
+                  a.w ? __ldg(a.w + lo + i) : 1.0f, mean.x, mean.y, s2);
+  two_pass_end<K>(s1, s2, mean, p, tile, gridDim.x, a.partial, a.tickets, a.out);
 }
 
-// B1: heap trees (a.slots = the full heap's postorder).
+// The block body of B1 and B2: tree blockIdx.y's program (`load_program`),
+// then tile blockIdx.x of the points. Thread t takes the points
+// tile * chunk + t + k * kThreads, V of them through the program together,
+// and folds them into its partial in increasing k: B3's and B4's order
+// (`gather_block`), so B1-B4 stay bitwise alike. The tile's partial goes
+// to `merge_partial`. With Two, the two-pass kernels' body instead
+// (`two_pass_rows`; pearson's staged points follow the program in shared
+// memory).
+template <int S, int V, bool Two>
+__device__ __forceinline__ void fitness_block(const FitnessArgs& a) {
+  if (gated_off(a.gate, a.run_when)) return;
+  extern __shared__ __align__(16) int smem[];
+  const Program pr = program_at(smem, a.N);
+  const int p = blockIdx.y;
+  const int len = load_program(a.op, a.arg, a.slots, p, a.N, a.F, a.consts, a.C, a.fn_mask, pr);
+  if constexpr (Two) {
+    if (a.kernel == kPearson)
+      two_pass_rows<S, V, kPearson>(a, pr, len, p, reinterpret_cast<float*>(smem + 3 * a.N));
+    else
+      two_pass_rows<S, V, kR2>(a, pr, len, p, nullptr);
+  } else {
+    const float* __restrict__ X = a.X;
+    const int D = a.D;
+    const int tile = blockIdx.x;
+    const int d_end = min(D, (tile + 1) * a.chunk);
+    float acc = 0.0f;
+    int bad = 0;
+    for (int d0 = tile * a.chunk + threadIdx.x; d0 < d_end; d0 += V * kThreads) {
+      int d[V];
+      float pred[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) d[k] = min(d0 + k * kThreads, D - 1);
+      run_program_v<S, V, false>(
+          pr, len,
+          [&](int row, int k) { return __ldg(X + static_cast<size_t>(row) * D + d[k]); }, pred);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (d0 + k * kThreads < d_end)
+          epilogue(a.kernel, pred[k], __ldg(a.y + d[k]), a.w ? __ldg(a.w + d[k]) : 1.0f,
+                   a.n_classes_m1, a.precision, acc, bad);
+      }
+    }
+    const float part = block_partial(acc, bad, a.kernel);
+    if (threadIdx.x == 0) merge_partial(part, p, tile, gridDim.x, a.partial, a.tickets, a.out);
+  }
+}
+
+// B1: heap trees (a.slots = the full heap's postorder). The one-moment
+// kernels r/c/m/mse are <S, V>; pearson and r2 run the overload <S, V,
+// true> (one instantiation each, their own registers).
 template <int S, int V>
 __global__ void __launch_bounds__(kThreads) eval_partial_kernel(const FitnessArgs a) {
-  fitness_block<S, V>(a);
+  fitness_block<S, V, false>(a);
+}
+
+template <int S, int V, bool TwoPass>
+__global__ void __launch_bounds__(kThreads) eval_partial_kernel(const FitnessArgs a) {
+  static_assert(TwoPass, "the one-moment kernel is the <S, V> overload");
+  fitness_block<S, V, true>(a);
 }
 
 // B2: postfix streams. The active program is the row's non-EMPTY slots in
@@ -490,7 +770,13 @@ __global__ void __launch_bounds__(kThreads) eval_partial_kernel(const FitnessArg
 // skipped, as the reference's interpreter holds its stack through them).
 template <int S, int V>
 __global__ void __launch_bounds__(kThreads) postfix_partial_kernel(const FitnessArgs a) {
-  fitness_block<S, V>(a);
+  fitness_block<S, V, false>(a);
+}
+
+template <int S, int V, bool TwoPass>
+__global__ void __launch_bounds__(kThreads) postfix_partial_kernel(const FitnessArgs a) {
+  static_assert(TwoPass, "the one-moment kernel is the <S, V> overload");
+  fitness_block<S, V, true>(a);
 }
 
 // --- the probe: postfix predictions with no epilogue ---------------------------
@@ -607,9 +893,9 @@ struct GatherArgs {
   int chunk;
   const unsigned char* gate;  // null: always run
   int run_when;
-  float* partial;  // P * tiles floats
+  float* partial;  // P * tiles * M floats
   int* tickets;    // P int32 zeros; left zero
-  float* out;      // P floats
+  float* out;      // P * M floats
 };
 
 // Thread t's points of a tile (n points from `row`, `y`, `w`) through the
@@ -638,6 +924,53 @@ __device__ __forceinline__ void fold_points(const float* __restrict__ row,
   }
 }
 
+// The two-pass epilogue (fitness kernel K) of thread t's points of a tile,
+// in `fold_points`'s order and loads: pass 2 reuses the x0, y and w held
+// in registers when the tile fits V points a thread (always at the
+// `pick_tiles` tile, V = tile / kThreads), else it loads them again.
+template <int V, int K>
+__device__ __forceinline__ void two_pass_points(const float* __restrict__ row,
+                                                const float* __restrict__ y,
+                                                const float* __restrict__ w, int n, int p,
+                                                int tile, const GatherArgs& a) {
+  float v[V], yv[V], wv[V];
+  float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i0 = threadIdx.x; i0 < n; i0 += V * kThreads) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = min(i0 + k * kThreads, n - 1);
+      v[k] = __ldg(row + i);
+      yv[k] = __ldg(y + i);
+      wv[k] = w ? __ldg(w + i) : 1.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (i0 + k * kThreads < n) v[k] = fold_pass1<K>(v[k], yv[k], wv[k], s1);
+    }
+  }
+  block_sums<4>(s1);
+  const float2 mean = tile_means<K>(s1);
+  const bool kept = n <= V * kThreads;
+  float s2[pass2_sums(K)] = {};
+  for (int i0 = threadIdx.x; i0 < n; i0 += V * kThreads) {
+    if (!kept) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int i = min(i0 + k * kThreads, n - 1);
+        const float x = __ldg(row + i);
+        v[k] = isfinite(x) ? x : 0.0f;
+        yv[k] = __ldg(y + i);
+        wv[k] = w ? __ldg(w + i) : 1.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (i0 + k * kThreads < n) fold_pass2<K>(v[k], yv[k], wv[k], mean.x, mean.y, s2);
+    }
+  }
+  two_pass_end<K>(s1, s2, mean, p, tile, gridDim.x, a.partial, a.tickets, a.out);
+}
+
 // The block body of B3 and B4: tile blockIdx.x of tree blockIdx.y's
 // prediction row (B3: uniq[clamp(root[p], 0, U - 1)], root read once; B4:
 // preds[p]) through the epilogue. Each thread loads all its points of the
@@ -645,8 +978,9 @@ __device__ __forceinline__ void fold_points(const float* __restrict__ row,
 // slice of the row, y and w in flight together, and folds them in B1's and
 // B2's order (`fold_points`); the fitness kernel's branch is taken once per
 // block, not per point. The tile's partial goes to `merge_partial`: one
-// launch a call.
-template <int V>
+// launch a call. With Two, the two-pass kernels' epilogue
+// (`two_pass_points`).
+template <int V, bool Two>
 __device__ __forceinline__ void gather_block(const GatherArgs& a) {
   if (gated_off(a.gate, a.run_when)) return;  // before any ticket: they stay zero
   const int p = blockIdx.y;
@@ -658,28 +992,50 @@ __device__ __forceinline__ void gather_block(const GatherArgs& a) {
   const float* row = a.rows + r * a.D + lo;
   const float* y = a.y + lo;
   const float* w = a.w ? a.w + lo : nullptr;
-  float acc = 0.0f;
-  int bad = 0;
-  switch (a.kernel) {
-    case kR: fold_points<V, kR>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
-    case kC: fold_points<V, kC>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
-    case kM: fold_points<V, kM>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
-    default: fold_points<V, kMse>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad);
+  if constexpr (Two) {
+    if (a.kernel == kPearson)
+      two_pass_points<V, kPearson>(row, y, w, n, p, tile, a);
+    else
+      two_pass_points<V, kR2>(row, y, w, n, p, tile, a);
+  } else {
+    float acc = 0.0f;
+    int bad = 0;
+    switch (a.kernel) {
+      case kR: fold_points<V, kR>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
+      case kC: fold_points<V, kC>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
+      case kM: fold_points<V, kM>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad); break;
+      default: fold_points<V, kMse>(row, y, w, n, a.n_classes_m1, a.precision, acc, bad);
+    }
+    const float part = block_partial(acc, bad, a.kernel);
+    if (threadIdx.x == 0) merge_partial(part, p, tile, gridDim.x, a.partial, a.tickets, a.out);
   }
-  const float part = block_partial(acc, bad, a.kernel);
-  if (threadIdx.x == 0) merge_partial(part, p, tile, gridDim.x, a.partial, a.tickets, a.out);
 }
 
 // B3 (a.root != null): the tree's row is uniq[clamp(root[p], 0, U - 1)].
+// One-moment kernels <V>, pearson and r2 the overload <V, true>.
 template <int V>
 __global__ void __launch_bounds__(kThreads) from_subtrees_kernel(const GatherArgs a) {
-  gather_block<V>(a);
+  gather_block<V, false>(a);
+}
+
+template <int V, bool TwoPass>
+__global__ void __launch_bounds__(kThreads)
+    from_subtrees_kernel(const GatherArgs a) {
+  static_assert(TwoPass, "the one-moment kernel is the <V> overload");
+  gather_block<V, true>(a);
 }
 
 // B4 (a.root == null): the tree's row is preds[p].
 template <int V>
 __global__ void __launch_bounds__(kThreads) from_preds_kernel(const GatherArgs a) {
-  gather_block<V>(a);
+  gather_block<V, false>(a);
+}
+
+template <int V, bool TwoPass>
+__global__ void __launch_bounds__(kThreads)
+    from_preds_kernel(const GatherArgs a) {
+  static_assert(TwoPass, "the one-moment kernel is the <V> overload");
+  gather_block<V, true>(a);
 }
 
 // --- the unique-subtree table ---------------------------------------------------
@@ -1026,50 +1382,98 @@ __global__ void __launch_bounds__(kTableThreads) unique_table_kernel(
 }
 
 bool valid_fitness_args(int kernel, int D, int chunk, int P) {
-  return kernel >= kR && kernel <= kMse && D > 0 && chunk > 0 && P <= 65535;
+  return kernel >= kR && kernel <= kR2 && D > 0 && chunk > 0 && P <= 65535;
 }
 
-template <int V>
+template <int V, bool Two>
 void launch_gather_v(dim3 grid, cudaStream_t st, const GatherArgs& a) {
-  if (a.root)
-    from_subtrees_kernel<V><<<grid, kThreads, 0, st>>>(a);
-  else
-    from_preds_kernel<V><<<grid, kThreads, 0, st>>>(a);
+  if constexpr (Two) {
+    if (a.root)
+      from_subtrees_kernel<V, true><<<grid, kThreads, 0, st>>>(a);
+    else
+      from_preds_kernel<V, true><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    if (a.root)
+      from_subtrees_kernel<V><<<grid, kThreads, 0, st>>>(a);
+    else
+      from_preds_kernel<V><<<grid, kThreads, 0, st>>>(a);
+  }
+}
+
+template <bool Two>
+void launch_gather_two(int per, dim3 grid, cudaStream_t st, const GatherArgs& a) {
+  auto launch = per >= 16 ? launch_gather_v<16, Two> : per >= 8 ? launch_gather_v<8, Two>
+              : per >= 4  ? launch_gather_v<4, Two>  : per >= 2 ? launch_gather_v<2, Two>
+                          : launch_gather_v<1, Two>;
+  launch(grid, st, a);
 }
 
 // One B3 (a.root != null) or B4 launch of P trees: grid (tiles, trees), V =
-// the thread's points per tile (chunk / kThreads), at most 16.
+// the thread's points per tile (chunk / kThreads), at most 16; the two-pass
+// instantiation for pearson and r2.
 int launch_gather(int P, const GatherArgs& a, cudaStream_t st) {
   const int per = a.chunk / kThreads;
-  auto launch = per >= 16 ? launch_gather_v<16> : per >= 8 ? launch_gather_v<8>
-              : per >= 4  ? launch_gather_v<4>  : per >= 2 ? launch_gather_v<2>
-                          : launch_gather_v<1>;
-  launch(dim3((a.D + a.chunk - 1) / a.chunk, P), st, a);
+  const dim3 grid((a.D + a.chunk - 1) / a.chunk, P);
+  if (a.kernel >= kPearson)
+    launch_gather_two<true>(per, grid, st, a);
+  else
+    launch_gather_two<false>(per, grid, st, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S, int V>
-void launch_fitness(bool heap, dim3 grid, size_t smem, cudaStream_t st, const FitnessArgs& a) {
-  if (heap)
-    eval_partial_kernel<S, V><<<grid, kThreads, smem, st>>>(a);
-  else
-    postfix_partial_kernel<S, V><<<grid, kThreads, smem, st>>>(a);
+template <int S, int V, bool Two>
+int launch_fitness(bool heap, dim3 grid, size_t smem, cudaStream_t st, const FitnessArgs& a) {
+  if constexpr (Two) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          heap ? eval_partial_kernel<S, V, true> : postfix_partial_kernel<S, V, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (heap)
+      eval_partial_kernel<S, V, true><<<grid, kThreads, smem, st>>>(a);
+    else
+      postfix_partial_kernel<S, V, true><<<grid, kThreads, smem, st>>>(a);
+  } else {
+    if (heap)
+      eval_partial_kernel<S, V><<<grid, kThreads, smem, st>>>(a);
+    else
+      postfix_partial_kernel<S, V><<<grid, kThreads, smem, st>>>(a);
+  }
+  return 0;
+}
+
+template <bool Two>
+int launch_rows_two(bool heap, int stack_bound, int V, dim3 grid, size_t smem, cudaStream_t st,
+                    const FitnessArgs& a) {
+  auto launch = stack_bound <= 8
+                    ? (V == 4 ? launch_fitness<8, 4, Two> : V == 2 ? launch_fitness<8, 2, Two>
+                                                                    : launch_fitness<8, 1, Two>)
+                    : (V == 4 ? launch_fitness<12, 4, Two>
+                              : V == 2 ? launch_fitness<12, 2, Two> : launch_fitness<12, 1, Two>);
+  return launch(heap, grid, smem, st, a);
+}
+
+// Dynamic shared memory of a B1/B2 block: the program (3N words), and for
+// pearson the tile's staged points (chunk floats).
+size_t rows_smem(int N, int kernel, int chunk) {
+  return (static_cast<size_t>(N) * 3 + (kernel == kPearson ? static_cast<size_t>(chunk) : 0)) *
+         sizeof(int);
 }
 
 // One B1 (heap) or B2 launch of P trees: grid (tiles, trees), a register
 // stack of 8 floats when the programs' stack bound allows it, else 12, and
-// V = the thread's points per tile (chunk / kThreads), at most 4.
+// V = the thread's points per tile (chunk / kThreads), at most 4; the
+// two-pass instantiation for pearson and r2.
 int launch_rows(bool heap, int P, int stack_bound, const FitnessArgs& a, cudaStream_t st) {
   const int V = a.chunk >= 4 * kThreads ? 4 : a.chunk >= 2 * kThreads ? 2 : 1;
   const dim3 grid((a.D + a.chunk - 1) / a.chunk, P);
-  const size_t smem = static_cast<size_t>(a.N) * 3 * sizeof(int);
-  auto launch = stack_bound <= 8
-                    ? (V == 4 ? launch_fitness<8, 4> : V == 2 ? launch_fitness<8, 2>
-                                                               : launch_fitness<8, 1>)
-                    : (V == 4 ? launch_fitness<12, 4> : V == 2 ? launch_fitness<12, 2>
-                                                                : launch_fitness<12, 1>);
-  launch(heap, grid, smem, st, a);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = rows_smem(a.N, a.kernel, a.chunk);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = a.kernel >= kPearson
+                      ? launch_rows_two<true>(heap, stack_bound, V, grid, smem, st, a)
+                      : launch_rows_two<false>(heap, stack_bound, V, grid, smem, st, a);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 template <int S>
@@ -1090,9 +1494,10 @@ int launch_probe(unsigned blocks, int rows, size_t smem, cudaStream_t st, const 
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`,
-// never synchronises and allocates nothing: `partial` holds
-// P * ceil(D / chunk) floats (unused when there is one tile), `out` holds
-// P floats, `tickets` P int32 zeros (B1-B4 leave them zero). Each returns
+// never synchronises and allocates nothing: with M = the fitness kernel's
+// moments (`n_moments`: 7 for pearson, 5 for r2, else 1), `partial` holds
+// P * ceil(D / chunk) * M floats (unused when there is one tile), `out`
+// holds P * M floats, `tickets` P int32 zeros (B1-B4 leave them zero). Each returns
 // cudaGetLastError() after its launch (0 on success). `gate` may be null
 // (always run). B1-B4 take at most 65,535 trees a launch (gridDim.y); the
 // wrappers launch more in chunks.

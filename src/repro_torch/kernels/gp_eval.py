@@ -1,8 +1,9 @@
 """GP population evaluation + fitness moments: the CUDA kernels' wrappers.
 
 Each wrapper replaces one TPU kernel of `repro/kernels/gp_eval.py` and
-returns the tree's fitness moments f32[P, M] (M = 1), merged over data
-tiles in order:
+returns the tree's fitness moments f32[P, M] (M = the fitness kernel's
+`n_moments`: 1 for r/c/m/mse, 7 for pearson, 5 for r2), merged over data
+tiles in order (pearson/r2 by their Chan combine):
 
     eval_fitness               B1  eval_fitness_pallas: heap trees
     eval_fitness_postfix       B2  eval_fitness_pallas_postfix: postfix streams
@@ -146,10 +147,20 @@ def _fit_spec(kernel, n_classes, precision) -> fit.FitnessSpec:
 
 def _device_kernel(kernel: str):
     kern = fit.get_kernel(kernel)
-    if kern.device_id is None or kern.n_moments != 1:
+    if kern.device_id is None:
         raise NotImplementedError(
             f"fitness kernel {kernel!r} has no device form in csrc/gp_eval.cu")
     return kern
+
+
+def _check_rows_smem(kern, N: int, data_tile: int) -> None:
+    """B1/B2 keep the program (3N words) in shared memory, and pearson
+    also the tile's points (data_tile floats), at most _SMEM_MAX bytes."""
+    need = 4 * (3 * N + (data_tile if kern.name == "pearson" else 0))
+    if need > _SMEM_MAX:
+        raise ValueError(f"unsupported launch: {need} bytes of shared memory a block "
+                         f"(N={N}, data_tile={data_tile}, kernel {kern.name!r}); at most "
+                         f"{_SMEM_MAX}")
 
 
 def _check(dev, **tensors) -> None:
@@ -184,17 +195,18 @@ def pop_chunks(P: int, limit: int = POP_CHUNK) -> list[tuple[int, int]]:
     return [(s, min(limit, P - s)) for s in range(0, P, limit)]
 
 
-def _tile_buffers(P: int, D: int, data_tile: int, out, dev):
-    """(tiles, partial, out) for a fitness launch; `out` is made when the
-    caller gives none."""
+def _tile_buffers(P: int, D: int, data_tile: int, M: int, out, dev):
+    """(tiles, partial, out) for a fitness launch of M moments: `partial`
+    holds P·tiles·M floats, `out` f32[P, M] (made when the caller gives
+    none)."""
     if data_tile <= 0:
         raise ValueError(f"unsupported launch: data_tile={data_tile}")
     if out is None:
-        out = torch.empty((P, 1), dtype=torch.float32, device=dev)
-    elif out.shape != (P, 1) or out.dtype != torch.float32 or not out.is_contiguous():
-        raise ValueError("out must be a contiguous float32 [P, 1] tensor")
+        out = torch.empty((P, M), dtype=torch.float32, device=dev)
+    elif out.shape != (P, M) or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous float32 [P, {M}] tensor")
     tiles = -(-D // data_tile)
-    partial = torch.empty((P * tiles if tiles > 1 else 1,), dtype=torch.float32,
+    partial = torch.empty((P * tiles * M if tiles > 1 else 1,), dtype=torch.float32,
                           device=dev)
     return tiles, partial, out
 
@@ -235,8 +247,8 @@ def eval_fitness_plain(op, arg, X, y, weight, const_table, *, max_depth: int,
 def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
                  kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
                  gather: str | None = None, data_tile: int = 1024, fn_codes=None):
-    """B1: fused heap eval+moments -> f32[P, M] (M = 1 for the built-in
-    kernels), one CUDA launch: B2's block body, its program loaded from
+    """B1: fused heap eval+moments -> f32[P, M] (M = the fitness kernel's
+    `n_moments`), one CUDA launch: B2's block body, its program loaded from
     the heap row in full-heap postorder (`trees.postorder_slots`, a device
     constant), the tiles merged in order inside the kernel.
 
@@ -269,7 +281,9 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
     if N != 2 ** (max_depth + 1) - 1 or not 0 <= max_depth <= 10:
         raise ValueError(f"op has {N} slots; max_depth={max_depth} (<= 10) needs "
                          f"{2 ** (max_depth + 1) - 1}")
-    tiles, partial, out = _tile_buffers(P, D, data_tile, None, dev)
+    _check_rows_smem(kern, N, data_tile)
+    M = kern.n_moments
+    tiles, partial, out = _tile_buffers(P, D, data_tile, M, None, dev)
     if P == 0:
         return out
     slots = constant(postorder_slots(N), dev, np.int32)
@@ -279,8 +293,8 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
               slots.data_ptr(), n, N, max_depth, X.data_ptr(), F, D, y.data_ptr(),
               _ptr(weight), const_table.data_ptr(), const_table.shape[0],
               _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
-              float(np.float32(precision)), data_tile, _at(partial, s, tiles),
-              _at(tickets, s), _at(out, s), torch.cuda.current_stream(dev).cuda_stream)
+              float(np.float32(precision)), data_tile, _at(partial, s, tiles * M),
+              _at(tickets, s), _at(out, s, M), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -305,8 +319,8 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
                          kernel: str = "r", n_classes: int = 3, precision: float = 1e-4,
                          data_tile: int = 1024, fn_codes=None, gate=None,
                          run_when: bool = True, out=None):
-    """B2: fused postfix eval+moments -> f32[P, 1], one CUDA launch (the
-    tiles' partials are summed in tile order inside the kernel, by the
+    """B2: fused postfix eval+moments -> f32[P, M], one CUDA launch (the
+    tiles' partials are merged in tile order inside the kernel, by the
     block that draws a tree's last ticket; `_tickets`).
 
     op, arg:    int32[P, N]  postfix streams (any N)
@@ -334,7 +348,9 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
            X=(X, torch.float32, (F, D)), y=(y, torch.float32, (D,)),
            weight=(weight, torch.float32, (D,)),
            const_table=(const_table, torch.float32, const_table.shape))
-    tiles, partial, out = _tile_buffers(P, D, data_tile, out, dev)
+    _check_rows_smem(kern, N, data_tile)
+    M = kern.n_moments
+    tiles, partial, out = _tile_buffers(P, D, data_tile, M, out, dev)
     if P == 0:
         return out
     g, rw = _gate_args(gate, run_when, dev)
@@ -344,8 +360,8 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
               N, stack_size, X.data_ptr(), F, D, y.data_ptr(),
               _ptr(weight), const_table.data_ptr(), const_table.shape[0],
               _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
-              float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles),
-              _at(tickets, s), _at(out, s), torch.cuda.current_stream(dev).cuda_stream)
+              float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles * M),
+              _at(tickets, s), _at(out, s, M), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -378,7 +394,7 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
                                n_classes: int = 3, precision: float = 1e-4,
                                data_tile: int = 1024, gate=None, run_when: bool = False,
                                out=None):
-    """B3: moments of preds = uniq[clamp(root, 0, U-1)] -> f32[P, 1], one
+    """B3: moments of preds = uniq[clamp(root, 0, U-1)] -> f32[P, M], one
     CUDA launch: a block reads root[p] once, its threads load all their
     points of the tile at once and fold them in B1's and B2's point
     order; the tiles merge inside the kernel.
@@ -396,7 +412,8 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
     dev = root.device
     _check(dev, root=(root, torch.int32, (P,)), uniq=(uniq, torch.float32, (U, D)),
            y=(y, torch.float32, (D,)), weight=(weight, torch.float32, (D,)))
-    tiles, partial, out = _tile_buffers(P, D, data_tile, out, dev)
+    M = kern.n_moments
+    tiles, partial, out = _tile_buffers(P, D, data_tile, M, out, dev)
     if P == 0:
         return out
     g, rw = _gate_args(gate, run_when, dev)
@@ -405,7 +422,7 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
         _call("eval_fitness_from_subtrees", "gp_fitness_from_subtrees", _at(root, s), n,
               uniq.data_ptr(), U, D, y.data_ptr(), _ptr(weight), kern.device_id,
               float(n_classes - 1), float(np.float32(precision)), data_tile, g, rw,
-              _at(partial, s, tiles), _at(tickets, s), _at(out, s),
+              _at(partial, s, tiles * M), _at(tickets, s), _at(out, s, M),
               torch.cuda.current_stream(dev).cuda_stream)
     return out
 
@@ -423,7 +440,7 @@ def eval_fitness_from_preds_plain(preds, y, weight, *, kernel: str = "r",
 def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: int = 3,
                             precision: float = 1e-4, data_tile: int = 1024, gate=None,
                             run_when: bool = False, out=None):
-    """B4: moments of pre-gathered predictions preds f32[P, D] -> f32[P, 1],
+    """B4: moments of pre-gathered predictions preds f32[P, D] -> f32[P, M],
     one CUDA launch: B3's block body on row preds[p]. The gather stays
     outside, as the reference's XLA-level `uniq[root]` does."""
     if not preds.is_cuda:
@@ -436,7 +453,8 @@ def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: i
     dev = preds.device
     _check(dev, preds=(preds, torch.float32, (P, D)), y=(y, torch.float32, (D,)),
            weight=(weight, torch.float32, (D,)))
-    tiles, partial, out = _tile_buffers(P, D, data_tile, out, dev)
+    M = kern.n_moments
+    tiles, partial, out = _tile_buffers(P, D, data_tile, M, out, dev)
     if P == 0:
         return out
     g, rw = _gate_args(gate, run_when, dev)
@@ -444,8 +462,8 @@ def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: i
     for s, n in pop_chunks(P):
         _call("eval_fitness_from_preds", "gp_fitness_from_preds", _at(preds, s, D), n, D,
               y.data_ptr(), _ptr(weight), kern.device_id, float(n_classes - 1),
-              float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles),
-              _at(tickets, s), _at(out, s), torch.cuda.current_stream(dev).cuda_stream)
+              float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles * M),
+              _at(tickets, s), _at(out, s, M), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

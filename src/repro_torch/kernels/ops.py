@@ -11,7 +11,9 @@ the weight mask and the run's function set, and dispatches on `impl`:
 
 Two surfaces, as in the reference:
 
-    fitness(...)  f32[P] finalized fitness
+    fitness(...)  f32[P] finalized fitness: the kernels' f32[P, M]
+                  moments, then the fitness kernel's `reduce_moments`
+                  (a few elementwise ops; pearson and r2 finish there)
     moments(...)  f32[P, M] phase-1 moments only
 """
 from __future__ import annotations
@@ -57,23 +59,24 @@ def pick_tiles(n_features: int, n_nodes: int, pop: int, data: int,
 # VMEM beside the postfix kernel's working set at the plain tile pick.
 _TPU_VMEM_BUDGET = 12 * 2**20
 _TPU_POP_TILE = 8
-_TPU_DATA_TILE = 1024  # the reference's starting data tile (its GPConfig default)
 
 
 def _tpu_postfix_vmem(n_features: int, stack_size: int, Db: int, dedup_rows: int) -> int:
     return 4 * (n_features * Db + _TPU_POP_TILE * (stack_size + 8) * Db + dedup_rows * Db)
 
 
-def _tpu_dedup_fits(n_features: int, stack_size: int, data: int, cap: int) -> bool:
+def _tpu_dedup_fits(n_features: int, stack_size: int, data: int, cap: int,
+                    data_tile: int = 1024) -> bool:
     """Whether the reference runs its in-VMEM gather kernel (B3) rather
     than the spill kernel (B4) for this configuration: its
-    `pick_tiles_postfix` data tile from its default start of 1024, then
-    its `_postfix_vmem` charged with the cap's rows, against its 12 MiB
-    budget. The rule is the TPU's; the port follows it so that a
-    configuration runs the counterpart of the kernel the reference runs.
-    (kat7: B3 up to a cap of 1,415, B4 above.) It does not read the
-    port's `data_tile`, which bounds the card's tile instead."""
-    Db = _TPU_DATA_TILE
+    `pick_tiles_postfix` data tile from the caller's `data_tile` (the
+    reference's default and GPConfig's: 1024), then its `_postfix_vmem`
+    charged with the cap's rows, against its 12 MiB budget. The rule is
+    the TPU's; the port follows it so that a configuration runs the
+    counterpart of the kernel the reference runs. (kat7 at 1024: B3 up to
+    a cap of 1,415, B4 above.) `data_tile` is the caller's, before
+    `pick_tiles` turns it into the card's tile."""
+    Db = data_tile
     while (Db * 2 <= data and Db < 2048
            and _tpu_postfix_vmem(n_features, stack_size, Db * 2, 0) <= _TPU_VMEM_BUDGET):
         Db *= 2
@@ -106,6 +109,7 @@ def _fused_moments(op, arg, X, y, const_table, tree_spec: TreeSpec,
     plain versions run both branches and select the same way."""
     P, N = op.shape
     F, D = X.shape
+    kern = fit.get_kernel(fit_spec.kernel)
     _, tile = pick_tiles(F, N, P, D, data_tile)
     fn_codes = tuple(int(c) for c in tree_spec.fn_set.opcodes)
     X = X.float().contiguous()
@@ -126,10 +130,10 @@ def _fused_moments(op, arg, X, y, const_table, tree_spec: TreeSpec,
     cap = _eval.resolve_dedup_cap(dedup_cap, P, N)
     plan = _eval.build_dedup_plan(op, arg, tree_spec, cap)
     gate = plan.overflow
-    out = torch.empty((P, 1), dtype=torch.float32, device=op.device)
+    out = torch.empty((P, kern.n_moments), dtype=torch.float32, device=op.device)
     uniq = gp_eval.unique_table(plan, X, const_table, fn_codes=fn_codes, gate=gate,
                                 run_when=False)
-    if _tpu_dedup_fits(F, S, D, cap):
+    if _tpu_dedup_fits(F, S, D, cap, data_tile):
         out = gp_eval.eval_fitness_from_subtrees(plan.root, uniq, y, weight, gate=gate,
                                                  run_when=False, out=out, **fk)
     else:
@@ -152,7 +156,7 @@ def _check_device(op, device):
 
 
 def moments(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSpec,
-            *, weight=None, data_tile: int = 4096, gather: str | None = None,
+            *, weight=None, data_tile: int = 1024, gather: str | None = None,
             impl: str = "cuda", device=None, dedup: str = "off", dedup_cap: int = 0):
     """f32[P, M] phase-1 moments of every tree against (X:[F,D], y:[D]).
     Any `dedup != "off"` engages the exact-tier subexpression dedup on
@@ -172,12 +176,15 @@ def moments(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSp
 
 
 def fitness(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSpec,
-            *, weight=None, data_tile: int = 4096, gather: str | None = None,
+            *, weight=None, data_tile: int = 1024, gather: str | None = None,
             impl: str = "cuda", device=None, dedup: str = "off", dedup_cap: int = 0):
     """f32[P] fitness (minimize) of every tree against (X:[F,D], y:[D]).
 
     `device=` (default: the card) must be where the tensors lie. `weight`
-    is an optional f32[D] mask (0.0 on dataset-padding points)."""
+    is an optional f32[D] mask (0.0 on dataset-padding points).
+    `data_tile` (default 1024, the reference's and GPConfig's) bounds the
+    card's tile (`pick_tiles`) and starts the reference's B3-or-B4 rule
+    (`_tpu_dedup_fits`)."""
     _check_device(op, device)
     kern = fit.get_kernel(fit_spec.kernel)
     if impl == "torch":

@@ -209,28 +209,96 @@ def test_b3_b4_choice_follows_the_reference_rule():
     assert not tops._tpu_dedup_fits(9, 6, 10_000, 1416)
 
 
-def test_b3_b4_choice_ignores_the_card_tile(monkeypatch):
-    """The rule starts from the reference's own data tile, not from the
-    port's card-tile bound: `ops.fitness` at its default `data_tile`
-    (4096) runs B3 at a cap the reference keeps in VMEM (2,000 at F = 3,
-    S = 6, D = 256), where a rule started from 4096 would spill to B4."""
+def _reference_b3_cap(F, S, D, data_tile):
+    """The largest dedup cap the reference keeps in VMEM (B3) for a
+    postfix configuration: its `pick_tiles_postfix` tile from `data_tile`,
+    then the rows its `_postfix_vmem` budget leaves."""
+    _, Db, _ = jops.pick_tiles_postfix(F, S, 8, D, data_tile=data_tile)
+    return (jops._VMEM_BUDGET - jops._postfix_vmem(F, S, 8, Db, 0)) // (4 * Db)
+
+
+def _recording(monkeypatch, module, names):
+    """Patch `names` of `module` to record their calls (in order) and run."""
     called = []
-    for name in ("eval_fitness_from_subtrees", "eval_fitness_from_preds"):
-        real = getattr(gp_eval, name)
-        monkeypatch.setattr(gp_eval, name,
+    for name in names:
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name,
                             lambda *a, _n=name, _f=real, **k: called.append(_n) or _f(*a, **k))
+    return called
+
+
+_GATHERS = ("eval_fitness_from_subtrees", "eval_fitness_from_preds")
+
+
+def test_b3_b4_choice_ignores_the_card_tile(monkeypatch):
+    """The B3-or-B4 rule starts from the caller's `data_tile`, as the
+    reference's does, not from the tile `pick_tiles` makes of it for the
+    card: at data_tile 256, 1024 and 4096, D = 600 and 10,000 and caps on
+    both sides of the reference's boundary, `ops._tpu_dedup_fits` is the
+    reference's `pick_tiles_postfix` + `_postfix_vmem` test; and
+    `ops.fitness` runs B3 where the reference keeps the table in VMEM
+    (2,000 rows at F = 3, S = 6, D = 256 from its default 1024) and B4
+    where it spills (1,000 rows at D = 600 from 4096: the reference's
+    boundary there is 653; a rule started from 1024 would keep 2,957)."""
+    for data_tile in (256, 1024, 4096):
+        for F, S, D in ((9, 6, 600), (9, 6, 10_000), (3, 6, 600), (3, 6, 10_000)):
+            edge = _reference_b3_cap(F, S, D, data_tile)
+            for cap in (100, edge - 1, edge, edge + 1):
+                _, Db, _ = jops.pick_tiles_postfix(F, S, 100, D, data_tile=data_tile)
+                want = jops._postfix_vmem(F, S, 8, Db, dedup_rows=cap) <= jops._VMEM_BUDGET
+                assert tops._tpu_dedup_fits(F, S, D, cap, data_tile) == want, (
+                    data_tile, F, D, cap)
+                assert want == (cap <= edge)
+    assert _reference_b3_cap(3, 6, 600, 4096) == 653
+    assert _reference_b3_cap(3, 6, 600, 1024) == 2957
     ts = ttrees.TreeSpec(max_depth=5, n_features=3, genome="postfix")
     op, arg = ttrees.generate_population(prng.PRNGKey(3), 40, ts)
-    X, y = _data(9, 3, 256, lattice=True)
-    Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
-    _, Db, _ = jops.pick_tiles_postfix(3, 6, 40, 256)
-    assert jops._postfix_vmem(3, 6, 8, Db, dedup_rows=2000) <= jops._VMEM_BUDGET
-    on = tops.fitness(op, arg, Xt, yt, ts.const_table(), ts, tfit.FitnessSpec("r"),
-                      device="cpu", dedup="exact", dedup_cap=2000)
-    assert called == ["eval_fitness_from_subtrees"]
-    off = tops.fitness(op, arg, Xt, yt, ts.const_table(), ts, tfit.FitnessSpec("r"),
-                       device="cpu")
-    torch.testing.assert_close(on, off, rtol=0, atol=0)
+    for D, data_tile, cap, want in ((256, 1024, 2000, "eval_fitness_from_subtrees"),
+                                    (600, 4096, 1000, "eval_fitness_from_preds")):
+        called = _recording(monkeypatch, gp_eval, _GATHERS)
+        X, y = _data(9, 3, D, lattice=True)
+        Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
+        on = tops.fitness(op, arg, Xt, yt, ts.const_table(), ts, tfit.FitnessSpec("r"),
+                          device="cpu", dedup="exact", dedup_cap=cap, data_tile=data_tile)
+        assert called == [want], (D, data_tile, called)
+        off = tops.fitness(op, arg, Xt, yt, ts.const_table(), ts, tfit.FitnessSpec("r"),
+                           device="cpu", data_tile=data_tile)
+        torch.testing.assert_close(on, off, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("data_tile,cap", [(4096, 1000), (4096, 600), (256, 3000)])
+def test_session_runs_the_reference_sessions_gather_kernel(monkeypatch, data_tile, cap):
+    """A postfix session at a non-default `GPConfig.data_tile` runs the
+    counterpart of the gather kernel the reference session runs: the
+    reference's choice is read from the Pallas function its `ops.fitness`
+    traces (jax.eval_shape, no evaluation) at the session's data tile; the
+    port's from the wrapper its generation step calls through the kernel
+    backend."""
+    from repro.gp import GPSession as JSession
+    from repro_torch.gp import GPSession
+
+    X, y = _data(12, 3, 600, lattice=True)
+    kw = dict(pop_size=50, max_depth=5, genome="postfix", dedup_cap=cap,
+              data_tile=data_tile, kernel="r", fn_set="add,sub,mul")
+    jcalled = _recording(monkeypatch, jops, ("eval_fitness_pallas_from_subtrees",
+                                             "eval_fitness_pallas_from_preds"))
+    js = JSession(backend="pallas", **kw).ingest(X.T, y)
+    js.init(key=jax.random.PRNGKey(0))
+    cfg = js.config
+    jax.eval_shape(lambda o, a, x, t: jops.fitness(
+        o, a, x, t, cfg.tree_spec.const_table(), cfg.tree_spec, cfg.fitness,
+        data_tile=cfg.data_tile, dedup="exact", dedup_cap=cap),
+        js.state.op, js.state.arg, jnp.asarray(X), jnp.asarray(y))
+    want = {"eval_fitness_pallas_from_subtrees": "eval_fitness_from_subtrees",
+            "eval_fitness_pallas_from_preds": "eval_fitness_from_preds"}[jcalled[-1]]
+    # the session's config and state, stepped through the kernel backend
+    # (`cuda`: its wrappers run their plain versions on CPU tensors)
+    ts = GPSession(device="cpu", **kw).ingest(X.T, y)
+    ts.init(key=prng.PRNGKey(0))
+    cfg = dataclasses.replace(ts.config, eval_impl="cuda")
+    called = _recording(monkeypatch, gp_eval, _GATHERS)
+    tengine.evolve_step(cfg, ts.state, ts._X, ts._y)
+    assert cfg.data_tile == data_tile and called == [want], (called, want)
 
 
 @pytest.mark.parametrize("kernel", ["r", "c"])

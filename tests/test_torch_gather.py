@@ -195,3 +195,11 @@ def test_chunk_addresses_follow_the_trees():
         assert gp_eval._at(t, s, 5) == t[s].data_ptr()
     v = torch.zeros(7)
     assert gp_eval._at(v, 3) == v[3:].data_ptr()
+    # M moments a tree (pearson 7, r2 5): out [P, M], partial P·T·M floats
+    for kernel in ("r", "pearson", "r2"):
+        M = gp_eval._device_kernel(kernel).n_moments
+        tiles, partial, out = gp_eval._tile_buffers(7, 1000, 256, M, None, "cpu")
+        assert tiles == 4 and out.shape == (7, M) and partial.numel() == 7 * 4 * M
+        for s in range(7):
+            assert gp_eval._at(out, s, M) == out[s].data_ptr()
+            assert gp_eval._at(partial, s, tiles * M) == partial[s * tiles * M:].data_ptr()

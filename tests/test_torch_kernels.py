@@ -173,7 +173,26 @@ def test_entry_points_refuse_quiet_cpu_fallback(monkeypatch):
 
 
 def test_not_ported_kernels_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit.get_kernel("pearson")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit.get_kernel("r2")
+    """Every built-in kernel of the reference resolves in the port, the
+    two-pass pearson and r2 (alias r-squared) with the reference's
+    moments, hoisted columns and device ids 4 and 5; a kernel with no
+    device form raises NotImplementedError when a wrapper would launch
+    it, and an unknown name raises ValueError."""
+    assert set(tfit.available_kernels()) == set(jfit.available_kernels())
+    for name, device_id in (("pearson", 4), ("r2", 5), ("r-squared", 5)):
+        t, j = tfit.get_kernel(name), jfit.get_kernel(name)
+        assert t.name == j.name and t.n_moments == j.n_moments
+        assert t.y_moment_idx == j.y_moment_idx and t.tree_moment_idx == j.tree_moment_idx
+        assert t.device_id == device_id and not t.decomposable
+        assert gp_eval._device_kernel(name) is t
+    host_only = tfit.register_kernel(tfit.FitnessKernel(
+        name="host_only_test", partial_fitness=tfit.get_kernel("r").partial_fitness),
+        overwrite=True)
+    try:
+        assert host_only.device_id is None
+        with pytest.raises(NotImplementedError, match="device form"):
+            gp_eval._device_kernel("host_only_test")
+    finally:
+        del tfit._REGISTRY["host_only_test"]
+    with pytest.raises(ValueError, match="unknown fitness kernel"):
+        tfit.get_kernel("no_such_kernel")

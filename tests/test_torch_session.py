@@ -161,7 +161,7 @@ def test_default_config_picks_the_device_backend(monkeypatch):
 def test_not_ported_options_raise():
     for kw in (dict(islands=2), dict(topology=object()), dict(chunk_rows=8),
                dict(checkpoint_dir="x"), dict(tracer=object()),
-               dict(kernel="pearson"), dict(backend="scalar")):
+               dict(backend="scalar")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPSession(device="cpu", **kw)
 
