@@ -73,6 +73,22 @@ Phases:
      non-increasing. The dyadic lattice sessions of the CPU tests, card
      against CPU bit for bit, and kat7's first generation card against
      CPU within 1e-4 (the CPU takes the whole dataset in one pass)
+  7. islands at full width: kat7, 4 islands x 200 trees (the flattened
+     800-tree population, one kernel call a generation), ring migration
+     every 3 generations of 2 elites, the four operator mixes and
+     tournament sizes 4, 7, 10, 13 of the reference's island bench: 20
+     generations on the card with `eval_fitness` launched exactly once a
+     generation and no other port kernel, one block under
+     torch.cuda.set_sync_debug_mode("error"), the first 3 generations'
+     history and per-island history bitwise equal to the CPU's; torus
+     and broadcast-best, 5 generations each; postfix islands with dedup
+     exact at cap I·P·N + 1 = 50,401 (the table and B4, with B2 gated)
+     equal to dedup off (B2) bit for bit; a checkpoint resume (10
+     generations, then a new session +10) equal to the uninterrupted 20,
+     with a Tracer whose JSON must validate and hold ingest, init, block
+     and checkpoint spans; and `python -m repro_torch.launch.evolve
+     --islands 4 --pop 200` as a subprocess twice on one checkpoint
+     directory, the second printing "resumed from generation 3"
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -84,12 +100,16 @@ Options:
                 the bound
   --profile     instead profiles three kat7 generations of the heap main
                 path and of four postfix paths with torch.profiler, then of
-                the heap and cap-6,301 paths under pearson (where a
-                generation's time goes; the port's kernels by name)
+                the heap and cap-6,301 paths under pearson, then of the
+                4 x 200 island path (where a generation's time goes; the
+                port's kernels by name); the island path must make at most
+                1.25x the heap path's CUDA launches a generation
 """
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1209,13 +1229,169 @@ def two_pass_paths():
     return runs
 
 
+# --- phase 7: the island model ---------------------------------------------------
+
+ISLAND_MIXES = ((0.10, 0.10, 0.10, 0.70), (0.05, 0.05, 0.05, 0.85),  # Table 2; crossover-
+                (0.10, 0.30, 0.30, 0.30), (0.30, 0.10, 0.10, 0.50))  # mutation-, reproduction-heavy
+ISLAND_P, ISLAND_I = 200, 4
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def _island_kw(**kw):
+    """kat7 island options: 4 islands x 200 trees, ring migration every 3
+    generations of 2 elites, the reference island bench's mixes and
+    tournament sizes (benchmarks/smoke_bench.py, bench_islands)."""
+    from repro_torch.core.evolve import OperatorMix
+
+    return {"pop_size": ISLAND_P, "islands": ISLAND_I, "migrate_every": 3, "migrate_k": 2,
+            "island_mixes": tuple(OperatorMix(*m) for m in ISLAND_MIXES),
+            "island_tourn_sizes": (4, 7, 10, 13), **kw}
+
+
+def _island_run(gens, expect, block_check=False, **kw):
+    """Drive a kat7 island session for `gens` generations on the card,
+    the launch counts set to 0 just before and read just after: each
+    kernel of `expect` ({name: launches}) must have launched exactly
+    that often, every other kernel not at all. Returns (the state after
+    the run, its per-island history, the run's record)."""
+    sess = GPSession.from_dataset("kat7", generations=gens, **_island_kw(**kw))
+    assert sess.backend == "cuda", sess.backend
+    sess.init(key=prng.PRNGKey(0))
+    torch.cuda.synchronize()
+    gp_eval.reset_launches()
+    t0 = time.perf_counter()
+    sess.evolve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in gp_eval.launches.items() if v}
+    if launches != expect:
+        raise AssertionError(f"islands {kw}: launches {launches}, want {expect}")
+    hist = np.asarray(sess.history, np.float32)
+    isl = np.asarray(sess.island_history, np.float32)
+    rows = np.asarray(sess.counter_history)
+    due = [(g % 3 == 2) * ISLAND_I for g in range(gens)]
+    if not (np.isfinite(isl).all() and (np.diff(isl, axis=0) <= 0).all()
+            and isl.shape == (gens, ISLAND_I) and np.array_equal(hist, isl.min(axis=1))
+            and np.array_equal(rows[:, counters.MIGRATIONS], due)):
+        raise AssertionError(f"islands {kw}: history {isl.tolist()}, counter rows "
+                             f"{rows.tolist()}")
+    out = dict(options=kw, islands=ISLAND_I, pop=ISLAND_P,
+               generations=gens, launches=launches, wall_s=wall, gens_per_s=gens / wall,
+               tree_rows_per_s=sess.stats["tree_row_evals"] / wall,
+               host_syncs=sess.stats["host_syncs"], migrations=sess.stats["migrations"],
+               best_fitness=float(hist[-1]), island_best=isl[-1].tolist(),
+               best=sess.best_expression(), history=hist.tolist())
+    state = tuple(t.clone() for t in sess.state)
+    if block_check:
+        syncs = sess.stats["host_syncs"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sess.evolve_block(3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert sess.stats["host_syncs"] == syncs
+        out["sync_debug_block"] = "no synchronisation in a 3-generation island block"
+    return state, sess.island_history, out
+
+
+def _island_resume(main_state):
+    """10 generations with checkpoints every 5 and a Tracer, then a new
+    session resuming from the checkpoint for 10 more: its state must
+    equal the uninterrupted 20-generation run's bit for bit, and the
+    Tracer's JSON must validate and hold the session's spans."""
+    from repro_torch.obs import Tracer, validate_trace
+
+    ck = SCRATCH / "ck"
+    tracer = Tracer(str(SCRATCH / "trace.json"))
+    kw = _island_kw(checkpoint_dir=str(ck), checkpoint_every=5, tracer=tracer)
+    first = GPSession.from_dataset("kat7", **kw)
+    first.init(key=prng.PRNGKey(0))
+    first.evolve(10)
+    second = GPSession.from_dataset("kat7", **kw)
+    second.init(key=prng.PRNGKey(0))
+    if second.generation != 10:
+        raise AssertionError(f"resumed at generation {second.generation}, want 10")
+    second.evolve(10)
+    for name, a, b in zip(engine.GPState._fields, second.state, main_state):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resumed run's GPState.{name} differs from the "
+                                 f"uninterrupted run's")
+    payload = json.load(open(tracer.save()))
+    problems = validate_trace(payload)
+    names = {e["name"] for e in payload["traceEvents"] if e.get("ph") == "B"}
+    if problems or not {"ingest", "init", "block", "checkpoint"} <= names:
+        raise AssertionError(f"trace: {problems}, spans {sorted(names)}")
+    return dict(saved_steps=first._manager.saved_steps + second._manager.saved_steps,
+                trace_events=len(payload["traceEvents"]), spans=sorted(names),
+                check="10 + 10 generations from a checkpoint == 20 uninterrupted, bitwise")
+
+
+def _island_cli():
+    """`python -m repro_torch.launch.evolve` at 4 x 200 on kat7, twice on
+    one checkpoint directory: the second run must resume."""
+    ck = SCRATCH / "cli_ck"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    outs = []
+    for gens in (3, 5):
+        cmd = [sys.executable, "-m", "repro_torch.launch.evolve", "--dataset", "kat7",
+               "--islands", "4", "--pop", "200", "--generations", str(gens),
+               "--migrate-every", "3", "--migrate-k", "2", "--ckpt-dir", str(ck),
+               "--ckpt-every", "3", "--archive-every", "3",
+               "--metrics", str(SCRATCH / "cli_metrics.jsonl")]
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"evolve CLI failed:\n{proc.stdout}\n{proc.stderr}")
+        outs.append(proc.stdout)
+    if "resumed" in outs[0] or "resumed from generation 3" not in outs[1]:
+        raise AssertionError(f"evolve CLI resume: {outs}")
+    return [o.strip().splitlines()[-3:] for o in outs]
+
+
+def island_paths():
+    """Phase 7 -> {label: run}."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    SCRATCH.mkdir(parents=True)
+    runs = {}
+    main_state, main_isl, runs["ring"] = _island_run(20, {"eval_fitness": 20},
+                                                     block_check=True)
+    cpu = GPSession.from_dataset("kat7", generations=3, device="cpu", **_island_kw())
+    cpu.init(key=prng.PRNGKey(0))
+    cpu.evolve()
+    card_isl = np.asarray(runs["ring"]["history"][:3], np.float32)
+    if not (np.array_equal(card_isl, np.asarray(cpu.history, np.float32)) and np.array_equal(
+            np.asarray(cpu.island_history), np.asarray(main_isl[:3]))):
+        raise AssertionError(f"island card vs CPU: {main_isl[:3]} vs {cpu.island_history}")
+    runs["ring"]["cpu_bitwise_generations"] = 3
+    emit("islands", run="ring", **runs["ring"])
+    for topology in ("torus", "broadcast-best"):
+        *_, runs[topology] = _island_run(5, {"eval_fitness": 5}, island_topology=topology)
+        emit("islands", run=topology, **runs[topology])
+    cap = ISLAND_I * ISLAND_P * 63 + 1
+    *_, runs["postfix_off"] = _island_run(5, {"eval_fitness_postfix": 5}, genome="postfix",
+                                          dedup="off")
+    *_, runs["postfix_exact"] = _island_run(
+        5, {"eval_fitness_postfix": 5, "unique_table": 5, "eval_fitness_from_preds": 5},
+        genome="postfix", dedup_cap=cap)
+    if runs["postfix_exact"]["history"] != runs["postfix_off"]["history"]:
+        raise AssertionError("postfix islands: dedup exact history differs from off")
+    for label in ("postfix_off", "postfix_exact"):
+        emit("islands", run=label, **runs[label])
+    emit("islands_resume", **_island_resume(main_state))
+    emit("islands_cli", tail=_island_cli())
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    return runs
+
+
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
             ("postfix_exact_cap100", {"genome": "postfix"}),
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
             ("postfix_semantic", {"genome": "postfix", "dedup": "semantic"}),
             ("heap_pearson", {"kernel": "pearson"}),
             ("postfix_exact_cap6301_pearson", {"genome": "postfix", "dedup_cap": 6301,
-                                               "kernel": "pearson"}))
+                                               "kernel": "pearson"}),
+            ("islands_4x200", "islands"))
 _OUR_KERNELS = ("eval_partial_kernel", "postfix_partial_kernel", "from_subtrees_kernel",
                 "from_preds_kernel", "unique_table_kernel", "postfix_predict_kernel")
 
@@ -1224,14 +1400,17 @@ def profile_main_path():
     """`--profile`: where a generation spends its time, on the heap main
     path and on the postfix paths (dedup off, exact with the default cap,
     exact with cap 6,301, semantic), then on the heap and cap-6,301 paths
-    under pearson. Times 3 warm kat7 generations of
-    each with torch.profiler (CPU + CUDA activities) and prints the
-    device busy time, the CUDA launches, the port's kernels' device time
-    and the busiest device ops."""
+    under pearson, then on the island path (4 x 200 trees). Times 3 warm
+    kat7 generations of each with torch.profiler (CPU + CUDA activities)
+    and prints the device busy time, the CUDA launches, the port's
+    kernels' device time and the busiest device ops. The island path must
+    make at most 1.25x the heap path's CUDA launches a generation."""
     from torch.profiler import ProfilerActivity, profile
 
+    per_gen = {}
     for label, kw in PROFILED:
-        sess = GPSession.from_dataset("kat7", pop_size=100, generations=3, **kw)
+        kw = _island_kw() if kw == "islands" else {"pop_size": 100, **kw}
+        sess = GPSession.from_dataset("kat7", generations=3, **kw)
         sess.init(key=prng.PRNGKey(0))
         sess.evolve(2)  # warm: kernel library loaded, device tables made
         torch.cuda.synchronize()
@@ -1256,13 +1435,21 @@ def profile_main_path():
         ours = sum(dev_us(e) for e in mine)
         busy = sum(dev_us(e) for e in kernels)
         top = sorted(events, key=lambda e: e.count, reverse=True)[:12]
+        per_gen[label] = launches / 3
         emit("profile", path=label, dataset="kat7", generations=3,
+             trees=kw["pop_size"] * kw.get("islands", 1),
              wall_ms_per_gen=1e3 * wall / 3, device_busy_ms_per_gen=busy / 3e3,
              idle_share=1 - busy / (1e6 * wall), cuda_launches_per_gen=launches / 3,
              port_kernels_ms_per_gen=ours / 3e3,
              port_kernels=[(next(k for k in _OUR_KERNELS if k in e.key), e.count / 3,
                             dev_us(e) / 3e3) for e in mine],
              top_ops_by_count=[(e.key, e.count // 3, dev_us(e) / 3e3) for e in top])
+    ratio = per_gen["islands_4x200"] / per_gen["heap"]
+    emit("profile_islands_vs_heap", cuda_launches_per_gen_islands=per_gen["islands_4x200"],
+         cuda_launches_per_gen_heap=per_gen["heap"], ratio=ratio)
+    if ratio > 1.25:
+        raise AssertionError(f"the island path makes {ratio:.3f}x the heap path's CUDA "
+                             f"launches a generation (at most 1.25x)")
 
 
 # the kernels whose call is one CUDA launch of one kernel at every shape
@@ -1372,6 +1559,12 @@ def main():
 
     runs = postfix_paths()
     two_runs = two_pass_paths()
+    isl_runs = island_paths()
+    # the island path's launches (4 x 200 trees), from the run whose work
+    # each kernel does there; B3 and the probe are not on it
+    isl_paths = {"eval_fitness": "ring", "eval_fitness_postfix": "postfix_off",
+                 "eval_fitness_from_preds": "postfix_exact",
+                 "unique_table": "postfix_exact"}
     # each kernel's launches come from the path whose work it does
     paths = {"eval_fitness": main_run, "eval_fitness_postfix": runs["off"],
              "eval_fitness_from_subtrees": runs["exact_cap1400"],
@@ -1419,7 +1612,12 @@ def main():
         "ms": main[name]["ms"], "device_ms": main[name]["device_ms"],
         "plain_ms": main[name]["plain_ms"],
         "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
-        "library_ms": library[name]["library_ms"], **two_pass_fields(name)}
+        "library_ms": library[name]["library_ms"],
+        "island_launches": (isl_runs[isl_paths[name]]["launches"][name]
+                            if name in isl_paths else 0),
+        "island_generations": (isl_runs[isl_paths[name]]["generations"]
+                               if name in isl_paths else None),
+        **two_pass_fields(name)}
         for name in gp_eval.KERNELS]}),
         flush=True)
     print(card, flush=True)

@@ -1,6 +1,8 @@
 """The generation loop on one device, in PyTorch.
 
-Port of the classic single-device layout of `repro/core/engine.py`.
+Port of the single-device layouts of `repro/core/engine.py`: the
+classic single population and the island model (`GPConfig.island`, I
+islands of P trees evaluated as one flattened [I·P, N] population).
 Workflow (paper §2.4): build population → evaluate fitness → select →
 apply genetic operators → repeat. `evolve_step` runs one generation;
 `evolve_block` runs K of them as one Python loop of tensor ops that
@@ -36,6 +38,7 @@ from repro_torch.core import evolve as ev
 from repro_torch.core import fitness as fit
 from repro_torch.core import primitives as prim
 from repro_torch.core import prng
+from repro_torch.core.islands import IslandConfig
 from repro_torch.core.trees import (TreeSpec, depth_table, generate_population,
                                     heap_to_postfix, postorder_slots, tree_sizes)
 from repro_torch.device import constant, resolve_device
@@ -53,7 +56,13 @@ class GPConfig:
                   same fitness);
       "semantic"  exact, and the elite cache also hits on equal outputs
                   over the first 32 data columns (tolerance-pinned).
-    `dedup_cap` is the unique table's rows; 0 = max(64, pop_size)."""
+    `dedup_cap` is the unique table's rows; 0 = max(64, pop_size).
+
+    `island` is the population layout: `islands > 1` makes the run I
+    islands of `pop_size` trees (`op: int32[I, P, N]`). `migrate_every`/
+    `migrate_k` are the reference's flat aliases: set away from their
+    defaults they fold into `island` (where the island still holds the
+    default), and afterwards they always mirror it."""
 
     name: str = "karoo"
     pop_size: int = 100
@@ -71,11 +80,28 @@ class GPConfig:
     elite_cache: bool = True  # skip re-evaluating unchanged elites
     dedup: str = "exact"
     dedup_cap: int = 0
+    island: IslandConfig = IslandConfig()
+    migrate_every: int = 10  # alias of island.migrate_every
+    migrate_k: int = 4  # alias of island.migrate_k
 
     def __post_init__(self):
         if self.dedup not in ("off", "exact", "semantic"):
             raise ValueError(f"dedup must be 'off', 'exact' or 'semantic', "
                              f"got {self.dedup!r}")
+        isl = self.island
+        if self.migrate_every != 10 and isl.migrate_every == 10:
+            isl = dataclasses.replace(isl, migrate_every=self.migrate_every)
+        if self.migrate_k != 4 and isl.migrate_k == 4:
+            isl = dataclasses.replace(isl, migrate_k=self.migrate_k)
+        object.__setattr__(self, "island", isl)
+        object.__setattr__(self, "migrate_every", isl.migrate_every)
+        object.__setattr__(self, "migrate_k", isl.migrate_k)
+
+    def __hash__(self):
+        return hash((self.name, self.pop_size, self.tree_spec, self.fitness, self.mix,
+                     self.tourn_size, self.generations, self.elitism, self.parsimony,
+                     self.stop_fitness, self.eval_impl, self.data_tile,
+                     self.elite_cache, self.dedup, self.dedup_cap, self.island))
 
 
 def cache_width(cfg: GPConfig) -> int:
@@ -87,16 +113,20 @@ def cache_width(cfg: GPConfig) -> int:
 
 
 class GPState(NamedTuple):
-    """Engine state, classic single-population layout:
+    """Engine state. With the classic layout (islands == 1) the shapes
+    are the un-batched ones; with I > 1 islands every population leaf
+    grows a leading island axis (`generation` stays a shared scalar:
+    islands advance in lockstep):
 
-        key           int64[2]   threefry key (two uint32 words)
-        op/arg        int32[P, N]
-        fitness       f32[P]     of the current population (minimize)
-        best_op/arg   int32[N]
-        best_fitness  f32[]
-        generation    int32[]
-        cache_op/arg  int32[E, N]  elite fitness cache
-        cache_fit     f32[E]
+                      islands == 1   islands == I
+        key           int64[2]       int64[I, 2]    threefry keys (uint32 words)
+        op/arg        int32[P, N]    int32[I, P, N]
+        fitness       f32[P]         f32[I, P]      current population (minimize)
+        best_op/arg   int32[N]       int32[I, N]    per-island champion
+        best_fitness  f32[]          f32[I]
+        generation    int32[]        int32[]
+        cache_op/arg  int32[E, N]    int32[I, E, N] elite fitness cache
+        cache_fit     f32[E]         f32[I, E]
     """
 
     key: torch.Tensor
@@ -118,13 +148,13 @@ _STATE_DTYPES = {"key": np.uint32, "op": np.int32, "arg": np.int32,
                  "cache_op": np.int32, "cache_arg": np.int32, "cache_fit": np.float32}
 
 
-def state_from_numpy(d, device="cpu") -> GPState:
+def state_from_numpy(d, device=None) -> GPState:
     """A GPState from numpy leaves — a dict, or a reference `GPState`
-    whose leaves convert with `np.asarray` (key as uint32[2]) — bit for
-    bit, on `device`."""
+    whose leaves convert with `np.asarray` (key as uint32[..., 2]) — bit
+    for bit, on `device` (default: the card)."""
     if not isinstance(d, dict):
         d = d._asdict()
-    dev = torch.device(device)
+    dev = resolve_device(device)
     leaves = {}
     for name in GPState._fields:
         a = np.asarray(d[name])
@@ -138,7 +168,7 @@ def state_from_numpy(d, device="cpu") -> GPState:
 
 def state_to_numpy(state: GPState) -> dict:
     """The state's leaves as numpy arrays in the reference's dtypes
-    (key as uint32[2]) — the inverse of `state_from_numpy`."""
+    (key as uint32[..., 2]) — the inverse of `state_from_numpy`."""
     out = {}
     for name, t in state._asdict().items():
         if name == "key":
@@ -182,32 +212,51 @@ def init_state(cfg: GPConfig, key, seeds=None, feature_names=None,
     (`prng.PRNGKey`); the population is drawn from it exactly as the
     reference draws it. `seeds` (expression strings, parsed against the
     config's TreeSpec with `feature_names`) fill the first slots: Karoo's
-    customized seed populations (`core/parse.seed_population`)."""
+    customized seed populations (`core/parse.seed_population`).
+
+    With `cfg.island.islands` = I > 1 the state is island-batched: island
+    i draws its population from `fold_in(k1, i)` and keeps the key
+    `fold_in(k0, i)`, and seeds fill the first slots of every island."""
     dev = resolve_device(device)
     key = key.to(dev)
     k0, k1 = prng.split(key)
     N = cfg.tree_spec.num_nodes
     E = cache_width(cfg)
-    if seeds:
-        from repro_torch.core.parse import seed_population
+    I = cfg.island.islands
 
-        op, arg = seed_population(seeds, cfg.tree_spec, cfg.pop_size, k1, feature_names,
-                                  device=dev)
+    def one_island(k):
+        if seeds:
+            from repro_torch.core.parse import seed_population
+
+            return seed_population(seeds, cfg.tree_spec, cfg.pop_size, k, feature_names,
+                                   device=dev)
+        return generate_population(k, cfg.pop_size, cfg.tree_spec)
+
+    if I == 1:
+        op, arg = one_island(k1)
+        lead = ()
     else:
-        op, arg = generate_population(k1, cfg.pop_size, cfg.tree_spec)
+        if cfg.island.migrate_k > cfg.pop_size:
+            raise ValueError(f"migrate_k {cfg.island.migrate_k} exceeds the "
+                             f"per-island pop_size {cfg.pop_size}")
+        pops = [one_island(prng.fold_in(k1, i)) for i in range(I)]
+        op = torch.stack([p[0] for p in pops])
+        arg = torch.stack([p[1] for p in pops])
+        k0 = torch.stack([prng.fold_in(k0, i) for i in range(I)])
+        lead = (I,)
     _device_tables(cfg, dev)
 
     def i32(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=dev)
+        return torch.zeros(lead + shape, dtype=torch.int32, device=dev)
+
+    def inf(*shape):
+        return torch.full(lead + shape, math.inf, device=dev)
 
     return GPState(
-        key=k0, op=op, arg=arg,
-        fitness=torch.full((cfg.pop_size,), math.inf, device=dev),
-        best_op=i32(N), best_arg=i32(N),
-        best_fitness=torch.full((), math.inf, device=dev),
-        generation=i32(),
-        cache_op=i32(E, N), cache_arg=i32(E, N),
-        cache_fit=torch.full((E,), math.inf, device=dev))
+        key=k0, op=op, arg=arg, fitness=inf(cfg.pop_size),
+        best_op=i32(N), best_arg=i32(N), best_fitness=inf(),
+        generation=torch.zeros((), dtype=torch.int32, device=dev),
+        cache_op=i32(E, N), cache_arg=i32(E, N), cache_fit=inf(E))
 
 
 def _device_tables(cfg: GPConfig, dev) -> None:
@@ -222,6 +271,8 @@ def _device_tables(cfg: GPConfig, dev) -> None:
         constant(ops, dev, np.int32)
     constant(cfg.mix.probs(), dev)
     constant(_FROZEN_ROW, dev)
+    if cfg.island.islands > 1:
+        _island_tables(cfg, dev)
     if spec.genome == "postfix" or cfg.dedup == "semantic":  # heap_to_postfix
         constant(postorder_slots(spec.num_nodes), dev, np.int64)
     if spec.genome != "postfix":  # the B1 kernel's slot order
@@ -229,9 +280,11 @@ def _device_tables(cfg: GPConfig, dev) -> None:
 
 
 def _cache_hit(state: GPState):
-    E = state.cache_op.shape[0]
-    return ((state.op[:E] == state.cache_op).all()
-            & (state.arg[:E] == state.cache_arg).all())
+    """One predicate for every island: the cached rows equal the head
+    rows [:E] of the population (of each island)."""
+    E = state.cache_op.shape[-2]
+    return ((state.op[..., :E, :] == state.cache_op).all()
+            & (state.arg[..., :E, :] == state.cache_arg).all())
 
 
 def _semantic_hit(state_slice, cache_slice, cache_fit, probe):
@@ -303,11 +356,13 @@ def _probe_fn(cfg: GPConfig, X, const_table):
 def _new_cache(state: GPState, fitness, sel_fitness, E: int):
     """(cache_op, cache_arg, cache_fit) for the next generation: the rows
     elitism will copy to [:E] (stable argsort on the selection fitness)
-    with their raw fitness, taken from the evaluated population."""
-    best = torch.argsort(sel_fitness, stable=True)[:E]
-    return (torch.index_select(state.op, 0, best),
-            torch.index_select(state.arg, 0, best),
-            torch.index_select(fitness, 0, best))
+    with their raw fitness, taken from the evaluated population — never
+    from the bred output, so a migrant landing in [:E] can only miss.
+    Per island on [..., P] inputs."""
+    best = torch.argsort(sel_fitness, dim=-1, stable=True)[..., :E]
+    rows = best[..., None].expand(*best.shape, state.op.shape[-1])
+    return (torch.gather(state.op, -2, rows), torch.gather(state.arg, -2, rows),
+            torch.gather(fitness, -1, best))
 
 
 def _step_body(cfg: GPConfig, state: GPState, X, y, weight) -> GPState:
@@ -343,10 +398,86 @@ def _step_body(cfg: GPConfig, state: GPState, X, y, weight) -> GPState:
                    state.generation + 1, cache_op, cache_arg, cache_fit)
 
 
+def _island_tables(cfg: GPConfig, dev):
+    """(probs f32[I, 4], tourn draw size, tourn int32[I], point rate
+    f32[I]): the heterogeneous-search tables of the batched breeder, as
+    device constants."""
+    icfg = cfg.island
+    tourn_max, tourn = icfg.tourn_table(cfg.tourn_size)
+    return (constant(icfg.prob_table(cfg.mix), dev), tourn_max, constant(tourn, dev),
+            constant(icfg.point_rate_table(), dev))
+
+
+def _island_step_body(cfg: GPConfig, state: GPState, X, y, weight) -> GPState:
+    """One generation of the island layout: one evaluation of the
+    flattened [I·P, N] population (one kernel call), one batched breeding
+    step with per-island operator parameters, then migration across the
+    island axis (`islands.migrate_local`)."""
+    from repro_torch.core import islands as isl
+
+    icfg = cfg.island
+    I, P, N = state.op.shape
+    dev = state.op.device
+    const_table = cfg.tree_spec.const_table(dev)
+    fitness = _eval_fitness(cfg, state.op.reshape(I * P, N), state.arg.reshape(I * P, N),
+                            X, y, weight, const_table).reshape(I, P)
+    E = state.cache_op.shape[1]
+    if E:
+        # one hit gate for all islands, as the reference's single cond
+        hit = _cache_hit(state)
+        probe = _probe_fn(cfg, X, const_table)
+        if probe is not None:
+            hit = hit | _semantic_hit(
+                (state.op[:, :E].reshape(-1, N), state.arg[:, :E].reshape(-1, N)),
+                (state.cache_op.reshape(-1, N), state.cache_arg.reshape(-1, N)),
+                state.cache_fit, probe)
+        fitness = torch.cat([torch.where(hit, state.cache_fit, fitness[:, :E]),
+                             fitness[:, E:]], 1)
+
+    # per-island champion tracking on RAW fitness (first minimum)
+    i_best = torch.argmin(fitness, dim=1, keepdim=True)  # [I, 1]
+    cand_fit = torch.gather(fitness, 1, i_best)[:, 0]
+    rows = i_best[:, :, None].expand(I, 1, N)
+    cand_op = torch.gather(state.op, 1, rows)[:, 0]
+    cand_arg = torch.gather(state.arg, 1, rows)[:, 0]
+    improved = (cand_fit < state.best_fitness)[:, None]
+    best_op = torch.where(improved, cand_op, state.best_op)
+    best_arg = torch.where(improved, cand_arg, state.best_arg)
+    best_fit = torch.minimum(cand_fit, state.best_fitness)
+
+    sel_fitness = fitness
+    if cfg.parsimony:
+        sizes = tree_sizes(state.op.reshape(I * P, N)).reshape(I, P)
+        sel_fitness = fitness + cfg.parsimony * sizes.float()
+
+    cache_op, cache_arg, cache_fit = (
+        _new_cache(state, fitness, sel_fitness, E) if E
+        else (state.cache_op, state.cache_arg, state.cache_fit))
+
+    probs, tourn_max, tourn, p_point = _island_tables(cfg, dev)
+    breed = ev.make_island_breeder(cfg.tree_spec, tourn_max, cfg.elitism)
+    keys, new_op, new_arg = breed(state.key, state.op, state.arg, sel_fitness, probs,
+                                  tourn, p_point)
+    if icfg.migrate_k and I > 1:
+        e_op, e_arg = isl.island_elites(state.op, state.arg, fitness, icfg.migrate_k)
+        new_op, new_arg = isl.migrate_local(icfg, new_op, new_arg, e_op, e_arg,
+                                            state.generation, cand_fit)
+    return GPState(keys, new_op, new_arg, fitness, best_op, best_arg, best_fit,
+                   state.generation + 1, cache_op, cache_arg, cache_fit)
+
+
+def _step_body_any(cfg: GPConfig, state: GPState, X, y, weight) -> GPState:
+    """Layout dispatch: the classic body or the island-batched body."""
+    if cfg.island.islands > 1:
+        return _island_step_body(cfg, state, X, y, weight)
+    return _step_body(cfg, state, X, y, weight)
+
+
 def evolve_step(cfg: GPConfig, state: GPState, X, y, weight=None) -> GPState:
     """One generation. X: [F, D] feature-major, y: [D]; `weight` (f32[D]
-    or None) masks dataset-padding points out of fitness."""
-    return _step_body(cfg, state, X, y, weight)
+    or None) masks dataset-padding points out of fitness. Island-batched
+    states run the island body."""
+    return _step_body_any(cfg, state, X, y, weight)
 
 
 _FROZEN_ROW = np.zeros(_tc.N_COUNTERS, np.int32)
@@ -356,24 +487,35 @@ _FROZEN_ROW[_tc.FROZEN] = 1
 def _counter_row(cfg: GPConfig, state: GPState, done=None):
     """int32[C] telemetry row for one generation (columns:
     repro_torch.obs.counters), computed from the PRE-step state. A frozen
-    step reports [0, 0, 1, 0, 0, 0, 0]. The dedup columns come from
-    `eval.dedup_stats` on the pre-step population: 0 when dedup is off,
-    on heap genomes, and (saved) on overflow."""
+    step reports [0, 0, 1, 0, 0, 0, 0]. On the island layout the cache
+    gate is the one all-island predicate (`evals` = I·P − hit·I·E) and
+    `migrations` is I on a generation where migration is due. The dedup
+    columns come from `eval.dedup_stats` on the pre-step (flattened)
+    population: 0 when dedup is off, on heap genomes, and (saved) on
+    overflow."""
     dev = state.op.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    E = state.cache_op.shape[0]
+    I = cfg.island.islands
+    E = state.cache_op.shape[-2]
     if E:
         hit = _cache_hit(state).to(torch.int32)
         queries = zero + 1
     else:
         hit, queries = zero, zero
-    evals = cfg.pop_size - hit * E
+    evals = I * cfg.pop_size - hit * (I * E)
+    migrations = zero
+    if I > 1 and cfg.island.migrate_k:
+        every = cfg.island.migrate_every
+        due = (state.generation % every) == (every - 1)
+        migrations = due.to(torch.int32) * I
     if cfg.dedup == "off" or cfg.tree_spec.genome != "postfix":
         saved = uniq = zero
     else:
-        cap = _eval.resolve_dedup_cap(cfg.dedup_cap, *state.op.shape)
-        uniq, saved = _eval.dedup_stats(state.op, state.arg, cfg.tree_spec, cap)
-    row = torch.stack([hit, queries, zero, zero, evals, saved, uniq])
+        N = cfg.tree_spec.num_nodes
+        o, a = state.op.reshape(-1, N), state.arg.reshape(-1, N)
+        cap = _eval.resolve_dedup_cap(cfg.dedup_cap, o.shape[0], N)
+        uniq, saved = _eval.dedup_stats(o, a, cfg.tree_spec, cap)
+    row = torch.stack([hit, queries, zero, migrations, evals, saved, uniq])
     if done is None:
         return row
     return torch.where(done, constant(_FROZEN_ROW, dev), row)
@@ -382,10 +524,15 @@ def _counter_row(cfg: GPConfig, state: GPState, done=None):
 def _block_done(cfg: GPConfig, state: GPState, i: int, limit):
     """Branch-free freeze predicate for step `i` of a block: True once
     `best_fitness` has reached `cfg.stop_fitness` or `i` has reached the
-    dynamic `limit` (a device int32 step budget)."""
+    dynamic `limit` (a device int32 step budget). On the island layout
+    the best fitness is the min over islands: any island reaching the
+    bar stops the run."""
     done = torch.zeros((), dtype=torch.bool, device=state.op.device)
     if cfg.stop_fitness is not None:
-        done = state.best_fitness <= float(np.float32(cfg.stop_fitness))
+        best = state.best_fitness
+        if best.dim():
+            best = best.min()
+        done = best <= float(np.float32(cfg.stop_fitness))
     if limit is not None:
         done = done | (limit <= i)
     return done
@@ -402,7 +549,8 @@ def evolve_block(cfg: GPConfig, state: GPState, X, y, weight=None, limit=None, *
     """Run up to `n_steps` generations with no host synchronisation.
 
     Returns (state, history, counters): history is the per-generation
-    `best_fitness` stream f32[n_steps], counters the int32[n_steps, 7]
+    `best_fitness` stream f32[n_steps] (f32[n_steps, I], a column per
+    island, on the island layout), counters the int32[n_steps, 7]
     telemetry stream. Steps freeze into no-ops once `cfg.stop_fitness`
     is reached or the step index reaches `limit` (device int32; None =
     run all `n_steps`); a frozen step still runs and is discarded."""
@@ -410,7 +558,7 @@ def evolve_block(cfg: GPConfig, state: GPState, X, y, weight=None, limit=None, *
     hist, rows = [], []
     s = state
     for i in range(n_steps):
-        nxt = _step_body(cfg, s, X, y, weight)
+        nxt = _step_body_any(cfg, s, X, y, weight)
         done = _block_done(cfg, s, i, limit)
         rows.append(_counter_row(cfg, s, done if can_freeze else None))
         if can_freeze:

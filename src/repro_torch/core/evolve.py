@@ -17,6 +17,13 @@ same operators are array splices of whole subexpressions.
 
 Ordering matches the reference: argsort is stable, argmin/argmax take
 the first occurrence, and every gather clips its index.
+
+Island populations breed as one batch: every operator takes either one
+key or a batch of keys `[I, 2]`, and with a batch the population rows
+are the flattened `[I·P, N]` islands, row block i drawn from key i (the
+reference vmaps its breeder over the island axis; the draws here are
+`prng`'s batched forms, so a generation makes the same launches for any
+I).
 """
 from __future__ import annotations
 
@@ -34,11 +41,17 @@ from repro_torch.device import constant
 # --- random node choice ------------------------------------------------------
 
 
+def _per_key(key, rows: int) -> int:
+    """Rows each key of `key` draws for (a batch splits the rows evenly)."""
+    return rows // prng.n_keys(key)
+
+
 def _random_active_node(key, op):
     """Uniform random non-EMPTY slot per tree via Gumbel-argmax.
 
-    op: int32[..., N] → int32[...] heap index."""
-    g = prng.gumbel(key, tuple(op.shape))
+    op: int32[R, N] → int32[R] heap index."""
+    R, N = op.shape
+    g = prng.merge_rows(key, prng.gumbel(key, (_per_key(key, R), N)))
     score = torch.where(op != prim.EMPTY, g, -torch.inf)
     return torch.argmax(score, dim=-1).to(torch.int32)
 
@@ -122,7 +135,7 @@ def _random_subexpr(key, op):
 def crossover_postfix(key, op_a, arg_a, op_b, arg_b, spec: TreeSpec):
     """Subtree crossover on linear genomes: splice a random subexpression
     of B over a random subexpression of A."""
-    ka, kb = prng.split(key)
+    ka, kb = prng.split(key).unbind(-2)
     sa, ea = _random_subexpr(ka, op_a)
     sb, eb = _random_subexpr(kb, op_b)
     return _splice_pop(op_a, arg_a, op_b, arg_b, sa, ea, sb, eb, spec)
@@ -132,9 +145,9 @@ def mutate_branch_postfix(key, op, arg, spec: TreeSpec):
     """Branch mutation on linear genomes: splice a fresh random program
     (its whole stream [0, len-1]) over a random subexpression."""
     P = op.shape[0]
-    kp, kg = prng.split(key)
+    kp, kg = prng.split(key).unbind(-2)
     sa, ea = _random_subexpr(kp, op)
-    fresh_op, fresh_arg = generate_population(kg, P, spec)
+    fresh_op, fresh_arg = generate_population(kg, _per_key(kg, P), spec)
     sb = torch.zeros((P,), dtype=torch.int32, device=op.device)
     eb = tree_sizes(fresh_op) - 1
     return _splice_pop(op, arg, fresh_op, fresh_arg, sa, ea, sb, eb, spec)
@@ -146,7 +159,7 @@ def mutate_branch_postfix(key, op, arg, spec: TreeSpec):
 def crossover(key, op_a, arg_a, op_b, arg_b, spec: TreeSpec):
     """Subtree crossover: offspring = parent A with a random branch of B
     grafted at a random point (Karoo's fx_evolve_crossover)."""
-    ka, kb = prng.split(key)
+    ka, kb = prng.split(key).unbind(-2)
     pt_a = _random_active_node(ka, op_a)
     pt_b = _random_active_node(kb, op_b)
     return _transplant(op_a, arg_a, op_b, arg_b, pt_a, pt_b, spec)
@@ -156,30 +169,36 @@ def mutate_branch(key, op, arg, spec: TreeSpec):
     """Branch mutation: replace a random subtree with a fresh random tree
     (Karoo's fx_evolve_branch_mutate)."""
     P = op.shape[0]
-    kp, kg = prng.split(key)
+    kp, kg = prng.split(key).unbind(-2)
     pt = _random_active_node(kp, op)
-    fresh_op, fresh_arg = generate_population(kg, P, spec)
+    fresh_op, fresh_arg = generate_population(kg, _per_key(kg, P), spec)
     root = torch.zeros((P,), dtype=torch.int32, device=op.device)
     return _transplant(op, arg, fresh_op, fresh_arg, pt, root, spec)
 
 
-def mutate_point(key, op, arg, spec: TreeSpec, p: float = 0.25):
+def mutate_point(key, op, arg, spec: TreeSpec, p=0.25):
     """Point mutation: independently redraw nodes in place, arity-preserving
-    (Karoo's fx_evolve_point_mutate)."""
+    (Karoo's fx_evolve_point_mutate). `p` is the redraw probability: a
+    float, or with a batch of keys an f32[I] rate per island."""
     dev = op.device
-    shape = tuple(op.shape)
-    km, kf, ku, kt, ks = prng.split(key, 5)
-    hit = prng.bernoulli(km, p, shape)
+    R, N = op.shape
+    shape = (_per_key(key, R), N)
+    km, kf, ku, kt, ks = prng.split(key, 5).unbind(-2)
+
+    def draw(sample, k, *a):
+        return prng.merge_rows(key, sample(k, *a))
+
+    hit = draw(prng.bernoulli, km, p, shape)
     arity = constant(prim.ARITY, dev)[op.long()]
     bin_ops = constant(spec.fn_set.binary_opcodes, dev, np.int32)
-    new_bin = bin_ops[prng.randint(kf, shape, 0, len(bin_ops)).long()]
+    new_bin = bin_ops[draw(prng.randint, kf, shape, 0, len(bin_ops)).long()]
     una = spec.fn_set.unary_opcodes
     new_una = (constant(una, dev, np.int32)[
-        prng.randint(ku, shape, 0, max(len(una), 1)).long()] if len(una) else op)
-    is_const = prng.bernoulli(kt, spec.p_const, shape)
+        draw(prng.randint, ku, shape, 0, max(len(una), 1)).long()] if len(una) else op)
+    is_const = draw(prng.bernoulli, kt, spec.p_const, shape)
     new_t_op = torch.where(is_const, prim.CONST, prim.FEATURE).to(torch.int32)
-    new_t_arg = torch.where(is_const, prng.randint(ks, shape, 0, spec.n_consts),
-                            prng.randint(ks, shape, 0, spec.n_features))
+    new_t_arg = torch.where(is_const, draw(prng.randint, ks, shape, 0, spec.n_consts),
+                            draw(prng.randint, ks, shape, 0, spec.n_features))
     new_op = torch.where(arity == 2, new_bin,
                          torch.where(arity == 1, new_una, new_t_op))
     new_arg = torch.where(arity == 0, new_t_arg, arg)
@@ -187,12 +206,27 @@ def mutate_point(key, op, arg, spec: TreeSpec, p: float = 0.25):
     return torch.where(keep, op, new_op), torch.where(keep, arg, new_arg)
 
 
-def tournament(key, fitness, pop: int, size: int):
-    """Minimizing tournament selection → int32[pop] winner indices."""
-    idx = prng.randint(key, (pop, size), 0, fitness.shape[0]).long()
+def tournament(key, fitness, pop: int, size: int, active=None):
+    """Minimizing tournament selection → int32[pop] winner indices.
+
+    `size` is the candidate-draw count; `active` (optional int32 tensor,
+    ≤ size) masks the tail candidates out of the argmin with +inf, so
+    one draw serves per-island tournament sizes. With a batch of I keys,
+    `fitness` is the flattened f32[I·P] population, each key draws `pop`
+    tournaments among its own island's P rows, `active` is int32[I], and
+    the winners are int32[I·pop] indices into the flattened rows."""
+    I = prng.n_keys(key)
+    n = fitness.shape[0] // I
+    idx = prng.randint(key, (pop, size), 0, n).long()
+    if key.dim() > 1:  # island i owns rows i·n to i·n + n - 1
+        idx = idx + (torch.arange(I, device=idx.device) * n)[:, None, None]
     scores = fitness[idx]
+    if active is not None:
+        lim = active[:, None, None] if key.dim() > 1 else active
+        slot = torch.arange(size, device=idx.device)
+        scores = torch.where(slot < lim, scores, torch.inf)
     win = torch.argmin(scores, dim=-1, keepdim=True)
-    return torch.gather(idx, 1, win)[:, 0].to(torch.int32)
+    return prng.merge_rows(key, torch.gather(idx, -1, win)[..., 0]).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,20 +253,31 @@ def _rows(x, idx):
 
 
 def next_generation_arrays(key, op, arg, fitness, spec: TreeSpec, probs,
-                           tourn_size: int = 10, elitism: int = 1):
+                           tourn_size: int = 10, elitism: int = 1, tourn_active=None,
+                           point_rate=None):
     """One selection + variation step with the operator mix given as an
     f32[4] tensor of probabilities (reproduce, mutate_point,
     mutate_branch, crossover). Every offspring slot draws an operator;
     all operator outputs are computed and the per-slot result selected,
     so the step is the same fixed sequence of tensor ops every
-    generation. [P,N] -> [P,N]."""
-    P = op.shape[0]
-    k_op, k_t1, k_t2, k_x, k_mb, k_mp = prng.split(key, 6)
+    generation. [P,N] -> [P,N].
 
-    choice = prng.categorical(k_op, prng.xla_log(probs), (P,))
+    `tourn_active` (int32, ≤ tourn_size) is the effective tournament
+    size and `point_rate` (f32) the point-mutation rate; None gives the
+    classic fixed-size tournament and 0.25, bit for bit. With a batch of
+    I keys the population is the flattened [I·P, N] islands, `fitness`
+    f32[I·P], `probs` f32[I, 4] and the two options int32[I]/f32[I]: one
+    step breeds every island with its own parameters, and elitism is
+    taken per island."""
+    I = prng.n_keys(key)
+    R, N = op.shape
+    P = R // I
+    k_op, k_t1, k_t2, k_x, k_mb, k_mp = prng.split(key, 6).unbind(-2)
 
-    parent_a = tournament(k_t1, fitness, P, tourn_size)
-    parent_b = tournament(k_t2, fitness, P, tourn_size)
+    choice = prng.merge_rows(key, prng.categorical(k_op, prng.xla_log(probs), (P,)))
+
+    parent_a = tournament(k_t1, fitness, P, tourn_size, tourn_active)
+    parent_b = tournament(k_t2, fitness, P, tourn_size, tourn_active)
     op_a, arg_a = _rows(op, parent_a), _rows(arg, parent_a)
     op_b, arg_b = _rows(op, parent_b), _rows(arg, parent_b)
 
@@ -243,18 +288,47 @@ def next_generation_arrays(key, op, arg, fitness, spec: TreeSpec, probs,
         op_x, arg_x = crossover(k_x, op_a, arg_a, op_b, arg_b, spec)
         op_mb, arg_mb = mutate_branch(k_mb, op_a, arg_a, spec)
     # point mutation is arity-preserving in place: valid on both forms
-    op_mp, arg_mp = mutate_point(k_mp, op_a, arg_a, spec)
+    op_mp, arg_mp = mutate_point(k_mp, op_a, arg_a, spec,
+                                 0.25 if point_rate is None else point_rate)
 
     c = choice[:, None]
     new_op = torch.where(c == 0, op_a, torch.where(c == 1, op_mp,
                                                    torch.where(c == 2, op_mb, op_x)))
     new_arg = torch.where(c == 0, arg_a, torch.where(c == 1, arg_mp,
                                                      torch.where(c == 2, arg_mb, arg_x)))
-    if elitism:
-        best = torch.argsort(fitness, stable=True)[:elitism]
-        new_op = torch.cat([_rows(op, best), new_op[elitism:]])
-        new_arg = torch.cat([_rows(arg, best), new_arg[elitism:]])
+    if elitism:  # each island's best rows go to its first slots
+        best = torch.argsort(fitness.reshape(I, P), dim=-1, stable=True)[:, :elitism]
+        if I > 1:
+            best = best + (torch.arange(I, device=best.device) * P)[:, None]
+        best = best.reshape(-1)
+
+        def place(new, old):
+            head = _rows(old, best).reshape(I, elitism, N)
+            return torch.cat([head, new.reshape(I, P, N)[:, elitism:]], 1).reshape(R, N)
+
+        new_op, new_arg = place(new_op, op), place(new_arg, arg)
     return new_op, new_arg
+
+
+def make_island_breeder(spec: TreeSpec, tourn_size: int, elitism: int):
+    """The island engine's breeding step: breed(keys, op, arg, fitness,
+    probs, tourn_active, point_rate) -> (advanced keys, new_op, new_arg)
+    over island-batched tensors (keys [I, 2], op/arg int32[I, P, N],
+    fitness f32[I, P], probs f32[I, 4], tourn_active int32[I],
+    point_rate f32[I]). Each island's key splits as the reference's
+    vmapped breeder splits it, and all islands breed in one batched
+    `next_generation_arrays` call."""
+
+    def breed(keys, op, arg, fitness, probs, tourn_active, point_rate):
+        I, P, N = op.shape
+        keys, k_next = prng.split(keys).unbind(-2)
+        new_op, new_arg = next_generation_arrays(
+            k_next, op.reshape(I * P, N), arg.reshape(I * P, N), fitness.reshape(I * P),
+            spec, probs, tourn_size, elitism, tourn_active=tourn_active,
+            point_rate=point_rate)
+        return keys, new_op.reshape(I, P, N), new_arg.reshape(I, P, N)
+
+    return breed
 
 
 def next_generation(key, op, arg, fitness, spec: TreeSpec, mix: OperatorMix = OperatorMix(),

@@ -12,10 +12,19 @@ The spec is JAX 0.9's own source under `jax_threefry_partitionable=True`
 `jax/_src/random.py`: `_uniform`, `_randint`, `_bernoulli`, `_gumbel`,
 `categorical`).
 
-A key is an int64 tensor `[..., 2]` holding two uint32 words. All
+A key is an int64 tensor `[2]` holding two uint32 words. All
 arithmetic runs in int64 masked to 32 bits (PyTorch's uint32 lacks ops
 on some devices), on whatever device the key lives on, so draws never
 leave the card.
+
+Every sampler also takes a batch of keys `[I, 2]` (the island model's
+per-island keys) and then returns `[I, *shape]`: row i is bit for bit
+the single-key call on key i, as `jax.vmap` of the reference's sampler
+over the key axis gives. Threefry is elementwise, so the batch is one
+set of launches, not I. `split` of a batch is `[I, num, 2]`; callers
+unpack it along the split axis with `.unbind(-2)`, which serves one key
+and a batch alike. `merge_rows` folds the key axis into the first draw
+axis, so operators that work on population rows see `[I·rows, ...]`.
 
 `log` inside `gumbel`/`categorical` is XLA's CPU float32 logarithm (the
 Cephes polynomial with fused multiply-adds), emulated with exact f32
@@ -80,22 +89,43 @@ def _counts(shape, device):
     return idx >> 32, idx & MASK
 
 
+def _words(key, ndim: int):
+    """The key's two words, each shaped `[*batch, 1 x ndim]` to
+    broadcast against a draw of `ndim` axes."""
+    pad = key.shape[:-1] + (1,) * ndim
+    return key[..., 0].reshape(pad), key[..., 1].reshape(pad)
+
+
 def _hash(key, shape):
     hi, lo = _counts(shape, key.device)
-    return threefry2x32(key[0], key[1], hi, lo)
+    return threefry2x32(*_words(key, len(shape)), hi, lo)
+
+
+def n_keys(key: torch.Tensor) -> int:
+    """1 for one key `[2]`, I for a batch `[I, 2]`."""
+    return 1 if key.dim() == 1 else key.shape[0]
+
+
+def merge_rows(key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A draw `[I, rows, ...]` of a batch of keys as `[I·rows, ...]` (row
+    block i from key i); a single key's draw passes through."""
+    return x if key.dim() == 1 else x.flatten(0, 1)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """`jax.random.split(key, num)` → int64 `[num, 2]`."""
+    """`jax.random.split(key, num)` → int64 `[num, 2]` (`[I, num, 2]`
+    for a batch of keys)."""
     b1, b2 = _hash(key, (num,))
     return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """`jax.random.fold_in(key, data)` for a non-negative int32 `data`."""
+    """`jax.random.fold_in(key, data)` for a non-negative int32 `data`
+    (the same `data` folded into every key of a batch)."""
+    k1, k2 = _words(key, 0)
     data = torch.full((), int(data) & MASK, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(data), data)
-    return torch.stack([b1, b2])
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(data), data)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
@@ -125,7 +155,7 @@ def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     32-bit draws folded into the span with the reference's multiplier
     arithmetic (uint32 wrap-around included)."""
     shape = tuple(shape)
-    k1, k2 = split(key)
+    k1, k2 = split(key).unbind(-2)
     higher, lower = random_bits(k1, shape), random_bits(k2, shape)
     span = (maxval - minval) if maxval > minval else 1
     mult = (2 ** 16) % span
@@ -135,8 +165,13 @@ def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     return (off + minval).to(torch.int32)
 
 
-def bernoulli(key, p: float, shape) -> torch.Tensor:
-    """`jax.random.bernoulli(key, p, shape)` with a float32 `p`."""
+def bernoulli(key, p, shape) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` with a float32 `p`: a Python
+    float, or for a batch of keys an f32 tensor `[I]` (one rate a key,
+    compared in f32 as the reference's traced rate is)."""
+    shape = tuple(shape)
+    if torch.is_tensor(p):
+        return uniform(key, shape) < p.float().reshape(p.shape + (1,) * len(shape))
     return uniform(key, shape) < _f32(p)
 
 
@@ -195,8 +230,11 @@ def gumbel(key, shape) -> torch.Tensor:
 
 
 def categorical(key, logits: torch.Tensor, shape) -> torch.Tensor:
-    """`jax.random.categorical(key, logits, shape=shape)` for 1-D logits:
-    Gumbel-max over the last axis, first index on ties."""
+    """`jax.random.categorical(key, logits, shape=shape)` for 1-D logits
+    (`[I, L]`, a row a key, for a batch of keys): Gumbel-max over the
+    last axis, first index on ties."""
     shape = tuple(shape)
-    g = gumbel(key, (*shape, logits.shape[-1]))
-    return torch.argmax(g + logits, dim=-1)
+    L = logits.shape[-1]
+    g = gumbel(key, (*shape, L))
+    return torch.argmax(g + logits.reshape(logits.shape[:-1] + (1,) * len(shape) + (L,)),
+                        dim=-1)

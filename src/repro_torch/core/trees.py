@@ -112,19 +112,20 @@ class TreeSpec:
 
 
 def _draw_terminal(key, shape, spec: TreeSpec):
-    """Random terminal (op, arg) tensors of `shape`."""
-    k1, k2, k3 = prng.split(key, 3)
-    is_const = prng.bernoulli(k1, spec.p_const, shape)
+    """Random terminal (op, arg) tensors of `shape` (rows of a batch of
+    keys merged)."""
+    k1, k2, k3 = prng.split(key, 3).unbind(-2)
+    is_const = prng.merge_rows(key, prng.bernoulli(k1, spec.p_const, shape))
     op = torch.where(is_const, prim.CONST, prim.FEATURE).to(torch.int32)
-    feat = prng.randint(k2, shape, 0, spec.n_features)
-    cons = prng.randint(k3, shape, 0, spec.n_consts)
+    feat = prng.merge_rows(key, prng.randint(k2, shape, 0, spec.n_features))
+    cons = prng.merge_rows(key, prng.randint(k3, shape, 0, spec.n_consts))
     return op, torch.where(is_const, cons, feat)
 
 
 def _draw_function(key, shape, spec: TreeSpec, binary_only: bool = False):
     """Random function opcode drawn from the spec's function set."""
     ops = spec.fn_set.binary_opcodes if binary_only else np.asarray(spec.fn_set.opcodes)
-    idx = prng.randint(key, shape, 0, len(ops))
+    idx = prng.merge_rows(key, prng.randint(key, shape, 0, len(ops)))
     return constant(ops, key.device, np.int32)[idx.long()]
 
 
@@ -135,23 +136,28 @@ def generate_population(key, pop: int, spec: TreeSpec):
     then grow top-down level by level over [pop, level_width]. Returns
     (op, arg): int32[pop, NODES] on the key's device, in the spec's
     genome form: the heap draw, converted to postfix streams when
-    spec.genome == "postfix" (the same trees from the same key)."""
+    spec.genome == "postfix" (the same trees from the same key). A batch
+    of keys [I, 2] draws `pop` trees from each: int32[I·pop, NODES], row
+    block i the single-key draw on key i."""
     N = spec.num_nodes
     D = spec.max_depth
     dev = key.device
-    kd, km, kt = prng.split(key, 3)
-    ramp_depth = prng.randint(kd, (pop,), 1, D + 1)  # per-tree depth ceiling
-    full = prng.bernoulli(km, 0.5, (pop,))  # full vs grow
+    kd, km, kt = prng.split(key, 3).unbind(-2)
+    # per-tree depth ceiling, and full vs grow
+    ramp_depth = prng.merge_rows(key, prng.randint(kd, (pop,), 1, D + 1))
+    full = prng.merge_rows(key, prng.bernoulli(km, 0.5, (pop,)))
     arity_t = constant(prim.ARITY, dev)
+    rows = pop * prng.n_keys(key)
 
     ops, args = [], []
-    active = torch.ones((pop, 1), dtype=torch.bool, device=dev)
+    active = torch.ones((rows, 1), dtype=torch.bool, device=dev)
     keys = prng.split(kt, D + 1)
     for d in range(D + 1):
         w = 2 ** d
-        kf, kg, kterm, _ = prng.split(keys[d], 4)
-        at_ceiling = (d >= ramp_depth)[:, None]  # [pop, 1]
-        grow = ~at_ceiling & prng.bernoulli(kg, spec.grow_p_fn, (pop, w))
+        kf, kg, kterm, _ = prng.split(keys[..., d, :], 4).unbind(-2)
+        at_ceiling = (d >= ramp_depth)[:, None]  # [rows, 1]
+        grow = ~at_ceiling & prng.merge_rows(key, prng.bernoulli(kg, spec.grow_p_fn,
+                                                                 (pop, w)))
         want_fn = torch.where(full[:, None], ~at_ceiling, grow)
         if d == 0:  # Karoo's min 3 nodes: the root is a function
             want_fn = torch.ones_like(want_fn)
@@ -167,9 +173,9 @@ def generate_population(key, pop: int, spec: TreeSpec):
             arity = arity_t[lvl_op.long()]
             l_act = active & (arity >= 1)
             r_act = active & (arity == 2)
-            active = torch.stack([l_act, r_act], dim=-1).reshape(pop, 2 * w)
+            active = torch.stack([l_act, r_act], dim=-1).reshape(rows, 2 * w)
     op, arg = torch.cat(ops, dim=1), torch.cat(args, dim=1)
-    assert op.shape == (pop, N)
+    assert op.shape == (rows, N)
     if spec.genome == "postfix":
         return heap_to_postfix(op, arg)
     return op, arg

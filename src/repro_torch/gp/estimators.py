@@ -9,10 +9,10 @@ execution is the session's. `random_state` gives the run's key
 (`prng.PRNGKey(random_state)`), and `device=` follows the port's rule:
 the card unless the caller asks for the CPU.
 
-Options of the reference the port does not have yet (`topology`,
-`checkpoint_dir`, `chunk_rows`, `islands > 1` and its migration
-settings) are accepted and raise NotImplementedError through the session,
-naming their ROADMAP item.
+`islands`, its migration settings and `checkpoint_dir` run as in the
+reference. Options the port does not have yet (`topology`, `chunk_rows`)
+are accepted and raise NotImplementedError through the session, naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -67,10 +67,9 @@ class _SymbolicBase:
                          max_depth=self.max_depth, n_consts=self.n_consts,
                          tourn_size=self.tourn_size, elitism=self.elitism,
                          parsimony=self.parsimony, stop_fitness=self.stop_fitness,
-                         islands=self.islands, **self._kernel_overrides())
-        if self.islands != 1:  # the session names the island model's item
-            overrides.update(migrate_every=self.migrate_every, migrate_k=self.migrate_k,
-                             island_topology=self.island_topology)
+                         islands=self.islands, migrate_every=self.migrate_every,
+                         migrate_k=self.migrate_k, island_topology=self.island_topology,
+                         **self._kernel_overrides())
         if self.island_mixes is not None:
             overrides["island_mixes"] = tuple(self.island_mixes)
         if self.fn_set is not None:

@@ -20,9 +20,22 @@ one block length serves every ragged boundary through the dynamic
 
 Every fitness kernel of the reference runs here, the two-pass `pearson`
 and `r2` included, and `init(seeds=)`/`fit(seeds=)` seed the first slots
-with parsed expressions. Not ported yet (each raises NotImplementedError
-naming its ROADMAP item): islands, `topology=`, `chunk_rows=`/`stream=`,
-`checkpoint_dir=`, `tracer=`/`metrics=`, the `scalar` backend.
+with parsed expressions.
+
+`islands=I` (with `migrate_every=`, `migrate_k=`, `island_topology=`,
+`island_mixes=`, `island_tourn_sizes=`, `island_point_rates=`) runs I
+islands of `pop_size` trees: one kernel call a generation on the
+flattened I·P population, the per-island best-fitness streams in
+`island_history`. `checkpoint_dir=` saves every `checkpoint_every`
+generations (block boundaries land on the period) in the reference's
+on-disk layout and `init()` resumes from the newest checkpoint there.
+`tracer=` (an `obs.Tracer`) records ingest/init/block/checkpoint spans
+and `metrics=` (an `obs.Metrics`) the counters and gauges; neither
+changes a trajectory.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP
+item): `topology=` (A11), `chunk_rows=`/`stream=` (A8), the `scalar`
+backend, and `export_island`/`import_island`/`adopt_state` (A10).
 """
 from __future__ import annotations
 
@@ -41,44 +54,46 @@ from repro_torch.data.loader import feature_major
 from repro_torch.device import resolve_device
 from repro_torch.gp import backends as _backends
 from repro_torch.obs import counters as _tc
+from repro_torch.obs.metrics import BlockMonitor, Metrics
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.runtime.fault import StepMonitor
 
 _TREE_KEYS = ("max_depth", "n_features", "n_consts", "fn_set", "p_const",
               "grow_p_fn", "genome")
 _FIT_KEYS = ("kernel", "n_classes", "precision")
-_ISLANDS = "A7, islands (core/islands.py)"
+# flat spellings of IslandConfig fields (migrate_every/migrate_k ride the
+# GPConfig aliases)
+_ISLAND_KEYS = {"islands": "islands", "island_topology": "topology",
+                "island_mixes": "mixes", "island_tourn_sizes": "tourn_sizes",
+                "island_point_rates": "point_rates"}
+_STREAMING = "A8, streaming (data/loader.py ChunkedDataset)"
+_SLOT_SWAP = "A10, the service's slot swap"
 _NOT_PORTED = {
-    "islands": _ISLANDS,
-    "island_topology": _ISLANDS,
-    "island_mixes": _ISLANDS,
-    "island_tourn_sizes": _ISLANDS,
-    "island_point_rates": _ISLANDS,
-    "migrate_every": _ISLANDS,
-    "migrate_k": _ISLANDS,
-    "topology": "A11, multi-GPU (MeshTopology)",
-    "chunk_rows": "A8, streaming (data/loader.py ChunkedDataset)",
-    "stream": "A8, streaming (data/loader.py ChunkedDataset)",
-    "checkpoint_dir": "A4.4, ckpt/checkpoint.py",
-    "checkpoint_every": "A4.4, ckpt/checkpoint.py",
-    "tracer": "A4.6, the obs Tracer/Metrics",
-    "metrics": "A4.6, the obs Tracer/Metrics",
+    "topology=": "A11, multi-GPU (MeshTopology)",
+    "chunk_rows=": _STREAMING,
+    "stream=": _STREAMING,
+    "export_island()": _SLOT_SWAP,
+    "import_island()": _SLOT_SWAP,
+    "adopt_state()": _SLOT_SWAP,
 }
 
 
 def _not_ported(option: str):
-    raise NotImplementedError(f"{option}= is not ported yet "
+    raise NotImplementedError(f"{option} is not ported yet "
                               f"(ROADMAP queue A: {_NOT_PORTED[option]})")
 
 
 def make_config(config: GPConfig | None = None, **overrides) -> GPConfig:
-    """GPConfig from flat keyword overrides — tree/fitness sub-spec keys
-    (max_depth, kernel, ...) land on the right nested dataclass."""
+    """GPConfig from flat keyword overrides — tree/fitness/island sub-spec
+    keys (max_depth, kernel, islands, island_topology, ...) land on the
+    right nested dataclass."""
     config = config if config is not None else GPConfig()
-    for k in overrides:
-        if k in _NOT_PORTED and not (k == "islands" and overrides[k] == 1):
-            _not_ported(k)
-    overrides.pop("islands", None)
     tree_kw = {k: overrides.pop(k) for k in _TREE_KEYS if k in overrides}
     fit_kw = {k: overrides.pop(k) for k in _FIT_KEYS if k in overrides}
+    island_kw = {v: overrides.pop(k) for k, v in _ISLAND_KEYS.items() if k in overrides}
+    if island_kw:
+        config = dataclasses.replace(
+            config, island=dataclasses.replace(config.island, **island_kw))
     fn_set = tree_kw.get("fn_set")
     if isinstance(fn_set, str):
         tree_kw["fn_set"] = prim.FunctionSet.make(tuple(fn_set.split(",")))
@@ -102,22 +117,21 @@ class GPSession:
     Lifecycle: `ingest(X, y)` → `init(key=)` → `evolve(n)` (or `fit`,
     which chains all three). `device=` (default: the card) places the
     data and state; the `auto` backend is `cuda` there and `torch` on
-    the CPU. `history` (floats, one per generation run),
-    `counter_history` (that generation's telemetry row from `evolve()`)
-    and `stats` are host-side and free to read."""
+    the CPU. `history` (floats, one per generation run: the min over
+    islands), `island_history` (an f32[I] row per generation of an
+    island run), `counter_history` (that generation's telemetry row from
+    `evolve()`) and `stats` are host-side and free to read."""
 
     _STOP_CHECK_SPAN = 32  # block cap when only stop_fitness is armed
 
     def __init__(self, config: GPConfig | None = None, *, backend: str | None = None,
                  device=None, topology=None, checkpoint_dir: str | None = None,
-                 feature_names=None, callback=None, callback_every: int = 1,
-                 block_size: int | None = None, chunk_rows: int | None = None,
-                 tracer=None, metrics=None, **overrides):
-        for name, val in (("topology", topology), ("checkpoint_dir", checkpoint_dir),
-                          ("chunk_rows", chunk_rows), ("tracer", tracer),
-                          ("metrics", metrics)):
+                 checkpoint_every: int = 10, feature_names=None, callback=None,
+                 callback_every: int = 1, block_size: int | None = None,
+                 chunk_rows: int | None = None, tracer=None, metrics=None, **overrides):
+        for name, val in (("topology", topology), ("chunk_rows", chunk_rows)):
             if val is not None:
-                _not_ported(name)
+                _not_ported(f"{name}=")
         self.device = resolve_device(device)
         explicit_features = (config is not None or "tree_spec" in overrides
                              or "n_features" in overrides)
@@ -135,15 +149,28 @@ class GPSession:
         self._gen_dirty = False  # mirror stale (raw evolve_block + stop_fitness)
         self.state: GPState | None = None
         self.history: list[float] = []
+        self.island_history: list[np.ndarray] = []
         self.counter_history: list[list[int]] = []
-        self.stats = {"host_syncs": 0, "blocks": 0, "cache_hits": 0,
-                      "cache_queries": 0, "cache_hit_rate": 0.0, "frozen": 0,
-                      "migrations": 0, "tree_evals": 0, "tree_row_evals": 0}
+        self.stats = {"host_syncs": 0, "blocks": 0, "block_s_ema": None,
+                      "stragglers": [], "cache_hits": 0, "cache_queries": 0,
+                      "cache_hit_rate": 0.0, "frozen": 0, "migrations": 0,
+                      "tree_evals": 0, "tree_row_evals": 0}
+        # observability is host-side only: the generation step is the same
+        # with or without it, so enabling it changes no trajectory
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics if metrics is not None else Metrics()
+        self._monitor = StepMonitor()  # per-block wall time EMA + stragglers
+        self._block_monitor = BlockMonitor(self._monitor, self.metrics, self.stats)
         self._last_counters = None  # device [K, C] from a raw evolve_block
         self.feature_names = list(feature_names) if feature_names else None
         self._callback = callback
         self._callback_every = max(1, int(callback_every))
         self._block_size = block_size
+        self._manager = None
+        if checkpoint_dir:
+            from repro_torch.ckpt.checkpoint import CheckpointManager
+
+            self._manager = CheckpointManager(checkpoint_dir, every=checkpoint_every)
 
     # --- introspection -------------------------------------------------------
 
@@ -160,11 +187,22 @@ class GPSession:
         return int(self.state.generation) if self.state is not None else 0
 
     @property
+    def islands(self) -> int:
+        """Number of islands in the population layout (1 = classic)."""
+        return self._cfg.island.islands
+
+    @property
     def best_fitness(self) -> float:
-        """Best fitness seen so far (one host sync)."""
+        """Best fitness seen so far, the min over islands (one host sync)."""
         if self.state is None:
             return float("inf")
-        return float(self.state.best_fitness)
+        return float(self.state.best_fitness.min())
+
+    @property
+    def island_best_fitness(self) -> np.ndarray:
+        """f32[I] per-island champion fitness (one host sync)."""
+        self._require_state()
+        return np.atleast_1d(self.state.best_fitness.cpu().numpy())
 
     @property
     def n_rows(self) -> int:
@@ -180,9 +218,15 @@ class GPSession:
         `sample_weight` (f32[D]) scales each point's contribution; 0.0
         excludes a point exactly."""
         if stream is not None:
-            _not_ported("stream")
+            _not_ported("stream=")
         if chunk_rows is not None:
-            _not_ported("chunk_rows")
+            _not_ported("chunk_rows=")
+        with self.tracer.span("ingest"):
+            self._ingest(X, y, layout=layout, sample_weight=sample_weight)
+        self.metrics.gauge("rows", self._n_rows)
+        return self
+
+    def _ingest(self, X, y, *, layout, sample_weight):
         if X is None or y is None:
             raise ValueError("ingest needs X and y")
         X = np.asarray(X, np.float32)
@@ -214,7 +258,6 @@ class GPSession:
         self._weight = (None if sample_weight is None
                         else torch.from_numpy(sample_weight).to(self.device))
         self._invalidate_elite_cache()
-        return self
 
     def _invalidate_elite_cache(self):
         """New data invalidates the elite fitness cache."""
@@ -226,20 +269,38 @@ class GPSession:
 
     def init(self, *, key=None, seeds=None) -> "GPSession":
         """Fresh state from `key` (a port key, `core.prng.PRNGKey`;
-        default PRNGKey(0), as in the reference). `seeds` are expression
-        strings (Karoo's customized seed populations), parsed against the
-        session's TreeSpec and feature names into the first slots."""
+        default PRNGKey(0), as in the reference), or the newest
+        checkpoint when the session's checkpoint_dir holds one. `seeds`
+        are expression strings (Karoo's customized seed populations),
+        parsed against the session's TreeSpec and feature names into the
+        first slots (of every island)."""
         if self._X is None:
             raise ValueError("no dataset — call ingest()/fit() first")
         key = key if key is not None else prng.PRNGKey(0)
-        self.state = engine.init_state(self._cfg, key, seeds=seeds,
-                                       feature_names=self.feature_names,
-                                       device=self.device)
-        self.history = []
-        self.counter_history = []
-        self._gen_host = 0
-        self._gen_dirty = False
+        with self.tracer.span("init"):
+            self.state = engine.init_state(self._cfg, key, seeds=seeds,
+                                           feature_names=self.feature_names,
+                                           device=self.device)
+            self.history = []
+            self.island_history = []
+            self.counter_history = []
+            self._gen_host = 0
+            self._gen_dirty = False
+            if self._manager is not None:
+                restored, step = self._manager.restore_latest(like=self.state)
+                if restored is not None:
+                    self.state = restored
+                    self._gen_host = int(step)
         return self
+
+    def export_island(self, idx: int):
+        _not_ported("export_island()")
+
+    def import_island(self, idx: int, sub):
+        _not_ported("import_island()")
+
+    def adopt_state(self, state: GPState):
+        _not_ported("adopt_state()")
 
     def step(self) -> GPState:
         """One generation, unconditionally (no early-stop freeze, no sync)."""
@@ -276,13 +337,23 @@ class GPSession:
 
     def _count_host_sync(self, n: int = 1):
         self.stats["host_syncs"] += n
+        self.metrics.inc("host_syncs", n)
 
     def _absorb_counters(self, rows):
+        """Fold an int32[K, C] telemetry block into `stats` and the
+        metrics registry (cache hits/queries and the hit rate, frozen
+        steps, migrations, tree evaluations and × rows)."""
         tot = _tc.totals(rows)
         for name, v in tot.items():
             self.stats[name] = self.stats.get(name, 0) + v
+            if v:
+                self.metrics.inc(name, v)
         self.stats["cache_hit_rate"] = _tc.hit_rate(self.stats)
+        self.metrics.gauge("cache_hit_rate", self.stats["cache_hit_rate"])
         self.stats["tree_row_evals"] += tot["tree_evals"] * self._n_rows
+        if self._n_rows and tot["tree_evals"]:
+            self.metrics.inc("tree_row_evals", tot["tree_evals"] * self._n_rows)
+        self.metrics.emit("counters", **tot)
 
     def absorb_block_telemetry(self) -> dict:
         """Fold the latest raw `evolve_block()` counter stream into
@@ -295,9 +366,13 @@ class GPSession:
         return self.stats
 
     def _block_span(self, remaining: int) -> int:
-        """Block size K = min(callback period, explicit block_size,
-        remaining), phase-aligned to the absolute generation counter."""
+        """Block size K = min(checkpoint period, callback period, explicit
+        block_size, remaining), phase-aligned to the absolute generation
+        counter, so saves land on multiples of the checkpoint period."""
         k = remaining
+        if self._manager is not None:
+            every = self._manager.every
+            k = min(k, every - self._gen_host % every)
         if self._callback is not None:
             k = min(k, self._callback_every - self._gen_host % self._callback_every)
         if self._block_size is not None:
@@ -308,6 +383,7 @@ class GPSession:
         """Block length run for every block: the smallest configured
         period, so ragged boundaries run the same loop with a `limit`."""
         periods = [p for p in (
+            self._manager.every if self._manager is not None else None,
             self._callback_every if self._callback is not None else None,
             self._block_size) if p is not None]
         if periods:
@@ -323,19 +399,21 @@ class GPSession:
             self._gen_dirty = False
 
     def _read_block(self, history, counters):
-        """ONE device→host copy: generation, history and counters packed
-        into one int32 buffer (history as its f32 bits)."""
+        """ONE device→host copy: generation, history ([K] or [K, I]) and
+        counters packed into one int32 buffer (history as its f32 bits)."""
         buf = torch.cat([self.state.generation.reshape(1),
-                         history.contiguous().view(torch.int32),
+                         history.contiguous().view(torch.int32).reshape(-1),
                          counters.reshape(-1)]).cpu().numpy()
-        K = history.shape[0]
-        return int(buf[0]), buf[1:1 + K].view(np.float32), buf[1 + K:].reshape(K, -1)
+        K, n = history.shape[0], history.numel()
+        hist = buf[1:1 + n].view(np.float32).reshape(history.shape)
+        return int(buf[0]), hist, buf[1 + n:].reshape(K, -1)
 
     def evolve(self, generations: int | None = None) -> GPState:
         """Drive `generations` generations (default: config.generations)
         in blocks: one block of tensor ops and one host synchronisation
-        per block. The callback, history and stop check run at block
-        boundaries."""
+        per block. Checkpoints, the callback, history and the stop check
+        run at block boundaries; a run with a checkpoint_dir ends with a
+        save of its last generation."""
         if self.state is None:
             self.init()
         cfg = self._cfg
@@ -346,17 +424,30 @@ class GPSession:
         while self._gen_host < target:
             K = min(self._block_span(target - self._gen_host), quantum)
             prev_gen = self._gen_host
-            _, history, counters = self._dispatch_block(quantum, K)
-            gen_now, hist, crows = self._read_block(history, counters)
+            block_idx = self.stats["blocks"]
+            # the monitor times the dispatch THROUGH the block's one read
+            with self._block_monitor, self.tracer.span(
+                    "block", args={"k": K, "quantum": quantum}), \
+                    self.tracer.maybe_profile(block_idx):
+                _, history, counters = self._dispatch_block(quantum, K)
+                gen_now, hist, crows = self._read_block(history, counters)
             self._count_host_sync()
-            self.stats["blocks"] += 1
             self._last_counters = None
             self._absorb_counters(crows)
             ran = gen_now - prev_gen
             self._gen_host = gen_now
+            self.metrics.gauge("generation", gen_now)
+            if ran and self._monitor.last:
+                self.metrics.gauge("gens_per_s", ran / self._monitor.last)
             rows = hist[:ran]
+            if rows.ndim == 2:  # island run: [K, I] per-island streams
+                self.island_history.extend(rows.copy())
+                rows = rows.min(axis=1)
             self.history.extend(float(b) for b in rows)
             self.counter_history.extend(crows[:ran].tolist())
+            if self._manager is not None:
+                with self.tracer.span("checkpoint"):
+                    self._manager.maybe_save(self.state, gen_now)
             stopped = ran < K or (cfg.stop_fitness is not None and ran
                                   and rows[ran - 1] <= np.float32(cfg.stop_fitness))
             last = stopped or gen_now >= target
@@ -365,6 +456,14 @@ class GPSession:
                 self._callback(gen_now - 1, self.state)
             if stopped:
                 break
+        if self._manager is not None:
+            # final save, unless the last block boundary already saved here
+            with self.tracer.span("checkpoint"):
+                self._manager.wait()
+                if (not self._manager.saved_steps
+                        or self._manager.saved_steps[-1] != self._gen_host):
+                    self._manager.maybe_save(self.state, self._gen_host, force=True)
+                self._manager.wait()
         return self.state
 
     def fit(self, X, y, *, layout: str = "rows", generations: int | None = None,
@@ -379,16 +478,37 @@ class GPSession:
 
     # --- results -------------------------------------------------------------
 
-    def _champion(self):
+    def _champion_rows(self):
+        """(best_op, best_arg) device rows of the overall champion: for an
+        island run the best across islands (first index on ties)."""
         self._require_state()
-        return (self.state.best_op.cpu().numpy(), self.state.best_arg.cpu().numpy())
+        s = self.state
+        if s.best_fitness.dim():
+            i = torch.argmin(s.best_fitness).reshape(1)
+            return s.best_op.index_select(0, i)[0], s.best_arg.index_select(0, i)[0]
+        return s.best_op, s.best_arg
 
-    def best_expression(self) -> str:
-        """The champion tree decoded to an infix string (one host sync)."""
-        op, arg = self._champion()
+    def _champion(self):
+        op, arg = self._champion_rows()
+        return op.cpu().numpy(), arg.cpu().numpy()
+
+    def _decode(self, op, arg) -> str:
         return to_string(op, arg, feature_names=self.feature_names,
                          const_table=self._cfg.tree_spec.const_table_numpy(),
                          genome=self._cfg.tree_spec.genome)
+
+    def best_expression(self) -> str:
+        """The champion tree decoded to an infix string — the best across
+        all islands for an island run (one host sync)."""
+        return self._decode(*self._champion())
+
+    def island_expressions(self) -> list[str]:
+        """Each island's champion decoded to an infix string (a length-1
+        list for the classic layout) — one host sync."""
+        self._require_state()
+        best_op = np.atleast_2d(self.state.best_op.cpu().numpy())
+        best_arg = np.atleast_2d(self.state.best_arg.cpu().numpy())
+        return [self._decode(o, a) for o, a in zip(best_op, best_arg)]
 
     def predict(self, X, *, layout: str = "rows") -> np.ndarray:
         """Best tree evaluated on new data: X [rows, features] (or
@@ -397,8 +517,9 @@ class GPSession:
         X = np.asarray(X, np.float32)
         X_fm = feature_major(X) if layout == "rows" else X
         spec = self._cfg.tree_spec
+        best_op, best_arg = self._champion_rows()
         preds = self._backend.evaluate(
-            self.state.best_op[None], self.state.best_arg[None],
+            best_op[None], best_arg[None],
             torch.from_numpy(np.ascontiguousarray(X_fm)).to(self.device),
             spec.const_table(self.device), spec)
         return preds[0].cpu().numpy()

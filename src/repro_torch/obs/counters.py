@@ -12,8 +12,9 @@ Columns (index into the trailing axis):
     CACHE_QUERIES  hit gates evaluated (0 when the cache is disabled)
     FROZEN         steps that ran frozen (early-stopped or past `limit`);
                    their compute was executed and discarded
-    MIGRATIONS     island-migration events that came due (0: islands
-                   are not ported yet)
+    MIGRATIONS     island-migration events that came due (I on a
+                   generation where migration is due; 0 on the classic
+                   layout)
     TREE_EVALS     productive tree evaluations: population rows scored
                    against the full dataset, excluding cache-served rows
                    and frozen steps (× row count = the paper's trees·rows)

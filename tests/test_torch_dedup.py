@@ -440,7 +440,7 @@ def test_semantic_trajectory_vs_reference_within_tolerance():
     tsem = tengine.GPConfig(tree_spec=tts, dedup="semantic", **base)
     toff = dataclasses.replace(tsem, dedup="off")
     js = jengine.init_state(jcfg, jax.random.PRNGKey(1))
-    s_sem = s_off = tengine.state_from_numpy(js)
+    s_sem = s_off = tengine.state_from_numpy(js, device="cpu")
     Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
     for _ in range(5):
         js = jengine.evolve_step(jcfg, js, jnp.asarray(X), jnp.asarray(y))

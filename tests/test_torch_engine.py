@@ -64,7 +64,7 @@ def test_init_state_and_numpy_round_trip():
     _assert_state_equal(jstate, tstate)
     back = tengine.state_from_numpy(jstate, device="cpu")
     _assert_state_equal(jstate, back)
-    again = tengine.state_from_numpy(tengine.state_to_numpy(back))
+    again = tengine.state_from_numpy(tengine.state_to_numpy(back), device="cpu")
     for a, b in zip(back, again):
         assert a.dtype == b.dtype
         assert torch.equal(a, b)
@@ -76,7 +76,7 @@ def test_evolve_block_bitwise_vs_reference(case):
     equal the reference's bit for bit."""
     jcfg, tcfg, X, y = _configs(case)
     jstate = jengine.init_state(jcfg, jax.random.PRNGKey(5))
-    tstate = tengine.state_from_numpy(jstate)
+    tstate = tengine.state_from_numpy(jstate, device="cpu")
     Xj, yj = jnp.asarray(X), jnp.asarray(y)
     Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
     for _ in range(2):
@@ -158,7 +158,7 @@ def test_postfix_evolve_block_bitwise_vs_reference(dedup, cap):
     jcfg, tcfg, X, y = _postfix_configs(dedup, cap)
     jstate = jengine.init_state(jcfg, jax.random.PRNGKey(5))
     _assert_state_equal(jstate, tengine.init_state(tcfg, prng.PRNGKey(5), device="cpu"))
-    tstate = tengine.state_from_numpy(jstate)
+    tstate = tengine.state_from_numpy(jstate, device="cpu")
     Xj, yj = jnp.asarray(X), jnp.asarray(y)
     Xt, yt = torch.from_numpy(X), torch.from_numpy(y)
     for _ in range(2):

@@ -158,12 +158,24 @@ def test_default_config_picks_the_device_backend(monkeypatch):
     assert seen == ["torch"]
 
 
-def test_not_ported_options_raise():
-    for kw in (dict(islands=2), dict(topology=object()), dict(chunk_rows=8),
-               dict(checkpoint_dir="x"), dict(tracer=object()),
-               dict(backend="scalar")):
+def test_not_ported_options_raise(tmp_path):
+    """The options the port does not have yet raise, naming their ROADMAP
+    item; islands, checkpoints and the tracer/metrics now construct."""
+    for kw in (dict(topology=object()), dict(chunk_rows=8), dict(backend="scalar")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPSession(device="cpu", **kw)
+    X_rows, y, _ = tdata.kepler()
+    s = GPSession(device="cpu", pop_size=8).ingest(X_rows, y)
+    for call in (lambda: s.ingest(X_rows, y, chunk_rows=4),
+                 lambda: s.ingest(stream=iter(())), lambda: s.export_island(0),
+                 lambda: s.import_island(0, None), lambda: s.adopt_state(None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A: A(8|10)"):
+            call()
+    from repro_torch.obs import Metrics, Tracer
+
+    for kw in (dict(islands=2), dict(checkpoint_dir=str(tmp_path / "x")),
+               dict(tracer=Tracer(), metrics=Metrics())):
+        assert GPSession(device="cpu", **kw).islands == kw.get("islands", 1)
 
 
 @pytest.mark.parametrize("dedup", ["off", "exact"])
