@@ -7,7 +7,8 @@ holds each against its plain PyTorch version on the card, drives the
 port's paths (`GPSession` with its defaults: heap trees of depth 5, one
 device, elite cache, K-generation blocks; then postfix genomes with and
 without subexpression dedup; then the two-pass fitness kernels pearson
-and r2 on those paths) through the user's entry points, and checks the
+and r2 on those paths; the island model; streaming at the paper's 5.5M
+rows and the scalar baseline) through the user's entry points, and checks the
 results against the same sessions run on the CPU. Every phase prints
 one JSON line; any failure raises, so the exit code is non-zero. The
 last line is the contract line
@@ -89,6 +90,26 @@ Phases:
      and checkpoint spans; and `python -m repro_torch.launch.evolve
      --islands 4 --pop 200` as a subprocess twice on one checkpoint
      directory, the second printing "resumed from generation 3"
+  8. streaming and the scalar baseline: the paper's 5.5M x 8 stream
+     (`stream_rows`, seed 0) in 21 chunks of 262,144 rows (the last
+     ragged: 257,120 real rows) through `GPSession` on the card under
+     mse, m and pearson (init, one step, evolve(3)): B1 exactly once a
+     chunk a generation and no other kernel, the streamed evolve(3)'s
+     peak memory below the 220 MB the monolithic dataset takes,
+     generation 0 against B1's plain version folded over the same chunks
+     on the card and against the same rows ingested whole (bitwise under
+     m, rtol 1e-4 with the same non-finite pattern under mse and
+     pearson); where a streamed generation's time goes (the host's chunk
+     preparation, the copies, one profiled generation retaken until its
+     trace holds every launch: B1's device time a chunk, the idle
+     share); kat7 in chunks of 4,096 rows under c
+     (heap 10 generations, postfix 5 with B2, 4 x 200 islands 3), each
+     bitwise with the CPU's streamed run and the heap run with phase 3's
+     monolithic history; the scalar baseline (kepler, pop 50, 5
+     generations) on the card bitwise its CPU run, within rtol 1e-5 of
+     the cuda backend at generation 0, and chunked against unchunked
+     (within rtol 1e-5 on kepler under mse, bitwise on an integer
+     lattice); one JSON line of the phase's figures
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -1384,6 +1405,390 @@ def island_paths():
     return runs
 
 
+# --- phase 8: streaming chunked fitness and the scalar baseline -------------------
+
+STREAM_ROWS, STREAM_CHUNK = 5_500_000, 262_144  # the paper's largest dataset
+STREAM_KERNELS = ("mse", "m", "pearson")
+
+
+def _n_chunks():
+    return -(-STREAM_ROWS // STREAM_CHUNK)  # 21, the last with 257,120 real rows
+
+
+def _mono_bytes():
+    return STREAM_ROWS * (8 + 1 + 1) * 4  # X + y + weight of the 5.5M rows on the card
+KAT7_CHUNK = 4_096  # kat7's 10,000 rows: 3 chunks, 1,808 real rows in the last
+
+
+def _stream_source():
+    from repro_torch.data.datasets import stream_rows
+
+    return stream_rows(rows=STREAM_ROWS, feats=8, seed=0)
+
+
+def _fitness_vs(got, want, tag, exact):
+    """Generation 0's fitness vectors: bitwise when `exact`, else the same
+    non-finite pattern and rtol 1e-4 on the finite entries; a miss names
+    each tree and its two values. -> max relative difference."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if exact:
+        if not np.array_equal(g, w, equal_nan=True):
+            bad = np.nonzero(g != w)[0]
+            raise AssertionError(f"{tag}: trees {bad.tolist()} differ: "
+                                 f"{g[bad].tolist()} vs {w[bad].tolist()}")
+        return 0.0
+    if not np.array_equal(np.isfinite(g), np.isfinite(w)):
+        bad = np.nonzero(np.isfinite(g) != np.isfinite(w))[0]
+        raise AssertionError(f"{tag}: non-finite pattern differs at trees {bad.tolist()}: "
+                             f"{g[bad].tolist()} vs {w[bad].tolist()}")
+    ok = np.isfinite(w)
+    rel = np.abs(g[ok] - w[ok]) / np.maximum(np.abs(w[ok]), 1e-30)
+    bad = np.nonzero(~np.isclose(g[ok], w[ok], rtol=1e-4, atol=0.0))[0]
+    if len(bad):
+        idx = np.nonzero(ok)[0][bad]
+        raise AssertionError(f"{tag}: trees {idx.tolist()} miss rtol 1e-4: "
+                             f"{g[idx].tolist()} vs {w[idx].tolist()}")
+    return float(rel.max(initial=0.0))
+
+
+def _fold_vs_plain(cfg, op, arg, ds, fit0, kernel):
+    """B1 against its plain version at the stream's own shapes: generation
+    0's population folded over the same 21 chunks (D = 262,144 a launch,
+    256 data tiles, the ragged zero-weight tail) by the cuda backend and
+    by the plain tiled oracle on the card. The cuda fold must be bitwise
+    the session's generation 0 (the same launches); the plain fold
+    bitwise under m, else rtol 1e-4 with the same non-finite pattern.
+    These launches are outside every counted run."""
+    out = {}
+    folds = {}
+    for impl in ("cuda", "torch"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folds[impl] = engine.chunked_fitness(cfg, op, arg, ds, impl=impl)
+        torch.cuda.synchronize()
+        out[f"{impl}_fold_s"] = time.perf_counter() - t0
+    _fitness_vs(folds["cuda"], fit0, f"stream {kernel}: cuda fold vs the session", exact=True)
+    out["max_rel_vs_plain"] = _fitness_vs(folds["cuda"], folds["torch"],
+                                          f"stream {kernel}: B1 fold vs plain fold",
+                                          exact=kernel == "m")
+    return out
+
+
+def _stream_scale(kernel, mono_rows):
+    """Phase 8.1-8.3 under one fitness kernel: the 5.5M-row stream in 21
+    chunks through GPSession on the card (init, one step, evolve(3)),
+    B1 exactly once a chunk a generation and no other kernel, peak memory
+    of the streamed evolve(3) below the monolithic dataset's, generation
+    0 against B1's plain version folded over the same chunks and against
+    the same rows ingested whole."""
+    s = GPSession(pop_size=100, kernel=kernel)
+    assert s.backend == "cuda", s.backend
+    s.ingest(stream=_stream_source(), chunk_rows=STREAM_CHUNK)
+    s.init(key=prng.PRNGKey(0))
+    op0, arg0 = s.state.op.clone(), s.state.arg.clone()
+    torch.cuda.synchronize()
+    gp_eval.reset_launches()
+    t0 = time.perf_counter()
+    s.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n = _n_chunks()
+    if s.n_rows != STREAM_ROWS or s._stream.n_chunks != n:
+        raise AssertionError(f"stream {kernel}: n_rows {s.n_rows}, chunks {s._stream.n_chunks}")
+    fit0 = s.state.fitness.clone()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s.evolve(3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in gp_eval.launches.items() if v}
+    if launches != {"eval_fitness": n * 4}:
+        raise AssertionError(f"stream {kernel}: launches {launches}, want eval_fitness "
+                             f"{n * 4} ({n} chunks x 4 generations)")
+    if peak >= _mono_bytes():
+        raise AssertionError(f"stream {kernel}: peak {peak} bytes >= the monolithic "
+                             f"dataset's {_mono_bytes()}")
+    hist = np.asarray(s.history, np.float32)
+    if not (np.isfinite(hist).all() and (np.diff(hist) <= 0).all()):
+        raise AssertionError(f"stream {kernel}: history {hist.tolist()}")
+    plain = _fold_vs_plain(s.config, op0, arg0, s._stream, fit0, kernel)
+    del s, op0, arg0
+    m = GPSession(pop_size=100, kernel=kernel)
+    t0 = time.perf_counter()
+    m.ingest(*mono_rows)
+    m.init(key=prng.PRNGKey(0))
+    m.step()
+    torch.cuda.synchronize()
+    mono_step_s = time.perf_counter() - t0
+    rel = _fitness_vs(fit0, m.state.fitness, f"stream vs monolithic {kernel}",
+                      exact=kernel == "m")
+    t0 = time.perf_counter()
+    m.evolve(3)
+    torch.cuda.synchronize()
+    mono_wall = time.perf_counter() - t0
+    del m
+    torch.cuda.empty_cache()
+    return dict(kernel=kernel, rows=STREAM_ROWS, chunk_rows=STREAM_CHUNK, chunks=n,
+                launches=launches, generations=4, first_step_s=step_s,
+                evolve3_wall_s=wall, gens_per_s=3 / wall, mono_ingest_step_s=mono_step_s,
+                mono_evolve3_wall_s=mono_wall, mono_gens_per_s=3 / mono_wall,
+                peak_bytes=peak, allocated_before_bytes=base, mono_dataset_bytes=_mono_bytes(),
+                gen0_max_rel_vs_monolithic=rel, gen0_max_rel_vs_plain=plain["max_rel_vs_plain"],
+                b1_fold_s=plain["cuda_fold_s"], plain_fold_s=plain["torch_fold_s"],
+                history=hist.tolist(),
+                check="B1 once a chunk a generation; peak below the monolithic dataset; "
+                      + ("gen 0 bitwise B1's plain fold and the monolithic run"
+                         if kernel == "m" else "gen 0 within rtol 1e-4 of B1's plain fold "
+                         "and of the monolithic run"))
+
+
+def _device_events(prof):
+    """The device's own events (kernels, copies, memsets) of a
+    torch.profiler window."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _busy_us(dev):
+    """Device busy time in us: the union of the device events' intervals
+    (a sum of self device time over `key_averages()` also counts a kernel
+    under the CPU op that launched it)."""
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy
+
+
+def _trace_window(s, windows=3):
+    """Profile one streamed generation of session `s` until the trace is
+    complete: every B1 launch the wrapper counted and every kernel,
+    copy and memset call the runtime made is recorded on the device
+    (the tracer may drop events). Up to `windows` tries -> (device events
+    of the last window, wall s, complete, B1 launches, runtime calls,
+    windows, the window's self device time summed over `key_averages()`
+    in us, the way earlier figures were taken, which may count a kernel
+    under its CPU op too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runtime_calls = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset")
+    for window in range(1, windows + 1):
+        torch.cuda.synchronize()
+        gp_eval.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = gp_eval.launches["eval_fitness"]
+        events = prof.events()
+        dev = _device_events(prof)
+        calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith(runtime_calls))
+        b1 = sum(1 for e in dev if "eval_partial_kernel" in e.name)
+        complete = b1 == launches and len(dev) >= calls
+        if complete:
+            break
+    summed = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0) for e in prof.key_averages())
+    return dev, wall, complete, launches, calls, window, summed
+
+
+def _stream_split():
+    """Where a streamed generation's time goes at 5.5M rows (kernel mse):
+    the host's chunk preparation (one pass of the callable source:
+    RandomState draws, re-chunking, transpose, padding), the copies of
+    the chunks to the card, and one profiled generation (B1's device
+    time a chunk, device busy time as the union of the device events'
+    intervals, idle share). When no window recorded every launch, the
+    busy time is a lower bound and the idle share an upper bound
+    (`trace_complete` false)."""
+    from repro_torch.data.loader import ChunkedDataset
+
+    ds = ChunkedDataset(_stream_source(), chunk_rows=STREAM_CHUNK)
+    t0 = time.perf_counter()
+    chunks = list(ds)
+    prep_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for X, y, w in chunks:
+        for a in (X, y, w):
+            torch.from_numpy(a).to(DEV)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    del chunks
+    s = GPSession(pop_size=100, kernel="mse")
+    s.ingest(stream=_stream_source(), chunk_rows=STREAM_CHUNK).init(key=prng.PRNGKey(0))
+    s.step()
+    dev, wall, complete, launches, calls, windows, summed = _trace_window(s)
+    busy = _busy_us(dev)
+    b1 = [e.time_range.elapsed_us() for e in dev if "eval_partial_kernel" in e.name]
+    htod = [e.time_range.elapsed_us() for e in dev if "Memcpy HtoD" in e.name]
+    return dict(host_chunk_prep_ms_per_gen=1e3 * prep_s, copy_ms_per_gen=1e3 * copy_s,
+                copy_bytes_per_gen=_n_chunks() * STREAM_CHUNK * 10 * 4,
+                profiled_wall_ms_per_gen=1e3 * wall, device_busy_ms_per_gen=busy / 1e3,
+                idle_share=1 - busy / (1e6 * wall),
+                summed_self_device_ms_per_gen=summed / 1e3, trace_complete=complete, profiler_windows=windows,
+                b1_launches=launches, b1_recorded_calls=len(b1),
+                runtime_calls=calls, device_events_recorded=len(dev),
+                b1_device_ms_per_chunk=(sum(b1) / len(b1) / 1e3) if b1 else None,
+                htod_recorded=len(htod), htod_device_ms_per_gen=sum(htod) / 1e3,
+                b1_share_of_wall=sum(b1) / (1e6 * wall))
+
+
+def _stream_kat7(main_history):
+    """Phase 8.4-8.6 at kat7 in chunks of 4,096 rows (3 chunks, the last
+    with 1,808 real rows) under kernel c: heap (10 generations), postfix
+    (5) and 4 x 200 islands (3), each bitwise with the CPU's streamed run,
+    the heap one also with the card's monolithic run; the kernel (B1 or
+    B2) once a chunk a generation and no other kernel."""
+    runs = {}
+    for label, kw, gens, name in (("heap", {"pop_size": 100}, 10, "eval_fitness"),
+                                  ("postfix", {"pop_size": 100, "genome": "postfix"}, 5,
+                                   "eval_fitness_postfix"),
+                                  ("islands", _island_kw(), 3, "eval_fitness")):
+        sess = GPSession.from_dataset("kat7", chunk_rows=KAT7_CHUNK, **kw)
+        sess.init(key=prng.PRNGKey(0))
+        torch.cuda.synchronize()
+        gp_eval.reset_launches()
+        t0 = time.perf_counter()
+        sess.evolve(gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in gp_eval.launches.items() if v}
+        if launches != {name: 3 * gens}:
+            raise AssertionError(f"kat7 stream {label}: launches {launches}, want "
+                                 f"{name} {3 * gens}")
+        cpu = GPSession.from_dataset("kat7", chunk_rows=KAT7_CHUNK, device="cpu", **kw)
+        cpu.init(key=prng.PRNGKey(0))
+        cpu.evolve(gens)
+        if cpu.backend != "torch" or cpu.history != sess.history or (
+                label == "islands" and not np.array_equal(np.asarray(cpu.island_history),
+                                                          np.asarray(sess.island_history))):
+            raise AssertionError(f"kat7 stream {label}: card {sess.history} vs CPU "
+                                 f"{cpu.history}")
+        runs[label] = dict(options={k: v for k, v in kw.items() if k != "island_mixes"},
+                           chunk_rows=KAT7_CHUNK, chunks=sess._stream.n_chunks,
+                           generations=gens, launches=launches, wall_s=wall,
+                           gens_per_s=gens / wall, host_syncs=sess.stats["host_syncs"],
+                           history=sess.history, cpu_bitwise_generations=gens)
+    mono = main_history
+    if mono is None:
+        m = GPSession.from_dataset("kat7", pop_size=100)
+        m.init(key=prng.PRNGKey(0))
+        m.evolve(10)
+        mono = m.history
+    if list(np.asarray(mono[:10], np.float32)) != list(np.asarray(runs["heap"]["history"],
+                                                                  np.float32)):
+        raise AssertionError(f"kat7 stream vs monolithic: {runs['heap']['history']} vs "
+                             f"{mono[:10]}")
+    runs["heap"]["monolithic_bitwise_generations"] = 10
+    return runs
+
+
+def _scalar_lattice_chunks():
+    """The scalar backend chunked (rows of 16 in chunks of 6) against
+    unchunked under mse on an integer lattice, where every sum is exact:
+    5 generations bit for bit on the card."""
+    rng = np.random.RandomState(5)
+    X = rng.randint(-2, 3, size=(16, 3)).astype(np.float32)
+    y = rng.randint(-2, 3, size=16).astype(np.float32)
+    kw = dict(pop_size=16, kernel="mse", max_depth=3, p_const=0.0, fn_set="add,sub,mul",
+              backend="scalar")
+    whole = GPSession(**kw).fit(X, y, generations=5, key=prng.PRNGKey(1))
+    chunked = GPSession(chunk_rows=6, **kw).fit(X, y, generations=5, key=prng.PRNGKey(1))
+    if chunked.history != whole.history or not torch.equal(chunked.state.op, whole.state.op):
+        raise AssertionError(f"scalar lattice: chunked {chunked.history} vs {whole.history}")
+    return whole.history
+
+
+def _scalar_baseline():
+    """Phase 8.7: the paper's 1-CPU_SP baseline (backend="scalar") on
+    kepler, pop 50, 5 generations, driven from the card: evaluation reads
+    the population to the host, breeding runs on the card. Its history
+    must equal the device="cpu" run's bit for bit; generation 0's fitness
+    must be within rtol 1e-5 of the cuda backend's (tests/test_gp_api.py's
+    bound); one counted host sync a generation. In 3 chunks of 4 rows
+    under mse the real-valued sums merge in another order, so generation
+    0 is held within rtol 1e-5 there, and bitwise on an integer lattice."""
+    out = {}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        s = GPSession.from_dataset("kepler", pop_size=50, backend="scalar", device=dev)
+        s.init(key=prng.PRNGKey(0))
+        t0 = time.perf_counter()
+        s.step()
+        fit0 = s.state.fitness.cpu().clone()
+        s.evolve(4)
+        runs[dev] = (s, fit0, time.perf_counter() - t0)
+    (card, fit0, wall), (cpu, cpu_fit0, _) = runs["cuda"], runs["cpu"]
+    if card.history != cpu.history or not torch.equal(fit0, cpu_fit0):
+        raise AssertionError(f"scalar card {card.history} vs CPU {cpu.history}")
+    if card.stats["host_syncs"] != 4 or card.state.op.device.type != DEV.type:
+        raise AssertionError(f"scalar on the card: {card.stats['host_syncs']} syncs")
+    vec = GPSession.from_dataset("kepler", pop_size=50)
+    vec.init(key=prng.PRNGKey(0))
+    vec.step()
+    g, w = fit0.numpy(), vec.state.fitness.cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
+    ok = np.isfinite(w)
+    np.testing.assert_allclose(g[ok], w[ok], rtol=1e-5, atol=1e-4,
+                               err_msg="scalar vs cuda backend, generation 0")
+    out.update(history=card.history, wall_s=wall, gens_per_s=5 / wall,
+               host_syncs=card.stats["host_syncs"],
+               gen0_max_abs_vs_cuda=float(np.abs(g[ok] - w[ok]).max(initial=0.0)))
+    fits = []
+    for kw in ({}, {"chunk_rows": 4}):
+        s = GPSession.from_dataset("kepler", pop_size=50, backend="scalar", kernel="mse", **kw)
+        s.init(key=prng.PRNGKey(0))
+        s.step()
+        fits.append(s.state.fitness)
+    out["mse_chunked_gen0_max_rel"] = _fitness_vs(fits[1], fits[0], "scalar kepler chunked",
+                                                  exact=False)
+    out["lattice_chunked_history"] = _scalar_lattice_chunks()
+    return out
+
+
+def stream_paths(main_history=None):
+    """Phase 8 -> (runs, figures). `main_history` is phase 3's monolithic
+    kat7 history on the card (None: run 10 generations of it here)."""
+    t_phase = time.perf_counter()
+    blocks = list(_stream_source()())
+    mono_rows = (np.concatenate([b[0] for b in blocks]), np.concatenate([b[1] for b in blocks]))
+    del blocks
+    scale = {}
+    for kernel in STREAM_KERNELS:
+        scale[kernel] = _stream_scale(kernel, mono_rows)
+        emit("stream_scale", **scale[kernel])
+    del mono_rows
+    split = _stream_split()
+    emit("stream_split", **split)
+    kat7 = _stream_kat7(main_history)
+    for label, run in kat7.items():
+        emit("stream_kat7", run=label, **run)
+    scalar = _scalar_baseline()
+    emit("scalar_baseline", **scalar)
+    figures = dict(
+        nvidia_smi=card_line(),
+        stream_gens_per_s={k: v["gens_per_s"] for k, v in scale.items()},
+        monolithic_gens_per_s={k: v["mono_gens_per_s"] for k, v in scale.items()},
+        peak_mb={k: v["peak_bytes"] / 1e6 for k, v in scale.items()},
+        monolithic_dataset_mb=_mono_bytes() / 1e6,
+        evolve3_wall_s={k: v["evolve3_wall_s"] for k, v in scale.items()},
+        **{k: split[k] for k in ("host_chunk_prep_ms_per_gen", "copy_ms_per_gen",
+                                 "b1_device_ms_per_chunk", "idle_share", "trace_complete",
+                                 "profiled_wall_ms_per_gen", "device_busy_ms_per_gen")},
+        kat7_stream_gens_per_s={k: v["gens_per_s"] for k, v in kat7.items()},
+        scalar_gens_per_s=scalar["gens_per_s"],
+        phase_s=time.perf_counter() - t_phase)
+    emit("stream_figures", **figures)
+    return {"scale": scale, "kat7": kat7}, figures
+
+
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
             ("postfix_exact_cap100", {"genome": "postfix"}),
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
@@ -1433,13 +1838,15 @@ def profile_main_path():
         launches = sum(e.count for e in events if "LaunchKernel" in e.key)
         mine = [e for e in kernels if any(k in e.key for k in _OUR_KERNELS)]
         ours = sum(dev_us(e) for e in mine)
-        busy = sum(dev_us(e) for e in kernels)
+        dev = _device_events(prof)
+        busy = _busy_us(dev)
         top = sorted(events, key=lambda e: e.count, reverse=True)[:12]
         per_gen[label] = launches / 3
         emit("profile", path=label, dataset="kat7", generations=3,
              trees=kw["pop_size"] * kw.get("islands", 1),
              wall_ms_per_gen=1e3 * wall / 3, device_busy_ms_per_gen=busy / 3e3,
              idle_share=1 - busy / (1e6 * wall), cuda_launches_per_gen=launches / 3,
+             device_events_recorded_per_gen=len(dev) / 3,
              port_kernels_ms_per_gen=ours / 3e3,
              port_kernels=[(next(k for k in _OUR_KERNELS if k in e.key), e.count / 3,
                             dev_us(e) / 3e3) for e in mine],
@@ -1560,6 +1967,11 @@ def main():
     runs = postfix_paths()
     two_runs = two_pass_paths()
     isl_runs = island_paths()
+    stream_runs, _ = stream_paths(main_run["history"])
+    # the streaming path's launches: B1 in the 5.5M-row mse run, B2 in kat7's
+    # postfix run; no other kernel is on it
+    stream_paths_of = {"eval_fitness": stream_runs["scale"]["mse"],
+                       "eval_fitness_postfix": stream_runs["kat7"]["postfix"]}
     # the island path's launches (4 x 200 trees), from the run whose work
     # each kernel does there; B3 and the probe are not on it
     isl_paths = {"eval_fitness": "ring", "eval_fitness_postfix": "postfix_off",
@@ -1617,6 +2029,10 @@ def main():
                             if name in isl_paths else 0),
         "island_generations": (isl_runs[isl_paths[name]]["generations"]
                                if name in isl_paths else None),
+        "stream_launches": (stream_paths_of[name]["launches"][name]
+                            if name in stream_paths_of else 0),
+        "stream_generations": (stream_paths_of[name]["generations"]
+                               if name in stream_paths_of else None),
         **two_pass_fields(name)}
         for name in gp_eval.KERNELS]}),
         flush=True)

@@ -1,5 +1,5 @@
-"""The paper's four datasets (Table 3) — numpy copy of
-`repro/data/datasets.py`.
+"""The paper's four datasets (Table 3) and the paper-scale stream —
+numpy copy of `repro/data/datasets.py`.
 
 Kepler ships verbatim (9 planets, public). Iris/KAT-7/LIGO are generated
 stand-ins with the exact assigned shapes: Iris as the classic 3-cluster
@@ -72,6 +72,35 @@ def ligo_glitch(rows: int = 4_000, feats: int = 1_373, seed: int = 2):
     """4,000×1,373 glitch-classification stand-in."""
     X, y = _synthetic_classification(rows, feats, seed, informative=24)
     return X, y, {"kernel": "c", "n_classes": 2}
+
+
+def stream_rows(rows: int = 5_500_000, feats: int = 8, *, seed: int = 0,
+                block_rows: int = 65_536):
+    """Paper-scale synthetic regression stream: a CALLABLE yielding
+    `(X [n, feats], y [n])` row blocks totalling `rows`, for the
+    streaming path (`GPSession.ingest(stream=...)`). Nothing is
+    materialized beyond one block.
+
+    The same seed gives the same rows for any `block_rows`: blocks are
+    drawn in turn from one `np.random.RandomState`, whose state (gauss
+    cache included) carries across block boundaries, so a chunked pass
+    and a monolithic pass see the very same rows. Not in `BY_NAME`, as
+    in the reference."""
+    if feats < 4:
+        raise ValueError(f"stream_rows target uses features 0-3; feats={feats}")
+
+    def blocks():
+        rng = np.random.RandomState(seed)
+        done = 0
+        while done < rows:
+            n = min(block_rows, rows - done)
+            X = rng.randn(n, feats).astype(np.float32)
+            y = (X[:, 0] * X[:, 1] + np.sin(X[:, 2])
+                 - 0.5 * np.abs(X[:, 3])).astype(np.float32)
+            yield X, y
+            done += n
+
+    return blocks
 
 
 BY_NAME = {"kepler": kepler, "iris": iris, "kat7": kat7, "ligo": ligo_glitch}

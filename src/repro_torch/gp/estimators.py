@@ -9,10 +9,12 @@ execution is the session's. `random_state` gives the run's key
 (`prng.PRNGKey(random_state)`), and `device=` follows the port's rule:
 the card unless the caller asks for the CPU.
 
-`islands`, its migration settings and `checkpoint_dir` run as in the
-reference. Options the port does not have yet (`topology`, `chunk_rows`)
-are accepted and raise NotImplementedError through the session, naming
-their ROADMAP item.
+`islands`, its migration settings, `checkpoint_dir`, `chunk_rows=`
+(streaming chunked fitness: the data folds through the device in fixed
+chunks) and `backend="scalar"` (the paper's per-data-point baseline) run
+as in the reference, e.g. `SymbolicRegressor(chunk_rows=4096,
+device="cpu").fit(X, y)`. `topology` is accepted and raises
+NotImplementedError through the session, naming its ROADMAP item (A11).
 """
 from __future__ import annotations
 

@@ -33,13 +33,25 @@ on-disk layout and `init()` resumes from the newest checkpoint there.
 and `metrics=` (an `obs.Metrics`) the counters and gauges; neither
 changes a trajectory.
 
+Streaming, for datasets larger than the device's memory:
+`chunk_rows=` (here or on `ingest`) evaluates the data as a fold over
+fixed `[F, chunk_rows]` zero-weight-padded chunks, and `ingest(stream=)`
+takes a `data/loader.ChunkedDataset`, a memmapped array, or a callable
+or iterator of `(X, y[, weight])` row blocks (`data/datasets.stream_rows`
+gives the paper's 5.5M-row stream). The device holds one chunk at a
+time. Streamed runs and the host-only `scalar` backend (the paper's
+1-CPU_SP baseline, `backend="scalar"`) advance one generation per host
+step (`_host_span`, one host sync a generation) and take the same
+step as the device loop.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): `topology=` (A11), `chunk_rows=`/`stream=` (A8), the `scalar`
-backend, and `export_island`/`import_island`/`adopt_state` (A10).
+item): `topology=` (A11) and `export_island`/`import_island`/
+`adopt_state` (A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -66,12 +78,9 @@ _FIT_KEYS = ("kernel", "n_classes", "precision")
 _ISLAND_KEYS = {"islands": "islands", "island_topology": "topology",
                 "island_mixes": "mixes", "island_tourn_sizes": "tourn_sizes",
                 "island_point_rates": "point_rates"}
-_STREAMING = "A8, streaming (data/loader.py ChunkedDataset)"
 _SLOT_SWAP = "A10, the service's slot swap"
 _NOT_PORTED = {
     "topology=": "A11, multi-GPU (MeshTopology)",
-    "chunk_rows=": _STREAMING,
-    "stream=": _STREAMING,
     "export_island()": _SLOT_SWAP,
     "import_island()": _SLOT_SWAP,
     "adopt_state()": _SLOT_SWAP,
@@ -129,9 +138,8 @@ class GPSession:
                  checkpoint_every: int = 10, feature_names=None, callback=None,
                  callback_every: int = 1, block_size: int | None = None,
                  chunk_rows: int | None = None, tracer=None, metrics=None, **overrides):
-        for name, val in (("topology", topology), ("chunk_rows", chunk_rows)):
-            if val is not None:
-                _not_ported(f"{name}=")
+        if topology is not None:
+            _not_ported("topology=")
         self.device = resolve_device(device)
         explicit_features = (config is not None or "tree_spec" in overrides
                              or "n_features" in overrides)
@@ -141,9 +149,12 @@ class GPSession:
         if self._backend.name == "cuda" and self.device.type != "cuda":
             raise ValueError("backend 'cuda' runs the CUDA kernel and needs a CUDA "
                              "device; use backend='torch' with device='cpu'")
-        self._cfg = dataclasses.replace(self._cfg, eval_impl=self._backend.name)
+        if self._backend.jittable:
+            self._cfg = dataclasses.replace(self._cfg, eval_impl=self._backend.name)
         self._explicit_features = explicit_features
         self._X = self._y = self._weight = None
+        self._chunk_rows = chunk_rows  # default for ingest(chunk_rows=)
+        self._stream = None  # ChunkedDataset when the dataset is streamed
         self._n_rows = 0
         self._gen_host = 0  # host mirror of state.generation (no device read)
         self._gen_dirty = False  # mirror stale (raw evolve_block + stop_fitness)
@@ -216,19 +227,38 @@ class GPSession:
         [rows, features] (transposed to the paper's feature-major
         f32[F, D] form); layout='features' takes [features, rows].
         `sample_weight` (f32[D]) scales each point's contribution; 0.0
-        excludes a point exactly."""
-        if stream is not None:
-            _not_ported("stream=")
-        if chunk_rows is not None:
-            _not_ported("chunk_rows=")
+        excludes a point exactly.
+
+        Streaming: `chunk_rows=` (here or on the constructor) evaluates
+        X/y as a fold over fixed `[F, chunk_rows]` zero-weight-padded
+        chunks, and `stream=` takes a `data/loader.ChunkedDataset`, a
+        memmapped array, or a callable/iterator of `(X, y[, weight])` row
+        blocks. The chunks stay on the host until the fold places each on
+        the device; fitness equals the monolithic run's (bitwise for the
+        decomposable kernels on lattice data, within 1e-4 for
+        pearson/r2)."""
         with self.tracer.span("ingest"):
-            self._ingest(X, y, layout=layout, sample_weight=sample_weight)
+            if stream is not None or chunk_rows is not None or self._chunk_rows is not None:
+                self._ingest_stream(X, y, layout=layout, sample_weight=sample_weight,
+                                    stream=stream, chunk_rows=chunk_rows)
+            else:
+                self._ingest(X, y, layout=layout, sample_weight=sample_weight)
         self.metrics.gauge("rows", self._n_rows)
         return self
 
+    def _set_features(self, F: int):
+        spec = self._cfg.tree_spec
+        if spec.n_features != F:
+            if self._explicit_features:
+                raise ValueError(f"TreeSpec.n_features={spec.n_features} but the "
+                                 f"dataset has {F} features")
+            self._cfg = dataclasses.replace(
+                self._cfg, tree_spec=dataclasses.replace(spec, n_features=F))
+
     def _ingest(self, X, y, *, layout, sample_weight):
+        self._stream = None
         if X is None or y is None:
-            raise ValueError("ingest needs X and y")
+            raise ValueError("ingest needs X and y (or stream=)")
         X = np.asarray(X, np.float32)
         y = np.asarray(y, np.float32)
         if layout == "rows":
@@ -240,13 +270,7 @@ class GPSession:
         F, D = X_fm.shape
         if y.shape != (D,):
             raise ValueError(f"y shape {y.shape} does not match {D} data points")
-        spec = self._cfg.tree_spec
-        if spec.n_features != F:
-            if self._explicit_features:
-                raise ValueError(f"TreeSpec.n_features={spec.n_features} but the "
-                                 f"dataset has {F} features")
-            self._cfg = dataclasses.replace(
-                self._cfg, tree_spec=dataclasses.replace(spec, n_features=F))
+        self._set_features(F)
         if sample_weight is not None:
             sample_weight = np.asarray(sample_weight, np.float32)
             if sample_weight.shape != (D,):
@@ -257,6 +281,33 @@ class GPSession:
         self._y = torch.from_numpy(y).to(self.device)
         self._weight = (None if sample_weight is None
                         else torch.from_numpy(sample_weight).to(self.device))
+        self._invalidate_elite_cache()
+
+    def _ingest_stream(self, X, y, *, layout, sample_weight, stream, chunk_rows):
+        """Streaming half of `ingest`: wrap the source in a fixed-shape
+        `ChunkedDataset` (or adopt one), take n_features from it, and arm
+        the per-generation chunk fold."""
+        from repro_torch.data.loader import ChunkedDataset
+
+        if stream is not None and X is not None:
+            raise ValueError("pass either X/y or stream=, not both")
+        chunk_rows = chunk_rows if chunk_rows is not None else self._chunk_rows
+        if isinstance(stream, ChunkedDataset):
+            ds = stream
+            if chunk_rows is not None and int(chunk_rows) != ds.chunk_rows:
+                raise ValueError(f"chunk_rows={chunk_rows} conflicts with the "
+                                 f"ChunkedDataset's chunk_rows={ds.chunk_rows}")
+        else:
+            if chunk_rows is None:
+                raise ValueError("stream= needs chunk_rows= (constructor or "
+                                 "ingest keyword), or pass a ChunkedDataset")
+            ds = ChunkedDataset(stream if stream is not None else X, y,
+                                chunk_rows=int(chunk_rows), layout=layout,
+                                sample_weight=sample_weight)
+        self._set_features(ds.n_features)
+        self._stream = ds
+        self._X = self._y = self._weight = None
+        self._n_rows = ds.n_rows or 0
         self._invalidate_elite_cache()
 
     def _invalidate_elite_cache(self):
@@ -274,7 +325,7 @@ class GPSession:
         are expression strings (Karoo's customized seed populations),
         parsed against the session's TreeSpec and feature names into the
         first slots (of every island)."""
-        if self._X is None:
+        if self._X is None and self._stream is None:
             raise ValueError("no dataset — call ingest()/fit() first")
         key = key if key is not None else prng.PRNGKey(0)
         with self.tracer.span("init"):
@@ -303,11 +354,16 @@ class GPSession:
         _not_ported("adopt_state()")
 
     def step(self) -> GPState:
-        """One generation, unconditionally (no early-stop freeze, no sync)."""
+        """One generation, unconditionally (no early-stop freeze). On the
+        device path it does not synchronise; streamed datasets and
+        host-only backends take the host step."""
         if self.state is None:
             self.init()
-        self.state = engine.evolve_step(self._cfg, self.state, self._X, self._y,
-                                        self._weight)
+        if self._stream is not None or not self._backend.jittable:
+            self.state = self._host_step(self.state)
+        else:
+            self.state = engine.evolve_step(self._cfg, self.state, self._X, self._y,
+                                            self._weight)
         self._gen_host += 1
         return self.state
 
@@ -326,6 +382,14 @@ class GPSession:
     def _dispatch_block(self, n_steps: int, limit: int):
         if self.state is None:
             self.init()
+        if self._stream is not None:
+            raise ValueError("streamed/chunked datasets advance one generation "
+                             "per host-driven chunk fold; evolution blocks "
+                             "need a device-resident dataset (drive the run "
+                             "with evolve() instead)")
+        if not self._backend.jittable:
+            raise ValueError(f"backend {self._backend.name!r} is host-only; "
+                             f"evolution blocks need a jittable backend")
         lim = torch.full((), limit, dtype=torch.int32, device=self.device)
         self.state, history, counters = engine.evolve_block(
             self._cfg, self.state, self._X, self._y, self._weight, lim,
@@ -355,6 +419,24 @@ class GPSession:
             self.metrics.inc("tree_row_evals", tot["tree_evals"] * self._n_rows)
         self.metrics.emit("counters", **tot)
 
+    def _record_host_eval(self, hit: int, queries: int, evals: int):
+        """Host-loop twin of the device counter stream: the streamed and
+        scalar generation loops gate the elite cache on the host, so the
+        same telemetry columns (and trees × rows) land without device
+        work."""
+        if queries:
+            self.stats["cache_queries"] += queries
+            self.metrics.inc("cache_queries", queries)
+        if hit:
+            self.stats["cache_hits"] += hit
+            self.metrics.inc("cache_hits", hit)
+        self.stats["tree_evals"] += evals
+        self.metrics.inc("tree_evals", evals)
+        self.stats["tree_row_evals"] += evals * self._n_rows
+        if self._n_rows and evals:
+            self.metrics.inc("tree_row_evals", evals * self._n_rows)
+        self.stats["cache_hit_rate"] = _tc.hit_rate(self.stats)
+
     def absorb_block_telemetry(self) -> dict:
         """Fold the latest raw `evolve_block()` counter stream into
         `stats` (one host sync) and return `stats`."""
@@ -364,6 +446,66 @@ class GPSession:
             self._count_host_sync()
             self._absorb_counters(rows)
         return self.stats
+
+    def _eval_rows(self, op, arg):
+        """Fitness f32[R] of genome rows [R, N] (device tensors) against
+        the session's dataset, on the session's device: one backend call
+        (host-only backends), or a chunk fold over the stream finalized
+        once (`engine.chunked_fitness`) inside a `stream_fold` span."""
+        cfg = self._cfg
+        if self._stream is None:
+            return self._backend.fitness(
+                op, arg, self._X, self._y, cfg.tree_spec.const_table(self.device),
+                cfg.tree_spec, cfg.fitness, weight=self._weight, data_tile=cfg.data_tile)
+        t0 = time.perf_counter()
+        with self.tracer.span("stream_fold"):
+            fitness = engine.chunked_fitness(cfg, op, arg, self._stream,
+                                             impl=self._backend.name)
+        self.metrics.observe("stream_fold_s", time.perf_counter() - t0)
+        n = self._stream.n_rows
+        if n is not None and n != self._n_rows:  # a callable source's first pass
+            self._n_rows = n
+            self.metrics.gauge("rows", n)
+        return fitness
+
+    def _host_step(self, state: GPState) -> GPState:
+        """One generation of the host loop (streamed datasets, host-only
+        backends): the elite-cache gate is read on the host and a hit
+        skips the head rows' evaluation, as the reference's host step
+        does; the rest is `engine.advance`/`advance_islands`, the device
+        step's own tail. Island states evaluate the flattened [I·P]
+        population in one call."""
+        cfg = self._cfg
+        N = state.op.shape[-1]
+        P = state.op.shape[-2]
+        lead = state.op.shape[:-2]  # () or (I,)
+        I = cfg.island.islands
+        E = state.cache_op.shape[-2]
+        hit = bool(E) and bool(engine._cache_hit(state))
+        head = E if hit else 0
+        fitness = self._eval_rows(state.op[..., head:, :].reshape(-1, N),
+                                  state.arg[..., head:, :].reshape(-1, N))
+        fitness = fitness.reshape(*lead, P - head)
+        if hit:
+            fitness = torch.cat([state.cache_fit, fitness], -1)
+        self._record_host_eval(int(hit), 1 if E else 0, I * (P - head))
+        if I > 1:
+            return engine.advance_islands(cfg, state, fitness)
+        return engine.advance(cfg, state, fitness)
+
+    def _host_span(self, remaining: int):
+        """One generation of the host loop (streamed datasets, host-only
+        backends; each generation already synchronises, so blocks would
+        buy nothing) -> (best f32[1] or [1, I], stopped), for `_drive`."""
+        # the block monitor wraps every loop path (a host generation is a
+        # one-step block), so block_s_ema/stragglers report here too
+        with self._block_monitor:
+            self.step()
+        bf = self.state.best_fitness.cpu().numpy()
+        self._count_host_sync()
+        best = float(bf.min()) if bf.ndim else float(bf)
+        stop = self._cfg.stop_fitness
+        return bf[None], stop is not None and best <= stop
 
     def _block_span(self, remaining: int) -> int:
         """Block size K = min(checkpoint period, callback period, explicit
@@ -408,54 +550,75 @@ class GPSession:
         hist = buf[1:1 + n].view(np.float32).reshape(history.shape)
         return int(buf[0]), hist, buf[1 + n:].reshape(K, -1)
 
+    def _block_run(self, remaining: int, quantum: int):
+        """One device block of at most `remaining` generations and its
+        one host synchronisation -> (best f32[ran] or [ran, I], stopped),
+        for `_drive`."""
+        K = min(self._block_span(remaining), quantum)
+        prev_gen = self._gen_host
+        block_idx = self.stats["blocks"]
+        # the monitor times the dispatch THROUGH the block's one read
+        with self._block_monitor, self.tracer.span(
+                "block", args={"k": K, "quantum": quantum}), \
+                self.tracer.maybe_profile(block_idx):
+            _, history, counters = self._dispatch_block(quantum, K)
+            gen_now, hist, crows = self._read_block(history, counters)
+        self._count_host_sync()
+        self._last_counters = None
+        self._absorb_counters(crows)
+        ran = gen_now - prev_gen
+        self._gen_host = gen_now
+        self.metrics.gauge("generation", gen_now)
+        if ran and self._monitor.last:
+            self.metrics.gauge("gens_per_s", ran / self._monitor.last)
+        self.counter_history.extend(crows[:ran].tolist())
+        rows = hist[:ran]
+        best = rows.min(axis=1) if rows.ndim == 2 else rows
+        stop = self._cfg.stop_fitness
+        return rows, ran < K or bool(stop is not None and ran
+                                     and best[ran - 1] <= np.float32(stop))
+
+    def _drive(self, total: int, run_span):
+        """The generation loop of `evolve`, shared by the device blocks
+        and the host loop: `run_span(remaining)` runs up to `remaining`
+        generations with one host sync and returns (best fitness of each
+        generation it ran, f32[ran] or [ran, I] for islands; whether the
+        run stops). History, checkpoints and the callback run here, at
+        span boundaries."""
+        self._resync_gen()
+        target = self._gen_host + total
+        while self._gen_host < target:
+            rows, stopped = run_span(target - self._gen_host)
+            gen_now = self._gen_host
+            if rows.ndim == 2:  # island run: keep the per-island streams too
+                self.island_history.extend(rows.copy())
+                rows = rows.min(axis=1)
+            self.history.extend(float(b) for b in rows)
+            if self._manager is not None:
+                with self.tracer.span("checkpoint"):
+                    self._manager.maybe_save(self.state, gen_now)
+            if self._callback is not None and len(rows) and (
+                    gen_now % self._callback_every == 0 or stopped or gen_now >= target):
+                self._callback(gen_now - 1, self.state)
+            if stopped:
+                break
+
     def evolve(self, generations: int | None = None) -> GPState:
         """Drive `generations` generations (default: config.generations)
         in blocks: one block of tensor ops and one host synchronisation
-        per block. Checkpoints, the callback, history and the stop check
-        run at block boundaries; a run with a checkpoint_dir ends with a
-        save of its last generation."""
+        per block (a streamed dataset or a host-only backend: one
+        generation per host step). Checkpoints, the callback, history and
+        the stop check run at block boundaries; a run with a
+        checkpoint_dir ends with a save of its last generation."""
         if self.state is None:
             self.init()
         cfg = self._cfg
         total = generations if generations is not None else cfg.generations
-        self._resync_gen()
-        target = self._gen_host + total
-        quantum = self._block_quantum(total)
-        while self._gen_host < target:
-            K = min(self._block_span(target - self._gen_host), quantum)
-            prev_gen = self._gen_host
-            block_idx = self.stats["blocks"]
-            # the monitor times the dispatch THROUGH the block's one read
-            with self._block_monitor, self.tracer.span(
-                    "block", args={"k": K, "quantum": quantum}), \
-                    self.tracer.maybe_profile(block_idx):
-                _, history, counters = self._dispatch_block(quantum, K)
-                gen_now, hist, crows = self._read_block(history, counters)
-            self._count_host_sync()
-            self._last_counters = None
-            self._absorb_counters(crows)
-            ran = gen_now - prev_gen
-            self._gen_host = gen_now
-            self.metrics.gauge("generation", gen_now)
-            if ran and self._monitor.last:
-                self.metrics.gauge("gens_per_s", ran / self._monitor.last)
-            rows = hist[:ran]
-            if rows.ndim == 2:  # island run: [K, I] per-island streams
-                self.island_history.extend(rows.copy())
-                rows = rows.min(axis=1)
-            self.history.extend(float(b) for b in rows)
-            self.counter_history.extend(crows[:ran].tolist())
-            if self._manager is not None:
-                with self.tracer.span("checkpoint"):
-                    self._manager.maybe_save(self.state, gen_now)
-            stopped = ran < K or (cfg.stop_fitness is not None and ran
-                                  and rows[ran - 1] <= np.float32(cfg.stop_fitness))
-            last = stopped or gen_now >= target
-            if self._callback is not None and ran and (
-                    gen_now % self._callback_every == 0 or last):
-                self._callback(gen_now - 1, self.state)
-            if stopped:
-                break
+        if self._stream is not None or not self._backend.jittable:
+            self._drive(total, self._host_span)
+        else:
+            quantum = self._block_quantum(total)
+            self._drive(total, lambda remaining: self._block_run(remaining, quantum))
         if self._manager is not None:
             # final save, unless the last block boundary already saved here
             with self.tracer.span("checkpoint"):

@@ -15,6 +15,9 @@ Two surfaces, as in the reference:
                   moments, then the fitness kernel's `reduce_moments`
                   (a few elementwise ops; pearson and r2 finish there)
     moments(...)  f32[P, M] phase-1 moments only
+
+and `stream_moments(acc, ...)`, one step of the streaming fold: this
+data chunk's moments merged into a running accumulator.
 """
 from __future__ import annotations
 
@@ -173,6 +176,27 @@ def moments(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSp
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     return _fused_moments(op, arg, X, y, const_table, tree_spec, fit_spec,
                           weight, data_tile, gather, dedup, dedup_cap)
+
+
+def stream_moments(acc, op, arg, X, y, const_table, tree_spec: TreeSpec,
+                   fit_spec: FitnessSpec, *, weight=None, data_tile: int = 1024,
+                   gather: str | None = None, impl: str = "cuda", device=None,
+                   dedup: str = "off", dedup_cap: int = 0):
+    """One streaming fold step: the phase-1 moments of this data chunk
+    (B1 or B2 under `impl="cuda"`, the plain tiled oracle under "torch")
+    merged into the running f32[P, M] accumulator `acc` by the kernel's
+    merge (elementwise sum, or `combine_moments`), with no host read.
+    Seed the fold with zeros (the merge identity) and finalize the last
+    accumulator once with `reduce_moments`."""
+    _check_device(op, device)
+    kern = fit.get_kernel(fit_spec.kernel)
+    if kern.moments is None:
+        raise ValueError(f"fitness kernel {fit_spec.kernel!r} defines no moment "
+                         f"pass; it cannot accumulate across data chunks")
+    m = moments(op, arg, X, y, const_table, tree_spec, fit_spec, weight=weight,
+                data_tile=data_tile, gather=gather, impl=impl, device=op.device,
+                dedup=dedup, dedup_cap=dedup_cap)
+    return kern.merge_moments(acc, m, fit_spec)
 
 
 def fitness(op, arg, X, y, const_table, tree_spec: TreeSpec, fit_spec: FitnessSpec,

@@ -9,9 +9,18 @@ unless `--device cpu` is given:
         --ckpt-dir /tmp/ck --trace /tmp/t.json --metrics /tmp/m.jsonl
 
 A rerun with the same `--ckpt-dir` resumes from the newest checkpoint
-and prints "resumed from generation N". `--mesh` and `--chunk-rows` are
-the reference's multi-GPU and streaming options, not ported yet: they
-raise, naming their ROADMAP item.
+and prints "resumed from generation N". `--chunk-rows N` streams the
+dataset through the device in fixed chunks of N rows (one host step a
+generation), and `--backend
+scalar` runs the paper's per-data-point baseline (1-CPU_SP):
+
+    PYTHONPATH=src python -m repro_torch.launch.evolve --dataset kat7 \\
+        --chunk-rows 4096 --generations 10
+    PYTHONPATH=src python -m repro_torch.launch.evolve --dataset kepler \\
+        --backend scalar --pop 50 --generations 5 --device cpu
+
+`--mesh` is the reference's multi-GPU option, not ported yet: it raises,
+naming its ROADMAP item (A11).
 """
 from __future__ import annotations
 
@@ -109,9 +118,10 @@ def main(argv=None):
     ap.add_argument("--pop", type=int, default=100)
     ap.add_argument("--depth", type=int, default=5)
     ap.add_argument("--backend", "--impl", dest="backend", default="auto",
-                    choices=["auto", "cuda", "torch"],
+                    choices=["auto", "cuda", "torch", "scalar"],
                     help="eval backend: cuda (the kernels), torch (plain tensor "
-                         "ops) or auto (cuda on the card, torch on the CPU)")
+                         "ops), scalar (the paper's per-data-point baseline) "
+                         "or auto (cuda on the card, torch on the CPU)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs on the CPU)")
     ap.add_argument("--mesh", default=None,
@@ -136,7 +146,9 @@ def main(argv=None):
                     choices=["ring", "torus", "broadcast-best"],
                     help="migration routing between islands")
     ap.add_argument("--chunk-rows", type=int, default=None,
-                    help="streaming chunked fitness (not ported yet: ROADMAP A8)")
+                    help="streaming chunked fitness: evaluate the dataset as "
+                         "a fold over fixed-size chunks of this many rows "
+                         "(bounded device memory)")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace JSON (open in Perfetto / "
                          "chrome://tracing) of the run's spans here")

@@ -159,10 +159,11 @@ def test_classifier_walks_the_reference():
 
 @pytest.mark.parametrize("option,item", [
     (dict(topology=object()), "A11"), (dict(checkpoint_dir="ck"), None),
-    (dict(chunk_rows=16), "A8"), (dict(islands=2), None)])
+    (dict(chunk_rows=16), None), (dict(islands=2), None)])
 def test_estimator_unported_options_raise(option, item, tmp_path):
     """Options not ported yet raise with their ROADMAP item; those that
-    are (item None: checkpoints, islands) fit."""
+    are (item None: checkpoints, streaming with 16-row chunks, islands)
+    fit."""
     X, y = _lattice(4, rows=16)
     for est in (SymbolicRegressor, SymbolicClassifier):
         if "checkpoint_dir" in option:  # a directory of its own per estimator

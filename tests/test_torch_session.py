@@ -160,16 +160,24 @@ def test_default_config_picks_the_device_backend(monkeypatch):
 
 def test_not_ported_options_raise(tmp_path):
     """The options the port does not have yet raise, naming their ROADMAP
-    item; islands, checkpoints and the tracer/metrics now construct."""
-    for kw in (dict(topology=object()), dict(chunk_rows=8), dict(backend="scalar")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GPSession(device="cpu", **kw)
+    item; streaming (constructor and ingest `chunk_rows=`), the `scalar`
+    backend, islands, checkpoints and the tracer/metrics now construct and
+    run, and an empty stream raises the reference's ValueError."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A: A11"):
+        GPSession(device="cpu", topology=object())
+    assert GPSession(device="cpu", chunk_rows=8)._chunk_rows == 8
+    assert GPSession(device="cpu", backend="scalar").backend == "scalar"
     X_rows, y, _ = tdata.kepler()
     s = GPSession(device="cpu", pop_size=8).ingest(X_rows, y)
-    for call in (lambda: s.ingest(X_rows, y, chunk_rows=4),
-                 lambda: s.ingest(stream=iter(())), lambda: s.export_island(0),
-                 lambda: s.import_island(0, None), lambda: s.adopt_state(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A: A(8|10)"):
+    s.ingest(X_rows, y, chunk_rows=4)
+    assert s.n_rows == 9 and s._stream.n_chunks == 3
+    with pytest.raises(ValueError, match="needs chunk_rows"):
+        GPSession(device="cpu", pop_size=8).ingest(stream=iter(()))
+    with pytest.raises(ValueError, match="yielded no blocks"):
+        s.ingest(stream=iter(()), chunk_rows=4)
+    for call in (lambda: s.export_island(0), lambda: s.import_island(0, None),
+                 lambda: s.adopt_state(None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A: A10"):
             call()
     from repro_torch.obs import Metrics, Tracer
 
