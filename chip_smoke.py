@@ -8,7 +8,8 @@ port's paths (`GPSession` with its defaults: heap trees of depth 5, one
 device, elite cache, K-generation blocks; then postfix genomes with and
 without subexpression dedup; then the two-pass fitness kernels pearson
 and r2 on those paths; the island model; streaming at the paper's 5.5M
-rows and the scalar baseline) through the user's entry points, and checks the
+rows and the scalar baseline; the multi-tenant service) through the
+user's entry points, and checks the
 results against the same sessions run on the CPU. Every phase prints
 one JSON line; any failure raises, so the exit code is non-zero. The
 last line is the contract line
@@ -110,6 +111,23 @@ Phases:
      the cuda backend at generation 0, and chunked against unchunked
      (within rtol 1e-5 on kepler under mse, bitwise on an integer
      lattice); one JSON line of the phase's figures
+  9. the multi-tenant service (`repro_torch.service.GPService` on the
+     card): serve_gp's synthetic stream of 128 jobs (24-96 rows, 3
+     features, kernels r/mse/pearson, 10-39 generations) through 64
+     slots of 64 depth-5 trees in blocks of 8 generations: every job
+     done, one tenant block built, B1 launched exactly slots x 8 x blocks
+     times (empty and frozen slots are evaluated too) and no other
+     kernel, one more block under torch.cuda.set_sync_debug_mode("error")
+     and one generation under torch.profiler (its CUDA launches, device
+     busy time and idle share);
+     wall, blocks, tenant generations and jobs a second, peak memory;
+     the first four jobs against the port's solo GPSession on the card
+     on their slot buffers, bitwise; the CPU test's 8 lattice jobs through
+     3 slots on the card and on the CPU, every handle bitwise; postfix
+     depth 5, 4 slots, 8 jobs of 2-4 generations in blocks of 4 with
+     dedup exact at cap 2,957 (B3) and
+     4,033 (B4) and dedup off (B2), bitwise equal, the unique table and
+     B3/B4 launched
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -1789,6 +1807,320 @@ def stream_paths(main_history=None):
     return {"scale": scale, "kat7": kat7}, figures
 
 
+# --- phase 9: the multi-tenant service --------------------------------------------
+
+SVC_SLOTS, SVC_POP, SVC_BLOCK, SVC_CAP = 64, 64, 8, 128  # docs/service.md's regime
+# the CPU test's lattice configuration (tests/test_torch_service.py)
+LAT_POP, LAT_FEATS, LAT_CAP, LAT_TOURN = 16, 2, 32, 6
+LAT_KERNELS = ("r", "c", "m", "mse")
+LAT_MIXES = ((0.1, 0.1, 0.1, 0.7), (0.05, 0.05, 0.05, 0.85), (0.2, 0.2, 0.2, 0.4))
+
+
+def _handle_record(h):
+    return (h.status, h.gens_done, h.best_fitness, tuple(h.history), h.best_expression)
+
+
+def _slots_vs_plain(svc, tag, modes=(("off", 0),), lattice=False):
+    """Every slot of `svc`'s batch as it stands (state, operands, host
+    table), under every kernel of the block, evaluated as the tenant
+    block evaluates a slot (the slot's cuda config from
+    `engine.tenant_configs`) and by the plain torch backend on the card,
+    once for each (dedup, cap) of `modes`. One-moment kernels compare
+    `engine._eval_fitness`: bitwise under c and m, and under every kernel
+    on lattice data; else the same non-finite pattern and rtol 1e-4
+    (real-valued sums are taken in another order). The two-pass kernels
+    compare the backends' moments by phase 2b's rule
+    (`_compare_two_pass`), and the block's fitness must be bitwise the
+    cuda moments reduced: the torch backend's fitness takes the kernel's
+    `partial_fitness`, which has no variance noise floor, so at a tree of
+    constant predictions it reads 0.99868 where the moments reduce to 1.
+    These launches are outside every counted run. -> {kernel: max rel
+    diff}, plus the slots and modes checked."""
+    from repro_torch.gp.backends import get_backend
+
+    X, y, w, _ = svc.batch.operands()
+    host = svc.batch.host_params()
+    state = svc._state
+    const_table = svc.tree_spec.const_table(state.op.device)
+    worst = {}
+    for dedup, cap in modes:
+        for kid, kname in enumerate(svc.kernels):
+            one = host._replace(kernel_id=np.full_like(host.kernel_id, kid))
+            cfgs = {impl: engine.tenant_configs(svc.tree_spec, svc.kernels, one,
+                                                eval_impl=impl, dedup=dedup, dedup_cap=cap)
+                    for impl in ("cuda", "torch")}
+            for i in range(state.op.shape[0]):
+                where = f"{tag} slot {i}, {kname}, dedup {dedup} cap {cap}"
+                operands = (state.op[i], state.arg[i], X[i], y[i], w[i], const_table)
+                if kname in TWO_PASS:
+                    moments = {}
+                    for impl, cfg in ((k, c[i]) for k, c in cfgs.items()):
+                        be = get_backend(impl)
+                        moments[impl] = be.moments(
+                            state.op[i], state.arg[i], X[i], y[i], const_table,
+                            svc.tree_spec, cfg.fitness, weight=w[i],
+                            data_tile=cfg.data_tile, **engine._dedup_kwargs(cfg, be.moments))
+                    fitness = engine._eval_fitness(cfgs["cuda"][i], *operands)
+                    _fitness_vs(fitness, torch.from_numpy(fit_reduce(kname, moments["cuda"])),
+                                f"{where}: the block's fitness vs its moments", exact=True)
+                    rel = _compare_two_pass(moments["cuda"], moments["torch"], kname,
+                                            f"{where}: kernel vs plain moments")[1]
+                else:
+                    got, want = (engine._eval_fitness(cfgs[impl][i], *operands)
+                                 for impl in ("cuda", "torch"))
+                    rel = _fitness_vs(got, want, f"{where}: kernel vs plain",
+                                      exact=lattice or kname in ("c", "m"))
+                worst[kname] = max(worst.get(kname, 0.0), rel)
+    return dict(max_rel_vs_plain=worst, slots=state.op.shape[0],
+                modes=[f"{d}/{c}" for d, c in modes])
+
+
+def _service_block_probe(svc, extra):
+    """One more block of `svc` on a batch that holds live jobs (`extra`
+    admitted first), outside the service's bookkeeping: first every
+    slot against the plain version (`_slots_vs_plain`: B1 at the
+    service's shape), then the block under
+    torch.cuda.set_sync_debug_mode("error") (no host read inside a
+    block), then one generation of the same step under torch.profiler
+    (a one-step tenant block) -> {its CUDA launches (the runtime's
+    kernel launches), wall ms, device busy ms (the union of its device
+    events; the tracer may drop some: a lower bound then) and idle
+    share}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for j in extra:
+        svc.submit(j)
+    svc._admit()
+    vs_plain = _slots_vs_plain(svc, "service")
+    X, y, w, params = svc.batch.operands()
+    host = svc.batch.host_params()
+    state = svc._state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        svc._block(state, X, y, w, params, host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    one_step = engine.build_tenant_block(svc.tree_spec, svc.kernels, svc.tourn_draw,
+                                         svc.elitism, 1, eval_impl=svc.backend)
+    one_step(state, X, y, w, params, host)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step(state, X, y, w, params, host)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+    dev = _device_events(prof)
+    busy = _busy_us(dev) / 1e3
+    return dict(vs_plain=vs_plain, cuda_launches_per_block_generation=launches,
+                profiled_generation_wall_ms=wall * 1e3, device_busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3), device_events=len(dev),
+                b1_device_events=sum(1 for e in dev if "eval_partial_kernel" in e.name))
+
+
+def _service_scale():
+    """(a) serve_gp's synthetic stream of 128 jobs through 64 slots of 64
+    depth-5 trees (4,096 trees a block generation) on the card."""
+    from repro_torch.launch.serve_gp import synthetic_stream
+    from repro_torch.service import DONE, GPService
+
+    jobs = synthetic_stream(128, seed=0)
+    svc = GPService(slots=SVC_SLOTS, pop_size=SVC_POP, max_depth=5, n_features=3,
+                    data_cap=SVC_CAP, block_size=SVC_BLOCK)
+    assert svc.backend == "cuda", svc.backend
+    handles = [svc.submit(j) for j in jobs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gp_eval.reset_launches()
+    t0 = time.perf_counter()
+    svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in gp_eval.launches.items() if v}
+    blocks = svc.stats["blocks"]
+    want = {"eval_fitness": SVC_SLOTS * SVC_BLOCK * blocks}
+    if launches != want:
+        raise AssertionError(f"service: launches {launches}, want {want} (every slot, "
+                             f"empty and frozen ones too, once a block generation)")
+    if not all(h.status == DONE for h in handles) or svc.stats["compiles"] != 1:
+        raise AssertionError(f"service: statuses {sorted({h.status for h in handles})}, "
+                             f"compiles {svc.stats['compiles']}")
+    for h in handles:
+        hist = np.asarray(h.history, np.float32)
+        if not (len(hist) == h.gens_done and (np.diff(hist) <= 0).all()
+                and h.best_expression is not None):
+            raise AssertionError(f"service: {h!r} history {hist.tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    probe = _service_block_probe(svc, synthetic_stream(8, seed=1))
+    gens = sum(h.gens_done for h in handles)
+    out = dict(jobs=len(jobs), slots=SVC_SLOTS, pop=SVC_POP, block_size=SVC_BLOCK,
+               data_cap=SVC_CAP, trees_per_block_generation=SVC_SLOTS * SVC_POP,
+               wall_s=wall, blocks=blocks, tenant_generations=gens,
+               tenant_gens_per_s=gens / wall, jobs_per_s=len(jobs) / wall,
+               peak_mb=peak / 1e6, **probe,
+               launches=launches, host_syncs=svc.stats["host_syncs"],
+               compiles=svc.stats["compiles"], admissions=svc.stats["admissions"],
+               cache_hit_rate=svc.stats["cache_hit_rate"], frozen=svc.stats["frozen"],
+               tree_evals=svc.stats["tree_evals"],
+               sync_debug_block="no synchronisation in an 8-generation tenant block")
+    return out, jobs[:4], handles[:4]
+
+
+def _service_vs_solo(jobs, handles):
+    """(b) the first four jobs against the port's solo GPSession on the
+    card, on their slot buffers: generations, best fitness, history and
+    champion bit for bit."""
+    from repro_torch.service import slot_buffers
+
+    for j, h in zip(jobs, handles):
+        Xs, ys, ws = slot_buffers(j, 3, SVC_CAP)
+        sess = GPSession(pop_size=SVC_POP, max_depth=5, kernel=j.kernel, mix=j.mix,
+                         tourn_size=j.tourn_size, elitism=1, stop_fitness=j.stop_fitness,
+                         generations=j.generations)
+        assert sess.backend == "cuda", sess.backend
+        sess.ingest(Xs.T, ys, sample_weight=ws)
+        sess.init(key=prng.PRNGKey(j.seed))
+        sess.evolve(j.generations)
+        if (h.gens_done != sess.generation or h.best_fitness != float(sess.state.best_fitness)
+                or h.history != sess.history or h.best_expression != sess.best_expression()):
+            raise AssertionError(f"service vs solo {j.name}: {_handle_record(h)} vs "
+                                 f"{sess.generation}, {sess.history}, {sess.best_expression()}")
+    return [j.name for j in jobs]
+
+
+def _lattice_jobs():
+    """The CPU test's 8 lattice jobs (kernels r, c, m, mse; integer rows)."""
+    from repro_torch.core.evolve import OperatorMix
+    from repro_torch.service import JobSpec
+
+    jobs = []
+    for i in range(8):
+        r = np.random.RandomState(100 + i)
+        rows = 10 + 4 * (i % 5)
+        X = r.randint(-2, 3, size=(rows, LAT_FEATS)).astype(np.float32)
+        k = LAT_KERNELS[i % 4]
+        y = (np.clip(X[:, 0] * X[:, 1], 0, 2) if k == "c" else
+             X[:, 0] * X[:, 1] - X[:, 1] + r.randint(-1, 2, size=rows)).astype(np.float32)
+        jobs.append(JobSpec(X, y, kernel=k, mix=OperatorMix(*LAT_MIXES[i % 3]),
+                            tourn_size=3 + i % 4, point_rate=(0.25, 0.5, 0.1)[i % 3],
+                            n_classes=3, precision=(1e-4, 0.5)[i % 2],
+                            stop_fitness=0.0 if i % 4 == 1 else None,
+                            generations=4 + i % 5, seed=i, name=f"lat-{i}"))
+    return jobs
+
+
+def _service_card_vs_cpu():
+    """(c) the CPU test's 8-job, 3-slot lattice configuration on the card
+    and on the CPU: every handle bitwise equal; then B1 bitwise its plain
+    version on the card's final batch. -> (jobs, `_slots_vs_plain`)"""
+    from repro_torch.service import GPService
+
+    spec = trees.TreeSpec(max_depth=3, n_features=LAT_FEATS, p_const=0.0,
+                          fn_set=prim.FunctionSet.make(("add", "sub", "mul")))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        svc = GPService(slots=3, pop_size=LAT_POP, tree_spec=spec, n_features=LAT_FEATS,
+                        data_cap=LAT_CAP, kernels=LAT_KERNELS, tourn_draw=LAT_TOURN,
+                        block_size=3, device=dev)
+        handles = [svc.submit(j) for j in _lattice_jobs()]
+        svc.run()
+        runs[dev] = [_handle_record(h) for h in handles]
+        if dev == "cuda":  # the last jobs' evolved populations and lattice rows
+            vs_plain = _slots_vs_plain(svc, "service lattice", lattice=True)
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError(f"service card vs CPU: {runs['cuda']} vs {runs['cpu']}")
+    return len(runs["cuda"]), vs_plain
+
+
+def _service_postfix():
+    """(d) postfix depth 5, 4 slots, 8 jobs of 2-4 generations in blocks
+    of 4: dedup exact at a cap that
+    keeps B3 (2,957, the largest the reference's rule allows here), at
+    one that spills to B4 (P·N + 1 = 4,033: never overflows) and dedup
+    off; the three runs bitwise equal; then every slot of the last batch
+    against the plain version under the three settings ->
+    ({label: (launches, block generations)}, `_slots_vs_plain`)."""
+    from repro_torch.launch.serve_gp import synthetic_stream
+    from repro_torch.service import GPService
+
+    jobs = [dataclasses.replace(j, generations=2 + i % 3)
+            for i, j in enumerate(synthetic_stream(8, seed=2))]
+    spec = trees.TreeSpec(max_depth=5, n_features=3, genome="postfix")
+    cap_b4 = SVC_POP * spec.num_nodes + 1
+    assert ops._tpu_dedup_fits(3, spec.stack_size, SVC_CAP, 2957)
+    assert not ops._tpu_dedup_fits(3, spec.stack_size, SVC_CAP, 2958)
+    runs, records = {}, {}
+    for label, kw, must in (
+            ("off", {"dedup": "off"}, {"eval_fitness_postfix"}),
+            ("exact_b3", {"dedup": "exact", "dedup_cap": 2957},
+             {"eval_fitness_postfix", "unique_table", "eval_fitness_from_subtrees"}),
+            ("exact_b4", {"dedup": "exact", "dedup_cap": cap_b4},
+             {"eval_fitness_postfix", "unique_table", "eval_fitness_from_preds"})):
+        svc = GPService(slots=4, pop_size=SVC_POP, tree_spec=spec, data_cap=SVC_CAP,
+                        block_size=4, **kw)
+        handles = [svc.submit(j) for j in jobs]
+        torch.cuda.synchronize()
+        gp_eval.reset_launches()
+        svc.run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in gp_eval.launches.items() if v}
+        if set(launches) != must:
+            raise AssertionError(f"service postfix {label}: launches {launches}, "
+                                 f"want {sorted(must)}")
+        runs[label] = dict(launches=launches,
+                           block_generations=svc.stats["blocks"] * svc.block_size)
+        records[label] = [_handle_record(h) for h in handles]
+    if not records["off"] == records["exact_b3"] == records["exact_b4"]:
+        raise AssertionError("service postfix: dedup exact differs from off")
+    # B2, and the unique table with B3 or B4, against the plain version on
+    # the last batch's evolved populations, under each of the three settings
+    vs_plain = _slots_vs_plain(svc, "service postfix",
+                               modes=(("off", 0), ("exact", 2957), ("exact", cap_b4)))
+    return runs, vs_plain
+
+
+def service_paths():
+    """Phase 9 -> (figures, {kernel: (launches, block generations)})."""
+    t_phase = time.perf_counter()
+    timings = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        timings[label] = time.perf_counter() - t0
+        return out
+
+    scale, jobs, handles = timed("scale_s", _service_scale)
+    emit("service_scale", **scale)
+    emit("service_vs_solo", jobs=timed("vs_solo_s", _service_vs_solo, jobs, handles),
+         check="packed == the port's solo GPSession on the card, bitwise")
+    n_lat, lat_plain = timed("card_vs_cpu_s", _service_card_vs_cpu)
+    emit("service_card_vs_cpu", jobs=n_lat, vs_plain=lat_plain,
+         check="lattice jobs through 3 slots: card == CPU, every handle bitwise; "
+               "B1 == plain on the final batch, bitwise")
+    postfix, postfix_plain = timed("postfix_s", _service_postfix)
+    emit("service_postfix", runs=postfix, vs_plain=postfix_plain,
+         check="dedup exact (B3 and B4 caps) == off, bitwise; every slot's B2/B3/B4 "
+               "against plain under the three settings")
+    # each kernel's launches on the service path, from the run whose work it does
+    service_of = {"eval_fitness": (scale["launches"]["eval_fitness"],
+                                   scale["blocks"] * SVC_BLOCK)}
+    for name, run in (("eval_fitness_postfix", "off"),
+                      ("eval_fitness_from_subtrees", "exact_b3"),
+                      ("eval_fitness_from_preds", "exact_b4"), ("unique_table", "exact_b4")):
+        service_of[name] = (postfix[run]["launches"][name],
+                            postfix[run]["block_generations"])
+    figures = dict(nvidia_smi=card_line(), **{k: scale[k] for k in (
+        "wall_s", "blocks", "tenant_gens_per_s", "jobs_per_s",
+        "cuda_launches_per_block_generation", "peak_mb", "profiled_generation_wall_ms",
+        "device_busy_ms", "idle_share")}, **timings,
+        phase_s=time.perf_counter() - t_phase)
+    emit("service_figures", **figures)
+    return figures, service_of
+
+
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
             ("postfix_exact_cap100", {"genome": "postfix"}),
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
@@ -1968,6 +2300,7 @@ def main():
     two_runs = two_pass_paths()
     isl_runs = island_paths()
     stream_runs, _ = stream_paths(main_run["history"])
+    _, service_of = service_paths()
     # the streaming path's launches: B1 in the 5.5M-row mse run, B2 in kat7's
     # postfix run; no other kernel is on it
     stream_paths_of = {"eval_fitness": stream_runs["scale"]["mse"],
@@ -2033,6 +2366,9 @@ def main():
                             if name in stream_paths_of else 0),
         "stream_generations": (stream_paths_of[name]["generations"]
                                if name in stream_paths_of else None),
+        # the tenant block has no semantic tier: the probe is not on the path
+        "service_launches": service_of.get(name, (0, None))[0],
+        "service_block_generations": service_of.get(name, (0, None))[1],
         **two_pass_fields(name)}
         for name in gp_eval.KERNELS]}),
         flush=True)

@@ -450,6 +450,20 @@ def _island_step_body(cfg: GPConfig, state: GPState, X, y, weight) -> GPState:
     return advance_islands(cfg, state, fitness)
 
 
+def _island_champions(state, fitness):
+    """Per-island champion tracking on RAW fitness f32[I, P] (first
+    minimum) -> (this generation's best f32[I], best_op, best_arg,
+    best_fitness): the island step's and the tenant step's."""
+    I, _, N = state.op.shape
+    i_best = torch.argmin(fitness, dim=1, keepdim=True)  # [I, 1]
+    cand_fit = torch.gather(fitness, 1, i_best)[:, 0]
+    rows = i_best[:, :, None].expand(I, 1, N)
+    improved = (cand_fit < state.best_fitness)[:, None]
+    best_op = torch.where(improved, torch.gather(state.op, 1, rows)[:, 0], state.best_op)
+    best_arg = torch.where(improved, torch.gather(state.arg, 1, rows)[:, 0], state.best_arg)
+    return cand_fit, best_op, best_arg, torch.minimum(cand_fit, state.best_fitness)
+
+
 def advance_islands(cfg: GPConfig, state: GPState, fitness) -> GPState:
     """`advance` for the island layout, once the fitness f32[I, P] is
     known: per-island champions, the elite cache, one batched breeding
@@ -460,16 +474,7 @@ def advance_islands(cfg: GPConfig, state: GPState, fitness) -> GPState:
 
     icfg = cfg.island
     I, P, N = state.op.shape
-    # per-island champion tracking on RAW fitness (first minimum)
-    i_best = torch.argmin(fitness, dim=1, keepdim=True)  # [I, 1]
-    cand_fit = torch.gather(fitness, 1, i_best)[:, 0]
-    rows = i_best[:, :, None].expand(I, 1, N)
-    cand_op = torch.gather(state.op, 1, rows)[:, 0]
-    cand_arg = torch.gather(state.arg, 1, rows)[:, 0]
-    improved = (cand_fit < state.best_fitness)[:, None]
-    best_op = torch.where(improved, cand_op, state.best_op)
-    best_arg = torch.where(improved, cand_arg, state.best_arg)
-    best_fit = torch.minimum(cand_fit, state.best_fitness)
+    cand_fit, best_op, best_arg, best_fit = _island_champions(state, fitness)
 
     sel_fitness = fitness
     if cfg.parsimony:
@@ -655,3 +660,288 @@ def chunked_fitness(cfg: GPConfig, op, arg, dataset, const_table=None, *,
     kern = _stream_kernel(cfg)
     m = chunked_moments(cfg, op, arg, dataset, const_table, impl=impl)
     return kern.reduce_moments(m, cfg.fitness)
+
+
+# --- multi-tenant step (repro_torch.service) ------------------------------------
+
+
+class TenantParams(NamedTuple):
+    """Per-slot search and termination parameters of a multi-tenant
+    batch, every leaf [I]-leading. Admission and eviction rewrite rows;
+    the tenant block stays the same object.
+
+        probs       f32[I, 4]   operator-mix probabilities per slot
+        tourn       int32[I]    active tournament size (<= the draw size)
+        point_rate  f32[I]      point-mutation rate
+        kernel_id   int32[I]    index into the block's kernel tuple
+        n_classes   f32[I]      classify arity (unused by other kernels)
+        precision   f32[I]      match tolerance (unused by other kernels)
+        stop        f32[I]      stop_fitness; -inf disables early stop
+        budget      int32[I]    generation budget; 0 marks an EMPTY slot
+
+    The block reads `kernel_id`, `n_classes` and `precision` from a host
+    copy of the table (the service keeps one) to pick each slot's
+    fitness kernel, so that choice never reads the device."""
+
+    probs: torch.Tensor
+    tourn: torch.Tensor
+    point_rate: torch.Tensor
+    kernel_id: torch.Tensor
+    n_classes: torch.Tensor
+    precision: torch.Tensor
+    stop: torch.Tensor
+    budget: torch.Tensor
+
+
+class TenantState(NamedTuple):
+    """Island-batched engine state of a multi-tenant batch: the GPState
+    island layout with the shared `generation` scalar replaced by
+    per-slot `gens_done` counters, so every leaf is batched and
+    `islands.take_island`/`splice_island` move a whole job in one slice.
+
+        key           int64[I, 2]     per-slot threefry key (a solo run's stream)
+        op/arg        int32[I, P, N]
+        fitness       f32[I, P]
+        best_op/arg   int32[I, N]
+        best_fitness  f32[I]
+        gens_done     int32[I]
+        cache_op/arg  int32[I, E, N]  per-slot elite fitness cache
+        cache_fit     f32[I, E]
+    """
+
+    key: torch.Tensor
+    op: torch.Tensor
+    arg: torch.Tensor
+    fitness: torch.Tensor
+    best_op: torch.Tensor
+    best_arg: torch.Tensor
+    best_fitness: torch.Tensor
+    gens_done: torch.Tensor
+    cache_op: torch.Tensor
+    cache_arg: torch.Tensor
+    cache_fit: torch.Tensor
+
+
+_TENANT_DTYPES = {**_STATE_DTYPES, "gens_done": np.int32}
+
+
+def tenant_state_from_numpy(d, device=None) -> TenantState:
+    """A TenantState from numpy leaves — a dict, or a reference
+    `TenantState` (or a checkpoint snapshot's) whose leaves convert with
+    `np.asarray`, key as uint32[I, 2] — bit for bit, on `device`
+    (default: the card)."""
+    if not isinstance(d, dict):
+        d = d._asdict()
+    dev = resolve_device(device)
+    leaves = {}
+    for name in TenantState._fields:
+        a = np.asarray(d[name])
+        if name == "key":
+            leaves[name] = prng.key_from_numpy(a).to(dev)
+        else:
+            leaves[name] = torch.from_numpy(np.array(a, dtype=_TENANT_DTYPES[name])).to(dev)
+    return TenantState(**leaves)
+
+
+def tenant_state_to_numpy(state: TenantState) -> TenantState:
+    """The state's leaves as numpy arrays in the reference's dtypes (key
+    as uint32[I, 2]), still a TenantState — the checkpoint payload's
+    form; the inverse of `tenant_state_from_numpy`."""
+    return TenantState(*(
+        prng.key_to_numpy(t) if name == "key"
+        else t.detach().cpu().numpy().astype(_TENANT_DTYPES[name])
+        for name, t in state._asdict().items()))
+
+
+def tenant_active(state: TenantState, params: TenantParams):
+    """bool[I]: the slots that still evolve — budget not exhausted and
+    the early-stop bar (`params.stop`, -inf = disabled) not reached.
+    Works on tensors and on host numpy alike."""
+    return (state.gens_done < params.budget) & ~(state.best_fitness <= params.stop)
+
+
+def _tenant_cache_width(elitism: int, pop_size: int, elite_cache: bool) -> int:
+    """The tenant batch's cache width (the session engine's guard)."""
+    return elitism if (elite_cache and 0 < elitism < pop_size) else 0
+
+
+def init_tenant_slot(key, pop_size: int, spec: TreeSpec, elitism: int = 1,
+                     elite_cache: bool = True) -> TenantState:
+    """One job's fresh sub-state (un-batched leaves, for
+    `islands.splice_island`) on the key's device. Keyed exactly like
+    `init_state` with islands == 1 — split once, the population from the
+    second half, the slot key from the first — so a packed job replays a
+    solo session's stream bit for bit. `elitism`/`elite_cache` size the
+    slot's cache and must match the block's."""
+    dev = key.device
+    k0, k1 = prng.split(key)
+    op, arg = generate_population(k1, pop_size, spec)
+    N = spec.num_nodes
+    E = _tenant_cache_width(elitism, pop_size, elite_cache)
+
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    return TenantState(
+        key=k0, op=op, arg=arg, fitness=torch.full((pop_size,), math.inf, device=dev),
+        best_op=i32(N), best_arg=i32(N), best_fitness=torch.full((), math.inf, device=dev),
+        gens_done=i32(), cache_op=i32(E, N), cache_arg=i32(E, N),
+        cache_fit=torch.full((E,), math.inf, device=dev))
+
+
+def empty_tenant_state(islands: int, pop_size: int, spec: TreeSpec, elitism: int = 1,
+                       elite_cache: bool = True, device=None) -> TenantState:
+    """An all-empty batch on `device` (default: the card); pair it with
+    budget-0 TenantParams rows: empty slots never advance."""
+    dev = resolve_device(device)
+    I, P, N = islands, pop_size, spec.num_nodes
+    E = _tenant_cache_width(elitism, pop_size, elite_cache)
+
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    def inf(*shape):
+        return torch.full(shape, math.inf, device=dev)
+
+    return TenantState(
+        key=torch.zeros((I, 2), dtype=torch.int64, device=dev), op=i32(I, P, N),
+        arg=i32(I, P, N), fitness=inf(I, P), best_op=i32(I, N), best_arg=i32(I, N),
+        best_fitness=inf(I), gens_done=i32(I), cache_op=i32(I, E, N),
+        cache_arg=i32(I, E, N), cache_fit=inf(I, E))
+
+
+def tenant_configs(spec: TreeSpec, kernels: tuple, host: TenantParams, *,
+                   eval_impl: str = "auto", dedup: str = "off",
+                   dedup_cap: int = 0) -> list[GPConfig]:
+    """Each slot's evaluation config from the HOST copy of the parameter
+    table (`kernel_id`, `n_classes`, `precision` as numpy): the GPConfig
+    a solo session of that job evaluates with, so the slot reaches the
+    same backend dispatch (`_eval_fitness`) and the same kernels."""
+    dedup = "off" if dedup == "off" else "exact"
+    made = {}
+    out = []
+    for kid, nc, prec in zip(np.asarray(host.kernel_id), np.asarray(host.n_classes),
+                             np.asarray(host.precision)):
+        fs = fit.FitnessSpec(kernels[int(kid)], n_classes=int(nc), precision=float(prec))
+        if fs not in made:
+            made[fs] = GPConfig(tree_spec=spec, fitness=fs, eval_impl=eval_impl,
+                                dedup=dedup, dedup_cap=dedup_cap)
+        out.append(made[fs])
+    return out
+
+
+def _slot_cache_hit(state: TenantState):
+    """bool[I]: each slot's elite-cache gate — its cached rows equal the
+    head rows [:E] of its population (the reference's per-slot cond)."""
+    E = state.cache_op.shape[1]
+    return ((state.op[:, :E] == state.cache_op).flatten(1).all(1)
+            & (state.arg[:, :E] == state.cache_arg).flatten(1).all(1))
+
+
+def tenant_step(spec: TreeSpec, tourn_draw: int, elitism: int, state: TenantState,
+                X, y, weight, params: TenantParams, cfgs: list, hit=None) -> TenantState:
+    """One generation of the whole batch. X f32[I, F, Dc], y and weight
+    f32[I, Dc]: every slot carries its own zero-weight-padded data, so
+    jobs never evaluate each other's rows.
+
+    Evaluation is a loop over the slots: slot i goes through
+    `_eval_fitness` with its own config `cfgs[i]` (`tenant_configs`, from
+    the host table), the dispatch a solo session takes, so a packed job's
+    fitness is bitwise its solo run's (B1 for heap trees on the card; B2,
+    or the unique table and B3/B4 with dedup, for postfix). Every slot is
+    evaluated, empty and frozen ones included; the freeze discards their
+    results. Then one batched step over [I, ...]: the per-slot
+    elite-cache gate (`hit`, `_slot_cache_hit(state)` when None), per-slot
+    champions and the next cache (`argsort(fitness)[:E]`, both on raw
+    fitness), one breeding call (`evolve.make_island_breeder`, each
+    slot's mix, tournament size and point rate) and the freeze,
+    `where(active, new, prev)` with `active` from the pre-step state."""
+    I = state.op.shape[0]
+    const_table = spec.const_table(state.op.device)
+    fitness = torch.stack([
+        _eval_fitness(cfgs[i], state.op[i], state.arg[i], X[i], y[i], weight[i], const_table)
+        for i in range(I)])
+    E = state.cache_op.shape[1]
+    if E:
+        hit = _slot_cache_hit(state) if hit is None else hit
+        fitness = torch.cat([torch.where(hit[:, None], state.cache_fit, fitness[:, :E]),
+                             fitness[:, E:]], 1)
+    _, best_op, best_arg, best_fit = _island_champions(state, fitness)
+    cache_op, cache_arg, cache_fit = (
+        _new_cache(state, fitness, fitness, E) if E
+        else (state.cache_op, state.cache_arg, state.cache_fit))
+    breed = ev.make_island_breeder(spec, tourn_draw, elitism)
+    keys, new_op, new_arg = breed(state.key, state.op, state.arg, fitness, params.probs,
+                                  params.tourn, params.point_rate)
+    nxt = TenantState(keys, new_op, new_arg, fitness, best_op, best_arg, best_fit,
+                      state.gens_done + 1, cache_op, cache_arg, cache_fit)
+    active = tenant_active(state, params)
+    return TenantState(*(torch.where(active.reshape(I, *(1,) * (p.dim() - 1)), n, p)
+                         for p, n in zip(state, nxt)))
+
+
+def _tenant_counter_row(state: TenantState, params: TenantParams, hit=None):
+    """int32[C] telemetry row of one tenant generation, from the PRE-step
+    state (columns: repro_torch.obs.counters); `hit` is the step's
+    `_slot_cache_hit(state)` (None without a cache). Cache hits and queries
+    count per active slot; FROZEN counts the inactive slots (finished,
+    early-stopped or empty) whose compute runs and is discarded;
+    TREE_EVALS sums each active slot's rows the cache does not serve.
+    The dedup columns are 0, as in the reference."""
+    E = state.cache_op.shape[1]
+    P = state.op.shape[1]
+    a32 = tenant_active(state, params).to(torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=state.op.device)
+    if E:
+        h32 = hit.to(torch.int32)
+        hits = (h32 * a32).sum().to(torch.int32)
+        queries = a32.sum().to(torch.int32)
+    else:
+        h32 = torch.zeros_like(a32)
+        hits = queries = zero
+    frozen = (1 - a32).sum().to(torch.int32)
+    evals = (a32 * (P - h32 * E)).sum().to(torch.int32)
+    return torch.stack([hits, queries, frozen, zero, evals, zero, zero])
+
+
+def build_tenant_block(spec: TreeSpec, kernels: tuple, tourn_draw: int, elitism: int,
+                       n_steps: int, *, dedup: str = "off", dedup_cap: int = 0,
+                       eval_impl: str = "auto"):
+    """The service's block: block(state, X, y, weight, params, host=None)
+    -> (state, history f32[n_steps, I], counters int32[n_steps, C]),
+    `n_steps` tenant generations with no host read (given `host`, the
+    host copy of `params`). Kernel names are canonicalised (aliases
+    collapse) here, and a kernel without a whole-dataset
+    `partial_fitness` is refused, as the reference refuses it; so is a
+    host-only backend (`scalar`), which cannot run inside a block.
+    Eager PyTorch compiles nothing: the scheduler builds this closure
+    once and rebinds its operands as jobs come and go."""
+    from repro_torch.gp.backends import get_backend
+
+    kernels = tuple(fit.get_kernel(k).name for k in kernels)
+    for name in kernels:
+        if fit.get_kernel(name).partial_fitness is None:
+            raise ValueError(f"fitness kernel {name!r} has no whole-dataset "
+                             f"partial_fitness; the tenant block cannot "
+                             f"switch over it")
+    if eval_impl != "auto" and not get_backend(eval_impl).jittable:
+        raise ValueError(f"eval backend {eval_impl!r} is host-only and cannot run "
+                         f"inside the tenant block; use a device backend "
+                         f"(auto, cuda or torch)")
+
+    def block(state: TenantState, X, y, weight, params: TenantParams,
+              host: TenantParams | None = None):
+        if host is None:
+            host = TenantParams(*(t.cpu().numpy() for t in params))
+        cfgs = tenant_configs(spec, kernels, host, eval_impl=eval_impl, dedup=dedup,
+                              dedup_cap=dedup_cap)
+        hist, rows = [], []
+        s = state
+        for _ in range(n_steps):
+            hit = _slot_cache_hit(s) if s.cache_op.shape[1] else None
+            rows.append(_tenant_counter_row(s, params, hit))
+            s = tenant_step(spec, tourn_draw, elitism, s, X, y, weight, params, cfgs, hit)
+            hist.append(s.best_fitness)
+        return s, torch.stack(hist), torch.stack(rows)
+
+    return block

@@ -44,9 +44,12 @@ time. Streamed runs and the host-only `scalar` backend (the paper's
 step (`_host_span`, one host sync a generation) and take the same
 step as the device loop.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): `topology=` (A11) and `export_island`/`import_island`/
-`adopt_state` (A10).
+`export_island`/`import_island`/`adopt_state` swap one island's
+sub-state in and out of a live island run between blocks (the
+multi-tenant scheduler's surface, `repro_torch.service`).
+
+Not ported yet (raises NotImplementedError naming its ROADMAP item):
+`topology=` (A11).
 """
 from __future__ import annotations
 
@@ -78,13 +81,7 @@ _FIT_KEYS = ("kernel", "n_classes", "precision")
 _ISLAND_KEYS = {"islands": "islands", "island_topology": "topology",
                 "island_mixes": "mixes", "island_tourn_sizes": "tourn_sizes",
                 "island_point_rates": "point_rates"}
-_SLOT_SWAP = "A10, the service's slot swap"
-_NOT_PORTED = {
-    "topology=": "A11, multi-GPU (MeshTopology)",
-    "export_island()": _SLOT_SWAP,
-    "import_island()": _SLOT_SWAP,
-    "adopt_state()": _SLOT_SWAP,
-}
+_NOT_PORTED = {"topology=": "A11, multi-GPU (MeshTopology)"}
 
 
 def _not_ported(option: str):
@@ -344,14 +341,46 @@ class GPSession:
                     self._gen_host = int(step)
         return self
 
+    # --- slot-level state swap (the service scheduler's surface) -------------
+
+    def _island_index(self, what: str, idx: int):
+        self._require_state()
+        if self.islands <= 1:
+            raise ValueError(f"{what} needs an island-batched run (islands > 1)")
+        if not 0 <= idx < self.islands:
+            raise ValueError(f"island {idx} out of range [0, {self.islands})")
+
     def export_island(self, idx: int):
-        _not_ported("export_island()")
+        """Island `idx`'s slice of the session state as an un-batched
+        sub-state (the leading island axis dropped; the shared generation
+        scalar rides along): what a multi-tenant scheduler lifts out of a
+        batch when a slot's job finishes. No state is changed."""
+        from repro_torch.core.islands import take_island
 
-    def import_island(self, idx: int, sub):
-        _not_ported("import_island()")
+        self._island_index("export_island", idx)
+        return take_island(self.state, idx)
 
-    def adopt_state(self, state: GPState):
-        _not_ported("adopt_state()")
+    def import_island(self, idx: int, sub) -> "GPSession":
+        """Replace island slot `idx` with `sub` (an `export_island` slice
+        or any sub-state of the same shapes, e.g. a fresh one): the
+        admission half of the slot swap, between blocks."""
+        from repro_torch.core.islands import splice_island
+
+        self._island_index("import_island", idx)
+        self.state = splice_island(self.state, idx, sub)
+        return self
+
+    def adopt_state(self, state: GPState) -> "GPSession":
+        """Install an externally built GPState (a restored checkpoint, a
+        spliced batch, a reference state through
+        `engine.state_from_numpy`) as the live state, on the session's
+        device, and resynchronise the host generation mirror with one
+        host read; the evolve loop continues from it."""
+        self.state = GPState(*(t.to(self.device) for t in state))
+        self._gen_host = int(self.state.generation)
+        self._count_host_sync()
+        self._gen_dirty = False
+        return self
 
     def step(self) -> GPState:
         """One generation, unconditionally (no early-stop freeze). On the

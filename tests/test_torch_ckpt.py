@@ -22,6 +22,7 @@ from repro_torch.core import prng
 from repro_torch.gp import GPSession
 from repro_torch.launch import evolve as tevolve
 from repro_torch.runtime.fault import HeartbeatMonitor, StepMonitor, run_with_restarts
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 

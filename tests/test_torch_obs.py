@@ -21,6 +21,7 @@ from repro_torch.gp import GPSession
 from repro_torch.obs import NULL_TRACER, Metrics, Tracer, report, validate_trace
 from repro_torch.obs.metrics import BlockMonitor
 from repro_torch.runtime.fault import StepMonitor
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 

@@ -23,6 +23,7 @@ from repro_torch.core import primitives as tprim
 from repro_torch.core import prng
 from repro_torch.core import trees as ttrees
 from repro_torch.kernels import ops as tops
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 

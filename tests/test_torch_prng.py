@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core import prng
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 

@@ -23,6 +23,7 @@ from repro_torch.core.fitness import FitnessSpec
 from repro_torch.data import datasets as tdata
 from repro_torch.gp import GPSession
 from repro_torch.gp import backends as tbackends
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 

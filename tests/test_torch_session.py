@@ -15,6 +15,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import prng
 from repro_torch.data import datasets as tdata
 from repro_torch.gp import GPSession
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 
@@ -162,7 +163,8 @@ def test_not_ported_options_raise(tmp_path):
     """The options the port does not have yet raise, naming their ROADMAP
     item; streaming (constructor and ingest `chunk_rows=`), the `scalar`
     backend, islands, checkpoints and the tracer/metrics now construct and
-    run, and an empty stream raises the reference's ValueError."""
+    run, an empty stream raises the reference's ValueError, and the slot
+    swap runs (on a classic session it raises the reference's ValueError)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue A: A11"):
         GPSession(device="cpu", topology=object())
     assert GPSession(device="cpu", chunk_rows=8)._chunk_rows == 8
@@ -175,10 +177,11 @@ def test_not_ported_options_raise(tmp_path):
         GPSession(device="cpu", pop_size=8).ingest(stream=iter(()))
     with pytest.raises(ValueError, match="yielded no blocks"):
         s.ingest(stream=iter(()), chunk_rows=4)
-    for call in (lambda: s.export_island(0), lambda: s.import_island(0, None),
-                 lambda: s.adopt_state(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A: A10"):
+    s.ingest(X_rows, y).init(key=prng.PRNGKey(0))
+    for call in (lambda: s.export_island(0), lambda: s.import_island(0, None)):
+        with pytest.raises(ValueError, match="islands > 1"):
             call()
+    assert s.adopt_state(s.state).generation == 0
     from repro_torch.obs import Metrics, Tracer
 
     for kw in (dict(islands=2), dict(checkpoint_dir=str(tmp_path / "x")),

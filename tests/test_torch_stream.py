@@ -35,6 +35,7 @@ from repro_torch.data.loader import ChunkedDataset
 from repro_torch.gp import GPSession
 from repro_torch.kernels import gp_eval
 from repro_torch.kernels import ops as tops
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 

@@ -10,6 +10,7 @@ from repro.core import trees as jtrees
 from repro_torch.core import primitives as tprim
 from repro_torch.core import prng
 from repro_torch.core import trees as ttrees
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
 
