@@ -8,7 +8,7 @@ port's paths (`GPSession` with its defaults: heap trees of depth 5, one
 device, elite cache, K-generation blocks; then postfix genomes with and
 without subexpression dedup; then the two-pass fitness kernels pearson
 and r2 on those paths; the island model; streaming at the paper's 5.5M
-rows and the scalar baseline; the multi-tenant service) through the
+rows and the scalar baseline; the multi-tenant service; the mesh) through the
 user's entry points, and checks the
 results against the same sessions run on the CPU. Every phase prints
 one JSON line; any failure raises, so the exit code is non-zero. The
@@ -128,6 +128,31 @@ Phases:
      dedup exact at cap 2,957 (B3) and
      4,033 (B4) and dedup off (B2), bitwise equal, the unique table and
      B3/B4 launched
+  10. the mesh (`GPSession(topology=MeshTopology(...))`, one process; its
+     shard -> device placement printed: 8 shards share one card, and take
+     one card each where there are more): (a) kat7 4 x 200 islands with
+     phase 7's options on (pod 2, data 2, model 2), 20 generations, B1
+     exactly 8 launches a generation (one a shard) and no other kernel,
+     one block under torch.cuda.set_sync_debug_mode("error"), the first 3
+     generations' history and per-island history bitwise the same mesh's
+     on the CPU, wall ms a generation and peak memory, and one profiled
+     generation (CUDA launches, device busy time, idle share) beside the
+     single-device 4 x 200 session's; (b) the classic layout, kat7 pop 100
+     on the same mesh, 10 generations card == CPU bitwise; (c) each
+     shard's kernel against the plain torch backend on the card at the
+     mesh's shapes (B1 under c, r, mse and pearson; B2, and the table with
+     B3 and B4, on (d)'s population; bitwise under c, rtol 1e-4 under
+     r/mse, phase 2b's rule under pearson), and each data group's merged
+     moments against one device's moments of the whole dataset; (d)
+     postfix kat7 on (data 2, model 2) with dedup off (B2) and exact at
+     caps 1,400 (the table + B3) and 6,301 (the table + B4), each kernel
+     once a shard a generation, exact == off bitwise; (e) pearson on
+     (data 4, model 2): kat7 finite and non-increasing, the dyadic
+     lattice card == CPU; (f) kat7 in chunks of 4,096 rows on (data 2,
+     model 2), card == CPU; (g) (a)'s state checkpointed and resharded
+     onto (pod 4, data 2, model 1), bitwise, then 3 generations card ==
+     CPU; (h) `python -m repro_torch.launch.evolve --mesh
+     data=2,model=2,pod=2` as a subprocess
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -169,7 +194,7 @@ from repro_torch.core import fitness as fit  # noqa: E402
 from repro_torch.core import primitives as prim  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import trees  # noqa: E402
-from repro_torch.gp import GPSession  # noqa: E402
+from repro_torch.gp import GPSession, MeshTopology  # noqa: E402
 from repro_torch.kernels import build, gp_eval, ops  # noqa: E402
 from repro_torch.obs import counters  # noqa: E402
 
@@ -2121,6 +2146,327 @@ def service_paths():
     return figures, service_of
 
 
+# --- phase 10: the mesh -----------------------------------------------------------
+
+MESH3 = {"data": 2, "model": 2, "pod": 2}
+_B2_TABLE = ("eval_fitness_postfix", "unique_table")
+MESH_POSTFIX = (  # (label, session options, kernels launched once a shard a generation)
+    ("off", {"dedup": "off"}, ("eval_fitness_postfix",)),
+    ("exact_cap1400", {"dedup_cap": 1400}, _B2_TABLE + ("eval_fitness_from_subtrees",)),
+    ("exact_cap6301", {"dedup_cap": 6301}, _B2_TABLE + ("eval_fitness_from_preds",)),
+)
+
+
+def _placement(mesh):
+    """Shard -> device, as 'pod0/data1/model0 -> cuda:0'."""
+    return [f"{'/'.join(f'{a}{r}' for a, r in mesh.coords(s).items())} -> {d}"
+            for s, d in enumerate(mesh.devices)]
+
+
+def _mesh_run(sess, gens, expect, tag):
+    """Drive `sess` for `gens` generations on the card, the launch counts
+    set to 0 just before and read just after: each kernel of `expect`
+    ({name: launches}) must have launched exactly that often, every other
+    kernel not at all -> (wall s, peak memory bytes, launches)."""
+    sess.init(key=prng.PRNGKey(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gp_eval.reset_launches()
+    t0 = time.perf_counter()
+    sess.evolve(gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in gp_eval.launches.items() if v}
+    if launches != expect:
+        raise AssertionError(f"mesh {tag}: launches {launches}, want {expect}")
+    hist = np.asarray(sess.history, np.float32)
+    if not (np.isfinite(hist).all() and (np.diff(hist) <= 0).all()):
+        raise AssertionError(f"mesh {tag}: best fitness not finite/non-increasing: {hist}")
+    return wall, torch.cuda.max_memory_allocated(), launches
+
+
+def _vs_cpu(card, gens, tag, **kw):
+    """The same session on a mesh of the CPU: the first `gens` generations'
+    history (and per-island history) must equal the card's bit for bit."""
+    cpu = GPSession.from_dataset("kat7", device="cpu", **kw)
+    cpu.init(key=prng.PRNGKey(0))
+    cpu.evolve(gens)
+    same = cpu.history == card.history[:gens] and np.array_equal(
+        np.asarray(cpu.island_history), np.asarray(card.island_history[:gens]))
+    if cpu.backend != "torch" or not same:
+        raise AssertionError(f"mesh {tag}: card {card.history[:gens]} vs CPU {cpu.history}")
+    return gens
+
+
+def _profiled_generation(sess):
+    """One block generation of `sess` under torch.profiler -> {CUDA
+    launches (the runtime's kernel launches), wall ms, device busy ms
+    (the union of its device events), idle share}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sess.evolve_block(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.evolve_block(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _busy_us(_device_events(prof)) / 1e3
+    return dict(cuda_launches=sum(e.count for e in prof.key_averages()
+                                  if "LaunchKernel" in e.key),
+                wall_ms=wall * 1e3, device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3))
+
+
+def _mesh_islands(gens=20):
+    """(a) kat7 4 x 200 islands (phase 7's options) on (pod 2, data 2,
+    model 2): B1 exactly 8 launches a generation (one a shard) and no other
+    kernel, one block under set_sync_debug_mode("error"), the first 3
+    generations card == CPU bitwise; a profiled generation beside the
+    single-device 4 x 200 session's."""
+    top = MeshTopology(**MESH3)
+    sess = GPSession.from_dataset("kat7", topology=top, **_island_kw())
+    mesh = sess.mesh
+    cards = torch.cuda.device_count()
+    if sess.backend != "cuda" or len(set(mesh.devices)) != min(cards, mesh.size):
+        raise AssertionError(f"mesh on {cards} cards: {_placement(mesh)}, {sess.backend}")
+    wall, peak, launches = _mesh_run(sess, gens, {"eval_fitness": 8 * gens}, "islands")
+    isl = np.asarray(sess.island_history, np.float32)
+    rows = np.asarray(sess.counter_history)
+    due = [(g % 3 == 2) * ISLAND_I for g in range(gens)]
+    if not ((np.diff(isl, axis=0) <= 0).all() and isl.shape == (gens, ISLAND_I)
+            and np.array_equal(rows[:, counters.MIGRATIONS], due)):
+        raise AssertionError(f"mesh islands: {isl.tolist()}, counter rows {rows.tolist()}")
+    out = dict(placement=_placement(mesh), generations=gens, launches=launches,
+               wall_s=wall, gens_per_s=gens / wall, wall_ms_per_generation=wall / gens * 1e3,
+               peak_memory_bytes=peak, host_syncs=sess.stats["host_syncs"],
+               history=sess.history, island_best=isl[-1].tolist(),
+               cpu_bitwise_generations=_vs_cpu(sess, 3, "islands", topology=top,
+                                               **_island_kw()))
+    saved = engine.GPState(*(t.clone() for t in sess.state))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.evolve_block(3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["sync_debug_block"] = "no synchronisation in a 3-generation mesh block"
+    out["profiled_generation"] = _profiled_generation(sess)
+    solo = GPSession.from_dataset("kat7", **_island_kw())
+    solo.init(key=prng.PRNGKey(0))
+    out["single_device_profiled_generation"] = _profiled_generation(solo)
+    return sess, saved, out
+
+
+def _mesh_classic(gens=10):
+    """(b) the classic layout, kat7 pop 100 on (pod 2, data 2, model 2):
+    B1 8 launches a generation, the pod ring's migrations in the counter
+    rows, card == CPU bitwise."""
+    top = MeshTopology(**MESH3)
+    sess = GPSession.from_dataset("kat7", pop_size=100, topology=top)
+    wall, _, launches = _mesh_run(sess, gens, {"eval_fitness": 8 * gens}, "classic")
+    rows = np.asarray(sess.counter_history)
+    if not np.array_equal(rows[:, counters.MIGRATIONS], [(g % 10 == 9) * 2 for g in range(gens)]):
+        raise AssertionError(f"mesh classic: counter rows {rows.tolist()}")
+    return dict(generations=gens, launches=launches, wall_s=wall, history=sess.history,
+                cpu_bitwise_generations=_vs_cpu(sess, gens, "classic", pop_size=100,
+                                                topology=top))
+
+
+def _shard_moments(cfg, mesh, states, X, y, w, impl, rows=None, **kw):
+    """Each shard's moments as the mesh step takes them (`_eval_moments`)
+    under backend `impl` (the kernels, or the plain torch backend, on the
+    card)."""
+    cfg = dataclasses.replace(cfg, eval_impl=impl, **kw)
+    N = cfg.tree_spec.num_nodes
+    return [engine._eval_moments(cfg, t.op.reshape(-1, N), t.arg.reshape(-1, N), X[s], y[s],
+                                 w[s], cfg.tree_spec.const_table(mesh.devices[s]))
+            for s, t in enumerate(states)]
+
+
+def _hold(got, want, kname, tag):
+    """Moments of a kernel against the plain version's: bitwise under c,
+    rtol 1e-4 under r and mse (`_compare`), phase 2b's rule under pearson
+    -> max relative error."""
+    if kname in TWO_PASS:
+        return _compare_two_pass(got, want, kname, tag)[1]
+    return _compare(got, want, kname, False, tag)[1]
+
+
+def _mesh_shards_vs_plain(islands, postfix):
+    """(c) each shard's kernel against the plain torch backend on the card
+    at the mesh's shapes: B1 on (a)'s 8 shards (2 islands x 100 trees x
+    5,000 rows each) under c, r, mse and pearson, and each data group's
+    merged moments against one device's moments of the whole dataset;
+    B2, and the table with B3 (cap 1,400) and B4 (cap 6,301), on (d)'s
+    4 shards of 50 postfix trees under c. Launches here count for no
+    path."""
+    from repro_torch.ckpt.elastic import gp_state_specs
+    from repro_torch.launch.mesh import P
+
+    worst = {}
+    for sess, cases in ((islands, [(k, {}) for k in ("c", "r", "mse", "pearson")]),
+                        (postfix, [("c", {"dedup": "off"}), ("c", {"dedup_cap": 1400}),
+                                   ("c", {"dedup_cap": 6301})])):
+        cfg, mesh = sess.config, sess.mesh
+        states = engine._split_state(mesh, sess.state,
+                                     gp_state_specs(cfg, mesh, pod_axis=sess._pod_axis()))
+        X, y, w = sess._X, sess._y, sess._weight
+        for kname, kw in cases:
+            fs = fit.FitnessSpec(kname, n_classes=cfg.fitness.n_classes)
+            tag = f"mesh shards {cfg.tree_spec.genome} {kname} {kw}"
+            gp_eval.reset_launches()
+            got = _shard_moments(cfg, mesh, states, X, y, w, "cuda", fitness=fs, **kw)
+            ran = {k for k, v in gp_eval.launches.items() if v}
+            want = _shard_moments(cfg, mesh, states, X, y, w, "torch", fitness=fs, **kw)
+            err = max(_hold(g, t, kname, f"{tag} shard {s}")
+                      for s, (g, t) in enumerate(zip(got, want)))
+            kern = fit.get_kernel(kname)
+            Xw, yw, ww = (mesh.join(X, P(None, "data")), mesh.join(y, P("data")),
+                          mesh.join(w, P("data")))
+            N = cfg.tree_spec.num_nodes
+            for group in mesh.groups("data"):
+                merged = engine._merge_moments_on_mesh(
+                    kern, fs, [got[s] for s in group], [y[s] for s in group],
+                    [w[s] for s in group])[0]
+                t = states[group[0]]
+                whole = engine._eval_moments(
+                    dataclasses.replace(cfg, eval_impl="cuda", fitness=fs, **kw),
+                    t.op.reshape(-1, N).to(Xw.device), t.arg.reshape(-1, N).to(Xw.device),
+                    Xw, yw, ww, cfg.tree_spec.const_table(Xw.device))
+                err = max(err, _hold(merged, whole, kname, f"{tag} merged, group {group}"))
+            worst[f"{cfg.tree_spec.genome}/{kname}/{kw}"] = dict(max_rel_err=err,
+                                                                 kernels=sorted(ran))
+    return worst
+
+
+def _mesh_postfix(gens=3):
+    """(d) postfix kat7 pop 100 on (data 2, model 2): dedup off (B2) and
+    exact at caps 1,400 (the table + B3) and 6,301 (the table + B4), each
+    kernel once a shard a generation; the exact histories equal the off
+    one bit for bit."""
+    runs, last = {}, None
+    for label, kw, names in MESH_POSTFIX:
+        sess = GPSession.from_dataset("kat7", pop_size=100, genome="postfix",
+                                      topology=MeshTopology(data=2, model=2), **kw)
+        wall, _, launches = _mesh_run(sess, gens, {n: 4 * gens for n in names},
+                                      f"postfix {label}")
+        runs[label] = dict(generations=gens, launches=launches, wall_s=wall,
+                           history=sess.history)
+        last = sess
+    for label in ("exact_cap1400", "exact_cap6301"):
+        if runs[label]["history"] != runs["off"]["history"]:
+            raise AssertionError(f"mesh postfix {label}: history differs from dedup off")
+    return last, runs
+
+
+def _mesh_pearson(gens=5):
+    """(e) pearson on (data 4, model 2): kat7 finite and non-increasing (B1
+    8 launches a generation), and the dyadic lattice card == CPU."""
+    top = MeshTopology(data=4, model=2)
+    sess = GPSession.from_dataset("kat7", pop_size=100, kernel="pearson", topology=top)
+    wall, _, launches = _mesh_run(sess, gens, {"eval_fitness": 8 * gens}, "pearson")
+    rng = np.random.RandomState(11)
+    X = rng.randint(-1, 2, size=(16, 3)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + rng.randint(-1, 2, size=16)).astype(np.float32)
+    kw = dict(pop_size=16, generations=8, kernel="pearson", max_depth=2, p_const=0.0,
+              fn_set="add,sub")
+    card = GPSession(topology=top, **kw).fit(X, y, key=prng.PRNGKey(4))
+    cpu = GPSession(device="cpu", topology=top, **kw).fit(X, y, key=prng.PRNGKey(4))
+    if card.history != cpu.history or not torch.equal(card.state.fitness.cpu(),
+                                                       cpu.state.fitness):
+        raise AssertionError(f"mesh pearson lattice: card {card.history} vs {cpu.history}")
+    return dict(generations=gens, launches=launches, wall_s=wall, history=sess.history,
+                lattice_history=card.history, lattice_cpu_bitwise=True)
+
+
+def _mesh_stream(gens=3):
+    """(f) kat7 in chunks of 4,096 rows on (data 2, model 2): each chunk
+    split over the data axis (B1 once a data shard a chunk: 6 a
+    generation), card == CPU bitwise."""
+    kw = dict(pop_size=100, chunk_rows=KAT7_CHUNK, topology=MeshTopology(data=2, model=2))
+    sess = GPSession.from_dataset("kat7", **kw)
+    wall, peak, launches = _mesh_run(sess, gens, {"eval_fitness": 6 * gens}, "stream")
+    return dict(generations=gens, launches=launches, wall_s=wall, peak_memory_bytes=peak,
+                history=sess.history, cpu_bitwise_generations=_vs_cpu(sess, gens, "stream",
+                                                                       **kw))
+
+
+def _mesh_reshard(saved, cfg, gens=3):
+    """(g) (a)'s state checkpointed and resumed on (pod 4, data 2, model 1)
+    through `reshard_gp_state`: every leaf bitwise, then `gens` more
+    generations card == CPU bitwise."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.ckpt.elastic import reshard_gp_state
+
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    SCRATCH.mkdir(parents=True)
+    ck.save(saved, str(SCRATCH / "mesh_ck"), 20)
+    back = ck.restore(str(SCRATCH / "mesh_ck"), 20, like=saved)
+    top = MeshTopology(data=2, model=1, pod=4)
+    mesh_b = top.build()
+    state_b = reshard_gp_state(back, cfg, mesh_b, pod_axis="pod")
+    for name, a, b in zip(engine.GPState._fields, state_b, saved):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resharded GPState.{name} differs")
+    runs = []
+    for device in (None, "cpu"):
+        s = GPSession.from_dataset("kat7", topology=top.build(device), **_island_kw())
+        s.adopt_state(engine.state_from_numpy(engine.state_to_numpy(state_b),
+                                              device=s.device))
+        s.evolve(gens)
+        runs.append(s.history)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    if runs[0] != runs[1]:
+        raise AssertionError(f"resharded run: card {runs[0]} vs CPU {runs[1]}")
+    return dict(placement=_placement(mesh_b), generations=gens, history=runs[0],
+                cpu_bitwise_generations=gens)
+
+
+def _mesh_cli():
+    """(h) `python -m repro_torch.launch.evolve --mesh data=2,model=2,pod=2`
+    at 4 x 200 on kat7, as a subprocess."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.evolve", "--dataset", "kat7",
+           "--islands", "4", "--pop", "200", "--mesh", "data=2,model=2,pod=2",
+           "--generations", "3", "--archive-every", "3"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+    if proc.returncode != 0 or "[kat7] 3 generations" not in proc.stdout:
+        raise AssertionError(f"evolve CLI --mesh failed:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout.strip().splitlines()[-2:]
+
+
+def mesh_paths():
+    """Phase 10 -> {label: run}, the runs whose launches the kernel line
+    reports. Each emitted line carries its seconds, CPU halves included
+    (`run_s`)."""
+    t_phase = time.perf_counter()
+    runs = {}
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        return fn(*a), time.perf_counter() - t0
+
+    (isl_sess, saved, runs["islands"]), dt = timed(_mesh_islands)
+    emit("mesh", run="islands", run_s=dt, **runs["islands"])
+    runs["classic"], dt = timed(_mesh_classic)
+    emit("mesh", run="classic", run_s=dt, **runs["classic"])
+    (post_sess, post), dt = timed(_mesh_postfix)
+    runs.update({f"postfix_{k}": v for k, v in post.items()})
+    emit("mesh", run="postfix", run_s=dt, **post)
+    shards, dt = timed(_mesh_shards_vs_plain, isl_sess, post_sess)
+    emit("mesh", run="shards_vs_plain", run_s=dt, **shards)
+    runs["pearson"], dt = timed(_mesh_pearson)
+    emit("mesh", run="pearson", run_s=dt, **runs["pearson"])
+    runs["stream"], dt = timed(_mesh_stream)
+    emit("mesh", run="stream", run_s=dt, **runs["stream"])
+    reshard, dt = timed(_mesh_reshard, saved, isl_sess.config)
+    emit("mesh", run="reshard", run_s=dt, **reshard)
+    tail, dt = timed(_mesh_cli)
+    emit("mesh", run="cli", run_s=dt, tail=tail, phase_s=time.perf_counter() - t_phase)
+    return runs
+
+
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
             ("postfix_exact_cap100", {"genome": "postfix"}),
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
@@ -2301,6 +2647,13 @@ def main():
     isl_runs = island_paths()
     stream_runs, _ = stream_paths(main_run["history"])
     _, service_of = service_paths()
+    mesh_runs = mesh_paths()
+    # the mesh path's launches (phase 10), from the run whose work each
+    # kernel does there; the probe is not on it (mesh steps carry no cache)
+    mesh_of = {"eval_fitness": "islands", "eval_fitness_postfix": "postfix_off",
+               "eval_fitness_from_subtrees": "postfix_exact_cap1400",
+               "eval_fitness_from_preds": "postfix_exact_cap6301",
+               "unique_table": "postfix_exact_cap6301"}
     # the streaming path's launches: B1 in the 5.5M-row mse run, B2 in kat7's
     # postfix run; no other kernel is on it
     stream_paths_of = {"eval_fitness": stream_runs["scale"]["mse"],
@@ -2369,6 +2722,10 @@ def main():
         # the tenant block has no semantic tier: the probe is not on the path
         "service_launches": service_of.get(name, (0, None))[0],
         "service_block_generations": service_of.get(name, (0, None))[1],
+        "mesh_launches": (mesh_runs[mesh_of[name]]["launches"][name]
+                          if name in mesh_of else 0),
+        "mesh_generations": (mesh_runs[mesh_of[name]]["generations"]
+                             if name in mesh_of else None),
         **two_pass_fields(name)}
         for name in gp_eval.KERNELS]}),
         flush=True)

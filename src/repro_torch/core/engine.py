@@ -24,8 +24,28 @@ serves) is the reference's count of evaluations, not the card's.
 chunk into an f32[P, M] accumulator, finalized once. Streamed and
 host-only (`scalar`) runs step one generation at a time from
 `GPSession`'s host loop, which evaluates and then calls `advance` /
-`advance_islands`, the same tail as the device step. The reference's
-mesh fold (`build_stream_fold`) waits for the multi-GPU port.
+`advance_islands`, the same tail as the device step.
+
+On a mesh (`launch/mesh.py`, single-controller) `sharded_evolve_step`
+and `sharded_evolve_block` run the reference's `shard_map` bodies shard
+by shard:
+
+    data axis   dataset columns split; each shard's f32[P*, M] moments
+                are merged over the axis (`_merge_moments_on_mesh`: a
+                psum, a hoisted psum, or a gather and an in-order fold)
+                and finalized
+    model axis  population rows split; selection gathers the pod's
+                fitness and parent pool
+    pod axis    the classic layout's sub-populations with ring
+                migration, or the island layout's islands
+                (`islands.migrate`, `islands.migrate_sharded`)
+
+A shard's data-axis replicas hold the same population slice: after the
+merge, each (pod, model) slice's step runs once, on its data-rank-0
+shard (its lead), and its result is copied to the replicas; the leads
+on one device breed in one batched call, so 8 shards on one card
+launch one breeding's ops, not four. `build_stream_fold` is the mesh's
+streaming fold.
 
 Inside a block nothing may synchronise with the host: no `.item()`,
 `bool(t)`, `int(t)`, boolean-mask indexing or `torch.nonzero` on a
@@ -50,6 +70,7 @@ from repro_torch.core.islands import IslandConfig
 from repro_torch.core.trees import (TreeSpec, depth_table, generate_population,
                                     heap_to_postfix, postorder_slots, tree_sizes)
 from repro_torch.device import constant, resolve_device
+from repro_torch.launch import mesh as _mesh
 from repro_torch.obs import counters as _tc
 
 
@@ -212,6 +233,24 @@ def _eval_fitness(cfg: GPConfig, op, arg, X, y, weight, const_table):
     return backend.fitness(op, arg, X, y, const_table, cfg.tree_spec, cfg.fitness,
                            weight=weight, data_tile=cfg.data_tile,
                            **_dedup_kwargs(cfg, backend.fitness))
+
+
+def _eval_moments(cfg: GPConfig, op, arg, X, y, weight, const_table):
+    """Phase 1 of the two-pass fitness protocol on the backend registered
+    under `cfg.eval_impl`: f32[P, M] weighted moment partials of THIS
+    shard's data, for the mesh step to merge across the data axis. Dedup
+    engages per shard (each shard dedups its own population slice),
+    bitwise like the single-device path."""
+    from repro_torch.gp.backends import get_backend
+
+    backend = get_backend(cfg.eval_impl, op.device)
+    if backend.moments is None:
+        raise ValueError(
+            f"eval backend {backend.name!r} exposes no moment pass and cannot "
+            f"evaluate fitness under a data-sharded mesh")
+    return backend.moments(op, arg, X, y, const_table, cfg.tree_spec, cfg.fitness,
+                           weight=weight, data_tile=cfg.data_tile,
+                           **_dedup_kwargs(cfg, backend.moments))
 
 
 def init_state(cfg: GPConfig, key, seeds=None, feature_names=None,
@@ -516,7 +555,8 @@ _FROZEN_ROW = np.zeros(_tc.N_COUNTERS, np.int32)
 _FROZEN_ROW[_tc.FROZEN] = 1
 
 
-def _counter_row(cfg: GPConfig, state: GPState, done=None):
+def _counter_row(cfg: GPConfig, state: GPState, done=None, *, mesh: bool = False,
+                 n_pods: int = 1):
     """int32[C] telemetry row for one generation (columns:
     repro_torch.obs.counters), computed from the PRE-step state. A frozen
     step reports [0, 0, 1, 0, 0, 0, 0]. On the island layout the cache
@@ -524,11 +564,14 @@ def _counter_row(cfg: GPConfig, state: GPState, done=None):
     `migrations` is I on a generation where migration is due. The dedup
     columns come from `eval.dedup_stats` on the pre-step (flattened)
     population: 0 when dedup is off, on heap genomes, and (saved) on
-    overflow."""
+    overflow. With `mesh=True` the cache and dedup columns are 0 (mesh
+    steps carry the cache untouched, and a per-shard signature sort for
+    telemetry alone would double the plan's cost) and the classic
+    layout counts `n_pods` pod-ring migrations when one is due."""
     dev = state.op.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     I = cfg.island.islands
-    E = state.cache_op.shape[-2]
+    E = 0 if mesh else state.cache_op.shape[-2]
     if E:
         hit = _cache_hit(state).to(torch.int32)
         queries = zero + 1
@@ -540,7 +583,11 @@ def _counter_row(cfg: GPConfig, state: GPState, done=None):
         every = cfg.island.migrate_every
         due = (state.generation % every) == (every - 1)
         migrations = due.to(torch.int32) * I
-    if cfg.dedup == "off" or cfg.tree_spec.genome != "postfix":
+    elif I == 1 and mesh and n_pods > 1:
+        every = cfg.migrate_every
+        due = (state.generation % every) == (every - 1)
+        migrations = due.to(torch.int32) * n_pods
+    if mesh or cfg.dedup == "off" or cfg.tree_spec.genome != "postfix":
         saved = uniq = zero
     else:
         N = cfg.tree_spec.num_nodes
@@ -945,3 +992,445 @@ def build_tenant_block(spec: TreeSpec, kernels: tuple, tourn_draw: int, elitism:
         return s, torch.stack(hist), torch.stack(rows)
 
     return block
+
+
+# --- mesh-sharded step ------------------------------------------------------------
+
+P = _mesh.PartitionSpec
+
+
+def _merge_moments_on_mesh(kern, fit_spec, partial_m, y, weight):
+    """Complete phase 1 across one data-axis group WITHOUT finalizing: the
+    group's per-shard moment partials f32[P*, M] (a list in data-rank
+    order, with each shard's y and weight) -> the merged moments, a copy
+    on every shard's device. `_reduce_moments_on_mesh` finalizes for the
+    generation step; the streaming fold (`build_stream_fold`) merges the
+    result into its accumulator instead. Three lowerings, picked by the
+    kernel's protocol surface:
+
+      plain sum          psum of the whole [P*, M] partials (r/c/m/mse)
+      + y-hoisting       a kernel with `y_moment_idx` and no
+                         `combine_moments`: psum of the per-tree columns
+                         [P*, Mt] and of each shard's `y_moments` [My],
+                         reassembled by `scatter_tree_y`
+      pairwise combine   kernels with a non-additive merge (pearson, r2):
+                         gather the partials (each shard's y columns
+                         once) and fold them with `combine_moments` in
+                         data-rank order
+    """
+    if kern.combine_moments is None:
+        if not kern.y_moment_idx:
+            return _mesh.psum(partial_m)
+        tree_m = _mesh.psum([p[..., list(kern.tree_moment_idx)] for p in partial_m])[0]
+        y_m = _mesh.psum([kern.y_moments(yy.float(), fit._weights(yy, ww), fit_spec)
+                          for yy, ww in zip(y, weight)])[0]
+        merged = fit.scatter_tree_y(kern, tree_m, y_m)
+    else:
+        if kern.y_moment_idx:
+            # row 0's y columns are every row's (tree-independent by contract)
+            tree_parts = _mesh.all_gather([p[..., list(kern.tree_moment_idx)]
+                                           for p in partial_m])[0]
+            y_parts = _mesh.all_gather([p[0, list(kern.y_moment_idx)]
+                                        for p in partial_m])[0]
+            parts = [fit.scatter_tree_y(kern, tree_parts[s], y_parts[s])
+                     for s in range(len(partial_m))]
+        else:
+            parts = list(_mesh.all_gather(partial_m)[0])
+        merged = fit.fold_moment_partials(kern, parts, fit_spec)
+    return [merged.to(p.device) for p in partial_m]
+
+
+def _reduce_moments_on_mesh(kern, fit_spec, partial_m, y, weight):
+    """Complete phase 1 across one data-axis group and finalize: the
+    per-shard partials f32[P*, M] -> fitness f32[P*], a copy on every
+    shard's device (see `_merge_moments_on_mesh`)."""
+    merged = _merge_moments_on_mesh(kern, fit_spec, partial_m, y, weight)[0]
+    fitness = kern.reduce_moments(merged, fit_spec)
+    return [fitness.to(p.device) for p in partial_m]
+
+
+def _moment_kernel(cfg: GPConfig, data_axis):
+    kern = fit.get_kernel(cfg.fitness.kernel)
+    if kern.moments is None:
+        raise ValueError(
+            f"fitness kernel {kern.name!r} defines no moment pass "
+            f"(moments/reduce_moments), so nothing can be reduced across the "
+            f"{data_axis!r} axis; register it through the two-pass protocol or "
+            f"run single-device")
+    return kern
+
+
+def _mesh_fitness(cfg: GPConfig, kern, mesh, data_axis, op, arg, X, y, weight) -> dict:
+    """{lead: f32[R]}: every shard's rows (op/arg, lists over the shards)
+    evaluated on its data slice, the moments merged over each data-axis
+    group and finalized at the group's lead (its data-rank-0 shard)."""
+    partial = [_eval_moments(cfg, op[s], arg[s], X[s], y[s], weight[s],
+                             cfg.tree_spec.const_table(mesh.devices[s]))
+               for s in range(mesh.size)]
+    return {g[0]: _reduce_moments_on_mesh(kern, cfg.fitness, [partial[s] for s in g],
+                                          [y[s] for s in g], [weight[s] for s in g])[0]
+            for g in mesh.groups(data_axis)}
+
+
+def _mesh_tables(cfg: GPConfig, mesh) -> None:
+    for dev in dict.fromkeys(mesh.devices):
+        _device_tables(cfg, dev)
+
+
+def _by_device(mesh, leads) -> list:
+    """The leads grouped by device, in shard order: the leads of a group
+    breed in one batched call (a lead's rows are bitwise its own call's),
+    so 8 shards on one card make one breeding's launches, not four."""
+    groups = {}
+    for s in leads:
+        groups.setdefault(mesh.devices[s], []).append(s)
+    return list(groups.values())
+
+
+def _unbatch(x, group) -> dict:
+    """{lead: its rows} of a batched breeding output, equal blocks in
+    group order."""
+    return dict(zip(group, x.chunk(len(group))))
+
+
+def _sharded_step_builder(cfg: GPConfig, mesh, *, data_axis="data", model_axis="model",
+                          pod_axis: str | None = None):
+    """The classic layout's generation step on a mesh and its specs:
+    (step, state_specs, data_spec, y_spec, w_spec). The population's rows
+    are split over (pod, model); each pod's slices are one
+    sub-population. step(states, X, y, weight) takes per-shard lists
+    (`Mesh.split` under the specs) and returns {lead: GPState}, the next
+    state of every data-axis group's lead shard (its data replicas hold
+    the same).
+
+    A lead gathers its pod's fitness and parent pool over the model
+    axis; its pod's champion, gathered over the pods, gives the global
+    champion. It breeds its own slice of P/(pod·model) offspring
+    (elitism 0; batched with the other leads of its device) from the key
+    folded with its pod rank, the generation and its model rank; model
+    rank 0 re-seeds slot 0 with the pod's champion,
+    and the pods exchange their best `migrate_k` over the pod ring
+    (`islands.migrate`). The key is not advanced and the elite cache
+    rides through untouched, as in the reference."""
+    from repro_torch.core import islands as isl
+
+    kern = _moment_kernel(cfg, data_axis)
+    n_model = mesh.axis_size(model_axis)
+    n_shards = n_model * mesh.axis_size(pod_axis)
+    if cfg.pop_size % n_shards:
+        raise ValueError(f"pop_size {cfg.pop_size} % population shards {n_shards} != 0")
+    pod_dims = (pod_axis,) if pod_axis else ()
+    pop_spec = P((*pod_dims, model_axis))
+    state_specs = GPState(
+        key=P(), op=pop_spec, arg=pop_spec, fitness=pop_spec, best_op=P(), best_arg=P(),
+        best_fitness=P(), generation=P(), cache_op=P(), cache_arg=P(), cache_fit=P())
+    n_local = cfg.pop_size // n_shards
+    leads = [g[0] for g in mesh.groups(data_axis)]
+    _mesh_tables(cfg, mesh)
+    breeding = [(g, constant(np.tile(cfg.mix.probs(), (len(g), 1)), mesh.devices[g[0]]))
+                for g in _by_device(mesh, leads)]
+
+    def step(states, X, y, weight):
+        fit_local = _mesh_fitness(cfg, kern, mesh, data_axis, [t.op for t in states],
+                                  [t.arg for t in states], X, y, weight)
+        st = {s: states[s] for s in leads}
+        fit_g = _mesh.over(mesh, model_axis, _mesh.all_gather, fit_local, tiled=True)
+        op_g = _mesh.over(mesh, model_axis, _mesh.all_gather,
+                          {s: t.op for s, t in st.items()}, tiled=True)
+        arg_g = _mesh.over(mesh, model_axis, _mesh.all_gather,
+                           {s: t.arg for s, t in st.items()}, tiled=True)
+        # the pod's champion (first minimum), then the best over the pods
+        i = {s: torch.argmin(fit_g[s]).reshape(1) for s in leads}
+        pod_op = {s: op_g[s].index_select(0, i[s])[0] for s in leads}
+        pod_arg = {s: arg_g[s].index_select(0, i[s])[0] for s in leads}
+        c_fit = {s: fit_g[s].index_select(0, i[s])[0] for s in leads}
+        c_op, c_arg = pod_op, pod_arg
+        if pod_axis:
+            pods = [_mesh.over(mesh, pod_axis, _mesh.all_gather, c) for c in
+                    (c_fit, c_op, c_arg)]
+            j = {s: torch.argmin(pods[0][s]).reshape(1) for s in leads}
+            c_fit, c_op, c_arg = ({s: x[s].index_select(0, j[s])[0] for s in leads}
+                                  for x in pods)
+        best, keys = {}, {}
+        for s in leads:
+            t = st[s]
+            improved = c_fit[s] < t.best_fitness
+            best[s] = (torch.where(improved, c_op[s], t.best_op),
+                       torch.where(improved, c_arg[s], t.best_arg),
+                       torch.minimum(c_fit[s], t.best_fitness))
+            key = t.key
+            if pod_axis:
+                key = prng.fold_in(key, mesh.rank(s, pod_axis))
+            keys[s] = prng.fold_in(prng.fold_in(key, t.generation), mesh.rank(s, model_axis))
+        new_op, new_arg = {}, {}
+        for group, probs in breeding:  # each lead's slice from its pod's pool
+            o, a = ev.next_generation_arrays(
+                torch.stack([keys[s] for s in group]), torch.cat([op_g[s] for s in group]),
+                torch.cat([arg_g[s] for s in group]), torch.cat([fit_g[s] for s in group]),
+                cfg.tree_spec, probs, cfg.tourn_size, elitism=0, n_out=n_local)
+            new_op.update(_unbatch(o, group))
+            new_arg.update(_unbatch(a, group))
+        for s in leads:
+            if cfg.elitism and mesh.rank(s, model_axis) == 0:  # the pod's own champion
+                new_op[s] = torch.cat([pod_op[s][None], new_op[s][1:]])
+                new_arg[s] = torch.cat([pod_arg[s][None], new_arg[s][1:]])
+        if pod_axis:
+            order = {s: torch.argsort(fit_g[s], stable=True)[:cfg.migrate_k] for s in leads}
+            new_op, new_arg = _mesh.over(
+                mesh, pod_axis, lambda *a: isl.migrate(cfg, *a), new_op, new_arg,
+                {s: op_g[s].index_select(0, order[s]) for s in leads},
+                {s: arg_g[s].index_select(0, order[s]) for s in leads},
+                {s: st[s].generation for s in leads},
+                {s: mesh.rank(s, model_axis) == n_model - 1 for s in leads})
+        return {s: GPState(st[s].key, new_op[s], new_arg[s], fit_local[s], *best[s],
+                           st[s].generation + 1, st[s].cache_op, st[s].cache_arg,
+                           st[s].cache_fit)
+                for s in leads}
+
+    return step, state_specs, P(None, data_axis), P(data_axis), P(data_axis)
+
+
+def _sharded_island_step_builder(cfg: GPConfig, mesh, *, data_axis="data",
+                                 model_axis="model", pod_axis: str | None = None):
+    """The island layout's generation step on a mesh (cfg.island.islands =
+    I > 1), with the classic builder's tuple contract: the global state
+    is `op int32[I, P, N]` with the island axis split over the pods
+    (I/pod islands a pod) and each island's population over the model
+    axis. Evaluation flattens a shard's islands into one backend call;
+    each lead gathers its islands' populations over the model axis,
+    tracks their champions, breeds its slice of each island with the
+    pod's rows of the per-island tables (`make_island_breeder(...,
+    n_out=P/model, fold=model rank)`: the islands' keys advance the same
+    on every model rank), re-seeds slot 0 with the island's champion on
+    model rank 0, and routes migrants over both levels
+    (`islands.migrate_sharded`)."""
+    from repro_torch.core import islands as isl
+
+    icfg = cfg.island
+    I = icfg.islands
+    kern = _moment_kernel(cfg, data_axis)
+    n_pods = mesh.axis_size(pod_axis)
+    if I % n_pods:
+        raise ValueError(f"islands {I} % pod axis {n_pods} != 0 — the pod axis shards "
+                         f"whole islands")
+    n_model = mesh.axis_size(model_axis)
+    if cfg.pop_size % n_model:
+        raise ValueError(f"per-island pop_size {cfg.pop_size} % model axis {n_model} != 0")
+    n_local = cfg.pop_size // n_model
+    if icfg.migrate_k > n_local:
+        raise ValueError(f"migrate_k {icfg.migrate_k} exceeds the last model rank's "
+                         f"{n_local}-tree slice that receives migrants")
+    pod = pod_axis
+    pop_spec = P(pod, model_axis, None)
+    state_specs = GPState(
+        key=P(pod, None), op=pop_spec, arg=pop_spec, fitness=P(pod, model_axis),
+        best_op=P(pod, None), best_arg=P(pod, None), best_fitness=P(pod),
+        generation=P(), cache_op=P(pod, None, None), cache_arg=P(pod, None, None),
+        cache_fit=P(pod, None))
+    leads = [g[0] for g in mesh.groups(data_axis)]
+    _mesh_tables(cfg, mesh)
+    I_local = I // n_pods
+    breeding = []  # (leads, their islands' table rows, each island's model rank)
+    for g in _by_device(mesh, leads):
+        dev = mesh.devices[g[0]]
+        rows = np.concatenate([np.arange(I_local) + mesh.rank(s, pod_axis) * I_local
+                               for s in g])
+        ranks = np.repeat([mesh.rank(s, model_axis) for s in g], I_local)
+        breeding.append((g, constant(rows, dev, np.int64), constant(ranks, dev, np.int64)))
+
+    def step(states, X, y, weight):
+        Il, Pl, N = states[0].op.shape
+        flat = _mesh_fitness(cfg, kern, mesh, data_axis,
+                             [t.op.reshape(Il * Pl, N) for t in states],
+                             [t.arg.reshape(Il * Pl, N) for t in states], X, y, weight)
+        fit_local = {s: f.reshape(Il, Pl) for s, f in flat.items()}
+        st = {s: states[s] for s in leads}
+        fit_g = _mesh.over(mesh, model_axis, _mesh.all_gather, fit_local, dim=1, tiled=True)
+        op_g = _mesh.over(mesh, model_axis, _mesh.all_gather,
+                          {s: t.op for s, t in st.items()}, dim=1, tiled=True)
+        arg_g = _mesh.over(mesh, model_axis, _mesh.all_gather,
+                           {s: t.arg for s, t in st.items()}, dim=1, tiled=True)
+        best, c_fit, c_op, c_arg, sel = {}, {}, {}, {}, {}
+        for s in leads:
+            t = st[s]
+            i = torch.argmin(fit_g[s], dim=1, keepdim=True)  # [Il, 1]
+            rows = i[:, :, None].expand(Il, 1, N)
+            c_fit[s] = torch.gather(fit_g[s], 1, i)[:, 0]
+            c_op[s] = torch.gather(op_g[s], 1, rows)[:, 0]
+            c_arg[s] = torch.gather(arg_g[s], 1, rows)[:, 0]
+            improved = (c_fit[s] < t.best_fitness)[:, None]
+            best[s] = (torch.where(improved, c_op[s], t.best_op),
+                       torch.where(improved, c_arg[s], t.best_arg),
+                       torch.minimum(c_fit[s], t.best_fitness))
+            sel[s] = fit_g[s]
+            if cfg.parsimony:
+                sizes = tree_sizes(op_g[s].reshape(Il * cfg.pop_size, N))
+                sel[s] = sel[s] + cfg.parsimony * sizes.reshape(Il, cfg.pop_size).float()
+        keys, new_op, new_arg = {}, {}, {}
+        for group, rows, ranks in breeding:  # a lead's slice of each of its pod's islands
+            probs, tourn_max, tourn, p_point = _island_tables(cfg, rows.device)
+            breed = ev.make_island_breeder(cfg.tree_spec, tourn_max, elitism=0,
+                                           n_out=n_local, fold=ranks)
+            k, o, a = breed(*(torch.cat([x[s] for s in group]) for x in (
+                {s: st[s].key for s in group}, op_g, arg_g, sel)),
+                probs[rows], tourn[rows], p_point[rows])
+            for out, x in ((keys, k), (new_op, o), (new_arg, a)):
+                out.update(_unbatch(x, group))
+        for s in leads:
+            if cfg.elitism and mesh.rank(s, model_axis) == 0:  # each island's champion
+                new_op[s] = torch.cat([c_op[s][:, None], new_op[s][:, 1:]], 1)
+                new_arg[s] = torch.cat([c_arg[s][:, None], new_arg[s][:, 1:]], 1)
+        if icfg.migrate_k and I > 1:
+            elites = {s: isl.island_elites(op_g[s], arg_g[s], fit_g[s], icfg.migrate_k)
+                      for s in leads}
+            new_op, new_arg = _mesh.over(
+                mesh, pod_axis, lambda *a: isl.migrate_sharded(icfg, *a), new_op, new_arg,
+                {s: e[0] for s, e in elites.items()}, {s: e[1] for s, e in elites.items()},
+                {s: st[s].generation for s in leads}, c_fit,
+                {s: mesh.rank(s, model_axis) == n_model - 1 for s in leads})
+        return {s: GPState(keys[s], new_op[s], new_arg[s], fit_local[s], *best[s],
+                           st[s].generation + 1, st[s].cache_op, st[s].cache_arg,
+                           st[s].cache_fit)
+                for s in leads}
+
+    return step, state_specs, P(None, data_axis), P(data_axis), P(data_axis)
+
+
+def _pick_step_builder(cfg: GPConfig):
+    return (_sharded_island_step_builder if cfg.island.islands > 1
+            else _sharded_step_builder)
+
+
+def _split_state(mesh, state: GPState, specs: GPState) -> list:
+    leaves = [mesh.split(t, spec) for t, spec in zip(state, specs)]
+    return [GPState(*(leaf[s] for leaf in leaves)) for s in range(mesh.size)]
+
+
+def _join_state(mesh, leads: dict, specs: GPState) -> GPState:
+    """The global state from the leads' states ({lead: GPState}): the
+    state specs name no data axis, so the leads hold every block."""
+    return GPState(*(mesh.join({s: getattr(t, name) for s, t in leads.items()}, spec)
+                     for name, spec in zip(GPState._fields, specs)))
+
+
+def _replicate(mesh, data_axis, leads: dict) -> list:
+    """Per-shard states from the leads': each data-axis group's lead
+    state, copied to its replicas' devices."""
+    out = [None] * mesh.size
+    for group in mesh.groups(data_axis):
+        for s in group:
+            out[s] = GPState(*(t.to(mesh.devices[s]) for t in leads[group[0]]))
+    return out
+
+
+def _shards(mesh, x, spec) -> list:
+    """A dataset array's per-shard parts: split under `spec`, taken as
+    they are when already a list (`data/loader.shard_dataset`), or all
+    None for an absent weight."""
+    if x is None:
+        return [None] * mesh.size
+    return x if isinstance(x, list) else mesh.split(x, spec)
+
+
+def sharded_evolve_step(cfg: GPConfig, mesh, *, data_axis="data", model_axis="model",
+                        pod_axis: str | None = None):
+    """A generation step for `mesh` -> (step_fn, specs dict).
+
+    step_fn(state, X, y, weight=None) takes the global state (on any
+    device) and X [F, D], y [D] and the f32[D] padding mask (global
+    tensors, or per-shard lists from `shard_dataset`; D % data == 0),
+    and returns the global next state on the mesh's home device. Classic
+    layout (islands == 1): the population rows on (pod, model), best_*
+    replicated. Island layout: the island axis on pod, each island's
+    rows on model, best_* per island."""
+    step, state_specs, data_spec, y_spec, w_spec = _pick_step_builder(cfg)(
+        cfg, mesh, data_axis=data_axis, model_axis=model_axis, pod_axis=pod_axis)
+
+    def run(state: GPState, X, y, weight=None) -> GPState:
+        leads = step(_split_state(mesh, state, state_specs), _shards(mesh, X, data_spec),
+                     _shards(mesh, y, y_spec), _shards(mesh, weight, w_spec))
+        return _join_state(mesh, leads, state_specs)
+
+    return run, dict(state=state_specs, X=data_spec, y=y_spec, weight=w_spec)
+
+
+def sharded_evolve_block(cfg: GPConfig, mesh, *, n_steps: int, data_axis="data",
+                         model_axis="model", pod_axis: str | None = None):
+    """A K-generation evolution block for `mesh` -> (block_fn, specs dict).
+
+    block_fn(state, X, y, weight, limit) -> (state, history, counters)
+    runs `n_steps` generations shard by shard with no host read: the
+    state is split once, each step's collectives join the shards'
+    tensors on the devices, and the global state is joined at the end.
+    Steps freeze as the single-device block's do (`limit`, a 0-d int32
+    tensor or None, and `cfg.stop_fitness`); on the island layout the
+    stop test is the min over each pod's islands, `pmin` over the pods,
+    so every shard takes the same decision. history is f32[n_steps]
+    (classic) or f32[n_steps, I] (island, joined over the pods), and
+    counters the int32[n_steps, C] telemetry stream (cache and dedup
+    columns 0), all on the home device."""
+    island = cfg.island.islands > 1
+    n_pods = mesh.axis_size(pod_axis)
+    step, state_specs, data_spec, y_spec, w_spec = _pick_step_builder(cfg)(
+        cfg, mesh, data_axis=data_axis, model_axis=model_axis, pod_axis=pod_axis)
+    leads = [g[0] for g in mesh.groups(data_axis)]
+    hist_spec = P(pod_axis) if island else P()
+
+    def done(cur, i, limit):
+        if not (island and cfg.stop_fitness is not None):
+            return {s: _block_done(cfg, t, i, limit[s]) for s, t in cur.items()}
+        best = _mesh.over(mesh, pod_axis, _mesh.pmin,
+                          {s: t.best_fitness.min() for s, t in cur.items()})
+        bar = float(np.float32(cfg.stop_fitness))
+        return {s: b <= bar if limit[s] is None else (b <= bar) | (limit[s] <= i)
+                for s, b in best.items()}
+
+    def block(state: GPState, X, y, weight, limit):
+        X, y, weight = (_shards(mesh, X, data_spec), _shards(mesh, y, y_spec),
+                        _shards(mesh, weight, w_spec))
+        lim = {s: None if limit is None else limit.to(mesh.devices[s]) for s in leads}
+        states = _split_state(mesh, state, state_specs)
+        cur = {s: states[s] for s in leads}
+        hist, rows = [], []
+        for i in range(n_steps):
+            d = done(cur, i, lim)
+            rows.append(_counter_row(cfg, cur[0], d[0], mesh=True, n_pods=n_pods))
+            nxt = step(states, X, y, weight)
+            cur = {s: _freeze(d[s], cur[s], nxt[s]) for s in leads}
+            states = _replicate(mesh, data_axis, cur)
+            hist.append(mesh.join({s: t.best_fitness for s, t in cur.items()}, hist_spec))
+        return _join_state(mesh, cur, state_specs), torch.stack(hist), torch.stack(rows)
+
+    return block, dict(state=state_specs, X=data_spec, y=y_spec, weight=w_spec,
+                       limit=P(), history=P(None, pod_axis) if island else P(),
+                       counters=P())
+
+
+def build_stream_fold(cfg: GPConfig, mesh, *, data_axis: str = "data"):
+    """The mesh fold step of streamed chunks: fold(acc, op, arg, X, y,
+    weight) -> acc, with acc f32[R, M], op/arg replicated (global
+    tensors) and the chunk's X [F, Dc], y and weight [Dc] (numpy or
+    tensors; Dc % data == 0, `GPSession.ingest` rounds `chunk_rows` up)
+    split over the data axis. The chunk's moments are completed across
+    the axis by `_merge_moments_on_mesh` (the generation step's
+    reduction) and merged into the accumulator by the kernel's merge;
+    finalize the last accumulator once with `reduce_moments`. Every
+    replica along model and pod would compute the same merged moments,
+    so the fold evaluates on one data-axis group, the first shard's."""
+    kern = _stream_kernel(cfg)
+    group = mesh.groups(data_axis)[0]
+    devs = [mesh.devices[s] for s in group]
+    for dev in dict.fromkeys(devs):
+        _device_tables(cfg, dev)
+
+    def fold(acc, op, arg, X, y, weight):
+        Xs = mesh.split(X, P(None, data_axis), shards=group)
+        ys = mesh.split(y, P(data_axis), shards=group)
+        ws = [None] * len(group) if weight is None else mesh.split(
+            weight, P(data_axis), shards=group)
+        partial = [_eval_moments(cfg, op.to(d), arg.to(d), Xs[i], ys[i], ws[i],
+                                 cfg.tree_spec.const_table(d)) for i, d in enumerate(devs)]
+        merged = _merge_moments_on_mesh(kern, cfg.fitness, partial, ys, ws)[0]
+        return kern.merge_moments(acc, merged.to(acc.device), cfg.fitness)
+
+    return fold

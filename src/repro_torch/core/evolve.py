@@ -253,14 +253,17 @@ def _rows(x, idx):
 
 
 def next_generation_arrays(key, op, arg, fitness, spec: TreeSpec, probs,
-                           tourn_size: int = 10, elitism: int = 1, tourn_active=None,
+                           tourn_size: int = 10, elitism: int = 1,
+                           n_out: int | None = None, tourn_active=None,
                            point_rate=None):
     """One selection + variation step with the operator mix given as an
     f32[4] tensor of probabilities (reproduce, mutate_point,
     mutate_branch, crossover). Every offspring slot draws an operator;
     all operator outputs are computed and the per-slot result selected,
     so the step is the same fixed sequence of tensor ops every
-    generation. [P,N] -> [P,N].
+    generation. [P,N] -> [n_out,N]: `n_out` (default P) decouples the
+    offspring count from the parent pool, so that a mesh shard breeds
+    only its slice of the next generation.
 
     `tourn_active` (int32, ≤ tourn_size) is the effective tournament
     size and `point_rate` (f32) the point-mutation rate; None gives the
@@ -268,10 +271,11 @@ def next_generation_arrays(key, op, arg, fitness, spec: TreeSpec, probs,
     I keys the population is the flattened [I·P, N] islands, `fitness`
     f32[I·P], `probs` f32[I, 4] and the two options int32[I]/f32[I]: one
     step breeds every island with its own parameters, and elitism is
-    taken per island."""
+    taken per island (`n_out` rows a key)."""
     I = prng.n_keys(key)
     R, N = op.shape
-    P = R // I
+    P_in = R // I
+    P = n_out or P_in
     k_op, k_t1, k_t2, k_x, k_mb, k_mp = prng.split(key, 6).unbind(-2)
 
     choice = prng.merge_rows(key, prng.categorical(k_op, prng.xla_log(probs), (P,)))
@@ -297,43 +301,51 @@ def next_generation_arrays(key, op, arg, fitness, spec: TreeSpec, probs,
     new_arg = torch.where(c == 0, arg_a, torch.where(c == 1, arg_mp,
                                                      torch.where(c == 2, arg_mb, arg_x)))
     if elitism:  # each island's best rows go to its first slots
-        best = torch.argsort(fitness.reshape(I, P), dim=-1, stable=True)[:, :elitism]
+        best = torch.argsort(fitness.reshape(I, P_in), dim=-1, stable=True)[:, :elitism]
         if I > 1:
-            best = best + (torch.arange(I, device=best.device) * P)[:, None]
+            best = best + (torch.arange(I, device=best.device) * P_in)[:, None]
         best = best.reshape(-1)
 
         def place(new, old):
             head = _rows(old, best).reshape(I, elitism, N)
-            return torch.cat([head, new.reshape(I, P, N)[:, elitism:]], 1).reshape(R, N)
+            return torch.cat([head, new.reshape(I, P, N)[:, elitism:]], 1).reshape(I * P, N)
 
         new_op, new_arg = place(new_op, op), place(new_arg, arg)
     return new_op, new_arg
 
 
-def make_island_breeder(spec: TreeSpec, tourn_size: int, elitism: int):
+def make_island_breeder(spec: TreeSpec, tourn_size: int, elitism: int,
+                        n_out: int | None = None, fold=None):
     """The island engine's breeding step: breed(keys, op, arg, fitness,
     probs, tourn_active, point_rate) -> (advanced keys, new_op, new_arg)
     over island-batched tensors (keys [I, 2], op/arg int32[I, P, N],
     fitness f32[I, P], probs f32[I, 4], tourn_active int32[I],
     point_rate f32[I]). Each island's key splits as the reference's
     vmapped breeder splits it, and all islands breed in one batched
-    `next_generation_arrays` call."""
+    `next_generation_arrays` call. `n_out` (default P) offspring an
+    island; `fold` (an int: a mesh shard's model rank) is folded into
+    each draw key after the split, so that shards breed decorrelated
+    slices of one island."""
 
     def breed(keys, op, arg, fitness, probs, tourn_active, point_rate):
         I, P, N = op.shape
         keys, k_next = prng.split(keys).unbind(-2)
+        if fold is not None:
+            k_next = prng.fold_in(k_next, fold)
         new_op, new_arg = next_generation_arrays(
             k_next, op.reshape(I * P, N), arg.reshape(I * P, N), fitness.reshape(I * P),
-            spec, probs, tourn_size, elitism, tourn_active=tourn_active,
+            spec, probs, tourn_size, elitism, n_out, tourn_active=tourn_active,
             point_rate=point_rate)
-        return keys, new_op.reshape(I, P, N), new_arg.reshape(I, P, N)
+        R = n_out or P
+        return keys, new_op.reshape(I, R, N), new_arg.reshape(I, R, N)
 
     return breed
 
 
 def next_generation(key, op, arg, fitness, spec: TreeSpec, mix: OperatorMix = OperatorMix(),
-                    tourn_size: int = 10, elitism: int = 1):
-    """One full selection + variation step. [P,N] -> [P,N], fixed shapes."""
+                    tourn_size: int = 10, elitism: int = 1, n_out: int | None = None):
+    """One full selection + variation step. [P,N] -> [n_out,N] (default
+    n_out = P), fixed shapes."""
     probs = constant(mix.probs(), op.device)
     return next_generation_arrays(key, op, arg, fitness, spec, probs,
-                                  tourn_size, elitism)
+                                  tourn_size, elitism, n_out)

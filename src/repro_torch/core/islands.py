@@ -6,8 +6,11 @@ sub-populations with decorrelated keys, cross-pollinated by periodic
 elite migration. The engine evaluates the flattened [I·P, N] population
 in one kernel call, breeds the islands as one batch
 (`evolve.make_island_breeder`) and routes elites across the island axis
-here. The mesh lowerings (`migrate_sharded`, the pod-axis `migrate`)
-belong to the multi-GPU port.
+here (`migrate_local`). On a mesh (`launch/mesh.py`) `migrate_sharded`
+routes the island layout across pods and `migrate` is the classic
+layout's pod ring; both take the per-shard tensors of one pod-axis group
+in pod-rank order, the mesh's single-controller form of the reference's
+per-shard functions and their collectives.
 
 `IslandConfig` also carries the heterogeneous-search knobs: per-island
 operator mixes, tournament sizes and point-mutation rates, which become
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.evolve import OperatorMix
+from repro_torch.launch import mesh as _mesh
 
 TOPOLOGIES = ("ring", "torus", "broadcast-best")
 
@@ -195,3 +199,105 @@ def migrate_local(icfg: IslandConfig, new_op, new_arg, elite_op, elite_arg,
     mig_op = torch.cat([new_op[:, :-k], inc_op], 1)
     mig_arg = torch.cat([new_arg[:, :-k], inc_arg], 1)
     return torch.where(due, mig_op, new_op), torch.where(due, mig_arg, new_arg)
+
+
+def _due(every: int, generation, is_receiver):
+    """A migration lands on this shard this generation: it is due, and
+    the shard holds the receiving slots (`is_receiver`, a bool)."""
+    return ((generation % every) == (every - 1)) & is_receiver
+
+
+def migrate_sharded(icfg: IslandConfig, new_op, new_arg, elite_op, elite_arg,
+                    generation, fit_best, is_receiver):
+    """Island migration on a mesh: pods x in-device islands.
+
+    Every argument is a list over one pod-axis group (one entry a pod,
+    in pod-rank order; one entry without a pod axis), each entry that
+    shard's tensor: new_op/new_arg int32[I_local, P_local, N] (its model
+    rank's slice of the pod's islands, bred), elite_op/elite_arg
+    int32[I_local, k, N] and fit_best f32[I_local] (the same on every
+    model rank of a pod), generation the 0-d counter and is_receiver a
+    bool: the shard holds each island's last k offspring slots. Returns
+    (new_op, new_arg) lists.
+
+      ring            the global ring in pod-major order: local islands
+                      roll in-device; local island 0 receives the
+                      previous pod's last island
+      torus           grid = (pods x local islands): east rolls
+                      in-device (a 1-wide row takes the pod ring), south
+                      takes the previous pod's elites; events alternate
+      broadcast-best  each pod's champion is gathered over the pods and
+                      the best of them (first on ties) goes everywhere
+    """
+    k = icfg.migrate_k
+    n_pods = len(new_op)
+    I_local = new_op[0].shape[0]
+    if k <= 0 or I_local * n_pods <= 1:
+        return new_op, new_arg
+    every = icfg.migrate_every
+    ring = [(i, (i + 1) % n_pods) for i in range(n_pods)]
+
+    if icfg.topology == "broadcast-best":
+        champ = [torch.argmin(f).reshape(1) for f in fit_best]
+        c_fit = [f.index_select(0, c)[0] for f, c in zip(fit_best, champ)]
+        c_op = [e.index_select(0, c)[0] for e, c in zip(elite_op, champ)]
+        c_arg = [e.index_select(0, c)[0] for e, c in zip(elite_arg, champ)]
+        if n_pods > 1:
+            g = [torch.argmin(f).reshape(1) for f in _mesh.all_gather(c_fit)]
+            c_op = [x.index_select(0, j)[0] for x, j in zip(_mesh.all_gather(c_op), g)]
+            c_arg = [x.index_select(0, j)[0] for x, j in zip(_mesh.all_gather(c_arg), g)]
+        inc = [(o.expand_as(e), a.expand_as(e)) for o, a, e in zip(c_op, c_arg, elite_op)]
+    elif n_pods == 1:  # in-device islands only
+        event_idx = torch.div(generation[0], every, rounding_mode="floor")
+        inc = [_route_local(icfg, elite_op[0], elite_arg[0], event_idx, fit_best[0])]
+    else:
+        east = [(torch.roll(o, 1, 0), torch.roll(a, 1, 0))
+                for o, a in zip(elite_op, elite_arg)]
+        if icfg.topology == "ring":
+            last = zip(_mesh.ppermute([e[-1] for e in elite_op], ring),
+                       _mesh.ppermute([e[-1] for e in elite_arg], ring))
+            inc = [(torch.cat([lo[None], eo[1:]]), torch.cat([la[None], ea[1:]]))
+                   for (lo, la), (eo, ea) in zip(last, east)]
+        else:  # torus
+            south = list(zip(_mesh.ppermute(elite_op, ring),
+                             _mesh.ppermute(elite_arg, ring)))
+            if I_local == 1:  # a 1-wide row: east is the pod ring too
+                east = south
+            inc = []
+            for g, (eo, ea), (so, sa) in zip(generation, east, south):
+                alt = torch.div(g, every, rounding_mode="floor") % 2 == 0
+                inc.append((torch.where(alt, eo, so), torch.where(alt, ea, sa)))
+    out_op, out_arg = [], []
+    for op, arg, (i_op, i_arg), gen, rec in zip(new_op, new_arg, inc, generation,
+                                                is_receiver):
+        due = _due(every, gen, rec)
+        out_op.append(torch.where(due, torch.cat([op[:, :-k], i_op], 1), op))
+        out_arg.append(torch.where(due, torch.cat([arg[:, :-k], i_arg], 1), arg))
+    return out_op, out_arg
+
+
+def migrate(cfg, op_local, arg_local, elite_op, elite_arg, generation, is_receiver):
+    """The classic layout's pod ring on a mesh (islands=1, the population
+    sharded over pods): the pod slices are the islands, and every
+    `migrate_every` generations each pod's `migrate_k` best trees go to
+    the next pod, replacing its receiving shard's last k offspring.
+
+    Every argument is a list over one pod-axis group in pod-rank order:
+    op_local/arg_local int32[P_local, N] (the shard's bred slice),
+    elite_op/elite_arg int32[k, N] (its pod's best k of the evaluated
+    population), generation the 0-d counter, is_receiver a bool (one
+    model rank a pod). Returns (op, arg) lists."""
+    n_pods = len(op_local)
+    if n_pods <= 1:
+        return op_local, arg_local
+    k = cfg.migrate_k
+    perm = [(i, (i + 1) % n_pods) for i in range(n_pods)]
+    mig_op = _mesh.ppermute(elite_op, perm)
+    mig_arg = _mesh.ppermute(elite_arg, perm)
+    out_op, out_arg = [], []
+    for op, arg, m_op, m_arg, gen, rec in zip(op_local, arg_local, mig_op, mig_arg,
+                                              generation, is_receiver):
+        due = _due(cfg.migrate_every, gen, rec)
+        out_op.append(torch.where(due, torch.cat([op[:-k], m_op]), op))
+        out_arg.append(torch.where(due, torch.cat([arg[:-k], m_arg]), arg))
+    return out_op, out_arg

@@ -119,11 +119,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """`jax.random.fold_in(key, data)` for a non-negative int32 `data`
-    (the same `data` folded into every key of a batch)."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)` for an int32 `data`: a Python int,
+    or an integer tensor on the key's device, folded in without a host
+    read: 0-d (a generation counter) folds the same value into every key
+    of a batch, [I] one value a key."""
     k1, k2 = _words(key, 0)
-    data = torch.full((), int(data) & MASK, dtype=torch.int64, device=key.device)
+    if torch.is_tensor(data):
+        data = data.to(dtype=torch.int64) & MASK
+    else:
+        data = torch.full((), int(data) & MASK, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(data), data)
     return torch.stack([b1, b2], dim=-1)
 

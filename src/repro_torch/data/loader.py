@@ -1,10 +1,12 @@
 """Host-side data layout (numpy copy of `repro/data/loader.py` lines
-19–60 and 75–264).
+19–60 and 75–264, and its `shard_dataset`).
 
 `feature_major` is the paper's Eq. 1 → Eq. 2 transposition: row-major
 [rows, features] becomes feature-major [features, rows] so each feature is
 a contiguous vector. `pad_rows` / `pad_feature_major` pad the data axis to
-a multiple with a zero-weight mask that keeps fitness exact.
+a multiple with a zero-weight mask that keeps fitness exact, and
+`shard_dataset` pads to a mesh's data axis and places each shard's
+columns on its device.
 `ChunkedDataset` is the host side of streaming chunked fitness: a
 dataset of any size as fixed-shape numpy chunks, which the fold
 (`core/engine.chunked_moments`) places on the device one at a time.
@@ -54,6 +56,20 @@ def pad_feature_major(X_fm, y, multiple: int, *, weight=None):
               else np.asarray(weight, np.float32))
     w = np.concatenate([real_w, np.zeros(pad, np.float32)])
     return np.ascontiguousarray(X_fm), y, w
+
+
+def shard_dataset(X_rows, y, mesh, data_axis: str = "data"):
+    """-> (X, y, weight) as per-shard lists for `mesh` (`launch/mesh.py`):
+    X [F, D'/data] feature-major, y and weight [D'/data], each on its
+    shard's device, with D' the row count padded up to the data axis and
+    weight the padding mask (zero on padded columns), so fitness stays
+    exact. The engine's mesh steps take the lists as they are."""
+    from repro_torch.launch.mesh import P
+
+    n = mesh.axis_size(data_axis)
+    X_rows, y, w = pad_rows(np.asarray(X_rows, np.float32), np.asarray(y, np.float32), n)
+    return (mesh.split(feature_major(X_rows), P(None, data_axis)),
+            mesh.split(y, P(data_axis)), mesh.split(w, P(data_axis)))
 
 
 class ChunkedDataset:

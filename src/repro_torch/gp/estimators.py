@@ -11,10 +11,10 @@ the card unless the caller asks for the CPU.
 
 `islands`, its migration settings, `checkpoint_dir`, `chunk_rows=`
 (streaming chunked fitness: the data folds through the device in fixed
-chunks) and `backend="scalar"` (the paper's per-data-point baseline) run
+chunks), `backend="scalar"` (the paper's per-data-point baseline) and
+`topology=` (a `MeshTopology`: the run sharded over a device mesh) run
 as in the reference, e.g. `SymbolicRegressor(chunk_rows=4096,
-device="cpu").fit(X, y)`. `topology` is accepted and raises
-NotImplementedError through the session, naming its ROADMAP item (A11).
+device="cpu").fit(X, y)`.
 """
 from __future__ import annotations
 

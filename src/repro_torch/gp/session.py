@@ -48,8 +48,16 @@ step as the device loop.
 sub-state in and out of a live island run between blocks (the
 multi-tenant scheduler's surface, `repro_torch.service`).
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item):
-`topology=` (A11).
+A mesh (`topology=MeshTopology(data=2, model=2, pod=2)`, or a
+`launch/mesh.Mesh`) shards the run in this one process: the dataset's
+columns over `data` (rows padded to the axis with zero weight, `n_rows`
+the real count), the population over `model`, and the classic layout's
+sub-populations or the island layout's islands over `pod`
+(`engine.sharded_evolve_step`/`_block`). The shards go to the cards in
+turn (all on one card when there is one; `device="cpu"` puts them on the
+CPU), blocks still read the host once, and the global state lives on
+the mesh's first device. Streamed sessions on a mesh fold each chunk
+across the data axis (`engine.build_stream_fold`).
 """
 from __future__ import annotations
 
@@ -68,6 +76,7 @@ from repro_torch.core.trees import to_string
 from repro_torch.data.loader import feature_major
 from repro_torch.device import resolve_device
 from repro_torch.gp import backends as _backends
+from repro_torch.launch import mesh as _mesh
 from repro_torch.obs import counters as _tc
 from repro_torch.obs.metrics import BlockMonitor, Metrics
 from repro_torch.obs.trace import NULL_TRACER
@@ -81,12 +90,34 @@ _FIT_KEYS = ("kernel", "n_classes", "precision")
 _ISLAND_KEYS = {"islands": "islands", "island_topology": "topology",
                 "island_mixes": "mixes", "island_tourn_sizes": "tourn_sizes",
                 "island_point_rates": "point_rates"}
-_NOT_PORTED = {"topology=": "A11, multi-GPU (MeshTopology)"}
 
 
-def _not_ported(option: str):
-    raise NotImplementedError(f"{option} is not ported yet "
-                              f"(ROADMAP queue A: {_NOT_PORTED[option]})")
+@dataclasses.dataclass(frozen=True)
+class MeshTopology:
+    """Device-mesh shape for a sharded run.
+
+    data   splits the dataset's columns (X f32[F, D], y and the padding
+           mask f32[D]); each shard's [P, M] fitness moments are merged
+           across this axis (the two-pass protocol, so every registered
+           kernel, pearson and r2 included, shards here). Rows that do
+           not divide it are zero-weight padded by `GPSession.ingest`.
+    model  splits the population's rows; selection gathers the pod's
+           fitness and parent pool.
+    pod    island parallelism: with islands=1 each pod's slice is an
+           independent sub-population with elite ring migration; with
+           islands=I > 1 the pod axis splits the islands (I/pod a pod),
+           migration composed across both levels.
+
+    Declarative: `build(device)` makes the `launch/mesh.Mesh`, its
+    shards on the cards of `device` in turn (`make_host_mesh`)."""
+
+    data: int = 1
+    model: int = 1
+    pod: int = 1
+
+    def build(self, device=None) -> _mesh.Mesh:
+        return _mesh.make_host_mesh(data=self.data, model=self.model, pod=self.pod,
+                                    device=device)
 
 
 def make_config(config: GPConfig | None = None, **overrides) -> GPConfig:
@@ -135,9 +166,17 @@ class GPSession:
                  checkpoint_every: int = 10, feature_names=None, callback=None,
                  callback_every: int = 1, block_size: int | None = None,
                  chunk_rows: int | None = None, tracer=None, metrics=None, **overrides):
-        if topology is not None:
-            _not_ported("topology=")
         self.device = resolve_device(device)
+        self._mesh = None
+        if isinstance(topology, MeshTopology):
+            self._mesh = topology.build(self.device)
+        elif isinstance(topology, _mesh.Mesh):
+            self._mesh = topology
+        elif topology is not None:
+            raise TypeError(f"topology must be a MeshTopology or a "
+                            f"repro_torch.launch.mesh.Mesh, got {type(topology).__name__}")
+        if self._mesh is not None:
+            self.device = self._mesh.home  # where the global state lives
         explicit_features = (config is not None or "tree_spec" in overrides
                              or "n_features" in overrides)
         self._cfg = make_config(config, **overrides)
@@ -148,6 +187,13 @@ class GPSession:
                              "device; use backend='torch' with device='cpu'")
         if self._backend.jittable:
             self._cfg = dataclasses.replace(self._cfg, eval_impl=self._backend.name)
+        if self._mesh is not None and not self._backend.supports_topology:
+            raise ValueError(f"backend {self._backend.name!r} does not support "
+                             f"mesh topologies (host-only)")
+        self._step_fn = None  # the mesh's generation step
+        self._block_cache = {}  # n_steps -> the mesh's block
+        self._built_for = None  # the config the mesh programs were built for
+        self._stream_fold = None  # the mesh's chunk fold (engine.build_stream_fold)
         self._explicit_features = explicit_features
         self._X = self._y = self._weight = None
         self._chunk_rows = chunk_rows  # default for ingest(chunk_rows=)
@@ -214,7 +260,41 @@ class GPSession:
 
     @property
     def n_rows(self) -> int:
+        """Real data points ingested (0 before ingest; excludes the
+        zero-weight padding a mesh adds)."""
         return self._n_rows
+
+    @property
+    def mesh(self):
+        """The session's `launch/mesh.Mesh`, or None on one device."""
+        return self._mesh
+
+    def _pod_axis(self):
+        return "pod" if self._mesh is not None and "pod" in self._mesh.axis_names else None
+
+    def build_sharded_step(self):
+        """(step_fn, specs) of the mesh generation step:
+        step_fn(state, X, y, weight); `step()` drives it."""
+        if self._mesh is None:
+            raise ValueError("build_sharded_step needs a topology= mesh")
+        return engine.sharded_evolve_step(self._cfg, self._mesh, pod_axis=self._pod_axis())
+
+    def build_sharded_block(self, n_steps: int):
+        """(block_fn, specs) of the K-generation mesh block:
+        block_fn(state, X, y, weight, limit) -> (state, history,
+        counters); `evolve()` drives it."""
+        if self._mesh is None:
+            raise ValueError("build_sharded_block needs a topology= mesh")
+        return engine.sharded_evolve_block(self._cfg, self._mesh, n_steps=n_steps,
+                                           pod_axis=self._pod_axis())
+
+    def _mesh_step(self):
+        """The mesh's step, built again only when the config changed."""
+        if self._built_for != self._cfg:
+            self._step_fn, _ = self.build_sharded_step()
+            self._block_cache = {}
+            self._built_for = self._cfg
+        return self._step_fn
 
     # --- lifecycle -----------------------------------------------------------
 
@@ -274,37 +354,62 @@ class GPSession:
                 raise ValueError(f"sample_weight shape {sample_weight.shape} does "
                                  f"not match {D} data points")
         self._n_rows = D
-        self._X = torch.from_numpy(X_fm).to(self.device)
-        self._y = torch.from_numpy(y).to(self.device)
-        self._weight = (None if sample_weight is None
-                        else torch.from_numpy(sample_weight).to(self.device))
+        self._stream_fold = None
+        if self._mesh is not None:
+            from repro_torch.data.loader import pad_feature_major
+
+            # pad the rows to the data axis; the zero-weight mask keeps
+            # every fitness kernel exact, and sample weights compose with it
+            X_fm, y, w = pad_feature_major(X_fm, y, self._mesh.axis_size("data"))
+            if sample_weight is not None:
+                w = w * np.pad(sample_weight, (0, w.shape[0] - D))
+            self._mesh_step()  # an indivisible layout fails here
+            P = _mesh.PartitionSpec
+            self._X = self._mesh.split(X_fm, P(None, "data"))
+            self._y = self._mesh.split(y, P("data"))
+            self._weight = self._mesh.split(w, P("data"))
+        else:
+            self._X = torch.from_numpy(X_fm).to(self.device)
+            self._y = torch.from_numpy(y).to(self.device)
+            self._weight = (None if sample_weight is None
+                            else torch.from_numpy(sample_weight).to(self.device))
         self._invalidate_elite_cache()
 
     def _ingest_stream(self, X, y, *, layout, sample_weight, stream, chunk_rows):
         """Streaming half of `ingest`: wrap the source in a fixed-shape
         `ChunkedDataset` (or adopt one), take n_features from it, and arm
-        the per-generation chunk fold."""
+        the per-generation chunk fold. On a mesh, `chunk_rows` rounds up
+        to a multiple of the data axis and `engine.build_stream_fold`
+        splits every chunk over it, as the mesh step splits the data."""
         from repro_torch.data.loader import ChunkedDataset
 
         if stream is not None and X is not None:
             raise ValueError("pass either X/y or stream=, not both")
         chunk_rows = chunk_rows if chunk_rows is not None else self._chunk_rows
+        n_data = self._mesh.axis_size("data") if self._mesh is not None else 1
         if isinstance(stream, ChunkedDataset):
             ds = stream
             if chunk_rows is not None and int(chunk_rows) != ds.chunk_rows:
                 raise ValueError(f"chunk_rows={chunk_rows} conflicts with the "
                                  f"ChunkedDataset's chunk_rows={ds.chunk_rows}")
+            if ds.chunk_rows % n_data:
+                raise ValueError(f"chunk_rows={ds.chunk_rows} must be a multiple of "
+                                 f"the mesh data axis ({n_data})")
         else:
             if chunk_rows is None:
                 raise ValueError("stream= needs chunk_rows= (constructor or "
                                  "ingest keyword), or pass a ChunkedDataset")
+            rows = int(chunk_rows)
+            rows += (-rows) % n_data  # on a mesh every chunk splits exactly
             ds = ChunkedDataset(stream if stream is not None else X, y,
-                                chunk_rows=int(chunk_rows), layout=layout,
+                                chunk_rows=rows, layout=layout,
                                 sample_weight=sample_weight)
         self._set_features(ds.n_features)
         self._stream = ds
         self._X = self._y = self._weight = None
         self._n_rows = ds.n_rows or 0
+        self._stream_fold = (engine.build_stream_fold(self._cfg, self._mesh)
+                             if self._mesh is not None else None)
         self._invalidate_elite_cache()
 
     def _invalidate_elite_cache(self):
@@ -390,6 +495,8 @@ class GPSession:
             self.init()
         if self._stream is not None or not self._backend.jittable:
             self.state = self._host_step(self.state)
+        elif self._mesh is not None:
+            self.state = self._mesh_step()(self.state, self._X, self._y, self._weight)
         else:
             self.state = engine.evolve_step(self._cfg, self.state, self._X, self._y,
                                             self._weight)
@@ -420,9 +527,17 @@ class GPSession:
             raise ValueError(f"backend {self._backend.name!r} is host-only; "
                              f"evolution blocks need a jittable backend")
         lim = torch.full((), limit, dtype=torch.int32, device=self.device)
-        self.state, history, counters = engine.evolve_block(
-            self._cfg, self.state, self._X, self._y, self._weight, lim,
-            n_steps=n_steps)
+        if self._mesh is not None:
+            self._mesh_step()
+            block_fn = self._block_cache.get(n_steps)
+            if block_fn is None:
+                block_fn = self._block_cache[n_steps] = self.build_sharded_block(n_steps)[0]
+            self.state, history, counters = block_fn(self.state, self._X, self._y,
+                                                     self._weight, lim)
+        else:
+            self.state, history, counters = engine.evolve_block(
+                self._cfg, self.state, self._X, self._y, self._weight, lim,
+                n_steps=n_steps)
         self._last_counters = counters
         return self.state, history, counters
 
@@ -480,17 +595,31 @@ class GPSession:
         """Fitness f32[R] of genome rows [R, N] (device tensors) against
         the session's dataset, on the session's device: one backend call
         (host-only backends), or a chunk fold over the stream finalized
-        once (`engine.chunked_fitness`) inside a `stream_fold` span."""
+        once (`engine.chunked_fitness`) inside a `stream_fold` span. On a
+        mesh each chunk is split over the data axis and folded by
+        `engine.build_stream_fold` (a `chunk` span a chunk), the mesh
+        step's reduction."""
         cfg = self._cfg
         if self._stream is None:
             return self._backend.fitness(
                 op, arg, self._X, self._y, cfg.tree_spec.const_table(self.device),
                 cfg.tree_spec, cfg.fitness, weight=self._weight, data_tile=cfg.data_tile)
-        t0 = time.perf_counter()
-        with self.tracer.span("stream_fold"):
-            fitness = engine.chunked_fitness(cfg, op, arg, self._stream,
-                                             impl=self._backend.name)
-        self.metrics.observe("stream_fold_s", time.perf_counter() - t0)
+        if self._stream_fold is not None:
+            kern = fit.get_kernel(cfg.fitness.kernel)
+            acc = torch.zeros((op.shape[0], kern.n_moments), dtype=torch.float32,
+                              device=op.device)
+            for X, y, w in self._stream:
+                t0 = time.perf_counter()
+                with self.tracer.span("chunk"):
+                    acc = self._stream_fold(acc, op, arg, X, y, w)
+                self.metrics.observe("chunk_s", time.perf_counter() - t0)
+            fitness = kern.reduce_moments(acc, cfg.fitness)
+        else:
+            t0 = time.perf_counter()
+            with self.tracer.span("stream_fold"):
+                fitness = engine.chunked_fitness(cfg, op, arg, self._stream,
+                                                 impl=self._backend.name)
+            self.metrics.observe("stream_fold_s", time.perf_counter() - t0)
         n = self._stream.n_rows
         if n is not None and n != self._n_rows:  # a callable source's first pass
             self._n_rows = n

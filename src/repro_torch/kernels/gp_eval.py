@@ -128,8 +128,12 @@ def _lib():
     return _LIB
 
 
-def _call(name: str, entry: str, *args) -> None:
-    err = getattr(_lib(), entry)(*args)
+def _call(name: str, entry: str, dev, *args) -> None:
+    """Launch `entry` on `dev`'s current stream (passed as the last
+    argument) with `dev` the current device, so a tensor on another card
+    than the current one launches in its own card's context."""
+    with torch.cuda.device(dev):
+        err = getattr(_lib(), entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     launches[name] += 1
@@ -289,12 +293,12 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
     slots = constant(postorder_slots(N), dev, np.int32)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
-        _call("eval_fitness", "gp_eval_fitness", _at(op, s, N), _at(arg, s, N),
+        _call("eval_fitness", "gp_eval_fitness", dev, _at(op, s, N), _at(arg, s, N),
               slots.data_ptr(), n, N, max_depth, X.data_ptr(), F, D, y.data_ptr(),
               _ptr(weight), const_table.data_ptr(), const_table.shape[0],
               _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
               float(np.float32(precision)), data_tile, _at(partial, s, tiles * M),
-              _at(tickets, s), _at(out, s, M), torch.cuda.current_stream(dev).cuda_stream)
+              _at(tickets, s), _at(out, s, M))
     return out
 
 
@@ -356,12 +360,12 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
     g, rw = _gate_args(gate, run_when, dev)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
-        _call("eval_fitness_postfix", "gp_eval_postfix", _at(op, s, N), _at(arg, s, N), n,
+        _call("eval_fitness_postfix", "gp_eval_postfix", dev, _at(op, s, N), _at(arg, s, N), n,
               N, stack_size, X.data_ptr(), F, D, y.data_ptr(),
               _ptr(weight), const_table.data_ptr(), const_table.shape[0],
               _fn_set(fn_codes).mask, kern.device_id, float(n_classes - 1),
               float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles * M),
-              _at(tickets, s), _at(out, s, M), torch.cuda.current_stream(dev).cuda_stream)
+              _at(tickets, s), _at(out, s, M))
     return out
 
 
@@ -419,11 +423,10 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
     g, rw = _gate_args(gate, run_when, dev)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
-        _call("eval_fitness_from_subtrees", "gp_fitness_from_subtrees", _at(root, s), n,
+        _call("eval_fitness_from_subtrees", "gp_fitness_from_subtrees", dev, _at(root, s), n,
               uniq.data_ptr(), U, D, y.data_ptr(), _ptr(weight), kern.device_id,
               float(n_classes - 1), float(np.float32(precision)), data_tile, g, rw,
-              _at(partial, s, tiles * M), _at(tickets, s), _at(out, s, M),
-              torch.cuda.current_stream(dev).cuda_stream)
+              _at(partial, s, tiles * M), _at(tickets, s), _at(out, s, M))
     return out
 
 
@@ -460,10 +463,10 @@ def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: i
     g, rw = _gate_args(gate, run_when, dev)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
-        _call("eval_fitness_from_preds", "gp_fitness_from_preds", _at(preds, s, D), n, D,
+        _call("eval_fitness_from_preds", "gp_fitness_from_preds", dev, _at(preds, s, D), n, D,
               y.data_ptr(), _ptr(weight), kern.device_id, float(n_classes - 1),
               float(np.float32(precision)), data_tile, g, rw, _at(partial, s, tiles * M),
-              _at(tickets, s), _at(out, s, M), torch.cuda.current_stream(dev).cuda_stream)
+              _at(tickets, s), _at(out, s, M))
     return out
 
 
@@ -553,11 +556,11 @@ def unique_table(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None, gate=N
     uniq = torch.empty((U, D), dtype=torch.float32, device=dev)
     blocks, smem = table_geometry(D)
     g, rw = _gate_args(gate, run_when, dev)
-    _call("unique_table", "gp_unique_table", plan.uop.data_ptr(), plan.uarg.data_ptr(),
+    _call("unique_table", "gp_unique_table", dev, plan.uop.data_ptr(), plan.uarg.data_ptr(),
           plan.ulhs.data_ptr(), plan.urhs.data_ptr(), plan.ulen.data_ptr(),
           plan.n_unique.data_ptr(), U, X.data_ptr(), F, D, const_table.data_ptr(),
           const_table.shape[0], _fn_set(fn_codes).mask, g, rw, blocks, smem,
-          uniq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+          uniq.data_ptr())
     return uniq
 
 
@@ -611,8 +614,7 @@ def predict_postfix(op, arg, X, const_table, *, stack_size: int, fn_codes=None):
     preds = torch.empty((P, D), dtype=torch.float32, device=dev)
     if P == 0 or D == 0:
         return preds
-    _call("predict_postfix", "gp_predict_postfix", op.data_ptr(), arg.data_ptr(), P, N,
+    _call("predict_postfix", "gp_predict_postfix", dev, op.data_ptr(), arg.data_ptr(), P, N,
           stack_size, X.data_ptr(), F, D, const_table.data_ptr(), const_table.shape[0],
-          _fn_set(fn_codes).mask, rows, preds.data_ptr(),
-          torch.cuda.current_stream(dev).cuda_stream)
+          _fn_set(fn_codes).mask, rows, preds.data_ptr())
     return preds

@@ -19,8 +19,12 @@ scalar` runs the paper's per-data-point baseline (1-CPU_SP):
     PYTHONPATH=src python -m repro_torch.launch.evolve --dataset kepler \\
         --backend scalar --pop 50 --generations 5 --device cpu
 
-`--mesh` is the reference's multi-GPU option, not ported yet: it raises,
-naming its ROADMAP item (A11).
+`--mesh data=2,model=2[,pod=2]` shards the run over a device mesh in
+this one process (`GPSession(topology=MeshTopology(...))`; on one card
+every shard shares it):
+
+    PYTHONPATH=src python -m repro_torch.launch.evolve --dataset kat7 \\
+        --islands 4 --pop 200 --mesh data=2,model=2,pod=2 --generations 3
 """
 from __future__ import annotations
 
@@ -31,7 +35,18 @@ import time
 
 from repro_torch.core import prng
 from repro_torch.data.datasets import BY_NAME
-from repro_torch.gp import GPSession
+from repro_torch.gp import GPSession, MeshTopology
+
+
+def parse_mesh(spec: str | None) -> MeshTopology | None:
+    """'data=2,model=2[,pod=2]' -> MeshTopology."""
+    if not spec:
+        return None
+    kw = {}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        kw[k.strip()] = int(v)
+    return MeshTopology(**kw)
 
 
 def run_dataset(name: str, *, generations: int = 30, pop: int = 100,
@@ -53,13 +68,11 @@ def run_dataset(name: str, *, generations: int = 30, pop: int = 100,
     `islands > 1` runs the island model, `pop` trees per island. `trace`
     / `metrics` are output paths arming the obs Tracer (Chrome trace
     JSON) and Metrics JSONL sink; `profile_dir`/`profile_block` arm a
-    torch.profiler window around one evolution block. Returns (state,
-    wall seconds, per-generation best-fitness history)."""
+    torch.profiler window around one evolution block. `mesh` (a
+    `parse_mesh` string or a MeshTopology) shards the run. Returns
+    (state, wall seconds, per-generation best-fitness history)."""
     from repro_torch.obs import Metrics, Tracer
 
-    if mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP queue A: A11, "
-                                  "multi-GPU)")
     tracer = (Tracer(trace, profile_dir=profile_dir, profile_block=profile_block)
               if (trace or profile_dir) else None)
     mreg = Metrics(metrics) if metrics else None
@@ -67,7 +80,8 @@ def run_dataset(name: str, *, generations: int = 30, pop: int = 100,
               backend=backend, device=device, checkpoint_dir=ckpt_dir,
               checkpoint_every=ckpt_every, islands=islands, migrate_every=migrate_every,
               migrate_k=migrate_k, island_topology=island_topology,
-              chunk_rows=chunk_rows, tracer=tracer, metrics=mreg)
+              chunk_rows=chunk_rows, tracer=tracer, metrics=mreg,
+              topology=parse_mesh(mesh) if isinstance(mesh, str) else mesh)
     if fn_set != "auto":
         kw["fn_set"] = fn_set
     history = []
@@ -125,7 +139,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs on the CPU)")
     ap.add_argument("--mesh", default=None,
-                    help="mesh topology (not ported yet: ROADMAP A11)")
+                    help="mesh topology, e.g. data=2,model=2,pod=2 (one process; "
+                         "the shards take the cards in turn)")
     ap.add_argument("--archive", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)

@@ -227,8 +227,8 @@ def test_monitors():
 def test_cli_resume_line(tmp_path, capsys):
     """`python -m repro_torch.launch.evolve` with --ckpt-dir: the second
     run resumes from the first's last generation and says so; the
-    archive gets a record a block. `--mesh` still raises (A11) and
-    `--chunk-rows` runs."""
+    archive gets a record a block. `--mesh data=2,model=2` runs a
+    generation on a mesh of the CPU, and `--chunk-rows` runs."""
     args = ["--dataset", "kat7", "--device", "cpu", "--pop", "8", "--depth", "3",
             "--islands", "2", "--migrate-every", "2", "--ckpt-dir", str(tmp_path / "ck"),
             "--ckpt-every", "2", "--archive", str(tmp_path / "arch"), "--archive-every", "2"]
@@ -240,8 +240,8 @@ def test_cli_resume_line(tmp_path, capsys):
     assert "resumed from generation 4" in out
     assert sorted(os.listdir(tmp_path / "arch")) == [
         "gen_0001.json", "gen_0003.json", "gen_0005.json"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        tevolve.main(args + ["--generations", "1", "--mesh", "data=2"])
+    tevolve.main(args[:10] + ["--generations", "1", "--mesh", "data=2,model=2"])
+    assert "[kat7] 1 generations" in capsys.readouterr().out
     # --chunk-rows streams the dataset: kepler's 9 rows in 4-row chunks
     tevolve.main(["--dataset", "kepler", "--device", "cpu", "--pop", "8", "--depth", "3",
                   "--generations", "2", "--chunk-rows", "4"])

@@ -5,8 +5,8 @@ errors where the reference raises, seeded sessions and the estimators'
 histories bit for bit on integer-lattice data (add/sub/mul trees over
 features in {-1, 0, 1}, integer constants and targets: every prediction
 and every fitness sum is an exact f32 integer), their predictions and
-scores equal, and the options the port does not have yet raising
-NotImplementedError with their ROADMAP item."""
+scores equal, and every estimator option fitting, a mesh topology
+included."""
 import jax
 import numpy as np
 import pytest
@@ -22,7 +22,7 @@ from repro_torch.core import parse as tparse
 from repro_torch.core import primitives as tprim
 from repro_torch.core import prng
 from repro_torch.core import trees as ttrees
-from repro_torch.gp import GPSession, SymbolicClassifier, SymbolicRegressor
+from repro_torch.gp import GPSession, MeshTopology, SymbolicClassifier, SymbolicRegressor
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
@@ -159,21 +159,23 @@ def test_classifier_walks_the_reference():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(topology=object()), "A11"), (dict(checkpoint_dir="ck"), None),
-    (dict(chunk_rows=16), None), (dict(islands=2), None)])
+    (dict(topology=MeshTopology(data=2, model=2)), "A11"),
+    (dict(checkpoint_dir="ck"), None), (dict(chunk_rows=16), None),
+    (dict(islands=2), None)])
 def test_estimator_unported_options_raise(option, item, tmp_path):
-    """Options not ported yet raise with their ROADMAP item; those that
-    are (item None: checkpoints, streaming with 16-row chunks, islands)
-    fit."""
+    """Every estimator option is ported now and fits: checkpoints,
+    streaming with 16-row chunks, islands, and (item: its ROADMAP entry,
+    A11) a mesh topology, which the `scalar` backend refuses with the
+    reference's ValueError."""
     X, y = _lattice(4, rows=16)
     for est in (SymbolicRegressor, SymbolicClassifier):
         if "checkpoint_dir" in option:  # a directory of its own per estimator
             option = dict(checkpoint_dir=str(tmp_path / est.__name__))
-        if item is None:
-            fitted = est(device="cpu", pop_size=8, generations=2, **option).fit(X, y)
-            assert fitted.session_.generation == 2
-            continue
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A: {item}"):
-            est(device="cpu", **option).fit(X, y)
+        fitted = est(device="cpu", pop_size=8, generations=2, **option).fit(X, y)
+        assert fitted.session_.generation == 2
+        if item == "A11":
+            assert fitted.session_.mesh.shape == {"data": 2, "model": 2}
+            with pytest.raises(ValueError, match="does not support mesh topologies"):
+                est(device="cpu", backend="scalar", **option).fit(X, y)
     with pytest.raises(ValueError, match="not fitted"):
         SymbolicRegressor(device="cpu").predict(X)

@@ -14,7 +14,7 @@ from repro.gp import GPSession as JSession
 from repro_torch.core import engine as tengine
 from repro_torch.core import prng
 from repro_torch.data import datasets as tdata
-from repro_torch.gp import GPSession
+from repro_torch.gp import GPSession, MeshTopology
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
@@ -160,16 +160,22 @@ def test_default_config_picks_the_device_backend(monkeypatch):
 
 
 def test_not_ported_options_raise(tmp_path):
-    """The options the port does not have yet raise, naming their ROADMAP
-    item; streaming (constructor and ingest `chunk_rows=`), the `scalar`
-    backend, islands, checkpoints and the tracer/metrics now construct and
-    run, an empty stream raises the reference's ValueError, and the slot
-    swap runs (on a classic session it raises the reference's ValueError)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A: A11"):
-        GPSession(device="cpu", topology=object())
+    """Every option of the reference's session is ported now: a session
+    with a `MeshTopology` (A11) runs, and the `scalar` backend refuses a
+    topology with the reference's ValueError; streaming (constructor and
+    ingest `chunk_rows=`), the `scalar` backend, islands, checkpoints and
+    the tracer/metrics construct and run, an empty stream raises the
+    reference's ValueError, and the slot swap runs (on a classic session
+    it raises the reference's ValueError)."""
+    X_rows, y, _ = tdata.kepler()
+    meshed = GPSession(device="cpu", pop_size=8, max_depth=3,
+                       topology=MeshTopology(data=2, model=2)).fit(X_rows, y, generations=2)
+    assert meshed.generation == 2 and meshed.n_rows == 9 and meshed.mesh.size == 4
+    assert math.isfinite(meshed.best_fitness)
+    with pytest.raises(ValueError, match="does not support mesh topologies"):
+        GPSession(device="cpu", backend="scalar", topology=MeshTopology(data=2))
     assert GPSession(device="cpu", chunk_rows=8)._chunk_rows == 8
     assert GPSession(device="cpu", backend="scalar").backend == "scalar"
-    X_rows, y, _ = tdata.kepler()
     s = GPSession(device="cpu", pop_size=8).ingest(X_rows, y)
     s.ingest(X_rows, y, chunk_rows=4)
     assert s.n_rows == 9 and s._stream.n_chunks == 3
