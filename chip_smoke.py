@@ -8,7 +8,8 @@ port's paths (`GPSession` with its defaults: heap trees of depth 5, one
 device, elite cache, K-generation blocks; then postfix genomes with and
 without subexpression dedup; then the two-pass fitness kernels pearson
 and r2 on those paths; the island model; streaming at the paper's 5.5M
-rows and the scalar baseline; the multi-tenant service; the mesh) through the
+rows and the scalar baseline; the multi-tenant service; the mesh; LM
+serving of the model zoo) through the
 user's entry points, and checks the
 results against the same sessions run on the CPU. Every phase prints
 one JSON line; any failure raises, so the exit code is non-zero. The
@@ -153,6 +154,21 @@ Phases:
      onto (pod 4, data 2, model 1), bitwise, then 3 generations card ==
      CPU; (h) `python -m repro_torch.launch.evolve --mesh
      data=2,model=2,pod=2` as a subprocess
+  11. LM serving on the card (`repro_torch.models`: prefill, then greedy
+     decode over the KV/SSM cache; no Pallas kernel is on this path, so it
+     adds no kernel to the `kernels` line): (a) the ten reduced configs in
+     f32 (capacity factor 8), card against CPU from the same seeded
+     weights, prefill and 4 decode steps within rtol/atol 1e-4, the MoE
+     routing equal; (b) gemma-2b, mamba2-370m, granite-moe-3b-a800m and
+     whisper-medium at their published widths and depths in f32:
+     teacher-forced decode logits == the forward pass's within 2e-3 (B 1,
+     12 tokens, a prefix of 4); (c) the same four in bf16: B 8, a
+     1,024-token prompt (whisper: stub frames [8, 1500, 1024]), 64 greedy
+     tokens, twice with the tokens bitwise equal; prefill ms, decode ms a
+     token (median of the warm steps' CUDA events), tokens/s, peak MB,
+     the bound (bf16 weights + the cache over 3.35 TB/s), and one profiled
+     step (CUDA launches, device busy, idle share) and one step under
+     torch.cuda.set_sync_debug_mode("error")
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -194,8 +210,13 @@ from repro_torch.core import fitness as fit  # noqa: E402
 from repro_torch.core import primitives as prim  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import trees  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.gp import GPSession, MeshTopology  # noqa: E402
 from repro_torch.kernels import build, gp_eval, ops  # noqa: E402
+from repro_torch.models import convert as lm_convert  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import transformer as lm_T  # noqa: E402
 from repro_torch.obs import counters  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -2467,6 +2488,255 @@ def mesh_paths():
     return runs
 
 
+# --- phase 11: LM serving on one card ---------------------------------------------
+
+LM_F32 = dict(compute_dtype="float32", cache_dtype="float32", moe_capacity_factor=8.0)
+LM_FULL = ("gemma-2b", "mamba2-370m", "granite-moe-3b-a800m", "whisper-medium")
+
+
+def _lm_inputs(cfg, B, S, device, seed=0):
+    """Prompt tokens (and whisper's stub frames, the VLM's stub patches)
+    from a numpy seed, on `device`."""
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab, (B, S)), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            (rng.randn(B, cfg.n_memory, cfg.d_model) * 0.02).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["memory"] = torch.from_numpy(
+            (rng.randn(B, cfg.n_memory, cfg.d_model) * 0.02).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _record_routes():
+    """Wrap `moe._route` to record each call's expert ids and kept entries
+    (on the host) -> (the record list, a function that restores it)."""
+    routes, original = [], lm_moe._route
+
+    def wrapped(logits, top_k, C, E):
+        out = original(logits, top_k, C, E)
+        routes.append((out[2].cpu(), out[4].cpu()))
+        return out
+
+    lm_moe._route = wrapped
+    return routes, lambda: setattr(lm_moe, "_route", original)
+
+
+def _lm_run(cfg, params, batch, steps, feed=None, tensor_pos=False):
+    """Prefill + `steps` decode steps, fed `feed`'s tokens (else greedy) ->
+    ([(logits, cache) on the host after each call], the tokens fed, routes)."""
+    routes, restore = _record_routes()
+    try:
+        S = batch["tokens"].shape[1]
+        logits, cache = lm_model.prefill(cfg, params, batch, max_len=S + steps + 1)
+        out = [(logits.cpu(), lm_convert.cache_to_numpy(cache))]
+        fed = []
+        for t in range(steps):
+            tok = feed[t].to(logits.device) if feed else logits.argmax(-1).to(torch.int32)
+            fed.append(tok.cpu())
+            pos = torch.tensor(S + t, device=logits.device) if tensor_pos else S + t
+            logits, cache = lm_model.decode_step(cfg, params, cache, tok, pos)
+            out.append((logits.cpu(), lm_convert.cache_to_numpy(cache)))
+    finally:
+        restore()
+    return out, fed, routes
+
+
+def _lm_card_vs_cpu(steps=4):
+    """(a) every reduced config in f32 (capacity factor 8): the same weights
+    (made on the CPU from a seed, copied to the card), prefill logits and
+    cache and `steps` decode steps (the CPU's greedy tokens fed to both;
+    the card's position a 0-d device tensor) within rtol/atol 1e-4; the MoE
+    routing (expert ids, kept entries) equal."""
+    out = {}
+    for name in lm_configs.all_arch_names():
+        cfg = dataclasses.replace(lm_configs.get_reduced(name), **LM_F32)
+        cpu_params = lm_model.init_params(cfg, 0, device="cpu")
+        card_params = lm_model.init_params(cfg, 0, device="cpu").to(DEV)
+        want, fed, want_routes = _lm_run(cfg, cpu_params, _lm_inputs(cfg, 2, 8, "cpu"), steps)
+        got, _, got_routes = _lm_run(cfg, card_params, _lm_inputs(cfg, 2, 8, DEV), steps,
+                                     feed=fed, tensor_pos=True)
+        err = 0.0
+        for i, ((gl, gc), (wl, wc)) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(gl.numpy(), wl.numpy(), rtol=1e-4, atol=1e-4,
+                                       err_msg=f"lm card vs cpu {name} step {i} logits")
+            err = max(err, float((gl - wl).abs().max()))
+            for b in wc:
+                for n in wc[b]:
+                    np.testing.assert_allclose(gc[b][n], wc[b][n], rtol=1e-4, atol=1e-4,
+                                               err_msg=f"lm card vs cpu {name} {b}.{n}")
+        if len(got_routes) != len(want_routes) or not all(
+                torch.equal(ge, we) and torch.equal(gk, wk)
+                for (ge, gk), (we, wk) in zip(got_routes, want_routes)):
+            raise AssertionError(f"lm card vs cpu {name}: the MoE routing differs")
+        out[name] = dict(max_abs_err=err, moe_calls=len(got_routes))
+    return out
+
+
+def _lm_decode_vs_forward(name, S=12, pfx=4):
+    """(b) a published config at full width in f32 on the card (its own
+    weights from a seed): teacher-forced decode logits against the forward
+    pass's (`block_apply_train` over the whole sequence) position by
+    position within 2e-3, as the reference's test_decode_matches_forward."""
+    cfg = dataclasses.replace(lm_configs.get_config(name), **LM_F32)
+    params = lm_model.init_params(cfg, 0, device=DEV)
+    rng = np.random.RandomState(0)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab, (1, S)), dtype=torch.int32, device=DEV)
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":  # the reference test's S frames
+        batch["frames"] = torch.from_numpy(
+            (rng.randn(1, S, cfg.d_model) * 0.02).astype(np.float32)).to(DEV)
+    _, cache = lm_model.prefill(cfg, params, {**batch, "tokens": tokens[:, :pfx]},
+                                max_len=S + 2)
+    got = []
+    for t in range(pfx, S):
+        logits, cache = lm_model.decode_step(cfg, params, cache, tokens[:, t:t + 1], t)
+        got.append(logits[0, 0])
+    with torch.no_grad():
+        x = lm_T.embed_tokens(cfg, params["tok"], tokens)
+        if cfg.pos_embed == "sinusoidal":
+            x = x + lm_model._sinusoidal(S, cfg.d_model, x.dtype, DEV)[None]
+        memory = lm_model._encode_memory(cfg, params, batch)
+        x, _ = lm_T.stack_apply_train(cfg, params["stack"], x, cfg.pattern, memory=memory)
+        x = lm_T._apply_norm(cfg, params["final_norm"], x)
+        ref = (x.float() @ lm_T._unembed_matrix(cfg, params["tok"]).float())[0, pfx:]
+    got = torch.stack(got)
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3,
+                               msg=lambda m: f"lm decode vs forward {name}: {m}")
+    out = dict(params=cfg.param_count(), max_abs_err=float((got - ref).abs().max()),
+               positions=S - pfx)
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_bound_ms(cfg, served, cache):
+    """The least time of one decode step: the bf16 weights it reads (the
+    embedding table only as the tied head; an untied one's B rows are
+    nothing) and the whole cache, over the HBM rate."""
+    weights = sum(p.numel() * p.element_size() for p in served.parameters())
+    if not cfg.tie_embeddings:
+        emb = served["tok"]["embed"]
+        weights -= emb.numel() * emb.element_size()
+    cache_bytes = sum(a.numel() * a.element_size() for c in cache.values() for a in c.values())
+    return (weights + cache_bytes) / HBM_BYTES_PER_S * 1e3, weights, cache_bytes
+
+
+def _lm_serve_timed(name, B=8, P=1024, tokens=64):
+    """(c) a bf16 serve at full width: prefill of B x P tokens, then
+    `tokens` greedy tokens with the position and the token on the card,
+    twice (the tokens bitwise equal); the second run timed (prefill by
+    CUDA events, each decode step by CUDA events, the loop by the host
+    clock), its peak memory; one more step under torch.profiler (CUDA
+    launches, device busy, idle share) and one under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = lm_configs.get_config(name)
+    params = lm_model.init_params(cfg, 0, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = lm_model._cast(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0
+    batch = _lm_inputs(cfg, B, P, DEV)
+    max_len = P + tokens + 1
+
+    def serve():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * tokens)]
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter()
+        ev[0].record()
+        logits, cache = lm_model.prefill(cfg, params, batch, max_len=max_len)
+        ev[1].record()
+        tok = logits.argmax(-1).to(torch.int32)
+        out = [tok[:, 0]]
+        cur = torch.tensor(P, dtype=torch.int32, device=DEV)
+        torch.cuda.synchronize()
+        prefill_wall = time.perf_counter() - t_pf
+        t_loop = time.perf_counter()
+        for i in range(tokens - 1):
+            ev[2 + 2 * i].record()
+            logits, cache = lm_model.decode_step(cfg, params, cache, tok, cur)
+            ev[3 + 2 * i].record()
+            tok = logits.argmax(-1).to(torch.int32)
+            out.append(tok[:, 0])
+            cur = cur + 1
+        seqs = torch.stack(out, 1)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t_loop
+        steps = [ev[2 + 2 * i].elapsed_time(ev[3 + 2 * i]) for i in range(tokens - 1)]
+        return seqs.cpu(), cache, tok, cur, dict(
+            prefill_ms=ev[0].elapsed_time(ev[1]), prefill_wall_ms=prefill_wall * 1e3,
+            decode_ms_per_token=statistics.median(steps[2:]),
+            decode_ms_min=min(steps[2:]), loop_s=loop_s,
+            tokens_per_s=B * (tokens - 1) / loop_s)
+
+    first, _, _, _, _ = serve()
+    torch.cuda.reset_peak_memory_stats()
+    second, cache, tok, cur, fig = serve()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    if not torch.equal(first, second):
+        raise AssertionError(f"lm serve {name}: two runs' greedy tokens differ")
+    bound_ms, w_bytes, c_bytes = _lm_bound_ms(cfg, served, cache)
+    # one more step under the profiler, then one under the sync check
+    lm_model.decode_step(cfg, params, cache, tok, cur)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm_model.decode_step(cfg, params, cache, tok, cur)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = _device_events(prof)
+    busy = _busy_us(dev_events) / 1e3
+    averages = prof.key_averages()
+    launches = sum(e.count for e in averages if "LaunchKernel" in e.key)
+    # the step's most frequent aten calls: where its launches come from
+    top_ops = sorted(((e.key, e.count) for e in averages if e.key.startswith("aten::")),
+                     key=lambda kv: -kv[1])[:12]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = lm_model.decode_step(cfg, params, cache, tok, cur)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"lm serve {name}: non-finite logits")
+    out = dict(params=cfg.param_count(), batch=B, prompt=P, tokens=tokens, cast_s=cast_s,
+               **fig, peak_mb=peak_mb, bound_ms=bound_ms, bound_by="bytes",
+               weight_bytes=w_bytes, cache_bytes=c_bytes,
+               cuda_launches_per_step=launches, device_events_per_step=len(dev_events),
+               profiled_step_ms=wall * 1e3, device_busy_ms=busy, top_ops=top_ops,
+               idle_share=1 - busy / (wall * 1e3), sync_free_step=True,
+               tokens_equal=True, first_tokens=second[0, :8].tolist())
+    del params, served, cache  # the bf16 copy lives on `params`
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_paths():
+    """Phase 11: the LM serving path (`repro_torch.models`) -> {run: figures}."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    runs = {}
+    t0 = time.perf_counter()
+    runs["card_vs_cpu"] = _lm_card_vs_cpu()
+    emit("lm", run="card_vs_cpu", nvidia_smi=card, run_s=time.perf_counter() - t0,
+         configs=runs["card_vs_cpu"])
+    for name in LM_FULL:
+        t0 = time.perf_counter()
+        runs[f"decode_vs_forward_{name}"] = r = _lm_decode_vs_forward(name)
+        emit("lm", run="decode_vs_forward", arch=name, nvidia_smi=card,
+             run_s=time.perf_counter() - t0, **r)
+    for name in LM_FULL:
+        t0 = time.perf_counter()
+        runs[f"serve_{name}"] = r = _lm_serve_timed(name)
+        emit("lm", run="serve_bf16", arch=name, nvidia_smi=card,
+             run_s=time.perf_counter() - t0, **r)
+    emit("lm", run="done", phase_s=time.perf_counter() - t_phase)
+    return runs
+
+
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
             ("postfix_exact_cap100", {"genome": "postfix"}),
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
@@ -2648,6 +2918,7 @@ def main():
     stream_runs, _ = stream_paths(main_run["history"])
     _, service_of = service_paths()
     mesh_runs = mesh_paths()
+    lm_paths()
     # the mesh path's launches (phase 10), from the run whose work each
     # kernel does there; the probe is not on it (mesh steps carry no cache)
     mesh_of = {"eval_fitness": "islands", "eval_fitness_postfix": "postfix_off",

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -645,6 +646,25 @@ def evolve_block(cfg: GPConfig, state: GPState, X, y, weight=None, limit=None, *
         hist.append(nxt.best_fitness)
         s = nxt
     return s, torch.stack(hist), torch.stack(rows)
+
+
+def run(cfg: GPConfig, X, y, key=None, generations: int | None = None,
+        callback=None, seeds=None, feature_names=None, device=None) -> GPState:
+    """DEPRECATED — thin forwarder to :class:`repro_torch.gp.GPSession`, kept
+    so pre-session callers don't break. X is feature-major [F, D] (the old
+    contract); the session's own `fit` takes row-major data. `device` as
+    the session's (None: the card)."""
+    warnings.warn(
+        "repro_torch.core.run is deprecated; use repro_torch.gp.GPSession "
+        "(session = GPSession(cfg); session.fit(X_rows, y)) instead",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.gp import GPSession
+
+    sess = GPSession(cfg, feature_names=feature_names, callback=callback, device=device)
+    sess.ingest(X, y, layout="features")
+    sess.init(key=key, seeds=seeds)
+    sess.evolve(generations)
+    return sess.state
 
 
 # --- streaming chunked fitness ------------------------------------------------

@@ -200,9 +200,15 @@ def _mse_partial(preds, y, w, spec):
     return torch.where(torch.isnan(err2), math.inf, err2).sum(-1)
 
 
+def _mean(x):
+    """Mean over the last axis as XLA takes `jnp.mean`: the sum times the
+    f32 reciprocal of the count (torch's `mean` divides, an ulp away)."""
+    return x.sum(-1) * _f32(1.0 / x.shape[-1])
+
+
 def _classify_metric(preds, y, spec):
     lab = classify_labels(torch.nan_to_num(preds), spec.n_classes)
-    return (lab == y[None, :].to(torch.int32)).float().mean(-1)
+    return _mean((lab == y[None, :].to(torch.int32)).float())
 
 
 def _nonfinite_count(preds, w):
@@ -367,18 +373,18 @@ def _r2_reduce(m, spec):
 register_kernel(FitnessKernel(
     name=REGRESSION, aliases=("regression", "abs"), device_id=0,
     partial_fitness=_regression_partial,
-    metric=lambda preds, y, spec: (preds - y[None, :]).abs().mean(-1)))
+    metric=lambda preds, y, spec: _mean((preds - y[None, :]).abs())))
 register_kernel(FitnessKernel(
     name=CLASSIFY, aliases=("classify", "classification"), device_id=1,
     partial_fitness=_classify_partial, metric=_classify_metric))
 register_kernel(FitnessKernel(
     name=MATCH, aliases=("match",), device_id=2,
     partial_fitness=_match_partial,
-    metric=lambda preds, y, spec: (
-        (preds - y[None, :]).abs() <= _f32(spec.precision)).float().mean(-1)))
+    metric=lambda preds, y, spec: _mean(
+        ((preds - y[None, :]).abs() <= _f32(spec.precision)).float())))
 register_kernel(FitnessKernel(
     name="mse", partial_fitness=_mse_partial, device_id=3,
-    metric=lambda preds, y, spec: torch.square(preds - y[None, :]).mean(-1)))
+    metric=lambda preds, y, spec: _mean(torch.square(preds - y[None, :]))))
 register_kernel(FitnessKernel(
     name="pearson", n_moments=_PEARSON_MOMENTS, device_id=4,
     partial_fitness=_pearson_partial,
@@ -441,3 +447,8 @@ def scatter_tree_y(kern: FitnessKernel, tree_m, y_m):
     out[..., list(kern.y_moment_idx)] = torch.broadcast_to(
         y_m, (*lead, len(kern.y_moment_idx))).to(tree_m.dtype)
     return out
+
+
+def accuracy_from_preds(preds, y, spec: FitnessSpec):
+    """Human-facing metric (fraction correct / mean abs err) for reporting."""
+    return get_kernel(spec.kernel).metric(preds, y.to(torch.float32), spec)

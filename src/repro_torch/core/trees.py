@@ -56,6 +56,16 @@ def depth_table(num_nodes: int) -> np.ndarray:
     return np.floor(np.log2(np.arange(num_nodes) + 1)).astype(np.int32)
 
 
+def subtree_mask_table(num_nodes: int) -> np.ndarray:
+    """MASK[i, j] = True iff j is i or a descendant of i."""
+    depth = depth_table(num_nodes)
+    i = np.arange(num_nodes)[:, None] + 1  # 1-based
+    j = np.arange(num_nodes)[None, :] + 1
+    k = depth[None, :] - depth[:, None]  # relative depth of j under i
+    anc = np.where(k >= 0, j >> np.maximum(k, 0), -1)
+    return (anc == i) & (k >= 0)
+
+
 # --- generation spec ---------------------------------------------------------
 
 _GENOMES = ("tree", "postfix")

@@ -7,6 +7,7 @@ hand-written kernel) and the sklearn-style `SymbolicRegressor` /
 """
 from repro_torch.core.engine import GPConfig, GPState  # noqa: F401
 from repro_torch.core.evolve import OperatorMix  # noqa: F401
+from repro_torch.core.islands import IslandConfig  # noqa: F401
 from repro_torch.core.fitness import (  # noqa: F401
     FitnessKernel, FitnessSpec, available_kernels, get_kernel, register_kernel,
 )

@@ -1,0 +1,342 @@
+"""ArchConfig + model assembly + the serving entry points (port of
+`repro/models/model.py`).
+
+`init_params(cfg, key, device)` builds an `LM` module of f32 master
+weights; `prefill` and `decode_step` serve from it. The reference casts
+the parameters to the compute dtype on every call; a cast gives the same
+bits each time, so the port casts once per model and keeps that copy
+(`_cast`). Entry points run on the card unless given `device="cpu"`.
+
+`forward_train`, `make_train_step` and `input_specs` wait for the
+training slice (ROADMAP A13b).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import AttnDims, _no_policy
+from repro_torch.models.ssm import SSMDims
+from repro_torch.models.transformer import ShardingPolicy
+
+_TRAINING = "the LM training slice (ROADMAP A13b)"
+
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    act: str = "silu"
+    gated_mlp: bool = True
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    pos_embed: str = "rope"  # rope | sinusoidal
+    norm: str = "rms"  # rms | ln
+    norm_plus_one: bool = False
+    embed_scale: bool = False
+    tie_embeddings: bool = False
+    # moe
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    # ssm
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 128
+    # structure: pattern repeated n_layers/len(pattern) times
+    pattern: tuple = (("attn", "dense"),)
+    enc_layers: int = 0  # whisper encoder depth
+    n_memory: int = 0  # cross-attn memory tokens (enc output / image patches)
+    # attention chunking
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    # numerics / optimizer
+    compute_dtype: str = "bfloat16"
+    cache_dtype: str = "bfloat16"
+    optimizer: str = "adamw"  # adamw | adafactor
+    moe_capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    accum_steps: int = 1
+    # sharding (None → no constraints; the mesh slice installs a policy)
+    policy: ShardingPolicy | None = None
+    # shape-cell support (full attention archs skip long_500k)
+    subquadratic: bool = False
+
+    @property
+    def attn_dims(self) -> AttnDims:
+        return AttnDims(self.d_model, self.n_heads, self.n_kv, self.d_head,
+                        self.qkv_bias, self.rope_theta)
+
+    @property
+    def ssm_dims(self) -> SSMDims:
+        return SSMDims(self.d_model, self.ssm_state, self.ssm_headdim,
+                       self.ssm_groups, chunk=self.ssm_chunk)
+
+    @property
+    def n_groups(self) -> int:
+        assert self.n_layers % len(self.pattern) == 0, (self.n_layers, self.pattern)
+        return self.n_layers // len(self.pattern)
+
+    def with_policy(self, policy: ShardingPolicy | None) -> "ArchConfig":
+        return dataclasses.replace(self, policy=policy)
+
+    def param_count(self) -> int:
+        """Parameters of `init_params`, counted on the `meta` device: no
+        weight is allocated (jamba's 398 B included)."""
+        return sum(p.numel() for p in init_params(self, 0, device="meta").parameters())
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of moe_experts)."""
+        total = self.param_count()
+        if not self.moe_experts:
+            return total
+        n_moe_layers = sum(1 for _, ml in self.pattern if ml == "moe") * self.n_groups
+        per = self.d_model * self.moe_d_ff * (3 if self.gated_mlp else 2)
+        expert = n_moe_layers * per
+        return total - expert * self.moe_experts + expert * self.moe_top_k
+
+
+ENC_PATTERN = (("attn_full", "dense"),)
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+class LM(nn.ModuleDict):
+    """The parameter tree of one architecture: `tok` (embed, unembed),
+    `stack`, `final_norm`, and for encdec `enc_stack` and `enc_norm`, under
+    the reference's names. `tree()` is the nested dict (stacks as lists of
+    groups); `LM(cfg, tree)` builds the module from it."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        mods: dict[str, nn.Module] = {}
+        for k, v in tree.items():
+            if k in ("stack", "enc_stack"):
+                mods[k] = T.Stack(v)
+            else:
+                mods[k] = nn.ParameterDict({n: T._frozen(t) for n, t in v.items()})
+        super().__init__(mods)
+        self.cfg = cfg
+        self._casts = {}  # dtype -> (master versions, cast LM)
+
+    def tree(self) -> dict:
+        return {k: (m.tree() if isinstance(m, T.Stack) else dict(m.items()))
+                for k, m in self.items()}
+
+    @property
+    def device(self) -> torch.device:
+        return self["tok"]["embed"].device
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _generator(key, device: torch.device):
+    if device.type == "meta":
+        return None
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=device).manual_seed(int(key))
+
+
+def init_params(cfg: ArchConfig, key=0, device=None) -> LM:
+    """Full parameter module (f32 master copies; served through the
+    compute-dtype copy `_cast` makes). `key` is a seed or a
+    `torch.Generator` on `device`; the weights have the reference's
+    distribution and scale, not its bits (`models.convert` carries the
+    reference's across). `device="meta"` builds shapes only."""
+    dev = resolve_device(device)
+    gen = _generator(key, dev)
+    f32 = torch.float32
+    tree: dict[str, Any] = {
+        "tok": T.embed_init(cfg, gen, f32, dev),
+        "stack": T.stack_init(cfg, gen, cfg.pattern, cfg.n_groups, f32, dev),
+        "final_norm": T._norm_init(cfg, f32, dev),
+    }
+    if cfg.family == "encdec":
+        tree["enc_stack"] = T.stack_init(cfg, gen, ENC_PATTERN, cfg.enc_layers, f32, dev)
+        tree["enc_norm"] = T._norm_init(cfg, f32, dev)
+    return LM(cfg, tree)
+
+
+def _cast(params: LM, dtype) -> LM:
+    """`params` with every floating leaf in `dtype`, as the reference's
+    `_cast`: `params` itself when they already are, else a copy made once
+    and kept on `params` (remade when a master weight changes in place)."""
+    leaves = list(params.parameters())
+    if all(p.dtype == dtype or not p.is_floating_point() for p in leaves):
+        return params
+    versions = tuple(p._version for p in leaves)
+    hit = params._casts.get(dtype)
+    if hit is None or hit[0] != versions:
+        params._casts.clear()
+        cast = LM(params.cfg, _map_tree(
+            params.tree(), lambda a: a.detach().to(dtype) if a.is_floating_point() else a))
+        hit = params._casts[dtype] = (versions, cast)
+    return hit[1]
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoidal_table(max_len: int, d: int, dtype: torch.dtype, device: torch.device):
+    pos = np.arange(max_len)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(dtype).to(device)
+
+
+def _sinusoidal(max_len, d, dtype, device="cpu"):
+    """Sinusoidal positions [max_len, d]: numpy f64, then a cast, as the
+    reference's; made once per shape, dtype and device and kept there, so
+    a decode step copies nothing to the card."""
+    return _sinusoidal_table(int(max_len), int(d), dtype, torch.device(device))
+
+
+def _encode_memory(cfg, params, batch):
+    """Cross-attention memory: whisper runs the encoder over (stubbed) frame
+    embeddings; VLM consumes (stubbed) patch embeddings directly. `params`
+    is already in the compute dtype."""
+    dev = params.device
+    if cfg.family == "encdec":
+        mem = batch["frames"].to(dev, _dtype(cfg))
+        mem = mem + _sinusoidal(mem.shape[1], cfg.d_model, mem.dtype, dev)[None]
+        mem, _ = T.stack_apply_train(cfg, params["enc_stack"], mem, ENC_PATTERN,
+                                     causal=False)
+        return T._apply_norm(cfg, params["enc_norm"], mem)
+    if cfg.family == "vlm":
+        return batch["memory"].to(dev, _dtype(cfg))
+    return None
+
+
+def forward_train(cfg: ArchConfig, params, batch):
+    raise NotImplementedError(f"forward_train belongs to {_TRAINING}")
+
+
+# --------------------------------------------------------------------------
+# serve: cache init / prefill / decode
+# --------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
+    return T.stack_cache_init(cfg, cfg.pattern, cfg.n_groups, batch, max_len,
+                              getattr(torch, cfg.cache_dtype), resolve_device(device))
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
+    """One token for every sequence. token: [B,1] int; cur_len: a Python int
+    or a 0-d int tensor on the params' device. Returns (logits [B,1,V] f32,
+    cache). The cache is written in place and returned: the cache passed in
+    is consumed. Nothing in a step reads the device back."""
+    _no_policy(cfg.policy)
+    p = _cast(params, _dtype(cfg))
+    x = T.embed_tokens(cfg, p["tok"], token)
+    if cfg.pos_embed == "sinusoidal":
+        pe = _sinusoidal(cache_max_len(cache), cfg.d_model, x.dtype, x.device)
+        if isinstance(cur_len, torch.Tensor):
+            row = cur_len.reshape(1).clamp(0, pe.shape[0] - 1).to(torch.long)
+            x = x + pe.index_select(0, row)[None]
+        else:
+            c = min(max(int(cur_len), 0), pe.shape[0] - 1)
+            x = x + pe[c:c + 1][None]
+    x, cache = T.stack_apply_decode(cfg, p["stack"], x, cache, cur_len, cfg.pattern)
+    x = T._apply_norm(cfg, p["final_norm"], x)
+    return T.logits_last(cfg, p["tok"], x), cache
+
+
+def cache_max_len(cache) -> int:
+    for k in cache:
+        if "k" in cache[k]:
+            return cache[k]["k"].shape[2]
+    return 1
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params, batch, max_len: int):
+    """Process the full prompt, build the cache, return last-token logits.
+
+    tokens: [B, S] → (logits [B,1,V] f32, cache); the next position is S.
+    """
+    _no_policy(cfg.policy)
+    p = _cast(params, _dtype(cfg))
+    dev = p.device
+    tokens = batch["tokens"].to(dev)
+    B, Sq = tokens.shape
+    x = T.embed_tokens(cfg, p["tok"], tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(Sq, cfg.d_model, x.dtype, dev)[None]
+    memory = _encode_memory(cfg, p, batch)
+    x, cache = T.stack_apply_prefill(cfg, p["stack"], x, cfg.pattern, max_len,
+                                     getattr(torch, cfg.cache_dtype), memory=memory)
+    x = T._apply_norm(cfg, p["final_norm"], x)
+    logits = T.logits_last(cfg, p["tok"], x[:, -1:])
+    return logits, cache
+
+
+# --------------------------------------------------------------------------
+# step factories
+# --------------------------------------------------------------------------
+
+
+def make_serve_step(cfg: ArchConfig) -> Callable:
+    def serve_step(params, cache, token, cur_len):
+        return decode_step(cfg, params, cache, token, cur_len)
+
+    return serve_step
+
+
+def build_model(cfg: ArchConfig):
+    """Bundle the functional API for one architecture."""
+    def forward(p, b):
+        return forward_train(cfg, p, b)
+
+    return {
+        "config": cfg,
+        "init_params": lambda key, device=None: init_params(cfg, key, device),
+        "forward_train": forward,
+        "prefill": lambda p, b, m: prefill(cfg, p, b, m),
+        "decode_step": lambda p, c, t, n: decode_step(cfg, p, c, t, n),
+        "init_cache": lambda b, m, device=None: init_cache(cfg, b, m, device),
+    }
+
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+
+def shape_supported(cfg: ArchConfig, shape: str) -> bool:
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False  # full-attention archs skip
+    return True

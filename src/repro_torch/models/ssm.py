@@ -1,0 +1,220 @@
+"""Mamba-2 SSD (state-space duality) block — chunked dual form for
+training/prefill, O(1)-state recurrence for decode (port of
+`repro/models/ssm.py`).
+
+Follows the SSD algorithm of arXiv:2405.21060 §6: the sequence is split
+into chunks; within a chunk the (semi-separable) attention-like quadratic
+form runs as batched matrix products, and a short loop passes the
+[B, H, d_state, headdim] state between chunks. Sequences longer than
+`scan_block` run in macro-blocks that carry the state, as the reference's.
+
+Jamba's mamba layers reuse this block. Numerics follow the reference: the
+products it takes with `preferred_element_type=f32` upcast their operands
+here, and `M`, `prev_states` and the state inputs are rounded to the
+compute dtype on purpose before their products. softplus is
+`logaddexp(x, 0)`, as `jax.nn.softplus` is.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _no_policy, _pad_seq, dense_init, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMDims:
+    d_model: int
+    d_state: int = 128
+    headdim: int = 64
+    n_groups: int = 1
+    expand: int = 2
+    d_conv: int = 4
+    chunk: int = 128
+    scan_block: int = 4096  # macro-block: bounds SSD transients at long seq
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.headdim
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+def ssm_init(gen, dims: SSMDims, dtype=torch.float32, device=None):
+    dev = device if device is not None else gen.device
+    d_in_proj = 2 * dims.d_inner + 2 * dims.n_groups * dims.d_state + dims.n_heads
+    f32 = torch.float32
+    return {
+        "in_proj": dense_init(gen, (dims.d_model, d_in_proj), (0,), dtype, device),
+        "conv_w": dense_init(gen, (dims.d_conv, dims.conv_dim), (0,), dtype, device),
+        "conv_b": torch.zeros((dims.conv_dim,), dtype=dtype, device=dev),
+        "A_log": torch.zeros((dims.n_heads,), dtype=f32, device=dev),
+        "D": torch.ones((dims.n_heads,), dtype=f32, device=dev),
+        "dt_bias": torch.zeros((dims.n_heads,), dtype=f32, device=dev),
+        "norm": torch.ones((dims.d_inner,), dtype=dtype, device=dev),
+        "out_proj": dense_init(gen, (dims.d_inner, dims.d_model), (0,), dtype, device),
+    }
+
+
+def softplus(x):
+    """`jax.nn.softplus`: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _split_zxbcdt(zxbcdt, dims: SSMDims):
+    di, gn = dims.d_inner, dims.n_groups * dims.d_state
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:di + di + 2 * gn]
+    dt = zxbcdt[..., di + di + 2 * gn:]
+    return z, xBC, dt
+
+
+def _causal_conv(xBC, w, b):
+    """Depthwise causal conv over seq. xBC: [B, L, Cd]; w: [K, Cd]. The
+    K taps are summed in the reference's order, from 0."""
+    K, L = w.shape[0], xBC.shape[1]
+    pad = torch.cat([xBC.new_zeros((xBC.shape[0], K - 1, xBC.shape[2])), xBC], 1)
+    out = 0
+    for i in range(K):
+        out = out + pad[:, i:i + L] * w[i]
+    return F.silu(out + b)
+
+
+def _segsum(a):
+    """a: [..., T] log-decays → [..., T, T] with S[i,j] = sum_{j<k<=i} a_k
+    (lower-triangular; -inf above diagonal)."""
+    T = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    s = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=a.device))
+    return torch.where(mask, s, -torch.inf)
+
+
+def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, h0=None, policy=None):
+    """SSD dual-form scan.
+
+    x: [b,l,h,p]  dt: [b,l,h] (post-softplus)  A_log: [h]
+    B, C: [b,l,g,n]  D: [h]  h0: [b,h,n,p] initial state (macro-block carry)
+    → (y [b,l,h,p], final_state [b,h,n,p])
+    """
+    _no_policy(policy)
+    b, l0, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    # pad ragged lengths with dt=0 steps: decay exp(0)=1 and B·dt=0, so the
+    # state passes through padding untouched and y[:l0] is exact
+    pad = (-l0) % chunk
+    if pad:
+        x, dt, B, C = (_pad_seq(t, pad) for t in (x, dt, B, C))
+    l = l0 + pad
+    nc = l // chunk
+    rep = h // g
+    a = (-torch.exp(A_log))[None, None, :] * dt  # [b,l,h] log decay
+
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    ac = a.reshape(b, nc, chunk, h)
+    Bh = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Ch = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+
+    a_cum = torch.cumsum(ac, dim=2)  # [b,nc,cl,h]
+    # --- intra-chunk (the attention-like quadratic form) --------------------
+    Ldec = torch.exp(_segsum(ac.permute(0, 1, 3, 2)))  # [b,nc,h,cl,cl]
+    S = torch.einsum("bzihn,bzjhn->bzhij", Ch.float(), Bh.float())
+    M = S * Ldec
+    xdt = xc * dtc[..., None]
+    Ydiag = torch.einsum("bzhij,bzjhp->bzihp", M.to(x.dtype).float(), xdt.float())
+
+    # --- chunk-final states ---------------------------------------------------
+    decay_states = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # [b,nc,cl,h]
+    states = torch.einsum("bzjhn,bzjhp->bzhnp",
+                          (Bh * (dtc * decay_states)[..., None]).to(x.dtype).float(),
+                          xc.float())  # [b,nc,h,n,p]
+
+    # --- inter-chunk recurrence (short loop over nc) --------------------------
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # [b,nc,h]
+    prev = h0 if h0 is not None else torch.zeros((b, h, n, p), dtype=torch.float32,
+                                                 device=x.device)
+    prevs = []
+    for z in range(nc):
+        prevs.append(prev)
+        prev = prev * chunk_decay[:, z, :, None, None] + states[:, z]
+    final = prev
+    prev_states = torch.stack(prevs, dim=1)  # [b,nc,h,n,p]
+
+    # --- state → output (off-diagonal term) ----------------------------------
+    Yoff = torch.einsum("bzihn,bzhnp->bzihp", (Ch * torch.exp(a_cum)[..., None]).float(),
+                        prev_states.to(x.dtype).float())
+
+    y = (Ydiag + Yoff).reshape(b, l, h, p).to(x.dtype)
+    y = y + D[None, None, :, None] * x
+    return y[:, :l0], final
+
+
+def ssm_apply(p, x, dims: SSMDims, policy=None):
+    """Train/prefill. x: [B, L, d] → (y [B, L, d], final_state, conv_tail).
+
+    Sequences longer than `dims.scan_block` (and a multiple of it) run in
+    macro-blocks that carry the state, bounding the SSD transients to one
+    block, as the reference's `lax.scan` does."""
+    _no_policy(policy)
+    B, L, _ = x.shape
+    zxbcdt = x @ p["in_proj"]
+    z, xBC, dt = _split_zxbcdt(zxbcdt, dims)
+    conv_tail = xBC[:, -(dims.d_conv - 1):, :]  # decode warm-start
+    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    di, gn = dims.d_inner, dims.n_groups * dims.d_state
+    xs = xBC[..., :di].reshape(B, L, dims.n_heads, dims.headdim)
+    Bm = xBC[..., di:di + gn].reshape(B, L, dims.n_groups, dims.d_state)
+    Cm = xBC[..., di + gn:].reshape(B, L, dims.n_groups, dims.d_state)
+    dt = softplus(dt.float() + p["dt_bias"])
+
+    blk = dims.scan_block
+    if L > blk and L % blk == 0:
+        state = torch.zeros((B, dims.n_heads, dims.d_state, dims.headdim),
+                            dtype=torch.float32, device=x.device)
+        ys = []
+        for i in range(L // blk):
+            s = slice(i * blk, (i + 1) * blk)
+            y_b, state = ssd_chunked(xs[:, s], dt[:, s], p["A_log"], Bm[:, s], Cm[:, s],
+                                     p["D"], dims.chunk, h0=state)
+            ys.append(y_b)
+        y, final = torch.cat(ys, dim=1), state
+    else:
+        y, final = ssd_chunked(xs, dt, p["A_log"], Bm, Cm, p["D"], dims.chunk)
+    y = y.reshape(B, L, di)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return y @ p["out_proj"], final, conv_tail
+
+
+def ssm_decode(p, x, ssm_state, conv_state, dims: SSMDims):
+    """Single-token recurrence. x: [B, 1, d]; ssm_state: [B, H, N, P] f32;
+    conv_state: [B, d_conv-1, conv_dim]. Returns (y, new_ssm, new_conv)."""
+    B = x.shape[0]
+    zxbcdt = x @ p["in_proj"]
+    z, xBC, dt = _split_zxbcdt(zxbcdt, dims)
+    window = torch.cat([conv_state, xBC.to(conv_state.dtype)], dim=1)
+    new_conv = window[:, 1:]
+    conv_out = F.silu((window * p["conv_w"][None]).sum(1) + p["conv_b"])  # [B, Cd]
+    di, gn = dims.d_inner, dims.n_groups * dims.d_state
+    xs = conv_out[:, :di].reshape(B, dims.n_heads, dims.headdim)
+    Bm = conv_out[:, di:di + gn].reshape(B, dims.n_groups, dims.d_state)
+    Cm = conv_out[:, di + gn:].reshape(B, dims.n_groups, dims.d_state)
+    rep = dims.n_heads // dims.n_groups
+    Bh = Bm.repeat_interleave(rep, dim=1).float()  # [B, H, N]
+    Ch = Cm.repeat_interleave(rep, dim=1).float()
+    dt = softplus(dt[:, 0].float() + p["dt_bias"])  # [B, H]
+    dA = torch.exp(-torch.exp(p["A_log"])[None] * dt)  # [B, H]
+    upd = (dt[..., None] * Bh)[..., :, None] * xs.float()[:, :, None, :]
+    new_state = ssm_state * dA[..., None, None] + upd  # [B,H,N,P]
+    y = torch.einsum("bhn,bhnp->bhp", Ch, new_state) + p["D"][None, :, None] * xs
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return y @ p["out_proj"], new_state, new_conv

@@ -1,0 +1,325 @@
+"""Generic decoder stack: every assigned architecture is a layer *pattern*
+(port of `repro/models/transformer.py`).
+
+A model is `n_groups` repetitions of a static pattern of blocks, e.g.
+
+    dense LM     : [("attn", "dense")]                       × n_layers
+    MoE LM       : [("attn", "moe")]                         × n_layers
+    Mamba-2      : [("mamba", "none")]                       × n_layers
+    Jamba (1:7)  : [(attn,dense), (mamba,moe), (mamba,dense), ...] × 9
+    Whisper dec  : [("attn", "none"), ("cross", "dense")]    × 24
+    Llama-Vision : [(cross,dense), (attn,dense) × 4]         × 20
+
+The reference stacks a group's parameters on a leading [n_groups] axis
+and scans; the port holds one `Block` module a block (`Stack`: a list of
+groups, each a `{"b{i}": Block}` dict) and loops over the groups in
+Python. A block's parameters keep the reference's names
+(`block["attn"]["wq"]`), so the layer functions take them as they are.
+The serving cache keeps the reference's layout: `{"b{i}": {"k", "v" |
+"ck", "cv" | "ssm", "conv"}}`, each leaf stacked on n_groups.
+
+Forward only: `chunked_ce_loss` and the training step wait for A13b.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+
+# --------------------------------------------------------------------------
+# sharding policy
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """Mesh-axis names used in activation constraints. None = no constraints
+    (one device). The port's layers refuse a policy until the mesh slice
+    (ROADMAP A13c)."""
+
+    batch: tuple = ("data",)  # axes sharding the batch dim
+    model: str = "model"  # tensor-parallel axis
+    tp_size: int = 16  # size of the model axis (for divisibility rules)
+    dp_size: int = 16  # product of batch-axis sizes (for divisibility rules)
+    seq_shard_residual: bool = True  # Megatron-SP style residual layout
+    seq_axis_for_cache: str | None = None  # context-parallel KV/long-context
+
+    def __hash__(self):
+        return hash((self.batch, self.model, self.tp_size, self.dp_size,
+                     self.seq_shard_residual, self.seq_axis_for_cache))
+
+
+# --------------------------------------------------------------------------
+# parameter modules
+# --------------------------------------------------------------------------
+
+
+def _frozen(t):
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Block(nn.ModuleDict):
+    """One block of a pattern: `norm1`, a mixer (`attn` or `ssm`) and,
+    unless the MLP kind is "none", `norm2` and `mlp`; each a
+    `nn.ParameterDict` of the reference's leaves."""
+
+    def __init__(self, params: dict):
+        super().__init__({k: nn.ParameterDict({n: _frozen(t) for n, t in v.items()})
+                          for k, v in params.items()})
+
+    def tree(self) -> dict:
+        return {k: dict(v.items()) for k, v in self.items()}
+
+
+class Stack(nn.ModuleList):
+    """`n_groups` groups of a pattern; group g is `{"b{i}": Block}`."""
+
+    def __init__(self, groups: list):
+        super().__init__(nn.ModuleDict({b: Block(p) for b, p in g.items()}) for g in groups)
+
+    def tree(self) -> list:
+        return [{k: b.tree() for k, b in g.items()} for g in self]
+
+
+# --------------------------------------------------------------------------
+# block init / apply
+# --------------------------------------------------------------------------
+
+
+def _norm_init(cfg, dtype, device):
+    if cfg.norm == "ln":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+                "bias": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
+    init = torch.zeros if cfg.norm_plus_one else torch.ones
+    return {"scale": init((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def _apply_norm(cfg, p, x):
+    if cfg.norm == "ln":
+        return L.layer_norm(x, p["scale"], p["bias"])
+    return L.rms_norm(x, p["scale"], plus_one=cfg.norm_plus_one)
+
+
+def block_init(cfg, gen, mixer: str, mlp_kind: str, dtype, device=None) -> dict:
+    """One block's parameters, as the reference's `block_init` tree."""
+    dev = device if device is not None else gen.device
+    p = {"norm1": _norm_init(cfg, dtype, dev)}
+    if mixer in ("attn", "attn_full", "cross"):
+        p["attn"] = L.attn_init(gen, cfg.attn_dims, dtype, dev)
+    elif mixer == "mamba":
+        p["ssm"] = S.ssm_init(gen, cfg.ssm_dims, dtype, dev)
+    else:
+        raise ValueError(mixer)
+    if mlp_kind == "dense":
+        p["norm2"] = _norm_init(cfg, dtype, dev)
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, dtype=dtype,
+                              device=dev)
+    elif mlp_kind == "moe":
+        p["norm2"] = _norm_init(cfg, dtype, dev)
+        p["mlp"] = M.moe_init(gen, cfg.d_model, cfg.moe_d_ff, cfg.moe_experts,
+                              gated=cfg.gated_mlp, dtype=dtype, device=dev)
+    elif mlp_kind != "none":
+        raise ValueError(mlp_kind)
+    return p
+
+
+def _apply_mlp(cfg, p, x, mlp_kind: str):
+    if mlp_kind == "none":
+        return x, 0.0
+    h = _apply_norm(cfg, p["norm2"], x)
+    if mlp_kind == "dense":
+        return x + L.mlp_apply(p["mlp"], h, act=cfg.act), 0.0
+    if M.sharded_path_ok(cfg.policy, h.shape, cfg.moe_experts):
+        raise NotImplementedError("moe_apply_sharded belongs to the LM mesh slice "
+                                  "(ROADMAP A13c)")
+    y, aux = M.moe_apply(p["mlp"], h, top_k=cfg.moe_top_k, act=cfg.act,
+                         capacity_factor=cfg.moe_capacity_factor)
+    return x + y, aux
+
+
+def block_apply_train(cfg, p, x, mixer: str, mlp_kind: str, memory=None, causal=True):
+    """Forward of one block over a whole sequence (whisper's encoder, the
+    decode == forward checks). x: [B,S,d]; memory: [B,M,d] for cross
+    blocks. Returns (x, aux_loss)."""
+    h = _apply_norm(cfg, p["norm1"], x)
+    if mixer in ("attn", "attn_full"):
+        x = x + L.attn_apply(p["attn"], h, cfg.attn_dims,
+                             causal=(mixer == "attn") and causal,
+                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, policy=cfg.policy)
+    elif mixer == "cross":
+        ck, cv = L.cross_kv(p["attn"], memory, cfg.attn_dims)
+        x = x + L.cross_attn_apply(p["attn"], h, ck, cv, cfg.attn_dims,
+                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                   policy=cfg.policy)
+    elif mixer == "mamba":
+        o, _, _ = S.ssm_apply(p["ssm"], h, cfg.ssm_dims, policy=cfg.policy)
+        x = x + o
+    return _apply_mlp(cfg, p, x, mlp_kind)
+
+
+def block_cache_init(cfg, mixer: str, batch: int, max_len: int, dtype, device=None):
+    d = cfg.attn_dims
+    if mixer in ("attn", "attn_full"):
+        shp = (batch, max_len, d.n_kv, d.d_head)
+        return {"k": torch.zeros(shp, dtype=dtype, device=device),
+                "v": torch.zeros(shp, dtype=dtype, device=device)}
+    if mixer == "cross":
+        shp = (batch, cfg.n_memory, d.n_kv, d.d_head)
+        return {"ck": torch.zeros(shp, dtype=dtype, device=device),
+                "cv": torch.zeros(shp, dtype=dtype, device=device)}
+    if mixer == "mamba":
+        sd = cfg.ssm_dims
+        return {"ssm": torch.zeros((batch, sd.n_heads, sd.d_state, sd.headdim),
+                                   dtype=torch.float32, device=device),
+                "conv": torch.zeros((batch, sd.d_conv - 1, sd.conv_dim), dtype=dtype,
+                                    device=device)}
+    raise ValueError(mixer)
+
+
+def block_apply_decode(cfg, p, x, cache, cur_len, mixer: str, mlp_kind: str):
+    """x: [B,1,d]; `cache` is this block's (one group's views of the stacked
+    leaves), written in place. Returns (x, cache)."""
+    h = _apply_norm(cfg, p["norm1"], x)
+    if mixer in ("attn", "attn_full"):
+        o, nk, nv = L.attn_decode(p["attn"], h, cache["k"], cache["v"], cur_len,
+                                  cfg.attn_dims)
+        x, cache = x + o, {"k": nk, "v": nv}
+    elif mixer == "cross":
+        x = x + L.cross_attn_apply(p["attn"], h, cache["ck"], cache["cv"], cfg.attn_dims,
+                                   q_chunk=1, kv_chunk=cfg.kv_chunk)
+    elif mixer == "mamba":
+        o, ns, nc = S.ssm_decode(p["ssm"], h, cache["ssm"], cache["conv"], cfg.ssm_dims)
+        cache["ssm"].copy_(ns)
+        cache["conv"].copy_(nc)
+        x = x + o
+    x, _ = _apply_mlp(cfg, p, x, mlp_kind)
+    return x, cache
+
+
+# --------------------------------------------------------------------------
+# stack init / apply (a Python loop over the groups)
+# --------------------------------------------------------------------------
+
+
+def stack_init(cfg, gen, pattern, n_groups: int, dtype, device=None) -> list:
+    """`n_groups` groups' parameter trees (a `Stack` holds them)."""
+    return [{f"b{i}": block_init(cfg, gen, mx, ml, dtype, device)
+             for i, (mx, ml) in enumerate(pattern)} for _ in range(n_groups)]
+
+
+def stack_apply_train(cfg, gparams, x, pattern, memory=None, causal=True):
+    aux = 0.0
+    for gp in gparams:
+        for i, (mx, ml) in enumerate(pattern):
+            x, a = block_apply_train(cfg, gp[f"b{i}"], x, mx, ml, memory, causal)
+            aux = aux + a
+    return x, aux
+
+
+def block_apply_prefill(cfg, p, x, mixer: str, mlp_kind: str, max_len: int,
+                        cache_dtype, memory=None):
+    """Train-path compute + cache construction. x: [B,S,d] → (x, cache)."""
+    B, Sq, _ = x.shape
+    d = cfg.attn_dims
+    h = _apply_norm(cfg, p["norm1"], x)
+    if mixer in ("attn", "attn_full"):
+        L._no_policy(cfg.policy)
+        pos = torch.arange(Sq, device=x.device)
+        q, k, v = L._qkv(p["attn"], h, d, pos)
+        o = L.chunked_attention(q, k, v, causal=(mixer == "attn"),
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        x = x + L._proj_out(o, p["attn"]["wo"])
+        pad = max_len - Sq
+        cache = {"k": L._pad_seq(k.to(cache_dtype), pad),
+                 "v": L._pad_seq(v.to(cache_dtype), pad)}
+    elif mixer == "cross":
+        ck, cv = L.cross_kv(p["attn"], memory, d)
+        x = x + L.cross_attn_apply(p["attn"], h, ck, cv, d,
+                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                   policy=cfg.policy)
+        cache = {"ck": ck.to(cache_dtype), "cv": cv.to(cache_dtype)}
+    elif mixer == "mamba":
+        o, final, conv_tail = S.ssm_apply(p["ssm"], h, cfg.ssm_dims, policy=cfg.policy)
+        x = x + o
+        cache = {"ssm": final, "conv": conv_tail.to(cache_dtype)}
+    else:
+        raise ValueError(mixer)
+    x, _ = _apply_mlp(cfg, p, x, mlp_kind)
+    return x, cache
+
+
+def _stack_leaves(per_group: list) -> dict:
+    return {b: {n: torch.stack([g[b][n] for g in per_group]) for n in per_group[0][b]}
+            for b in per_group[0]}
+
+
+def stack_apply_prefill(cfg, gparams, x, pattern, max_len, cache_dtype, memory=None):
+    per_group = []
+    for gp in gparams:
+        caches = {}
+        for i, (mx, ml) in enumerate(pattern):
+            x, caches[f"b{i}"] = block_apply_prefill(cfg, gp[f"b{i}"], x, mx, ml,
+                                                     max_len, cache_dtype, memory)
+        per_group.append(caches)
+    return x, _stack_leaves(per_group)
+
+
+def stack_cache_init(cfg, pattern, n_groups, batch, max_len, dtype, device=None):
+    def one(mx):
+        c = block_cache_init(cfg, mx, batch, max_len, dtype, device)
+        return {n: a[None].expand((n_groups,) + a.shape).contiguous() for n, a in c.items()}
+
+    return {f"b{i}": one(mx) for i, (mx, ml) in enumerate(pattern)}
+
+
+def stack_apply_decode(cfg, gparams, x, cache, cur_len, pattern):
+    """One token through every group; the stacked cache is written in
+    place (group g's rows) and returned: the cache passed in is consumed."""
+    for g, gp in enumerate(gparams):
+        for i, (mx, ml) in enumerate(pattern):
+            bc = {n: a[g] for n, a in cache[f"b{i}"].items()}
+            x, _ = block_apply_decode(cfg, gp[f"b{i}"], x, bc, cur_len, mx, ml)
+    return x, cache
+
+
+# --------------------------------------------------------------------------
+# embeddings + head
+# --------------------------------------------------------------------------
+
+
+def embed_init(cfg, gen, dtype, device=None) -> dict:
+    dev = device if device is not None else gen.device
+    e = {"embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), (1,), dtype, dev)}
+    if not cfg.tie_embeddings:
+        e["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), (0,), dtype, dev)
+    return e
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a host scalar (no copy to the card)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def embed_tokens(cfg, params, tokens):
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        # the scale rounded to the compute dtype first, as the reference's
+        # asarray(d ** 0.5, x.dtype)
+        x = x * _rounded(cfg.d_model ** 0.5, x.dtype)
+    return x
+
+
+def _unembed_matrix(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def logits_last(cfg, params, x_last):
+    """x_last: [B, 1, d] → [B, 1, V] f32 (decode head; the product in f32)."""
+    return x_last.float() @ _unembed_matrix(cfg, params).float()
