@@ -1,5 +1,6 @@
 """Host-side data layout (numpy copy of `repro/data/loader.py` lines
-19–60 and 75–264, and its `shard_dataset`).
+19–60 and 75–264, and its `shard_dataset`), and the LM token stream
+`lm_batches`.
 
 `feature_major` is the paper's Eq. 1 → Eq. 2 transposition: row-major
 [rows, features] becomes feature-major [features, rows] so each feature is
@@ -14,6 +15,9 @@ dataset of any size as fixed-shape numpy chunks, which the fold
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 
 def feature_major(X_rows: np.ndarray) -> np.ndarray:
@@ -259,3 +263,23 @@ class ChunkedDataset:
                 else:
                     Xc = np.asarray(X[:, a:b], np.float32).T
                 yield self._emit(Xc, y[a:b], None if w is None else w[a:b])
+
+
+def lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0, n_batches=None,
+               device=None):
+    """Deterministic synthetic token stream: a noisy order-k Markov chain so
+    the loss actually falls during the example runs. The reference's numpy
+    stream bit for bit; each batch's tensors are on `device` (the card
+    unless given)."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    table = rng.randint(0, vocab, size=(251,)).astype(np.int32)
+    i = 0
+    while n_batches is None or i < n_batches:
+        noise = rng.randint(0, vocab, size=(batch, seq + 1), dtype=np.int32)
+        base = (np.cumsum(noise % 7, axis=1) + i) % 251
+        toks = np.where(rng.rand(batch, seq + 1) < 0.15, noise, table[base])
+        yield {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+               "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev),
+               "mask": torch.ones((batch, seq), dtype=torch.float32, device=dev)}
+        i += 1

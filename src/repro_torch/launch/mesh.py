@@ -24,7 +24,7 @@ replicated dimension: the counterpart of `jax.sharding.PartitionSpec`.
 shard's device, and `Mesh.join` turns them back into the global tensor
 on the mesh's first device.
 
-The collectives (`psum`, `all_gather`, `ppermute`, `pmin`) are plain
+The collectives (`psum`, `all_gather`, `ppermute`, `pmin`, `pmax`) are plain
 functions over the per-shard tensors of one axis group, in rank order;
 each returns one result per shard, a copy on that shard's own device.
 `over` applies one to every group of an axis. Nothing here reads a
@@ -216,6 +216,14 @@ def pmin(parts: list) -> list:
     for p in parts[1:]:
         low = torch.minimum(low, p.to(low.device))
     return [low.to(p.device) for p in parts]
+
+
+def pmax(parts: list) -> list:
+    """The elementwise maximum of `parts`."""
+    high = parts[0]
+    for p in parts[1:]:
+        high = torch.maximum(high, p.to(high.device))
+    return [high.to(p.device) for p in parts]
 
 
 def all_gather(parts: list, dim: int = 0, tiled: bool = False) -> list:

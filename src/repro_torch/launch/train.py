@@ -1,0 +1,101 @@
+"""LM training on one device: config → train state → train loop
+with checkpoint/restart (port of `repro/launch/train.py`). Runs reduced
+configs end to end on the CPU and on the card, and full configs that fit
+one card; a mesh of more than one device is the LM mesh slice (ROADMAP
+A13c).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --reduced \\
+        --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
+
+Checkpoints hold the train state in the reference's layout
+(`models.convert.train_state_to_numpy`). A resumed run skips the batches
+of the steps it restored, so its history continues the uninterrupted
+run's (the reference restarts the stream from its first batch).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import time
+
+import torch
+
+from repro_torch.ckpt.checkpoint import CheckpointManager, latest_step, restore
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.data.loader import lm_batches
+from repro_torch.device import resolve_device
+from repro_torch.models import convert
+from repro_torch.models import model as Md
+from repro_torch.optim.adamw import for_config
+from repro_torch.runtime.fault import StepMonitor
+
+
+def build(cfg, mesh=None, seed: int = 0, device=None):
+    """(cfg, train state, train step) on one device: params from
+    `seed`, the config's optimizer, step 0."""
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError("training on a mesh of several devices is the LM mesh "
+                                  "slice (ROADMAP A13c)")
+    dev = resolve_device(device)
+    opt = for_config(cfg)
+    params = Md.init_params(cfg, seed, device=dev)
+    state = {"params": params, "opt": opt.init(params.tree()),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    return cfg, state, Md.make_train_step(cfg, opt)
+
+
+def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None = None,
+          ckpt_every: int = 50, mesh=None, log=print, seed: int = 0, device=None):
+    dev = resolve_device(device)
+    cfg, state, step = build(cfg, mesh, seed, dev)
+    manager = CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir else None
+    s0 = latest_step(ckpt_dir) if manager else None
+    if s0 is not None:
+        restored = restore(ckpt_dir, s0, like=convert.train_state_to_numpy(state))
+        state = convert.train_state_from_reference(cfg, restored, device=dev)
+        log(f"resumed from step {s0}")
+    monitor = StepMonitor()
+    start = int(state["step"])
+    stream = itertools.islice(lm_batches(cfg.vocab, batch, seq, device=dev), start, None)
+    history = []
+    for i, b in zip(range(start, steps), stream):
+        with monitor:
+            state, metrics = step(state, b)
+        loss = float(metrics["loss"])
+        history.append(loss)
+        if manager and (i + 1) % ckpt_every == 0:
+            manager.maybe_save(convert.train_state_to_numpy(state), i + 1)
+        if i % 10 == 0 or i == steps - 1:
+            log(f"step {i} loss {loss:.4f} ema_s {monitor.ema and round(monitor.ema, 3)}")
+    if manager:
+        manager.maybe_save(convert.train_state_to_numpy(state), steps, force=True)
+        manager.wait()
+    return state, history, monitor
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.reduced and cfg.accum_steps > 1 and args.batch % cfg.accum_steps:
+        cfg = dataclasses.replace(cfg, accum_steps=1)
+    t0 = time.time()
+    _, history, monitor = train(cfg, steps=args.steps, batch=args.batch,
+                                seq=args.seq, ckpt_dir=args.ckpt_dir,
+                                ckpt_every=args.ckpt_every, device=args.device)
+    print(f"final loss {history[-1]:.4f} (from {history[0]:.4f}) "
+          f"in {time.time()-t0:.1f}s; stragglers: {len(monitor.stragglers)}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

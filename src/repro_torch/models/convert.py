@@ -1,10 +1,13 @@
-"""Carry the reference's weights and caches across to the port, and back.
+"""Carry the reference's weights, caches and train states across to the
+port, and back.
 
 The reference's `init_params` pytree holds each stack's leaves stacked on a
 leading [n_groups] axis; the port's `LM` holds one `Block` a block. The
 cache layout is the same in both (`{"b{i}": {name: [n_groups, ...]}}`).
-Leaves come as numpy arrays (or anything `np.asarray` takes); numpy's
-extension dtypes bfloat16 and float8_e4m3fn are read bit for bit.
+A train state is {"params", "opt", "step"}: AdamW's `m` and `v` have the
+params' layout in each package, Adafactor's `stats` the reference's in
+both. Leaves come as numpy arrays (or anything `np.asarray` takes);
+numpy's extension dtypes bfloat16 and float8_e4m3fn are read bit for bit.
 """
 from __future__ import annotations
 
@@ -33,9 +36,8 @@ def _unstack(tree: dict, n_groups: int, device) -> list:
             for g in range(n_groups)]
 
 
-def params_from_reference(cfg, tree: dict, device="cpu") -> LM:
-    """The reference's `init_params(cfg, key)` pytree → the port's `LM`
-    on `device`, every leaf bit for bit."""
+def _port_tree(cfg, tree: dict, device) -> dict:
+    """A tree in the reference's params layout → the port's (`LM.tree()`)."""
     out = {"tok": {n: _tensor(a, device) for n, a in tree["tok"].items()},
            "stack": _unstack(tree["stack"], cfg.n_groups, device),
            "final_norm": {n: _tensor(a, device) for n, a in tree["final_norm"].items()}}
@@ -43,7 +45,64 @@ def params_from_reference(cfg, tree: dict, device="cpu") -> LM:
         out["enc_stack"] = _unstack(tree["enc_stack"], cfg.enc_layers // len(ENC_PATTERN),
                                     device)
         out["enc_norm"] = {n: _tensor(a, device) for n, a in tree["enc_norm"].items()}
-    return LM(cfg, out)
+    return out
+
+
+def params_from_reference(cfg, tree: dict, device="cpu") -> LM:
+    """The reference's `init_params(cfg, key)` pytree → the port's `LM`
+    on `device`, every leaf bit for bit."""
+    return LM(cfg, _port_tree(cfg, tree, device))
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def tree_to_numpy(tree):
+    """A port tree (`LM.tree()`, AdamW's `m`/`v`, or any tree of dicts and
+    tensors) → numpy in the reference's layout: a stack's groups stacked
+    on a leading [n_groups] axis."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        per = [tree_to_numpy(g) for g in tree]
+
+        def stack(parts):
+            if isinstance(parts[0], dict):
+                return {k: stack([p[k] for p in parts]) for k in parts[0]}
+            return np.stack(parts)
+
+        return stack(per)
+    return _numpy(tree)
+
+
+def _map_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _map_numpy(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def train_state_from_reference(cfg, state: dict, device="cpu") -> dict:
+    """The reference's train state {"params", "opt", "step"} → the port's
+    on `device`, every leaf bit for bit: an `LM`, the optimizer state
+    (AdamW's `m`/`v` in the port's layout, Adafactor's `stats` as they
+    are) and `step` a 0-d int32 tensor."""
+    opt = state["opt"]
+    if "stats" in opt:
+        port_opt = {"stats": _map_numpy(opt["stats"], device)}
+    else:
+        port_opt = {k: _port_tree(cfg, v, device) for k, v in opt.items()}
+    return {"params": params_from_reference(cfg, state["params"], device),
+            "opt": port_opt,
+            "step": torch.as_tensor(np.asarray(state["step"], np.int32)).to(device)}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's train state → numpy in the reference's layout (stacks
+    on a leading [n_groups] axis), for comparisons and checkpoints."""
+    return {"params": tree_to_numpy(state["params"].tree()),
+            "opt": tree_to_numpy(state["opt"]),
+            "step": _numpy(state["step"])}
 
 
 def cache_from_reference(cfg, tree: dict, device="cpu") -> dict:

@@ -13,6 +13,12 @@ others (`_qkv`, `mlp_apply`, the `wo` projection) stay in the compute
 dtype. The GQA head repeat is `repeat_interleave` (head h reads kv head
 h // groups), as `jnp.repeat` does. gelu is the tanh form, `jax.nn.gelu`'s
 default. Sharding pins (`policy`) wait for the mesh slice (A13c).
+
+Training differentiates these functions with autograd. Where the
+reference remats (`jax.checkpoint`) the port does too, through `_remat`
+(`torch.utils.checkpoint`, non-reentrant): each kv chunk of the attention
+here, each group of the stack in `transformer.py`. It applies only while
+autograd is recording, so prefill and decode run the plain loop.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # --------------------------------------------------------------------------
 # initializers / norms
@@ -33,6 +40,21 @@ def _no_policy(policy):
         raise NotImplementedError(
             "sharding policies belong to the LM mesh slice (ROADMAP A13c); "
             "the port serves on one device with policy=None")
+
+
+def _recording(*tensors) -> bool:
+    """Is autograd recording a graph through any of `tensors`?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _remat(fn, *args, record: bool):
+    """`fn(*args)`, under a rematerialising checkpoint when `record`: its
+    activations are recomputed in the backward pass instead of kept, as
+    the reference's `jax.checkpoint`. The model draws no random numbers,
+    so no RNG state is stashed."""
+    if record:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def dense_init(gen, shape, in_axes=(0,), dtype=torch.float32, device=None):
@@ -152,6 +174,18 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512, kv_chunk: in
     if positions_k is not None and pad_k:
         pos_k = F.pad(pos_k, (0, pad_k))
 
+    def kv_body(o_acc, m_acc, l_acc, qi, ki, vi, mask):
+        o, m, l = _chunk_attend(qi, ki, vi, mask, scale)
+        m_new = torch.maximum(m_acc, m)
+        c_old = torch.exp(m_acc - m_new)
+        c_new = torch.exp(m - m_new)
+        o_acc = o_acc * c_old[..., None] + o * c_new[..., None]
+        l_acc = l_acc * c_old + l * c_new
+        return o_acc, m_new, l_acc
+
+    # the backward recomputes each [qc, kc] score block instead of keeping
+    # it, as the reference's checkpointed kv scan does
+    record = _recording(q, k, v)
     outs = []
     for iq in range(nq):
         qi = qT[:, :, iq * q_chunk:(iq + 1) * q_chunk]
@@ -168,13 +202,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512, kv_chunk: in
                 mask = vk[None, :].expand(q_chunk, kv_chunk)
             else:
                 mask = None
-            o, m, l = _chunk_attend(qi, kT[:, :, ks], vT[:, :, ks], mask, scale)
-            m_new = torch.maximum(m_acc, m)
-            c_old = torch.exp(m_acc - m_new)
-            c_new = torch.exp(m - m_new)
-            o_acc = o_acc * c_old[..., None] + o * c_new[..., None]
-            l_acc = l_acc * c_old + l * c_new
-            m_acc = m_new
+            o_acc, m_acc, l_acc = _remat(kv_body, o_acc, m_acc, l_acc, qi, kT[:, :, ks],
+                                         vT[:, :, ks], mask, record=record)
         outs.append((o_acc / torch.clamp_min(l_acc[..., None], 1e-30)).to(q.dtype))
     out = torch.cat(outs, dim=2)  # [B,H,Sq,hd]
     return out.transpose(1, 2)[:, :Sq0]

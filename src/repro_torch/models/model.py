@@ -1,14 +1,13 @@
-"""ArchConfig + model assembly + the serving entry points (port of
+"""ArchConfig + model assembly + step factories + input specs (port of
 `repro/models/model.py`).
 
 `init_params(cfg, key, device)` builds an `LM` module of f32 master
 weights; `prefill` and `decode_step` serve from it. The reference casts
 the parameters to the compute dtype on every call; a cast gives the same
-bits each time, so the port casts once per model and keeps that copy
-(`_cast`). Entry points run on the card unless given `device="cpu"`.
-
-`forward_train`, `make_train_step` and `input_specs` wait for the
-training slice (ROADMAP A13b).
+bits each time, so serving casts once per model and keeps that copy
+(`_cast`). Training casts anew on every call (`_train_cast`), inside the
+graph, so the f32 masters get their gradients through the cast's
+backward. Entry points run on the card unless given `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -25,8 +24,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import AttnDims, _no_policy
 from repro_torch.models.ssm import SSMDims
 from repro_torch.models.transformer import ShardingPolicy
-
-_TRAINING = "the LM training slice (ROADMAP A13b)"
+from repro_torch.optim.adamw import _global_norm
 
 # --------------------------------------------------------------------------
 
@@ -220,11 +218,20 @@ def _sinusoidal(max_len, d, dtype, device="cpu"):
     return _sinusoidal_table(int(max_len), int(d), dtype, torch.device(device))
 
 
+def _train_cast(params: LM, dtype) -> dict:
+    """The parameter tree (`LM.tree()`) with every floating leaf cast to
+    `dtype` inside autograd's graph, made anew each call as the
+    reference's in-loss `_cast`: the masters' gradients flow back through
+    the casts (a leaf already in `dtype` is the master itself)."""
+    return _map_tree(params.tree(),
+                     lambda a: a.to(dtype) if a.is_floating_point() else a)
+
+
 def _encode_memory(cfg, params, batch):
     """Cross-attention memory: whisper runs the encoder over (stubbed) frame
     embeddings; VLM consumes (stubbed) patch embeddings directly. `params`
-    is already in the compute dtype."""
-    dev = params.device
+    (an `LM` or its tree) is already in the compute dtype."""
+    dev = params["tok"]["embed"].device
     if cfg.family == "encdec":
         mem = batch["frames"].to(dev, _dtype(cfg))
         mem = mem + _sinusoidal(mem.shape[1], cfg.d_model, mem.dtype, dev)[None]
@@ -236,8 +243,26 @@ def _encode_memory(cfg, params, batch):
     return None
 
 
-def forward_train(cfg: ArchConfig, params, batch):
-    raise NotImplementedError(f"forward_train belongs to {_TRAINING}")
+def forward_train(cfg: ArchConfig, params: LM, batch):
+    """batch: tokens [B,S], labels [B,S], mask [B,S] (+frames|memory).
+    Returns (loss, {"ce", "aux"}), 0-d f32 tensors; `loss = ce +
+    aux_loss_weight * aux`. Differentiable in the masters wherever they
+    require grad (`make_train_step` turns that on)."""
+    _no_policy(cfg.policy)
+    p = _train_cast(params, _dtype(cfg))
+    dev = params.device
+    tokens = batch["tokens"].to(dev)
+    x = T.embed_tokens(cfg, p["tok"], tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, dev)[None]
+    memory = _encode_memory(cfg, p, batch)
+    x, aux = T.stack_apply_train(cfg, p["stack"], x, cfg.pattern, memory=memory)
+    x = T._apply_norm(cfg, p["final_norm"], x)
+    ce = T.chunked_ce_loss(cfg, p["tok"], x, batch["labels"].to(dev), batch["mask"].to(dev))
+    if not torch.is_tensor(aux):  # no MoE layer: 0.0, made on the device (no copy)
+        aux = torch.full((), aux, dtype=torch.float32, device=dev)
+    loss = ce + cfg.aux_loss_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -306,6 +331,65 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int):
 # --------------------------------------------------------------------------
 
 
+def _grads(params: LM) -> dict:
+    """The masters' gradients as a tree (zeros for a leaf the loss does
+    not reach, as JAX's gradient of an unused input)."""
+    return _map_tree(params.tree(),
+                     lambda a: torch.zeros_like(a) if a.grad is None else a.grad)
+
+
+def make_train_step(cfg: ArchConfig, optimizer, param_specs=None) -> Callable:
+    """(train_state, batch) → (train_state, metrics). Optimizer from
+    `repro_torch.optim` (init/update pair over `LM.tree()`). Supports
+    gradient accumulation.
+
+    The state is {"params": LM, "opt": the optimizer's state, "step": a
+    0-d int32 tensor}; the masters and the optimizer state are updated in
+    place (the state passed in is consumed, as a donated one is in JAX).
+    With `accum_steps` A > 1 the batch splits into A contiguous
+    micro-batches; each one's gradients add into the masters' `.grad`
+    (the first add fills it), so no second f32 tree is held, then divide
+    by A; the loss is summed and divided alike, `ce` and `aux` averaged.
+    metrics: {"loss", "ce", "aux", "grad_norm"} (0-d device tensors; a
+    step reads nothing back to the host)."""
+    if param_specs is not None:
+        raise NotImplementedError("param_specs pins a mesh's gradient layout: the LM "
+                                  "mesh slice (ROADMAP A13c)")
+    _no_policy(cfg.policy)
+
+    def train_step(state, batch):
+        params, opt_state, step = state["params"], state["opt"], state["step"]
+        params.requires_grad_(True)
+        for p in params.parameters():
+            p.grad = None
+        A = cfg.accum_steps
+        n = batch["tokens"].shape[0] // A
+        loss, ms = 0.0, []
+        for i in range(A):
+            l, m = forward_train(cfg, params, {k: v[i * n:(i + 1) * n]
+                                               for k, v in batch.items()})
+            l.backward()
+            loss = loss + l.detach()
+            ms.append(m)
+        if A > 1:
+            with torch.no_grad():
+                for p in params.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(A)
+        loss = loss / A
+        metrics = {k: torch.stack([m[k].detach() for m in ms]).mean() for k in ms[0]}
+        grads = _grads(params)
+        with torch.no_grad():
+            grad_norm = _global_norm(grads)
+        _, new_opt = optimizer.update(grads, opt_state, params.tree(), step)
+        for p in params.parameters():
+            p.grad = None
+        new_state = {"params": params, "opt": new_opt, "step": step + 1}
+        return new_state, {"loss": loss, **metrics, "grad_norm": grad_norm}
+
+    return train_step
+
+
 def make_serve_step(cfg: ArchConfig) -> Callable:
     def serve_step(params, cache, token, cur_len):
         return decode_step(cfg, params, cache, token, cur_len)
@@ -315,13 +399,10 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
 
 def build_model(cfg: ArchConfig):
     """Bundle the functional API for one architecture."""
-    def forward(p, b):
-        return forward_train(cfg, p, b)
-
     return {
         "config": cfg,
         "init_params": lambda key, device=None: init_params(cfg, key, device),
-        "forward_train": forward,
+        "forward_train": lambda p, b: forward_train(cfg, p, b),
         "prefill": lambda p, b, m: prefill(cfg, p, b, m),
         "decode_step": lambda p, c, t, n: decode_step(cfg, p, c, t, n),
         "init_cache": lambda b, m, device=None: init_cache(cfg, b, m, device),
@@ -340,3 +421,40 @@ def shape_supported(cfg: ArchConfig, shape: str) -> bool:
     if shape == "long_500k" and not cfg.subquadratic:
         return False  # full-attention archs skip
     return True
+
+
+def input_specs(cfg: ArchConfig, shape: str):
+    """Shape-and-dtype stand-ins for every model input of a (arch × shape)
+    cell: tensors on the `meta` device, no allocation.
+
+    Returns (kind, specs_dict). kind ∈ {train, prefill, decode} selects
+    which step function the cell runs.
+    """
+    s = SHAPES[shape]
+    B, S = s["batch"], s["seq"]
+    f32, i32, bf16 = torch.float32, torch.int32, torch.bfloat16
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if s["kind"] == "train":
+        specs = {"tokens": sds((B, S), i32), "labels": sds((B, S), i32),
+                 "mask": sds((B, S), f32)}
+        if cfg.family == "encdec":
+            specs["frames"] = sds((B, S, cfg.d_model), bf16)
+        if cfg.family == "vlm":
+            specs["memory"] = sds((B, cfg.n_memory, cfg.d_model), bf16)
+        return "train", specs
+    if s["kind"] == "prefill":
+        specs = {"tokens": sds((B, S), i32)}
+        if cfg.family == "encdec":
+            specs["frames"] = sds((B, cfg.n_memory, cfg.d_model), bf16)
+        if cfg.family == "vlm":
+            specs["memory"] = sds((B, cfg.n_memory, cfg.d_model), bf16)
+        return "prefill", specs
+    # decode: one new token against a seq_len cache
+    return "decode", {
+        "cache": init_cache(cfg, B, S, device="meta"),
+        "token": sds((B, 1), i32),
+        "cur_len": sds((), i32),
+    }

@@ -18,7 +18,9 @@ Python. A block's parameters keep the reference's names
 The serving cache keeps the reference's layout: `{"b{i}": {"k", "v" |
 "ck", "cv" | "ssm", "conv"}}`, each leaf stacked on n_groups.
 
-Forward only: `chunked_ce_loss` and the training step wait for A13b.
+Training runs the same functions under autograd: `stack_apply_train`
+remats each group (the reference's `jax.checkpoint(group_body)`) while
+autograd records, and `chunked_ce_loss` is the loss head.
 """
 from __future__ import annotations
 
@@ -213,12 +215,28 @@ def stack_init(cfg, gen, pattern, n_groups: int, dtype, device=None) -> list:
              for i, (mx, ml) in enumerate(pattern)} for _ in range(n_groups)]
 
 
+def _tensors(tree) -> list:
+    if isinstance(tree, nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
 def stack_apply_train(cfg, gparams, x, pattern, memory=None, causal=True):
+    """The groups in order; while autograd records, each group is one
+    remat unit (its activations recomputed in the backward pass), as the
+    reference's checkpointed scan body."""
+    def group_body(h, aux, gp):
+        for i, (mx, ml) in enumerate(pattern):
+            h, a = block_apply_train(cfg, gp[f"b{i}"], h, mx, ml, memory, causal)
+            aux = aux + a
+        return h, aux
+
     aux = 0.0
     for gp in gparams:
-        for i, (mx, ml) in enumerate(pattern):
-            x, a = block_apply_train(cfg, gp[f"b{i}"], x, mx, ml, memory, causal)
-            aux = aux + a
+        record = torch.is_grad_enabled() and L._recording(x, *_tensors(gp))
+        x, aux = L._remat(functools.partial(group_body, gp=gp), x, aux, record=record)
     return x, aux
 
 
@@ -289,7 +307,7 @@ def stack_apply_decode(cfg, gparams, x, cache, cur_len, pattern):
 
 
 # --------------------------------------------------------------------------
-# embeddings + head
+# embeddings + loss + head
 # --------------------------------------------------------------------------
 
 
@@ -318,6 +336,36 @@ def embed_tokens(cfg, params, tokens):
 
 def _unembed_matrix(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def _ce_chunk(xc, W, yc, mc):
+    """One chunk's (sum of masked nll, mask sum): the logits in f32 (the
+    reference's bf16 product with f32 output; both operands upcast here),
+    `logsumexp`, the gold logit by `gather`."""
+    logits = xc.float() @ W.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    nll = (lse - gold) * mc
+    return nll.sum(), mc.sum()
+
+
+def chunked_ce_loss(cfg, params, x, labels, mask, *, chunk: int = 512):
+    """Cross-entropy without a [B,S,V] resident: a loop over seq chunks,
+    each a remat unit while autograd records (the backward recomputes the
+    [B, chunk, V] logits block rather than keeping one a chunk)."""
+    B, Sq, d = x.shape
+    W = _unembed_matrix(cfg, params)
+    chunk = min(chunk, Sq)
+    assert Sq % chunk == 0
+    mask = mask.to(torch.float32)
+    record = L._recording(x, W)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(Sq // chunk):
+        s = slice(i * chunk, (i + 1) * chunk)
+        nll, m = L._remat(_ce_chunk, x[:, s], W, labels[:, s], mask[:, s], record=record)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 def logits_last(cfg, params, x_last):

@@ -375,7 +375,7 @@ def test_cast_once_per_model():
 
 def test_build_model_bundle_and_the_slices_still_to_come():
     """`build_model`'s serving entries run (its cache layout is prefill's);
-    `forward_train` names the training slice, a sharding policy the mesh
+    `forward_train` gives a finite loss, a sharding policy names the mesh
     slice, and with no card an entry point raises instead of falling back
     to the CPU."""
     cfg = get_reduced("gemma-2b")
@@ -390,8 +390,9 @@ def test_build_model_bundle_and_the_slices_still_to_come():
     step = Md.make_serve_step(cfg)
     out, _ = step(params, cache, logits.argmax(-1), 5)
     assert out.shape == (2, 1, cfg.vocab) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="A13b"):
-        model["forward_train"](None, None)
+    loss, _ = model["forward_train"](params, {"tokens": tokens, "labels": tokens,
+                                              "mask": torch.ones((2, 5))})
+    assert loss.shape == () and torch.isfinite(loss)
     bad = cfg.with_policy(T.ShardingPolicy())
     with pytest.raises(NotImplementedError, match="A13c"):
         Md.prefill(bad, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 8)

@@ -1,0 +1,391 @@
+"""The port's LM training path (`repro_torch.models` `forward_train`,
+`make_train_step`; `repro_torch.optim`; `data.loader.lm_batches`; the
+`launch.train` and `launch.lm_train` CLIs) against the reference, on the
+CPU. Weights are the port's `init_params`, carried to the reference's
+layout by `models.convert`; inputs come from a numpy seed.
+
+The reference's train step is jitted once a config (its optimizer wrapped
+to hand back the gradients it was given, so one compile yields the loss,
+the metrics, the gradients and the stepped state); it runs for gemma,
+mamba2, granite and whisper in f32, and for gemma with accum_steps=2. The
+other configs are held port-only, by the reference's smoke checks.
+Tolerances: f32 rtol 1e-4 / atol 1e-5 (the frameworks' sums differ in
+order only); bf16 at the bound measured below."""
+import dataclasses
+import importlib
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import all_arch_names
+from repro.configs import get_config as jget_config
+from repro.configs import get_reduced as jget_reduced
+from repro.data.loader import lm_batches as jlm_batches
+from repro.models import model as JMd
+from repro.models import transformer as JT
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.data.loader import lm_batches
+from repro_torch.launch import lm_train
+from repro_torch.launch import mesh as TM
+from repro_torch.launch import train as TL
+from repro_torch.models import convert
+from repro_torch.models import layers as L
+from repro_torch.models import model as Md
+from repro_torch.models import transformer as T
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
+
+JA = importlib.import_module("repro.optim.adamw")  # the module, not the function
+TA = importlib.import_module("repro_torch.optim.adamw")
+
+torch.set_num_threads(2)
+
+F32 = dict(compute_dtype="float32", cache_dtype="float32")
+RTOL, ATOL = 1e-4, 1e-5
+B, S = 2, 32
+
+
+def _batch(cfg, B_=B, S_=S, seed=0):
+    """`tests/test_models.py::_batch`'s inputs, as numpy: the frames and
+    patches rounded to bf16 (the reference test's dtype), held as f32."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab, size=(B_, S_ + 1)).astype(np.int32)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": np.ones((B_, S_), np.float32)}
+    bf16 = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)  # noqa: E731
+    if cfg.family == "encdec":
+        b["frames"] = bf16(rng.randn(B_, S_, cfg.d_model).astype(np.float32) * 0.02)
+    if cfg.family == "vlm":
+        b["memory"] = bf16(rng.randn(B_, cfg.n_memory, cfg.d_model).astype(np.float32) * 0.02)
+    return b
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+
+
+def _spy(opt, Optimizer):
+    """`opt` whose update also returns the gradients it was given, under
+    the state's "grads" key."""
+    def update(grads, state, params, step):
+        new_p, new_s = opt.update(grads, state, params, step)
+        return new_p, {**new_s, "grads": grads}
+
+    return Optimizer(opt.init, update)
+
+
+def _reference_step(jcfg, tree, batch):
+    """One jitted reference train step from `tree` (the reference's layout)
+    → (new state with "grads" in its opt, metrics), numpy."""
+    jopt = _spy(JA.for_config(jcfg), JA.Optimizer)
+    params = jax.tree.map(jnp.asarray, tree)
+    state = {"params": params, "opt": jopt.init(params), "step": jnp.zeros((), jnp.int32)}
+    step = jax.jit(JMd.make_train_step(jcfg, jopt))
+    new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()})
+    return jax.tree.map(np.asarray, new), jax.tree.map(np.asarray, metrics)
+
+
+def _port_step(cfg, params, batch, opt=None):
+    """One port train step (its optimizer spied alike) → (the new state in
+    the reference's layout, grads among its opt, metrics), numpy."""
+    topt = _spy(opt or TA.for_config(cfg), TA.Optimizer)
+    state = {"params": params, "opt": topt.init(params.tree()),
+             "step": torch.zeros((), dtype=torch.int32)}
+    new, metrics = Md.make_train_step(cfg, topt)(state, _torch(batch))
+    return convert.train_state_to_numpy(new), {k: v.numpy() for k, v in metrics.items()}
+
+
+def _assert_tree(got, want, tag, rtol=RTOL, atol=ATOL):
+    g = jax.tree_util.tree_flatten_with_path(got)[0]
+    w = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [p for p, _ in g] == [p for p, _ in w], tag
+    for (path, a), (_, b) in zip(g, w):
+        assert np.shape(a) == np.shape(b), (tag, path)
+        np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
+                                   rtol=rtol, atol=atol,
+                                   err_msg=f"{tag} {jax.tree_util.keystr(path)}")
+
+
+def _check_against_reference(name, **replace):
+    """forward_train's loss, ce, aux and gradients, then one train step's
+    params, optimizer state and metrics, against the reference's."""
+    jcfg = dataclasses.replace(jget_reduced(name), **F32, **replace)
+    cfg = dataclasses.replace(get_reduced(name), **F32, **replace)
+    B_ = 2 * cfg.accum_steps
+    batch = _batch(cfg, B_)
+    params = Md.init_params(cfg, 0, device="cpu")
+    tree = convert.tree_to_numpy(params.tree())
+    want, want_m = _reference_step(jcfg, tree, batch)
+    if cfg.accum_steps == 1:
+        params.requires_grad_(True)
+        loss, aux = Md.forward_train(cfg, params, _torch(batch))
+        loss.backward()
+        for k, v in (("loss", loss), ("ce", aux["ce"]), ("aux", aux["aux"])):
+            assert v.shape == () and v.dtype == torch.float32
+            np.testing.assert_allclose(float(v.detach()), want_m[k], rtol=RTOL, atol=ATOL,
+                                       err_msg=k)
+        _assert_tree(convert.tree_to_numpy(Md._grads(params)), want["opt"]["grads"],
+                     "forward_train grads")
+        for p in params.parameters():
+            p.grad = None
+    params = convert.params_from_reference(cfg, tree)
+    got, got_m = _port_step(cfg, params, batch)
+    _assert_tree(got["opt"].pop("grads"), want["opt"].pop("grads"), "step grads")
+    _assert_tree(got["params"], want["params"], "params")
+    _assert_tree(got["opt"], want["opt"], "optimizer state")
+    assert got["step"] == want["step"] == 1 and got["step"].dtype == np.int32
+    assert got_m.keys() == want_m.keys() == {"loss", "ce", "aux", "grad_norm"}
+    for k in want_m:
+        np.testing.assert_allclose(got_m[k], want_m[k], rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "mamba2-370m", "granite-moe-3b-a800m",
+                                  "whisper-medium"])
+def test_train_step_matches_reference(name):
+    """f32, B 2, S 32: forward_train (loss, ce, aux, every gradient leaf)
+    against `jax.value_and_grad`'s, then one make_train_step (AdamW)."""
+    _check_against_reference(name)
+
+
+def test_accumulation_matches_reference():
+    """gemma with accum_steps=2 at B 4: two micro-batches' gradients added
+    into the masters' .grad and halved, the loss alike, ce and aux
+    averaged, against the reference's scan over micro-batches."""
+    _check_against_reference("gemma-2b", accum_steps=2)
+
+
+def test_adafactor_step_matches_reference_on_stacked_leaves():
+    """Reduced gemma (n_groups 2) with optimizer="adafactor": the port's
+    train step, and the reference's Adafactor update applied to the port's
+    gradients carried across: params and the stacked `stats` (a [2, 64]
+    norm scale factored into r [2], c [64]) within rtol 1e-4 / atol 1e-5."""
+    cfg = dataclasses.replace(get_reduced("gemma-2b"), **F32, optimizer="adafactor")
+    assert cfg.n_groups == 2
+    params = Md.init_params(cfg, 0, device="cpu")
+    tree = convert.tree_to_numpy(params.tree())
+    got, _ = _port_step(cfg, params, _batch(cfg))
+    grads = got["opt"].pop("grads")
+    jopt = JA.adafactor()
+    jparams = jax.tree.map(jnp.asarray, tree)
+    want_p, want_s = jax.jit(jopt.update)(jax.tree.map(jnp.asarray, grads),
+                                          jopt.init(jparams), jparams,
+                                          jnp.zeros((), jnp.int32))
+    assert got["opt"]["stats"]["stack"]["b0"]["norm1"]["scale"]["r"].shape == (2,)
+    _assert_tree(got["params"], jax.tree.map(np.asarray, want_p), "params")
+    _assert_tree(got["opt"], jax.tree.map(np.asarray, want_s), "stats")
+
+
+def test_chunked_ce_loss_matches_reference():
+    """f32, S 64 in chunks of 16 with a partial mask: the loss and its
+    gradients in x and in the (tied) table against the reference's."""
+    cfg = dataclasses.replace(get_reduced("gemma-2b"), **F32)
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 64, cfg.d_model).astype(np.float32)
+    embed = (rng.randn(cfg.vocab, cfg.d_model) * 0.1).astype(np.float32)
+    labels = rng.randint(0, cfg.vocab, (2, 64)).astype(np.int32)
+    mask = (rng.rand(2, 64) > 0.3).astype(np.float32)
+
+    def jloss(x, e):
+        return JT.chunked_ce_loss(cfg, {"embed": e}, x, labels, mask, chunk=16)
+
+    want, (wx, we) = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                                             jnp.asarray(embed))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    te = torch.from_numpy(embed).requires_grad_(True)
+    got = T.chunked_ce_loss(cfg, {"embed": te}, tx, torch.from_numpy(labels),
+                            torch.from_numpy(mask), chunk=16)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(wx), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(te.grad.numpy(), np.asarray(we), rtol=RTOL, atol=ATOL)
+
+
+def test_attention_gradient_with_ties_and_masked_chunks():
+    """The online softmax's max (`amax`, `maximum`) spreads a gradient over
+    ties as JAX's `max`/`maximum` do: causal GQA attention in chunks of 4
+    over 8 positions (the first q chunk against the second kv chunk is
+    fully masked), queries of zeros (every score ties) and a repeated key,
+    f32 gradients in q, k and v against the reference's."""
+    JL = importlib.import_module("repro.models.layers")
+    rng = np.random.RandomState(2)
+    q = rng.randn(1, 8, 4, 8).astype(np.float32)
+    q[:, :3] = 0.0  # every score of these rows ties
+    k = rng.randn(1, 8, 2, 8).astype(np.float32)
+    k[:, 5] = k[:, 4]  # tied scores within a chunk
+    v = rng.randn(1, 8, 2, 8).astype(np.float32)
+    w = rng.randn(1, 8, 4, 8).astype(np.float32)
+
+    def jf(q, k, v):
+        o = JL.chunked_attention(q, k, v, causal=True, q_chunk=4, kv_chunk=4)
+        return jnp.sum(o * w)
+
+    want = jax.grad(jf, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = L.chunked_attention(tq, tk, tv, causal=True, q_chunk=4, kv_chunk=4)
+    (o * torch.from_numpy(w)).sum().backward()
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "jamba-1.5-large-398b"])
+def test_remat_changes_no_bit(name, monkeypatch):
+    """The group, kv-chunk and CE-chunk remats on or off: the same loss
+    and gradients bit for bit on the CPU."""
+    cfg = dataclasses.replace(get_reduced(name), **F32)
+    batch = _torch(_batch(cfg))
+
+    def run():
+        params = Md.init_params(cfg, 0, device="cpu").requires_grad_(True)
+        loss, _ = Md.forward_train(cfg, params, batch)
+        loss.backward()
+        return loss.detach(), [p.grad for p in params.parameters()]
+
+    calls = []
+    original = L._remat
+    monkeypatch.setattr(L, "_remat", lambda fn, *a, record: (calls.append(record),
+                                                              original(fn, *a, record=record))[1])
+    on = run()
+    assert calls and all(calls)
+    monkeypatch.setattr(L, "_remat", lambda fn, *a, record: fn(*a))
+    off = run()
+    assert torch.equal(on[0], off[0])
+    assert all(torch.equal(a, b) for a, b in zip(on[1], off[1]))
+
+
+@pytest.mark.parametrize("name", all_arch_names())
+def test_reduced_config_trains_in_bf16(name):
+    """The configs' own dtypes, port-only, the reference's smoke checks:
+    a finite loss > 0, then one train step with a finite grad_norm > 0
+    and the params moved; the masters stay f32 and get f32 gradients."""
+    cfg = get_reduced(name)
+    params = Md.init_params(cfg, 0, device="cpu")
+    batch = _torch(_batch(cfg))
+    loss, _ = Md.forward_train(cfg, params, batch)
+    assert np.isfinite(float(loss)) and float(loss) > 0
+    opt = TA.for_config(cfg)
+    before = [p.detach().clone() for p in params.parameters()]
+    state = {"params": params, "opt": opt.init(params.tree()),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state, m = Md.make_train_step(cfg, opt)(state, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert np.isfinite(float(m["grad_norm"])) and float(m["grad_norm"]) > 0
+    assert any(not torch.equal(a, b) for a, b in zip(before, params.parameters()))
+    assert all(p.dtype == torch.float32 and p.grad is None for p in params.parameters())
+    assert int(state["step"]) == 1
+
+
+# bf16 (the configs' own dtypes): the reference's XLA keeps f32 between the
+# element-wise ops of a fusion, the port rounds each op to bf16 (ROADMAP
+# C17), so the losses differ by design. Measured |diff| over input seeds
+# 0-2: gemma <= 1.29e-3, mamba2 <= 1.32e-3 (losses ~6); the bound is 3x.
+BF16_LOSS_ATOL = {"gemma-2b": 4e-3, "mamba2-370m": 4e-3}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_LOSS_ATOL))
+def test_bf16_loss_within_measured_tolerance(name):
+    jcfg, cfg = jget_reduced(name), get_reduced(name)
+    params = Md.init_params(cfg, 0, device="cpu")
+    tree = jax.tree.map(jnp.asarray, convert.tree_to_numpy(params.tree()))
+    batch = _batch(cfg)
+    want, _ = jax.jit(lambda p, b: JMd.forward_train(jcfg, p, b))(
+        tree, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, _ = Md.forward_train(cfg, params, _torch(batch))
+    np.testing.assert_allclose(float(got), float(want), rtol=0, atol=BF16_LOSS_ATOL[name])
+
+
+@pytest.mark.parametrize("name", all_arch_names())
+def test_input_specs_match_reference(name):
+    """Every shape of the published config: the kind, and each input's
+    shape and dtype (the decode cache's leaves too), as meta tensors."""
+    jcfg, cfg = jget_config(name), get_config(name)
+    for shape in Md.SHAPES:
+        jkind, jspecs = JMd.input_specs(jcfg, shape)
+        kind, specs = Md.input_specs(cfg, shape)
+        assert kind == jkind
+
+        def desc(tree):
+            return jax.tree.map(
+                lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", "")), tree)
+
+        for t in jax.tree.leaves(specs):
+            assert t.device.type == "meta"
+        assert desc(specs) == desc(jspecs), shape
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_lm_batches_bitwise(seed):
+    """Three batches of the token stream: tokens, labels and mask the
+    reference's bit for bit, as tensors on the asked device."""
+    got = list(lm_batches(97, 3, 16, seed=seed, n_batches=3, device="cpu"))
+    want = list(jlm_batches(97, 3, 16, seed=seed, n_batches=3))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert g[k].device.type == "cpu"
+            assert str(g[k].dtype).replace("torch.", "") == str(w[k].dtype)
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+
+
+def test_lm_train_cli_loss_falls(capsys):
+    """The example's CLI on the CPU (fewer, shorter steps than its
+    defaults): the loss falls, and it says so in the example's words."""
+    history = lm_train.main(["--device", "cpu", "--steps", "40", "--batch", "8",
+                             "--seq", "32"])
+    out = capsys.readouterr().out
+    assert len(history) == 40 and history[-1] < history[0]
+    assert f"loss: {history[0]:.3f} -> {history[-1]:.3f} over 40 steps" in out
+
+
+def test_resumed_train_equals_uninterrupted(tmp_path, capsys):
+    """`launch.train` stopped at step 10 with --ckpt-dir and run again to
+    step 20 resumes from the checkpoint (the reference's layout on disk)
+    and continues the uninterrupted run's history bit for bit."""
+    args = ["--arch", "gemma-2b", "--reduced", "--batch", "4", "--seq", "32",
+            "--ckpt-every", "5", "--device", "cpu"]
+    whole = TL.main(args + ["--steps", "20"])
+    ck = str(tmp_path / "ck")
+    first = TL.main(args + ["--steps", "10", "--ckpt-dir", ck])
+    assert sorted(os.listdir(ck))[-1] == "step_00000010"
+    second = TL.main(args + ["--steps", "20", "--ckpt-dir", ck])
+    assert "resumed from step 10" in capsys.readouterr().out
+    assert first == whole[:10] and second == whole[10:]
+
+
+def test_serving_after_training_builds_no_graph():
+    """After a bf16 train step: prefill and decode_step hold no graph, the
+    bf16 serving copy was made anew from the stepped masters (the
+    `_version` path), and serving equals a fresh model from those masters."""
+    cfg = get_reduced("gemma-2b")
+    params = Md.init_params(cfg, 0, device="cpu")
+    served = Md._cast(params, torch.bfloat16)
+    opt = TA.for_config(cfg)
+    state = {"params": params, "opt": opt.init(params.tree()),
+             "step": torch.zeros((), dtype=torch.int32)}
+    Md.make_train_step(cfg, opt)(state, _torch(_batch(cfg)))
+    again = Md._cast(params, torch.bfloat16)
+    assert again is not served
+    tokens = torch.from_numpy(_batch(cfg)["tokens"][:, :8].copy())
+    logits, cache = Md.prefill(cfg, params, {"tokens": tokens}, max_len=12)
+    out, cache = Md.decode_step(cfg, params, cache, logits.argmax(-1), 8)
+    for t in (logits, out, *(a for c in cache.values() for a in c.values())):
+        assert t.grad_fn is None and not t.requires_grad
+    fresh = convert.params_from_reference(cfg, convert.tree_to_numpy(params.tree()))
+    want, _ = Md.prefill(cfg, fresh, {"tokens": tokens}, max_len=12)
+    assert torch.equal(logits, want)
+
+
+def test_the_mesh_half_is_named():
+    """A sharding pin, a policy or a mesh of several devices is the LM
+    mesh slice (A13c)."""
+    cfg = get_reduced("gemma-2b")
+    with pytest.raises(NotImplementedError, match="A13c"):
+        Md.make_train_step(cfg, TA.adamw(), param_specs={})
+    with pytest.raises(NotImplementedError, match="A13c"):
+        Md.make_train_step(cfg.with_policy(T.ShardingPolicy()), TA.adamw())
+    with pytest.raises(NotImplementedError, match="A13c"):
+        TL.build(cfg, TM.make_host_mesh(data=2, device="cpu"), device="cpu")
