@@ -67,9 +67,9 @@ Phases:
      launches and the dedup counters of each run, each generation's
      counter row showing the branch it took (the table overflowed in
      every generation of the cap-100 runs and in none of the others),
-     its first 5 generations bitwise equal to the CPU's, the exact/off
+     its first 3 generations bitwise equal to the CPU's, the exact/off
      histories equal to each other, no synchronisation in a block
-  6b. kat7 at full width under pearson, 30 generations each: the heap path
+  6b. kat7 at full width under pearson, 20 generations each: the heap path
      (B1), postfix with dedup off (B2) and exact at caps 1,400 (B3) and
      6,301 (B4), the exact histories equal to the off one bit for bit;
      and under r2 on the heap path. Each history finite and
@@ -164,7 +164,7 @@ Phases:
      whisper-medium at their published widths and depths in f32:
      teacher-forced decode logits == the forward pass's within 2e-3 (B 1,
      12 tokens, a prefix of 4); (c) the same four in bf16: B 8, a
-     1,024-token prompt (whisper: stub frames [8, 1500, 1024]), 64 greedy
+     1,024-token prompt (whisper: stub frames [8, 1500, 1024]), 32 greedy
      tokens, twice with the tokens bitwise equal; prefill ms, decode ms a
      token (median of the warm steps' CUDA events), tokens/s, peak MB,
      the bound (bf16 weights + the cache over 3.35 TB/s), and one profiled
@@ -181,7 +181,7 @@ Phases:
      update), the MoE routing equal; (b) gemma-2b, mamba2-370m and
      whisper-medium at B 4 x S 1,024 and granite-moe-3b-a800m at B 8 x S
      512 in its 4 micro-batches, bf16 at full width with the published
-     optimizer: one warm and 3 timed steps (CUDA events), tokens/s, peak
+     optimizer: one warm and 2 timed steps (granite 1; CUDA events), tokens/s, peak
      MB beside the memory reckoning, one profiled step (CUDA launches,
      device busy, idle share) beside the bound, one step under
      set_sync_debug_mode("error"); (c) two runs of reduced granite and of
@@ -189,6 +189,30 @@ Phases:
      repro_torch.launch.train --arch gemma-2b --reduced --steps 30 --seq
      32`: the loss falls, and a run stopped at step 10 and resumed from
      its checkpoint continues the uninterrupted history
+  13. the LM mesh on the one card (`launch.sharding`'s specs, the
+     sharded train step of `launch.train.build`, `moe_apply_sharded`,
+     `launch.serving.cp_decode_attention`, `ckpt.elastic.reshard_state`;
+     no Pallas kernel, no kernel added to the `kernels` line): (a) the ten
+     reduced configs in f32 on (data 2, model 2), qwen3-moe and granite at
+     capacity factor 1.0: one sharded train step card against CPU from the
+     same seeded state, metrics, gradients, params and optimizer state as
+     phase 12 (a) holds them, the MoE routing and kept entries equal; (b)
+     gemma-2b at full width, bf16, B 4 x S 1,024 on (data 2, model 2): one
+     warm and 2 timed steps (CUDA events), the first loss within 4e-3 of
+     phase 12's single-device step, tokens/s, peak MB, each shard's state
+     bytes reckoned from the specs (the parts add up to the single-device
+     state plus the replicated leaves), one profiled step (CUDA launches,
+     idle share) under set_sync_debug_mode("error"); (e) (b)'s state saved
+     whole and resharded onto (data 4, model 1) bit for bit, then a step;
+     (c) granite-moe-3b-a800m at full width, bf16, capacity factor 8: B 8,
+     a 512-token prompt and 16 greedy tokens with the params on (data 2,
+     model 2) and the cache split by `cache_specs`, every MoE call
+     sharded, twice with the tokens bitwise equal, the same weights on one
+     device fed the same tokens within 2e-3 in f32 (in bf16 the difference
+     reported); (d) `cp_decode_attention` at gemma-2b's
+     attention dims, a 32,768-token cache on data 8, cur_len 0, 7,
+     16,383, 16,384 and 32,767, against `attn_decode` (out 2e-5, cache
+     1e-6)
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -240,6 +264,10 @@ from repro_torch.models import transformer as lm_T  # noqa: E402
 from repro_torch.obs import counters  # noqa: E402
 from repro_torch.data import loader as lm_data  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch import mesh as lm_mesh  # noqa: E402
+from repro_torch.launch import serving as lm_serving  # noqa: E402
+from repro_torch.launch import sharding as lm_SH  # noqa: E402
+from repro_torch.ckpt.elastic import reshard_state as lm_reshard_state  # noqa: E402
 from repro_torch.optim.adamw import for_config as lm_optimizer_for  # noqa: E402
 
 lm_optim = sys.modules["repro_torch.optim.adamw"]  # the module, not the function
@@ -1242,14 +1270,14 @@ POSTFIX_RUNS = (  # (label, session options, kernels the run must launch, overfl
 def postfix_paths():
     """Phase 6 -> {label: run}: kat7 with postfix genomes at full width
     (P = 100, depth 5, F = 9, D = 10,000, kernel c, CLASSIFY_SET), 30
-    generations per run, the first 5 card == CPU bitwise (the plain
+    generations per run, the first 3 card == CPU bitwise (the plain
     postfix stack machine on the CPU takes seconds a generation). Every
     exact/off run's history must equal the dedup-off run's (dedup is
     bitwise); the semantic tier's is tolerance-pinned (rtol 1e-5 against
     dedup off)."""
     runs = {}
     for label, kw, expect, overflow in POSTFIX_RUNS:
-        run = run_dataset("kat7", 100, 30, 5, block_check=True, expect=expect,
+        run = run_dataset("kat7", 100, 30, 3, block_check=True, expect=expect,
                           overflow=overflow, genome="postfix", **kw)
         runs[label] = run
         emit("postfix_path", run=label, **run)
@@ -1316,7 +1344,7 @@ def _first_generation_vs_cpu(kernel):
 
 def two_pass_paths():
     """Phase 6b -> {label: run}: kat7 at full width (P = 100, depth 5, F =
-    9, D = 10,000, CLASSIFY_SET), 30 generations each, under pearson on
+    9, D = 10,000, CLASSIFY_SET), 20 generations each, under pearson on
     the heap path (B1), on postfix genomes with dedup off (B2) and exact
     at caps 1,400 (the table + B3) and 6,301 (the table + B4), and under
     r2 on the heap path: each history finite and non-increasing, no
@@ -1326,7 +1354,7 @@ def two_pass_paths():
     within 1e-4."""
     runs = {}
     for label, kw, expect, overflow in TWO_PASS_RUNS:
-        run = run_dataset("kat7", 100, 30, 0, block_check=label == "pearson_heap",
+        run = run_dataset("kat7", 100, 20, 0, block_check=label == "pearson_heap",
                           expect=expect, overflow=overflow, **kw)
         runs[label] = run
         emit("two_pass_path", run=label, **run)
@@ -1655,7 +1683,7 @@ def _busy_us(dev):
     return busy
 
 
-def _trace_window(s, windows=3):
+def _trace_window(s, windows=2):
     """Profile one streamed generation of session `s` until the trace is
     complete: every B1 launch the wrapper counted and every kernel,
     copy and memset call the runtime made is recorded on the device
@@ -2656,7 +2684,7 @@ def _lm_bound_ms(cfg, served, cache):
     return (weights + cache_bytes) / HBM_BYTES_PER_S * 1e3, weights, cache_bytes
 
 
-def _lm_serve_timed(name, B=8, P=1024, tokens=64):
+def _lm_serve_timed(name, B=8, P=1024, tokens=32):
     """(c) a bf16 serve at full width: prefill of B x P tokens, then
     `tokens` greedy tokens with the position and the token on the card,
     twice (the tokens bitwise equal); the second run timed (prefill by
@@ -2776,6 +2804,8 @@ def lm_paths():
 # (config, B, S): lm_batches' traffic; granite in its published 4 micro-batches
 LM_TRAIN_FULL = (("gemma-2b", 4, 1024), ("mamba2-370m", 4, 1024),
                  ("whisper-medium", 4, 1024), ("granite-moe-3b-a800m", 8, 512))
+# granite's step is its 4 micro-batches: one timed step (the others two)
+TRAIN_TIMED_STEPS = {"granite-moe-3b-a800m": 1}
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # card == CPU in f32 (tests/test_torch_lm_train.py)
 # jamba's gradients: 8 layers of SSD and MoE at capacity factor 1.0 (grad norm
 # 27, the others' <= 8) carry f32 sum-order differences further: measured
@@ -2950,7 +2980,7 @@ def _train_losses(cfg, B, S, n):
     return losses
 
 
-def _train_timed(name, B, S, steps=3):
+def _train_timed(name, B, S, steps=2):
     """(b) a bf16 train step at full width (the published optimizer and
     accum_steps): one warm step, `steps` timed by CUDA events (the
     median), then one under torch.profiler (CUDA launches, device busy,
@@ -3056,7 +3086,7 @@ TWO_RUNS_ATOL = 4e-3
 
 def _train_two_runs(gemma_losses):
     """(c) reduced granite (MoE, bf16, B 8, S 64) for 3 steps twice, and
-    gemma-2b at full width for (b)'s first 4 steps again: the losses."""
+    gemma-2b at full width for (b)'s first 3 steps again: the losses."""
     cfg = lm_configs.get_reduced("granite-moe-3b-a800m")
     runs = [_train_losses(cfg, 8, 64, 3) for _ in range(2)]
     out = {"granite_reduced": _agree(runs[0], runs[1], "lm train granite reduced",
@@ -3121,7 +3151,8 @@ def lm_train_paths():
     gemma_losses = None
     for name, B, S in LM_TRAIN_FULL:
         t0 = time.perf_counter()
-        runs[f"train_{name}"], losses = _train_timed(name, B, S)
+        runs[f"train_{name}"], losses = _train_timed(name, B, S,
+                                                     TRAIN_TIMED_STEPS.get(name, 2))
         if name == "gemma-2b":
             gemma_losses = losses
         emit("lm_train", run="train_bf16", arch=name, nvidia_smi=card,
@@ -3134,6 +3165,376 @@ def lm_train_paths():
     runs["cli"] = _train_cli()
     emit("lm_train", run="cli", nvidia_smi=card, run_s=time.perf_counter() - t0, **runs["cli"])
     emit("lm_train", run="done", phase_s=time.perf_counter() - t_phase)
+    return runs
+
+
+# --- phase 13: the LM mesh on one card ---------------------------------------------
+
+LM_MESH = dict(data=2, model=2)
+# capacity factor 1.0 in (a), where the shards drop tokens
+MESH_CF1 = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
+# (c): the sharded serve against one device's in f32, phase 11 (b)'s bound at
+# full width (decode == forward)
+MESH_SERVE_F32_ATOL = 2e-3
+F32_STEPS = 4  # (c)'s f32 comparison: prefill and 4 decode steps
+
+
+def _lm_mesh_host_state(cfg):
+    """The seed-0 train state made on the CPU, as host numpy in the
+    reference's layout (what a checkpoint holds)."""
+    params = lm_model.init_params(cfg, 0, device="cpu")
+    opt = lm_optimizer_for(cfg)
+    return lm_convert.train_state_to_numpy({"params": params, "opt": opt.init(params.tree()),
+                                            "step": torch.zeros((), dtype=torch.int32)})
+
+
+def _lm_mesh_train_once(cfg, device, host, batch):
+    """One sharded train step on a (data 2, model 2) mesh over `device`
+    from the host state `host` -> (metrics, gradients, the new state, as
+    host numpy; the MoE routes of every call)."""
+    mesh = lm_mesh.make_host_mesh(**LM_MESH, device=device)
+    pcfg = cfg.with_policy(lm_SH.policy_for(mesh))
+    state = lm_reshard_state(host, pcfg, mesh)
+    opt, seen = lm_optimizer_for(pcfg), {}
+
+    def update(grads, st, params, step):
+        seen["grads"] = lm_convert.tree_to_numpy(grads)
+        return opt.update(grads, st, params, step)
+
+    step = lm_model.make_train_step(pcfg, lm_optim.Optimizer(opt.init, update),
+                                    param_specs=lm_SH.train_state_specs(pcfg, host,
+                                                                        mesh)["params"])
+    routes, restore = _record_routes()
+    try:
+        state, m = step(state, {k: v.to(mesh.home) for k, v in batch.items()})
+    finally:
+        restore()
+    return ({k: v.item() for k, v in m.items()}, seen["grads"],
+            lm_convert.train_state_to_numpy(state), routes)
+
+
+def _lm_mesh_card_vs_cpu():
+    """(a) every reduced config in f32 on (data 2, model 2), qwen3-moe and
+    granite at capacity factor 1.0 (the shards drop): one sharded train
+    step on the card against the same on the CPU from the same seeded
+    state and batch, the metrics, every gradient, the params (at
+    `_params_err`'s bound) and the optimizer state at TRAIN_RTOL /
+    TRAIN_ATOL; the MoE routing and kept entries of every call equal."""
+    out = {}
+    for name in lm_configs.all_arch_names():
+        extra = {"moe_capacity_factor": 1.0} if name in MESH_CF1 else {}
+        cfg = dataclasses.replace(lm_configs.get_reduced(name), compute_dtype="float32",
+                                  **extra)
+        batch = _train_batches(cfg, 2 * LM_MESH["data"] * cfg.accum_steps, 32, "cpu", 1)[0]
+        host = _lm_mesh_host_state(cfg)
+        want = _lm_mesh_train_once(cfg, "cpu", host, batch)
+        got = _lm_mesh_train_once(cfg, DEV, host, batch)
+        tag = f"lm mesh card vs cpu {name}"
+        lr = (lm_optim.adafactor if cfg.optimizer == "adafactor"
+              else lm_optim.adamw).__defaults__[0]
+        params_err, carried = _params_err(got[2].pop("params"), want[2].pop("params"),
+                                          want[1], lr, f"{tag} params")
+        err = {"metrics": _tree_err(got[0], want[0], f"{tag} metrics"),
+               "grads": _tree_err(got[1], want[1], f"{tag} grads",
+                                  atol=TRAIN_GRAD_ATOL.get(name, TRAIN_ATOL)),
+               "params": params_err,
+               "optimizer_state": _tree_err(got[2], want[2], f"{tag} state")}
+        if len(got[3]) != len(want[3]) or not all(
+                torch.equal(ge, we) and torch.equal(gk, wk)
+                for (ge, gk), (we, wk) in zip(got[3], want[3])):
+            raise AssertionError(f"{tag}: the MoE routing or its kept entries differ")
+        out[name] = dict(max_abs_err=err, params_held_by_carried_bound=carried,
+                         moe_calls=len(got[3]),
+                         dropped_entries=int(sum(int((~k).sum()) for _, k in got[3])),
+                         capacity_factor=cfg.moe_capacity_factor, loss=got[0]["loss"])
+    return out
+
+
+def _lm_mesh_state_bytes(specs, shapes, mesh):
+    """Each shard's bytes of the state reckoned from the specs, the
+    single-device state's bytes, and the leaves whose blocks the specs
+    replicate (held by more than one shard)."""
+    per_shard = lm_SH.shard_bytes(specs, shapes, mesh)
+    leaves = lm_SH._leaves(shapes)
+    spec_leaves = lm_SH._leaves(specs, is_leaf=lambda x: isinstance(x, lm_mesh.P))
+    whole = sum(math.prod(t.shape) * t.dtype.itemsize for t in leaves)
+    replicated, extra = set(), 0
+    paths = _lm_mesh_leaf_paths(shapes)
+    for path, t, spec in zip(paths, leaves, spec_leaves):
+        split = math.prod(mesh.axis_size(a) for part in spec for a in lm_mesh._names(part))
+        if split < mesh.size:
+            replicated.add(path[-1])
+            extra += math.prod(t.shape) * t.dtype.itemsize * (mesh.size - split) // split
+    if sum(per_shard) != whole + extra:
+        raise AssertionError(f"lm mesh: the parts' {sum(per_shard)} bytes are not the "
+                             f"state's {whole} plus the replicas' {extra}")
+    return dict(per_shard_mb=[b / 2**20 for b in per_shard], sum_mb=sum(per_shard) / 2**20,
+                single_device_mb=whole / 2**20, replicated_extra_mb=extra / 2**20,
+                replicated_leaves=sorted(replicated))
+
+
+def _lm_mesh_leaf_paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _lm_mesh_leaf_paths(v, path + (k,))]
+    return [path]
+
+
+def _lm_mesh_train_timed(single, B=4, S=1024, steps=2):
+    """(b) gemma-2b at full width in bf16 on (data 2, model 2) on the one
+    card (`launch.train.build`: the seed-0 weights phase 12 trained, placed
+    by `train_state_specs`): one warm step and `steps` timed by CUDA
+    events, then one under torch.profiler (CUDA launches, device busy, idle
+    share) and set_sync_debug_mode("error"); the first step's loss within
+    TWO_RUNS_ATOL of phase 12's single-device step on the same weights and
+    batch; each shard's state bytes reckoned from the specs. Returns (the
+    figures, {"state": the state after the steps}, the config)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = lm_configs.get_config("gemma-2b")
+    mesh = lm_mesh.make_host_mesh(**LM_MESH, device=DEV)
+    pcfg, state, step, specs = lm_train.build(cfg, mesh)
+    shapes = lm_SH.state_shapes(pcfg, lm_optimizer_for(pcfg))
+    batches = _train_batches(cfg, B, S, DEV, steps + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times = [], [], []
+    for i in range(steps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, m = step(state, batches[i])
+        ev[1].record()
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i:
+            times.append(ev[0].elapsed_time(ev[1]))
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step(state, batches[steps + 1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses.append(m["loss"].item())
+    launches, busy, n_dev, top_ops = _raw_trace(prof)
+    del prof
+    diff = abs(losses[0] - single["losses"][0])
+    if not (diff <= TWO_RUNS_ATOL and all(math.isfinite(x) for x in losses + norms)):
+        raise AssertionError(f"lm mesh gemma-2b: losses {losses} against one device's "
+                             f"{single['losses'][0]} (|diff| {diff})")
+    step_ms = statistics.median(times)
+    out = dict(mesh=mesh.shape, batch=B, seq=S, step_ms=step_ms, step_ms_all=times,
+               tokens_per_s=B * S / step_ms * 1e3, peak_mb=peak_mb,
+               state=_lm_mesh_state_bytes(specs, shapes, mesh),
+               cuda_launches_per_step=launches, device_events_per_step=n_dev,
+               profiled_step_ms=wall * 1e3, device_busy_ms=busy,
+               idle_share=1 - busy / (wall * 1e3), top_ops=top_ops, sync_free_step=True,
+               losses=losses, grad_norms=norms, single_device_first_loss=single["losses"][0],
+               first_loss_abs_diff=diff, single_device_step_ms=single["step_ms"],
+               single_device_tokens_per_s=single["tokens_per_s"],
+               single_device_peak_mb=single["peak_mb"],
+               single_device_cuda_launches=single["cuda_launches_per_step"],
+               single_device_idle_share=single["idle_share"])
+    del step, batches, m
+    torch.cuda.empty_cache()
+    return out, {"state": state}, pcfg
+
+
+def _lm_mesh_same_leaves(got, want, tag):
+    """Every leaf of two placed states, joined from their parts on the
+    device, equal bit for bit."""
+    def walk(a, b, path):
+        if isinstance(a, (list, dict)):
+            for k in (range(len(a)) if isinstance(a, list) else a):
+                walk(a[k], b[k], path + (k,))
+        elif not torch.equal(a.join() if isinstance(a, lm_mesh.Sharded) else a,
+                             b.join() if isinstance(b, lm_mesh.Sharded) else b):
+            raise AssertionError(f"{tag}: {path} differs after resharding")
+
+    walk(got["params"].tree(), want["params"].tree(), ("params",))
+    walk(got["opt"], want["opt"], ("opt",))
+    walk(got["step"], want["step"], ("step",))
+
+
+def _lm_mesh_reshard(holder, pcfg, B=4, S=1024):
+    """(e) (b)'s state saved whole from (data 2, model 2) (host numpy in
+    the reference's layout, what a checkpoint holds) and placed on (data 4,
+    model 1) by `ckpt.elastic.reshard_state`: every leaf bit for bit the
+    saved state's, then one step there (a finite loss). `holder["state"]`
+    is taken and freed here."""
+    state = holder.pop("state")
+    t0 = time.perf_counter()
+    host = lm_convert.train_state_to_numpy(state)
+    save_s = time.perf_counter() - t0
+    mesh = lm_mesh.make_host_mesh(data=4, model=1, device=DEV)
+    cfg = pcfg.with_policy(lm_SH.policy_for(mesh))
+    t0 = time.perf_counter()
+    resharded = lm_reshard_state(host, cfg, mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    specs = lm_SH.train_state_specs(cfg, host, mesh)
+    del host
+    t0 = time.perf_counter()
+    _lm_mesh_same_leaves(resharded, state, "lm mesh reshard (2,2) -> (4,1)")
+    compare_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    step = lm_model.make_train_step(cfg, lm_optimizer_for(cfg), param_specs=specs["params"])
+    resharded, m = step(resharded, _train_batches(cfg, B, S, DEV, 1)[0])
+    loss = m["loss"].item()
+    if not math.isfinite(loss):
+        raise AssertionError(f"lm mesh reshard: the step on (4, 1) gave loss {loss}")
+    del resharded, step, m
+    torch.cuda.empty_cache()
+    return dict(mesh=mesh.shape, save_s=save_s, place_s=place_s, compare_s=compare_s,
+                bitwise=True, step_loss=loss)
+
+
+def _lm_mesh_serve(B=8, P=512, tokens=16):
+    """(c) granite-moe-3b-a800m at full width, capacity factor 8 (no
+    drops): the params placed on (data 2, model 2), prefill of B x P and
+    `tokens` greedy tokens in bf16 with the cache split by `cache_specs` (a
+    ShardedCache), every MoE call through moe_apply_sharded; twice, the
+    tokens bitwise equal. The same weights on one device fed the same
+    tokens: in f32 (prefill and F32_STEPS decode steps) the logits within
+    MESH_SERVE_F32_ATOL (phase 11 (b)'s full-width bound), in bf16 the
+    difference reported (each data shard's sub-batch rounds its products
+    apart: no bound is measured at this depth)."""
+    cfg = dataclasses.replace(lm_configs.get_config("granite-moe-3b-a800m"),
+                              moe_capacity_factor=8.0)
+    mesh = lm_mesh.make_host_mesh(**LM_MESH, device=DEV)
+    pcfg = cfg.with_policy(lm_SH.policy_for(mesh))
+    params = lm_model.init_params(cfg, 0, device=DEV)
+    sharded = lm_SH.ShardedLM.place(pcfg, mesh, params, lm_SH.param_specs(
+        pcfg, lm_SH.ref_layout(params.tree()), mesh))
+    batch = _lm_inputs(cfg, B, P, DEV)
+    calls = {"sharded": 0, "whole": 0}
+    orig = (lm_moe.moe_apply_sharded, lm_moe.moe_apply)
+
+    def counting(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    def run(c, p, feed=None, steps=tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm_model.prefill(c, p, batch, max_len=P + tokens + 1)
+        outs, toks = [logits], []
+        cur = torch.tensor(P, dtype=torch.int32, device=DEV)
+        for t in range(steps):
+            tok = feed[:, t:t + 1] if feed is not None else logits.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            logits, cache = lm_model.decode_step(c, p, cache, tok, cur)
+            outs.append(logits)
+            cur = cur + 1
+        torch.cuda.synchronize()
+        return torch.cat(outs, 1), torch.cat(toks, 1), cache, time.perf_counter() - t0
+
+    lm_moe.moe_apply_sharded = counting("sharded", orig[0])
+    lm_moe.moe_apply = counting("whole", orig[1])
+    try:
+        got, toks, cache, first_s = run(pcfg, sharded)
+        routed = dict(calls)
+        _, again, _, second_s = run(pcfg, sharded)
+    finally:
+        lm_moe.moe_apply_sharded, lm_moe.moe_apply = orig
+    if not isinstance(cache, lm_SH.ShardedCache) or routed["whole"] or not routed["sharded"]:
+        raise AssertionError(f"lm mesh serve: cache {type(cache).__name__}, MoE calls {routed}")
+    if not torch.equal(toks, again):
+        raise AssertionError("lm mesh serve: two runs' greedy tokens differ")
+    spec_k = tuple(cache["b0"]["k"].spec)
+    del cache
+    want, single_toks, _, single_s = run(cfg, params)
+    bf16_err = float((got - want).abs().max())
+    same_tokens = float((single_toks == toks).float().mean())
+    f32 = dict(compute_dtype="float32", cache_dtype="float32")
+    got32, _, _, _ = run(dataclasses.replace(pcfg, **f32), sharded, feed=toks, steps=F32_STEPS)
+    want32, _, _, _ = run(dataclasses.replace(cfg, **f32), params, feed=toks, steps=F32_STEPS)
+    err = float((got32 - want32).abs().max())
+    if not err <= MESH_SERVE_F32_ATOL:
+        raise AssertionError(f"lm mesh serve: f32 logits {err} from the single-device run's")
+    out = dict(mesh=mesh.shape, batch=B, prompt=P, tokens=tokens, moe_calls=routed,
+               cache_k_spec=spec_k, tokens_equal=True, f32_max_abs_err=err,
+               f32_atol=MESH_SERVE_F32_ATOL, f32_decode_steps=F32_STEPS,
+               bf16_max_abs_diff=bf16_err,
+               bf16_logit_scale=float(want.abs().max()),
+               bf16_greedy_tokens_as_single_device=same_tokens,
+               serve_s=second_s, first_serve_s=first_s, single_device_serve_s=single_s,
+               first_tokens=toks[0, :8].tolist())
+    del params, sharded, got, want, got32, want32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_mesh_cp_decode(S=32_768, cur_lens=(0, 7, 16_383, 16_384, 32_767)):
+    """(d) cp_decode_attention at gemma-2b's attention dims (d 2,048, 8
+    heads, kv 1, d_head 256) in f32, B 1, a 32,768-token cache on data 8,
+    the cache rolled forward through `cur_lens`: against attn_decode on
+    the card, out at 2e-5 and the cache at 1e-6 (tests/test_serving.py's
+    bounds); each call's time by CUDA events beside attn_decode's."""
+    from repro_torch.models.layers import AttnDims, attn_decode, attn_init
+
+    dims = AttnDims(d_model=2048, n_heads=8, n_kv=1, d_head=256)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    p = attn_init(gen, dims, torch.float32, DEV)
+    mesh = lm_mesh.make_host_mesh(data=8, model=1, device=DEV)
+    ck = torch.randn((1, S, 1, 256), generator=gen, device=DEV) * 0.3
+    cv = torch.randn((1, S, 1, 256), generator=gen, device=DEV) * 0.3
+    errs, times = [], []
+    for cur_len in cur_lens:
+        x = torch.randn((1, 1, 2048), generator=gen, device=DEV) * 0.3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        want = attn_decode(p, x, ck.clone(), cv.clone(), cur_len, dims)
+        ev[1].record()
+        ev[2].record()
+        got = lm_serving.cp_decode_attention(p, x, ck, cv, torch.tensor(cur_len, device=DEV),
+                                             dims, mesh, seq_axis="data")
+        ev[3].record()
+        for g, w, tol, what in zip(got, want, (2e-5, 1e-6, 1e-6), ("out", "k", "v")):
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol,
+                                       msg=lambda m: f"cp decode {what} cur_len {cur_len}: {m}")
+        errs.append(float((got[0] - want[0]).abs().max()))
+        torch.cuda.synchronize()
+        times.append((ev[2].elapsed_time(ev[3]), ev[0].elapsed_time(ev[1])))
+        ck, cv = got[1], got[2]
+    return dict(cache=S, shards=8, cur_lens=list(cur_lens), out_max_abs_err=errs,
+                cp_ms=[t[0] for t in times], attn_decode_ms=[t[1] for t in times])
+
+
+def lm_mesh_paths(single):
+    """Phase 13: the LM mesh on one card (`launch.sharding`, the sharded
+    train step, `moe_apply_sharded`, `launch.serving`, `ckpt.elastic`)
+    -> {run: figures}. `single` is phase 12's gemma-2b step."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    runs = {}
+    t0 = time.perf_counter()
+    runs["card_vs_cpu"] = _lm_mesh_card_vs_cpu()
+    emit("lm_mesh", run="card_vs_cpu", nvidia_smi=card, run_s=time.perf_counter() - t0,
+         configs=runs["card_vs_cpu"])
+    t0 = time.perf_counter()
+    runs["train_gemma-2b"], holder, pcfg = _lm_mesh_train_timed(single)
+    emit("lm_mesh", run="train_bf16", arch="gemma-2b", nvidia_smi=card,
+         run_s=time.perf_counter() - t0, **runs["train_gemma-2b"])
+    t0 = time.perf_counter()
+    runs["reshard"] = _lm_mesh_reshard(holder, pcfg)
+    emit("lm_mesh", run="reshard", nvidia_smi=card, run_s=time.perf_counter() - t0,
+         **runs["reshard"])
+    t0 = time.perf_counter()
+    runs["serve_granite"] = _lm_mesh_serve()
+    emit("lm_mesh", run="serve_bf16", arch="granite-moe-3b-a800m", nvidia_smi=card,
+         run_s=time.perf_counter() - t0, **runs["serve_granite"])
+    t0 = time.perf_counter()
+    runs["cp_decode"] = _lm_mesh_cp_decode()
+    emit("lm_mesh", run="cp_decode", nvidia_smi=card, run_s=time.perf_counter() - t0,
+         **runs["cp_decode"])
+    emit("lm_mesh", run="done", phase_s=time.perf_counter() - t_phase)
     return runs
 
 
@@ -3275,6 +3676,13 @@ def main():
     t0 = time.perf_counter()
     build.load("gp_eval")
     build_s = time.perf_counter() - t0
+    laps, last = {}, [t0]
+
+    def lap(name):  # each phase's seconds, printed before the kernels line
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
     registers, unchanged = _registers()
     emit("card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -3283,6 +3691,7 @@ def main():
 
     parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     before = parent_phase2(parent) if parent else None
+    lap("1 build")
     perf, max_err, max_rel = kernel_vs_plain()
     if parent:
         ab_lines("parent, before", before, perf)
@@ -3291,6 +3700,7 @@ def main():
     table_modes()
     points_per_thread()
     many_trees()
+    lap("2 kernels, 2b two-pass kernels")
 
     main_run = run_dataset("kat7", 100, 30, 10, block_check=True)
     emit("main_path", **main_run)
@@ -3312,14 +3722,26 @@ def main():
                              f"{configured.backend!r}, not 'cuda'")
     emit("quickstart", best=q.best_expression(), residual=resid, backend=q.backend)
 
+    lap("3-5 main path, ligo, quickstart")
     runs = postfix_paths()
+    lap("6 postfix")
     two_runs = two_pass_paths()
+    lap("6b two-pass")
     isl_runs = island_paths()
+    lap("7 islands")
     stream_runs, _ = stream_paths(main_run["history"])
+    lap("8 stream")
     _, service_of = service_paths()
+    lap("9 service")
     mesh_runs = mesh_paths()
+    lap("10 mesh")
     lm_paths()
-    lm_train_paths()
+    lap("11 lm serve")
+    lm_train_runs = lm_train_paths()
+    lap("12 lm train")
+    lm_mesh_paths(lm_train_runs["train_gemma-2b"])
+    lap("13 lm mesh")
+    emit("timing", phase_s=laps, total_s=time.perf_counter() - t0)
     # the mesh path's launches (phase 10), from the run whose work each
     # kernel does there; the probe is not on it (mesh steps carry no cache)
     mesh_of = {"eval_fitness": "islands", "eval_fitness_postfix": "postfix_off",

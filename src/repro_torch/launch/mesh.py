@@ -1,7 +1,7 @@
 """The device mesh of the port's sharded runs, and its collectives.
 
 Port of `repro/launch/mesh.py` together with the parts of `jax.sharding`
-and `shard_map` the GP engine uses. The mesh is single-controller, as
+and `shard_map` the GP engine and the LM mesh use. The mesh is single-controller, as
 the reference's is: one process holds every shard, runs each shard's
 part of a generation in turn, and joins the shards where the reference
 runs a collective. So `GPSession(topology=MeshTopology(data=2, model=2,
@@ -14,8 +14,8 @@ Axes, in the reference's order (`pod` first, and only when it is > 1):
          sub-populations with ring migration, or the island layout's
          island axis
   data   dataset columns; each shard's fitness moments are merged
-         across this axis
-  model  the population's rows
+         across this axis. LM: the batch and the FSDP dim of the weights
+  model  the population's rows. LM: heads, FFN hidden, experts, vocab
 
 A `PartitionSpec` names, for each dimension of a tensor, the axis (or
 tuple of axes, major first) its dimension is split over, or None for a
@@ -24,11 +24,15 @@ replicated dimension: the counterpart of `jax.sharding.PartitionSpec`.
 shard's device, and `Mesh.join` turns them back into the global tensor
 on the mesh's first device.
 
-The collectives (`psum`, `all_gather`, `ppermute`, `pmin`, `pmax`) are plain
-functions over the per-shard tensors of one axis group, in rank order;
-each returns one result per shard, a copy on that shard's own device.
-`over` applies one to every group of an axis. Nothing here reads a
-tensor back to the host.
+The collectives (`psum`, `pmean`, `all_gather`, `all_to_all`, `ppermute`,
+`pmin`, `pmax`) are plain functions over the per-shard tensors of one
+axis group, in rank order; each returns one result per shard, a copy on
+that shard's own device. `over` applies one to every group of an axis.
+`Sharded` holds a tensor as its per-shard parts (the LM's train state
+and cache; the counterpart of a jax.Array with a `NamedSharding`), and
+its `gather` is the all-gather whose backward adds each shard's gradient
+into its part (the reduce-scatter). Nothing here reads a tensor back to
+the host.
 """
 from __future__ import annotations
 
@@ -155,23 +159,29 @@ class Mesh:
         return [t[self._block(s, t.shape, spec)].contiguous().to(self.devices[s])
                 for s in shards]
 
-    def join(self, parts, spec):
-        """The global tensor on the home device from per-shard `parts` (a
-        list over the shards, or a dict holding at least the shards read
-        here): each block comes from the first shard that holds it, rank
-        0 on every axis the spec does not name."""
+    def owners(self, spec) -> list[int]:
+        """The shards that hold each block of a tensor under `spec` once:
+        rank 0 on every axis the spec does not name, in shard order."""
         named = {a for part in spec for a in _names(part)}
-        owners = [s for s in range(self.size)
-                  if all(r == 0 for a, r in self.coords(s).items() if a not in named)]
+        return [s for s in range(self.size)
+                if all(r == 0 for a, r in self.coords(s).items() if a not in named)]
+
+    def join(self, parts, spec, device=None):
+        """The global tensor on `device` (default: the home device) from
+        per-shard `parts` (a list over the shards, or a dict holding at
+        least the shards read here): each block comes from the first
+        shard that holds it, rank 0 on every axis the spec does not name."""
+        dev = self.home if device is None else torch.device(device)
+        owners = self.owners(spec)
         first = parts[owners[0]]
         if len(owners) == 1:
-            return first.to(self.home)
+            return first.to(dev)
         shape = list(first.shape)
         for d in range(min(len(spec), first.dim())):
             shape[d] *= math.prod(self.axis_size(a) for a in _names(spec[d]))
-        out = torch.empty(shape, dtype=first.dtype, device=self.home)
+        out = torch.empty(shape, dtype=first.dtype, device=dev)
         for s in owners:
-            out[self._block(s, shape, spec)] = parts[s].to(self.home)
+            out[self._block(s, shape, spec)] = parts[s].to(dev)
         return out
 
 
@@ -193,6 +203,13 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1, device=None) -> 
         "data": data, "model": model}
     n = math.prod(shape.values())
     return Mesh(shape, [cards[s % len(cards)] for s in range(n)])
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The production mesh: (data 16, model 16), or with `multi_pod`
+    (pod 2, data 16, model 16), its shards on the cards as
+    `make_host_mesh` places them."""
+    return make_host_mesh(data=16, model=16, pod=2 if multi_pod else 1, device=device)
 
 
 def batch_axes(mesh) -> tuple:
@@ -226,6 +243,12 @@ def pmax(parts: list) -> list:
     return [high.to(p.device) for p in parts]
 
 
+def pmean(parts: list) -> list:
+    """The elementwise mean of `parts`: their sum in rank order over
+    their count."""
+    return [t / len(parts) for t in psum(parts)]
+
+
 def all_gather(parts: list, dim: int = 0, tiled: bool = False) -> list:
     """`parts` stacked along a new dimension `dim` in rank order, or
     with `tiled` concatenated along `dim`."""
@@ -233,6 +256,26 @@ def all_gather(parts: list, dim: int = 0, tiled: bool = False) -> list:
     moved = [p.to(home) for p in parts]
     g = torch.cat(moved, dim) if tiled else torch.stack(moved, dim)
     return [g.to(p.device) for p in parts]
+
+
+def all_to_all(parts: list, split_dim: int, concat_dim: int, tiled: bool = True) -> list:
+    """Rank r splits its part into n equal chunks along `split_dim` and
+    sends chunk j to rank j; rank j concatenates what it receives along
+    `concat_dim` in rank order (`jax.lax.all_to_all`). Without `tiled`
+    the split dimension has size n and is dropped, and the received
+    chunks stack along a new `concat_dim`."""
+    n = len(parts)
+    size = parts[0].shape[split_dim]
+    if size % n or (not tiled and size != n):
+        raise ValueError(f"all_to_all: dimension {split_dim} of size {size} does not split "
+                         f"over {n} ranks")
+    chunks = [p.chunk(n, split_dim) for p in parts]
+    out = []
+    for j, dst in enumerate(parts):
+        got = [chunks[r][j].to(dst.device) for r in range(n)]
+        out.append(torch.cat(got, concat_dim) if tiled else
+                   torch.stack([g.squeeze(split_dim) for g in got], concat_dim))
+    return out
 
 
 def ppermute(parts: list, perm) -> list:
@@ -265,3 +308,95 @@ def over(mesh: Mesh, axis, fn, *parts, **kw):
         for out, vals in zip(outs, res):
             out.update(zip(members, vals))
     return outs[0] if single else outs
+
+
+# --- a tensor stored as per-shard parts ----------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    """The global tensor from a `Sharded`'s parts; the backward hands each
+    part its block of the gradient (every shard that holds a block, the
+    replicas too), so gradients of several gathers add up in the parts:
+    the all-gather's transpose, a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, sh, device, *parts):
+        ctx.sh = sh
+        return sh.mesh.join(parts, sh.spec, device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        sh = ctx.sh
+        return (None, None, *(grad[sh.block(s)].to(p.device, copy=True).contiguous()
+                              for s, p in enumerate(sh.parts)))
+
+
+class Sharded:
+    """A global tensor of `shape` stored as one part per shard of `mesh`,
+    split by `spec` (`Mesh.split`); shards that hold the same block (the
+    axes the spec does not name) keep copies of it, as the devices of a
+    mesh do. `join` is the global tensor, `gather` the same as a step of
+    autograd's graph, `assign` writes a global value into the parts."""
+
+    def __init__(self, mesh: Mesh, spec, parts: list, shape):
+        self.mesh, self.spec, self.parts = mesh, PartitionSpec(*spec), list(parts)
+        self.shape = torch.Size(shape)
+
+    @classmethod
+    def place(cls, mesh: Mesh, t, spec) -> "Sharded":
+        """`t`'s parts under `spec`, each a tensor of its own on its
+        shard's device (no part aliases `t` or another part)."""
+        t = torch.as_tensor(t)
+        spec = PartitionSpec(*spec)
+        parts = []
+        for s in range(mesh.size):
+            block = t[mesh._block(s, t.shape, spec)]
+            parts.append(torch.empty(block.shape, dtype=t.dtype,
+                                     device=mesh.devices[s]).copy_(block))
+        return cls(mesh, spec, parts, t.shape)
+
+    @classmethod
+    def zeros(cls, mesh: Mesh, spec, shape, dtype=torch.float32) -> "Sharded":
+        spec = PartitionSpec(*spec)
+        shape = torch.Size(shape)
+        return cls(mesh, spec, [torch.zeros([b.stop - b.start for b in mesh._block(s, shape, spec)],
+                                            dtype=dtype, device=mesh.devices[s])
+                                for s in range(mesh.size)], shape)
+
+    def __repr__(self):
+        return f"Sharded({tuple(self.shape)}, {self.spec!r}, {self.mesh.shape})"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def block(self, s: int) -> tuple:
+        """Shard `s`'s slices of the global tensor."""
+        return self.mesh._block(s, self.shape, self.spec)
+
+    def owners(self) -> list[int]:
+        return self.mesh.owners(self.spec)
+
+    def join(self, device=None) -> torch.Tensor:
+        return self.mesh.join([p.detach() for p in self.parts], self.spec, device)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The global tensor on `device`, differentiable in the parts."""
+        dev = self.mesh.home if device is None else torch.device(device)
+        if any(p.requires_grad for p in self.parts) and torch.is_grad_enabled():
+            return _Gather.apply(self, dev, *self.parts)
+        return self.mesh.join(self.parts, self.spec, dev)
+
+    def assign(self, value) -> None:
+        """Write the global tensor `value` into every part, in place."""
+        with torch.no_grad():
+            for s, p in enumerate(self.parts):
+                p.copy_(value[self.block(s)])
+
+    def with_parts(self, parts: list) -> "Sharded":
+        """Another tensor of this layout (a gradient, a moment) from `parts`."""
+        return Sharded(self.mesh, self.spec, parts, self.shape)

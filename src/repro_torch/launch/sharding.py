@@ -1,0 +1,433 @@
+"""Parameter / state / batch / cache sharding rules (FSDP x TP), and the
+placement of a tree on the port's mesh (port of `repro/launch/sharding.py`).
+
+Every model in the zoo follows one set of path-based rules:
+
+  * tensor-parallel (`model` axis): attention heads, FFN hidden, experts
+    (or per-expert ff when E doesn't divide the axis), vocab.
+  * FSDP (`data` (+`pod`) axes): the other large dim of every matrix —
+    params, master copies and optimizer moments all shard over the full
+    mesh.
+
+The rules are the reference's letter for letter: the candidate order,
+the divisibility fallbacks (gemma's kv=1 falls back from head-sharding
+to replication, never to d_head), and the stacked-leaf lead. They run on
+trees in the reference's layout (a stack's leaves stacked on a leading
+[n_groups] axis), on anything with a `.shape`: `state_shapes` makes such
+a tree on the `meta` device, so the specs of a 398 B model are reckoned
+without allocating it, as the reference's `jax.eval_shape` does.
+
+`named` places a tree on the mesh: each leaf becomes a `Sharded`, its
+per-shard parts split by its spec (the counterpart of `device_put` with a
+`NamedSharding`). A stack in the port's layout (a list of groups) takes
+each group's slice of the stacked spec (the spec minus its lead).
+`ShardedLM` is the parameter tree of a train state placed so, and
+`ShardedCache` a serving cache placed by `cache_specs`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.launch.mesh import Mesh, P, Sharded, _names, batch_axes
+
+_TP = "model"
+
+
+def _fsdp(policy) -> tuple:
+    return tuple(policy.batch)  # ("data",) or ("pod", "data")
+
+
+def _axis_sizes(mesh) -> dict:
+    return {name: int(mesh.shape[name]) for name in mesh.axis_names}
+
+
+def policy_for(mesh):
+    """The ShardingPolicy of `mesh` (the reference's `launch/train.py`
+    build and `dryrun.make_policy`): batch over the batch axes, tensor
+    parallelism over `model`."""
+    from repro_torch.models.transformer import ShardingPolicy
+
+    dp = math.prod(mesh.shape[a] for a in batch_axes(mesh))
+    return ShardingPolicy(batch=batch_axes(mesh), model="model",
+                          tp_size=mesh.shape["model"], dp_size=dp)
+
+
+def _fit(shape, lead, candidates, sizes) -> P:
+    """First candidate whose named axes evenly divide the dims they shard.
+    Uneven tiling is refused, so e.g. gemma's kv=1 falls back from
+    head-sharding to head-dim-sharding to replication."""
+    for cand in candidates:
+        ok = True
+        for dim, ax in zip(shape[len(lead):], cand):
+            if ax is None:
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            n = 1
+            for a in axes:
+                n *= sizes[a]
+            if dim % n:
+                ok = False
+                break
+        if ok:
+            return P(*lead, *cand)
+    return P(*lead, *([None] * (len(shape) - len(lead))))
+
+
+def spec_for_param(cfg, path: tuple, shape: tuple, sizes: dict) -> P:
+    """PartitionSpec for one parameter leaf, by path name. Candidates are
+    ordered best-first; divisibility picks the first legal one."""
+    names = [str(k) for k in path]
+    leaf = names[-1]
+    fs = _fsdp(cfg.policy)
+    stacked = any(n in ("stack", "enc_stack") for n in names)
+    lead = (None,) if stacked else ()
+
+    def fit(*cands):
+        return _fit(shape, lead, cands, sizes)
+
+    if leaf == "embed":
+        return _fit(shape, (), [(_TP, fs), (None, fs), (None, None)], sizes)
+    if leaf == "unembed":
+        return _fit(shape, (), [(fs, _TP), (fs, None), (None, None)], sizes)
+    if leaf in ("wq", "wk", "wv"):
+        # never shard d_head: rope splits it in half
+        return fit((fs, _TP, None), (fs, None, None), (None,) * 3)
+    if leaf == "wo":
+        return fit((_TP, None, fs), (None, None, fs), (None,) * 3)
+    if leaf in ("bq", "bk", "bv"):
+        return fit((_TP, None), (None, None))
+    if leaf in ("w_up", "w_gate", "w_down"):
+        if len(shape) - len(lead) == 3:  # MoE expert stacks [E, ., .]
+            if leaf == "w_down":  # [E, ff, d]
+                return fit((_TP, None, fs), (None, _TP, fs), (None, None, fs))
+            return fit((_TP, fs, None), (None, fs, _TP), (None, fs, None))
+        if leaf == "w_down":  # [ff, d]
+            return fit((_TP, fs), (None, fs), (None, None))
+        return fit((fs, _TP), (fs, None), (None, None))
+    if leaf == "router":
+        return fit((None, None))
+    if leaf == "in_proj":
+        return fit((fs, _TP), (fs, None), (None, None))
+    if leaf == "out_proj":
+        return fit((_TP, fs), (None, fs), (None, None))
+    if leaf == "conv_w":
+        return fit((None, _TP), (None, None))
+    if leaf == "conv_b":
+        return fit((_TP,), (None,))
+    # norms, scalars (A_log, D, dt_bias), biases → replicated
+    return P(*lead, *([None] * (len(shape) - len(lead))))
+
+
+def _map_with_path(fn, tree, path=()):
+    """`fn(path, leaf)` over the leaves of a tree of dicts (the
+    reference's layout), `path` the tuple of keys."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def param_specs(cfg, param_shapes, mesh) -> Any:
+    sizes = _axis_sizes(mesh)
+    return _map_with_path(lambda path, leaf: spec_for_param(cfg, path, _shape(leaf), sizes),
+                          param_shapes)
+
+
+def _opt_specs(cfg, pspecs, opt_shapes) -> Any:
+    """Mirror param specs onto optimizer slots (AdamW m/v: same shape;
+    Adafactor r/c: param spec minus the averaged dim)."""
+
+    def mirror(path, leaf):
+        names = [str(k) for k in path]
+        shape = _shape(leaf)
+        # strip the optimizer container prefix ("m"/"v"/"stats") and the
+        # factored suffix ("r"/"c"/"v") to locate the param path
+        core = [n for n in names if n not in ("m", "v", "stats", "r", "c")]
+        suffix = names[-1] if names[-1] in ("r", "c", "v") else None
+        node = pspecs
+        try:
+            for n in core:
+                node = node[n]
+        except (KeyError, TypeError):
+            return P(*([None] * len(shape)))
+        if not isinstance(node, P):
+            return P(*([None] * len(shape)))
+        if len(node) == len(shape):
+            return node
+        if suffix == "r":  # param spec minus last dim
+            return P(*node[:-1])
+        if suffix == "c":  # param spec minus second-to-last dim
+            return P(*node[:-2], node[-1])
+        return P(*([None] * len(shape)))
+
+    return _map_with_path(mirror, opt_shapes)
+
+
+def train_state_specs(cfg, state_shapes, mesh) -> Any:
+    pspecs = param_specs(cfg, state_shapes["params"], mesh)
+    return {"params": pspecs,
+            "opt": _opt_specs(cfg, pspecs, state_shapes["opt"]),
+            "step": P()}
+
+
+def batch_specs(cfg, batch_shapes) -> Any:
+    b = tuple(cfg.policy.batch)
+    return _map_with_path(lambda _, leaf: P(b, *([None] * (len(_shape(leaf)) - 1))),
+                          batch_shapes)
+
+
+def cache_specs(cfg, cache_shapes, mesh, *, seq_shard: bool) -> Any:
+    """KV/SSM cache sharding. Normal decode: batch over data, kv-heads/ssm
+    heads over model. long-context (batch=1): sequence over data
+    (context parallelism) — the flash-merge decode in launch/serving.py
+    consumes the same layout."""
+    b = tuple(cfg.policy.batch)
+    sizes = _axis_sizes(mesh)
+    bb = None if seq_shard else b
+    sq = b if seq_shard else None
+
+    def one(path, leaf):
+        leafname = str(path[-1])
+        shape = _shape(leaf)
+        lead = (None,)
+        if leafname in ("k", "v"):  # [G, B, S, KV, hd]
+            return _fit(shape, lead,
+                        [(bb, sq, _TP, None), (bb, sq, None, _TP), (bb, sq, None, None)],
+                        sizes)
+        if leafname in ("ck", "cv"):  # [G, B, M, KV, hd]
+            return _fit(shape, lead,
+                        [(bb, None, _TP, None), (bb, None, None, _TP),
+                         (bb, None, None, None)], sizes)
+        if leafname == "ssm":  # [G, B, H, N, P]
+            return _fit(shape, lead,
+                        [(bb, _TP, None, None), (None, _TP, None, None),
+                         (None, None, None, None)], sizes)
+        if leafname == "conv":  # [G, B, K-1, conv_dim]
+            return _fit(shape, lead,
+                        [(bb, None, _TP), (None, None, _TP), (None, None, None)],
+                        sizes)
+        return P(*([None] * len(shape)))
+
+    return _map_with_path(one, cache_shapes)
+
+
+# --- shapes without allocation --------------------------------------------------
+
+
+def ref_layout(tree):
+    """A port tree (`LM.tree()`, AdamW's `m`/`v`) in the reference's
+    layout, as `meta` tensors of the same shapes and dtypes: a stack (a
+    list of groups) becomes one tree of [n_groups, ...] leaves."""
+    if isinstance(tree, dict):
+        return {k: ref_layout(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        per = [ref_layout(g) for g in tree]
+
+        def stack(parts):
+            if isinstance(parts[0], dict):
+                return {k: stack([p[k] for p in parts]) for k in parts[0]}
+            return torch.empty((len(parts),) + tuple(parts[0].shape), dtype=parts[0].dtype,
+                               device="meta")
+
+        return stack(per)
+    return torch.empty(_shape(tree), dtype=tree.dtype, device="meta")
+
+
+def state_shapes(cfg, opt) -> dict:
+    """The train state {"params", "opt", "step"} of `cfg` and optimizer
+    `opt` in the reference's layout, on the `meta` device: shapes and
+    dtypes only (the reference's `jax.eval_shape(init_state)`)."""
+    from repro_torch.models import model as Md
+
+    params = Md.init_params(cfg, 0, device="meta").tree()
+    return {"params": ref_layout(params), "opt": ref_layout(opt.init(params)),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def shard_bytes(spec_tree, shape_tree, mesh) -> list:
+    """Each shard's bytes of a tree (the reference's layout) placed by
+    `spec_tree`, reckoned from the shapes: a shard holds its block of
+    every leaf, replicated blocks included."""
+    out = [0] * mesh.size
+    specs = _leaves(spec_tree, is_leaf=lambda x: isinstance(x, P))
+    shapes = _leaves(shape_tree)
+    for spec, leaf in zip(specs, shapes):
+        n = math.prod(_shape(leaf)) * leaf.dtype.itemsize
+        split = math.prod(mesh.axis_size(a) for part in spec for a in _names(part))
+        for s in range(mesh.size):
+            out[s] += n // split
+    return out
+
+
+# --- placement ------------------------------------------------------------------
+
+
+def _leaves(tree, is_leaf=None) -> list:
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k], is_leaf)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v, is_leaf)]
+    return [tree]
+
+
+def _group_spec(spec) -> P:
+    """A stacked leaf's spec for one group's slice: the spec minus its lead."""
+    return P(*spec[1:])
+
+
+def named(mesh: Mesh, spec_tree, tree):
+    """`tree` placed on `mesh`: every tensor leaf a `Sharded` split by its
+    spec in `spec_tree` (the reference's layout). Where `tree` holds a
+    stack in the port's layout (a list of groups), each group's leaves
+    take their stacked spec minus the lead; a stacked leaf (the reference's
+    layout) takes the spec as it is."""
+    if isinstance(tree, list):
+        return [named(mesh, _map_with_path(lambda _, s: _group_spec(s), spec_tree), g)
+                for g in tree]
+    if isinstance(tree, dict):
+        return {k: named(mesh, spec_tree[k], v) for k, v in tree.items()}
+    return Sharded.place(mesh, tree, spec_tree)
+
+
+def zeros(mesh: Mesh, spec_tree, shape_tree):
+    """A tree of `Sharded` zeros with the shapes and dtypes of `shape_tree`
+    (`meta` tensors), placed as `named` places: no global tensor is made."""
+    if isinstance(shape_tree, list):
+        return [zeros(mesh, _map_with_path(lambda _, s: _group_spec(s), spec_tree), g)
+                for g in shape_tree]
+    if isinstance(shape_tree, dict):
+        return {k: zeros(mesh, spec_tree[k], v) for k, v in shape_tree.items()}
+    return Sharded.zeros(mesh, spec_tree, shape_tree.shape, shape_tree.dtype)
+
+
+def map_sharded(fn, tree):
+    """`fn` over the `Sharded` leaves of a tree (dicts, lists); other
+    leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: map_sharded(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_sharded(fn, v) for v in tree]
+    return fn(tree) if isinstance(tree, Sharded) else tree
+
+
+def gather_tree(tree, device, dtype=None):
+    """Every `Sharded` leaf of `tree` gathered onto `device` (autograd
+    records the gather where the parts require grad), a floating leaf cast
+    to `dtype` after the gather: one group's weights, in a ZeRO-3 step."""
+    def one(sh):
+        t = sh.gather(device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    return map_sharded(one, tree)
+
+
+class ShardedLM:
+    """An LM's parameter tree placed on a mesh: the port's layout
+    (`LM.tree()`: a stack a list of groups), each leaf a `Sharded`. It
+    reads as an `LM` does (`params["tok"]["embed"]`, `tree()`), and
+    `parameters()` are the parts."""
+
+    def __init__(self, cfg, mesh: Mesh, tree: dict):
+        self.cfg, self.mesh, self._tree = cfg, mesh, tree
+
+    @classmethod
+    def place(cls, cfg, mesh: Mesh, params, spec_tree) -> "ShardedLM":
+        """`params` (an `LM`, or its tree) split by `spec_tree` (the
+        reference's layout, `param_specs`)."""
+        tree = params.tree() if hasattr(params, "tree") else params
+        with torch.no_grad():
+            return cls(cfg, mesh, named(mesh, spec_tree, tree))
+
+    def __getitem__(self, k):
+        return self._tree[k]
+
+    def tree(self) -> dict:
+        return self._tree
+
+    def leaves(self) -> list:
+        return _leaves(self._tree)
+
+    def parameters(self):
+        return (p for sh in self.leaves() for p in sh.parts)
+
+    def requires_grad_(self, flag: bool = True) -> "ShardedLM":
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.home
+
+
+def _overlap(sh: Sharded, s: int, dim: int, rows: slice):
+    """(the part's slices, the window's slices) of the block shard `s`
+    holds within `rows` of dimension `dim`, or None."""
+    blk = sh.block(s)
+    lo, hi = max(blk[dim].start, rows.start), min(blk[dim].stop, rows.stop)
+    if lo >= hi:
+        return None
+    src = [slice(None)] * sh.ndim
+    src[dim] = slice(lo - blk[dim].start, hi - blk[dim].start)
+    dst = list(blk)
+    dst[dim] = slice(lo - rows.start, hi - rows.start)
+    return tuple(src), tuple(dst)
+
+
+def join_rows(sh: Sharded, dim: int, rows: slice, device) -> torch.Tensor:
+    """Rows `rows` of dimension `dim` of the global tensor, joined onto
+    `device` from the parts that hold them (each block once)."""
+    shape = list(sh.shape)
+    shape[dim] = rows.stop - rows.start
+    out = torch.empty(shape, dtype=sh.dtype, device=device)
+    for s in sh.owners():
+        hit = _overlap(sh, s, dim, rows)
+        if hit is not None:
+            out[hit[1]] = sh.parts[s][hit[0]].to(device)
+    return out
+
+
+def write_rows(sh: Sharded, dim: int, rows: slice, value) -> None:
+    """Write `value` (rows `rows` of dimension `dim` of the global tensor)
+    into every part that holds them, the replicas too."""
+    for s, part in enumerate(sh.parts):
+        hit = _overlap(sh, s, dim, rows)
+        if hit is not None:
+            part[hit[0]] = value[hit[1]].to(part.device)
+
+
+class ShardedCache:
+    """A serving cache (`{"b{i}": {name: [n_groups, B, ...]}}`) placed on
+    a mesh by `cache_specs`, each leaf a `Sharded`. A data shard's decode
+    reads its rows (dim 1) joined from the parts (`rows`) and writes them
+    back (`write_rows`)."""
+
+    def __init__(self, mesh: Mesh, tree: dict):
+        self.mesh, self._tree = mesh, tree
+
+    def __getitem__(self, b):
+        return self._tree[b]
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def rows(self, rows: slice, device) -> dict:
+        return {b: {n: join_rows(sh, 1, rows, device) for n, sh in c.items()}
+                for b, c in self._tree.items()}
+
+    def write_rows(self, rows: slice, local: dict) -> None:
+        for b, c in self._tree.items():
+            for n, sh in c.items():
+                write_rows(sh, 1, rows, local[b][n])
+
+    def join(self, device=None) -> dict:
+        """The global cache (a plain one) on `device` (default: home)."""
+        return {b: {n: sh.join(device) for n, sh in c.items()} for b, c in self._tree.items()}

@@ -1,16 +1,21 @@
-"""LM training on one device: config → train state → train loop
-with checkpoint/restart (port of `repro/launch/train.py`). Runs reduced
-configs end to end on the CPU and on the card, and full configs that fit
-one card; a mesh of more than one device is the LM mesh slice (ROADMAP
-A13c).
+"""LM training entry point: config → mesh → sharded train loop with
+checkpoint/restart (port of `repro/launch/train.py`). Runs reduced
+configs end to end on the CPU and on the card, and full configs on a
+mesh of the cards (one process holds every shard: `launch/mesh.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --reduced \\
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
 
-Checkpoints hold the train state in the reference's layout
-(`models.convert.train_state_to_numpy`). A resumed run skips the batches
-of the steps it restored, so its history continues the uninterrupted
-run's (the reference restarts the stream from its first batch).
+`train` runs on `make_host_mesh(data=<cards>, model=1)` unless given a
+mesh: on one card a one-shard mesh, which keeps the state an `LM` (the
+single-device step). On a larger mesh `build` places the state by
+`train_state_specs` (a `ShardedLM` and `Sharded` optimizer state).
+Checkpoints hold the train state in the reference's layout, whole
+host-gathered leaves (`models.convert.train_state_to_numpy`); a restore
+places them on the run's mesh (`ckpt.elastic.reshard_state`), whatever
+mesh saved them. A resumed run skips the batches of the steps it
+restored, so its history continues the uninterrupted run's (the
+reference restarts the stream from its first batch).
 """
 from __future__ import annotations
 
@@ -22,9 +27,12 @@ import time
 import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointManager, latest_step, restore
+from repro_torch.ckpt.elastic import reshard_state
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.loader import lm_batches
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import convert
 from repro_torch.models import model as Md
 from repro_torch.optim.adamw import for_config
@@ -32,28 +40,47 @@ from repro_torch.runtime.fault import StepMonitor
 
 
 def build(cfg, mesh=None, seed: int = 0, device=None):
-    """(cfg, train state, train step) on one device: params from
-    `seed`, the config's optimizer, step 0."""
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError("training on a mesh of several devices is the LM mesh "
-                                  "slice (ROADMAP A13c)")
+    """(cfg with the mesh's policy, train state, train step, state specs):
+    params from `seed`, the config's optimizer, step 0. With no mesh, or
+    a one-shard mesh, the state is one device's (`specs` None); else it
+    is placed on `mesh` by `train_state_specs` and the step built with
+    `param_specs`."""
+    if mesh is not None:
+        cfg = cfg.with_policy(SH.policy_for(mesh))
+        device = mesh.home
     dev = resolve_device(device)
     opt = for_config(cfg)
     params = Md.init_params(cfg, seed, device=dev)
-    state = {"params": params, "opt": opt.init(params.tree()),
-             "step": torch.zeros((), dtype=torch.int32, device=dev)}
-    return cfg, state, Md.make_train_step(cfg, opt)
+    if mesh is None or mesh.size == 1:
+        state = {"params": params, "opt": opt.init(params.tree()),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        return cfg, state, Md.make_train_step(cfg, opt), None
+    shapes = SH.state_shapes(cfg, opt)
+    specs = SH.train_state_specs(cfg, shapes, mesh)
+    sharded = SH.ShardedLM.place(cfg, mesh, params, specs["params"])
+    del params
+    meta_opt = opt.init(Md.init_params(cfg, 0, device="meta").tree())
+    state = {"params": sharded, "opt": SH.zeros(mesh, specs["opt"], meta_opt),
+             "step": torch.zeros((), dtype=torch.int32, device=mesh.home)}
+    return cfg, state, Md.make_train_step(cfg, opt, param_specs=specs["params"]), specs
 
 
 def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None = None,
           ckpt_every: int = 50, mesh=None, log=print, seed: int = 0, device=None):
     dev = resolve_device(device)
-    cfg, state, step = build(cfg, mesh, seed, dev)
+    if mesh is None:
+        cards = torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
+        mesh = make_host_mesh(data=max(1, cards), model=1, device=dev)
+    cfg, state, step, specs = build(cfg, mesh, seed)
+    dev = mesh.home
     manager = CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir else None
     s0 = latest_step(ckpt_dir) if manager else None
     if s0 is not None:
         restored = restore(ckpt_dir, s0, like=convert.train_state_to_numpy(state))
-        state = convert.train_state_from_reference(cfg, restored, device=dev)
+        if specs is None:
+            state = convert.train_state_from_reference(cfg, restored, device=dev)
+        else:
+            state = reshard_state(restored, cfg, mesh)
         log(f"resumed from step {s0}")
     monitor = StepMonitor()
     start = int(state["step"])

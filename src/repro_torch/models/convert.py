@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import Sharded
 from repro_torch.models.model import ENC_PATTERN, LM
 
 # numpy extension dtypes (ml_dtypes) → (unsigned view, torch dtype)
@@ -54,25 +55,32 @@ def params_from_reference(cfg, tree: dict, device="cpu") -> LM:
     return LM(cfg, _port_tree(cfg, tree, device))
 
 
+def _value(t) -> torch.Tensor:
+    """A leaf's global value on its device (a leaf placed on a mesh joined
+    on the mesh's home)."""
+    return t.join() if isinstance(t, Sharded) else t.detach()
+
+
 def _numpy(t) -> np.ndarray:
-    return t.detach().to("cpu", copy=True).numpy()
+    return _value(t).to("cpu", copy=True).numpy()
+
+
+def _stack(groups):
+    """A stack's groups, leaf by leaf, stacked on the device and copied to
+    the host once a leaf."""
+    if isinstance(groups[0], dict):
+        return {k: _stack([g[k] for g in groups]) for k in groups[0]}
+    return torch.stack([_value(g) for g in groups]).cpu().numpy()
 
 
 def tree_to_numpy(tree):
     """A port tree (`LM.tree()`, AdamW's `m`/`v`, or any tree of dicts and
-    tensors) → numpy in the reference's layout: a stack's groups stacked
-    on a leading [n_groups] axis."""
+    tensors; on a mesh, of `Sharded` leaves) → numpy in the reference's
+    layout: a stack's groups stacked on a leading [n_groups] axis."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
-        per = [tree_to_numpy(g) for g in tree]
-
-        def stack(parts):
-            if isinstance(parts[0], dict):
-                return {k: stack([p[k] for p in parts]) for k in parts[0]}
-            return np.stack(parts)
-
-        return stack(per)
+        return _stack(tree)
     return _numpy(tree)
 
 
@@ -114,6 +122,9 @@ def cache_to_numpy(cache: dict) -> dict:
     """A copy of the port's cache as numpy (a decode step writes the cache
     in place), for comparisons: f32 for the dtypes numpy lacks (bfloat16,
     float8), which f32 holds exactly."""
+    if hasattr(cache, "join"):  # a cache placed on a mesh
+        cache = cache.join("cpu")
+
     def one(t):
         t = t.detach().to("cpu", copy=True)
         if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):

@@ -12,7 +12,13 @@ Numerics follow the reference's. A product the reference takes with
 others (`_qkv`, `mlp_apply`, the `wo` projection) stay in the compute
 dtype. The GQA head repeat is `repeat_interleave` (head h reads kv head
 h // groups), as `jnp.repeat` does. gelu is the tanh form, `jax.nn.gelu`'s
-default. Sharding pins (`policy`) wait for the mesh slice (A13c).
+default.
+
+A ShardingPolicy (`policy`) is accepted where the reference's is. Its
+pins (`with_sharding_constraint` on the chunk stacks) are layouts, which
+the single-controller port has no use for: they change no number here.
+`replicate_kv` repeats kv heads up to the model axis as the reference
+does.
 
 Training differentiates these functions with autograd. Where the
 reference remats (`jax.checkpoint`) the port does too, through `_remat`
@@ -33,13 +39,6 @@ from torch.utils.checkpoint import checkpoint
 # --------------------------------------------------------------------------
 # initializers / norms
 # --------------------------------------------------------------------------
-
-
-def _no_policy(policy):
-    if policy is not None:
-        raise NotImplementedError(
-            "sharding policies belong to the LM mesh slice (ROADMAP A13c); "
-            "the port serves on one device with policy=None")
 
 
 def _recording(*tensors) -> bool:
@@ -144,8 +143,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512, kv_chunk: in
 
     Python loops over the q and kv chunks, with the reference's running
     max (started at -1e30) and denominator, every kv chunk visited (a
-    fully masked one too, as the scan does) and `max(l, 1e-30)` at the end."""
-    _no_policy(policy)
+    fully masked one too, as the scan does) and `max(l, 1e-30)` at the end.
+    `policy`'s pins are layouts, with no numeric effect in one process."""
     B, Sq0, Hq, hd = q.shape
     Sk0 = k.shape[1]
     q_chunk = min(q_chunk, Sq0)
@@ -266,8 +265,9 @@ def _qkv(p, x, dims: AttnDims, positions, *, use_rope=True):
 
 def replicate_kv(k, v, n_heads: int, n_kv: int, tp: int):
     """Replicate KV heads up to the TP degree when they don't divide it
-    (the reference's layout rule for a mesh; with tp = 0, one device, it
-    returns k, v unchanged)."""
+    (the reference's layout rule for a mesh: gemma's kv=1 becomes tp kv
+    heads; with tp = 0, no policy, it returns k, v unchanged). Head h then
+    reads kv head h // (n_heads / tp), the same values as before."""
     if tp and n_heads % tp == 0 and n_kv < tp and tp % n_kv == 0:
         r = tp // n_kv
         k = k.repeat_interleave(r, dim=2)
@@ -278,24 +278,24 @@ def replicate_kv(k, v, n_heads: int, n_kv: int, tp: int):
 def attn_apply(p, x, dims: AttnDims, *, causal=True, positions=None,
                q_chunk=512, kv_chunk=1024, use_rope=True, policy=None):
     """Training / prefill self-attention. x: [B, S, d]."""
-    _no_policy(policy)
     B, S, _ = x.shape
+    tp = policy.tp_size if policy else 0
     pos = positions if positions is not None else torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, dims, pos, use_rope=use_rope)
+    k, v = replicate_kv(k, v, dims.n_heads, dims.n_kv, tp)
     o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                          positions_q=pos, positions_k=pos)
+                          positions_q=pos, positions_k=pos, policy=policy)
     return _proj_out(o, p["wo"])
 
 
 def cross_attn_apply(p, x, kv_cache_k, kv_cache_v, dims: AttnDims,
                      q_chunk=512, kv_chunk=1024, policy=None):
     """Cross attention to precomputed memory K/V: [B, S_kv, n_kv, hd]."""
-    _no_policy(policy)
     q = _proj_in(x, p["wq"])
     if dims.qkv_bias:
         q = q + p["bq"]
     o = chunked_attention(q, kv_cache_k, kv_cache_v, causal=False,
-                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+                          q_chunk=q_chunk, kv_chunk=kv_chunk, policy=policy)
     return _proj_out(o, p["wo"])
 
 

@@ -8,6 +8,28 @@ bits each time, so serving casts once per model and keeps that copy
 (`_cast`). Training casts anew on every call (`_train_cast`), inside the
 graph, so the f32 masters get their gradients through the cast's
 backward. Entry points run on the card unless given `device="cpu"`.
+
+Under a ShardingPolicy (`cfg.with_policy`) the entry points take an
+`LM` as before (the MoE then dispatches per shard, `moe_apply_sharded`)
+or a `ShardedLM`, the parameters placed on a mesh as per-shard parts
+(`launch/sharding.py`). On a mesh the port runs the reference's
+ZeRO-3 layout in turn, in one process:
+
+  * each data shard runs its rows of the batch on its model-rank-0
+    shard's device, with the policy as one data shard sees it (dp 1);
+    a batch that does not divide over the data shards runs whole, and
+    its MoE takes `moe_apply`, as the reference's does;
+  * each group's weights are gathered from their parts inside the
+    group's remat unit, and the gather's backward adds each data shard's
+    gradient into the parts (the reduce-scatter); the whole model is
+    never gathered at once;
+  * the dense layers' model axis is storage only in compute (a split
+    matmul would change only the order of a sum); the MoE's expert
+    parallelism runs per shard.
+
+A data shard's loss is its nll sum over the whole batch's mask count plus
+its share of the aux loss (the reference's `pmean`), so the shards'
+parts add up to the reference's loss.
 """
 from __future__ import annotations
 
@@ -20,8 +42,9 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as SH
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import AttnDims, _no_policy
+from repro_torch.models.layers import AttnDims
 from repro_torch.models.ssm import SSMDims
 from repro_torch.models.transformer import ShardingPolicy
 from repro_torch.optim.adamw import _global_norm
@@ -72,7 +95,7 @@ class ArchConfig:
     moe_capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
     accum_steps: int = 1
-    # sharding (None → no constraints; the mesh slice installs a policy)
+    # sharding (None → one device; launch/train.build installs a mesh's policy)
     policy: ShardingPolicy | None = None
     # shape-cell support (full attention archs skip long_500k)
     subquadratic: bool = False
@@ -227,41 +250,108 @@ def _train_cast(params: LM, dtype) -> dict:
                      lambda a: a.to(dtype) if a.is_floating_point() else a)
 
 
-def _encode_memory(cfg, params, batch):
+def _encode_memory(cfg, params, batch, gather=None, device=None):
     """Cross-attention memory: whisper runs the encoder over (stubbed) frame
     embeddings; VLM consumes (stubbed) patch embeddings directly. `params`
-    (an `LM` or its tree) is already in the compute dtype."""
-    dev = params["tok"]["embed"].device
+    (an `LM` or its tree) is already in the compute dtype, or on a mesh
+    its parts, which `gather` turns into a group's weights."""
+    dev = params["tok"]["embed"].device if device is None else device
     if cfg.family == "encdec":
         mem = batch["frames"].to(dev, _dtype(cfg))
         mem = mem + _sinusoidal(mem.shape[1], cfg.d_model, mem.dtype, dev)[None]
         mem, _ = T.stack_apply_train(cfg, params["enc_stack"], mem, ENC_PATTERN,
-                                     causal=False)
-        return T._apply_norm(cfg, params["enc_norm"], mem)
+                                     causal=False, gather=gather)
+        norm = params["enc_norm"] if gather is None else gather(params["enc_norm"])
+        return T._apply_norm(cfg, norm, mem)
     if cfg.family == "vlm":
         return batch["memory"].to(dev, _dtype(cfg))
     return None
 
 
-def forward_train(cfg: ArchConfig, params: LM, batch):
+def _shard_plan(cfg, params, B: int) -> list:
+    """The passes of a batch of B rows: [(rows, device, cfg, aux share)].
+    One pass on the params' device for an `LM`. On a mesh, each data shard
+    in turn (its rows, its model-rank-0 shard's device, the policy as one
+    data shard sees it, 1/dp of the aux loss), or one pass over all rows
+    on the mesh's home where B does not divide over the data shards."""
+    if not isinstance(params, SH.ShardedLM):
+        return [(slice(0, B), params.device, cfg, 1.0)]
+    dp, tp = cfg.policy.dp_size, cfg.policy.tp_size
+    if B % dp:
+        return [(slice(0, B), params.mesh.home, cfg, 1.0)]
+    local = cfg.with_policy(dataclasses.replace(cfg.policy, dp_size=1))
+    n = B // dp
+    return [(slice(d * n, (d + 1) * n), params.mesh.devices[d * tp], local, 1.0 / dp)
+            for d in range(dp)]
+
+
+def _weights(params, device, dtype, cast):
+    """(the tree the model reads, the gather hook, the `tok` and
+    `final_norm` weights in `dtype`): an `LM` through `cast` (`_train_cast`
+    in the graph to train, `_cast`'s cached copy to serve), or a
+    `ShardedLM`'s parts with a hook that gathers a group onto `device` in
+    `dtype`."""
+    if isinstance(params, SH.ShardedLM):
+        p = params.tree()
+
+        def gather(tree):
+            return SH.gather_tree(tree, device, dtype)
+
+        return p, gather, gather(p["tok"]), gather(p["final_norm"])
+    p = cast(params, dtype)
+    return p, None, p["tok"], p["final_norm"]
+
+
+def _forward(cfg, params, batch, device, count=None):
+    """forward_train's (ce, aux) of one pass of `_shard_plan`."""
+    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _train_cast)
+    tokens = batch["tokens"].to(device)
+    x = T.embed_tokens(cfg, tok, tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, device)[None]
+    memory = _encode_memory(cfg, p, batch, gather, device)
+    x, aux = T.stack_apply_train(cfg, p["stack"], x, cfg.pattern, memory=memory,
+                                 gather=gather)
+    x = T._apply_norm(cfg, norm, x)
+    ce = T.chunked_ce_loss(cfg, tok, x, batch["labels"].to(device),
+                           batch["mask"].to(device), count=count)
+    if not torch.is_tensor(aux):  # no MoE layer: 0.0, made on the device (no copy)
+        aux = torch.full((), aux, dtype=torch.float32, device=device)
+    return ce, aux
+
+
+def _rows(batch, rows):
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _shard_losses(cfg, params, batch):
+    """Per pass of `_shard_plan`: (loss, ce, aux), each the pass's part of
+    the whole batch's (its nll sum over the batch's mask count, its share
+    of the aux loss), so the parts add up to the batch's."""
+    plan = _shard_plan(cfg, params, batch["tokens"].shape[0])
+    count = None
+    if len(plan) > 1:
+        count = batch["mask"].to(torch.float32).sum()
+    for rows, dev, pcfg, share in plan:
+        ce, aux = _forward(pcfg, params, _rows(batch, rows), dev,
+                           None if count is None else count.to(dev))
+        aux = aux * share if share != 1.0 else aux
+        yield ce + cfg.aux_loss_weight * aux, ce, aux
+
+
+def forward_train(cfg: ArchConfig, params, batch):
     """batch: tokens [B,S], labels [B,S], mask [B,S] (+frames|memory).
     Returns (loss, {"ce", "aux"}), 0-d f32 tensors; `loss = ce +
     aux_loss_weight * aux`. Differentiable in the masters wherever they
-    require grad (`make_train_step` turns that on)."""
-    _no_policy(cfg.policy)
-    p = _train_cast(params, _dtype(cfg))
-    dev = params.device
-    tokens = batch["tokens"].to(dev)
-    x = T.embed_tokens(cfg, p["tok"], tokens)
-    if cfg.pos_embed == "sinusoidal":
-        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, dev)[None]
-    memory = _encode_memory(cfg, p, batch)
-    x, aux = T.stack_apply_train(cfg, p["stack"], x, cfg.pattern, memory=memory)
-    x = T._apply_norm(cfg, p["final_norm"], x)
-    ce = T.chunked_ce_loss(cfg, p["tok"], x, batch["labels"].to(dev), batch["mask"].to(dev))
-    if not torch.is_tensor(aux):  # no MoE layer: 0.0, made on the device (no copy)
-        aux = torch.full((), aux, dtype=torch.float32, device=dev)
-    loss = ce + cfg.aux_loss_weight * aux
+    require grad (`make_train_step` turns that on). `params` is an `LM`
+    or, on a mesh, a `ShardedLM` (the data shards' parts added on the
+    mesh's home)."""
+    parts = list(_shard_losses(cfg, params, batch))
+    if len(parts) == 1:
+        loss, ce, aux = parts[0]
+        return loss, {"ce": ce, "aux": aux}
+    home = params.device
+    loss, ce, aux = (sum(t.to(home) for t in col) for col in zip(*parts))
     return loss, {"ce": ce, "aux": aux}
 
 
@@ -275,15 +365,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
                               getattr(torch, cfg.cache_dtype), resolve_device(device))
 
 
+def _cache_rows(cache, rows, device):
+    """The rows of a cache (dim 1 of its stacked leaves): a slice view of a
+    plain cache, or joined onto `device` from a sharded one's parts."""
+    if isinstance(cache, SH.ShardedCache):
+        return cache.rows(rows, device)
+    return {b: {n: a[:, rows] for n, a in c.items()} for b, c in cache.items()}
+
+
 @torch.no_grad()
-def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
-    """One token for every sequence. token: [B,1] int; cur_len: a Python int
-    or a 0-d int tensor on the params' device. Returns (logits [B,1,V] f32,
-    cache). The cache is written in place and returned: the cache passed in
-    is consumed. Nothing in a step reads the device back."""
-    _no_policy(cfg.policy)
-    p = _cast(params, _dtype(cfg))
-    x = T.embed_tokens(cfg, p["tok"], token)
+def _decode(cfg, params, cache, token, cur_len, device):
+    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _cast)
+    x = T.embed_tokens(cfg, tok, token)
     if cfg.pos_embed == "sinusoidal":
         pe = _sinusoidal(cache_max_len(cache), cfg.d_model, x.dtype, x.device)
         if isinstance(cur_len, torch.Tensor):
@@ -292,9 +385,35 @@ def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
         else:
             c = min(max(int(cur_len), 0), pe.shape[0] - 1)
             x = x + pe[c:c + 1][None]
-    x, cache = T.stack_apply_decode(cfg, p["stack"], x, cache, cur_len, cfg.pattern)
-    x = T._apply_norm(cfg, p["final_norm"], x)
-    return T.logits_last(cfg, p["tok"], x), cache
+    x, cache = T.stack_apply_decode(cfg, p["stack"], x, cache, cur_len, cfg.pattern,
+                                    gather=gather)
+    x = T._apply_norm(cfg, norm, x)
+    return T.logits_last(cfg, tok, x), cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
+    """One token for every sequence. token: [B,1] int; cur_len: a Python int
+    or a 0-d int tensor on the params' device. Returns (logits [B,1,V] f32,
+    cache). The cache is written in place and returned: the cache passed in
+    is consumed. Nothing in a step reads the device back.
+
+    On a mesh (`ShardedLM` params and the `ShardedCache` `prefill` made)
+    each data shard decodes its rows in turn: its cache rows joined from
+    their parts (the model axis is storage only), the step run, the rows
+    written back into the parts."""
+    plan = _shard_plan(cfg, params, token.shape[0])
+    if len(plan) == 1 and not isinstance(cache, SH.ShardedCache):
+        return _decode(plan[0][2], params, cache, token, cur_len, plan[0][1])
+    outs = []
+    for rows, dev, pcfg, _ in plan:
+        pos = cur_len.to(dev) if isinstance(cur_len, torch.Tensor) else cur_len
+        local = _cache_rows(cache, rows, dev)
+        logits, local = _decode(pcfg, params, local, token[rows].to(dev), pos, dev)
+        if isinstance(cache, SH.ShardedCache):  # a plain cache's rows are views
+            cache.write_rows(rows, local)
+        outs.append(logits.to(params.device))
+    return torch.cat(outs, 0), cache
 
 
 def cache_max_len(cache) -> int:
@@ -305,25 +424,46 @@ def cache_max_len(cache) -> int:
 
 
 @torch.no_grad()
+def _prefill(cfg, params, batch, max_len, device):
+    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _cast)
+    tokens = batch["tokens"].to(device)
+    Sq = tokens.shape[1]
+    x = T.embed_tokens(cfg, tok, tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(Sq, cfg.d_model, x.dtype, device)[None]
+    memory = _encode_memory(cfg, p, batch, gather, device)
+    x, cache = T.stack_apply_prefill(cfg, p["stack"], x, cfg.pattern, max_len,
+                                     getattr(torch, cfg.cache_dtype), memory=memory,
+                                     gather=gather)
+    x = T._apply_norm(cfg, norm, x)
+    return T.logits_last(cfg, tok, x[:, -1:]), cache
+
+
+@torch.no_grad()
 def prefill(cfg: ArchConfig, params, batch, max_len: int):
     """Process the full prompt, build the cache, return last-token logits.
 
     tokens: [B, S] → (logits [B,1,V] f32, cache); the next position is S.
-    """
-    _no_policy(cfg.policy)
-    p = _cast(params, _dtype(cfg))
-    dev = p.device
-    tokens = batch["tokens"].to(dev)
-    B, Sq = tokens.shape
-    x = T.embed_tokens(cfg, p["tok"], tokens)
-    if cfg.pos_embed == "sinusoidal":
-        x = x + _sinusoidal(Sq, cfg.d_model, x.dtype, dev)[None]
-    memory = _encode_memory(cfg, p, batch)
-    x, cache = T.stack_apply_prefill(cfg, p["stack"], x, cfg.pattern, max_len,
-                                     getattr(torch, cfg.cache_dtype), memory=memory)
-    x = T._apply_norm(cfg, p["final_norm"], x)
-    logits = T.logits_last(cfg, p["tok"], x[:, -1:])
-    return logits, cache
+    On a mesh (`ShardedLM` params) each data shard prefills its rows in
+    turn, and the cache comes back placed on the mesh by `cache_specs`
+    (a `ShardedCache`; sequence-sharded when the policy names a
+    `seq_axis_for_cache`)."""
+    B = batch["tokens"].shape[0]
+    plan = _shard_plan(cfg, params, B)
+    if not isinstance(params, SH.ShardedLM):
+        return _prefill(plan[0][2], params, batch, max_len, plan[0][1])
+    home = params.device
+    logits, caches = [], []
+    for rows, dev, pcfg, _ in plan:
+        lg, c = _prefill(pcfg, params, _rows(batch, rows), max_len, dev)
+        logits.append(lg.to(home))
+        caches.append(c)
+    whole = {b: {n: torch.cat([c[b][n].to(home) for c in caches], 1) for n in caches[0][b]}
+             for b in caches[0]}
+    specs = SH.cache_specs(cfg, whole, params.mesh,
+                           seq_shard=cfg.policy.seq_axis_for_cache is not None)
+    return torch.cat(logits, 0), SH.ShardedCache(params.mesh, SH.named(params.mesh, specs,
+                                                                         whole))
 
 
 # --------------------------------------------------------------------------
@@ -336,6 +476,14 @@ def _grads(params: LM) -> dict:
     not reach, as JAX's gradient of an unused input)."""
     return _map_tree(params.tree(),
                      lambda a: torch.zeros_like(a) if a.grad is None else a.grad)
+
+
+def _sharded_grads(params) -> dict:
+    """A `ShardedLM`'s gradients: a tree of `Sharded` of the parts' grads
+    (zeros for a part the loss does not reach)."""
+    return SH.map_sharded(lambda sh: sh.with_parts(
+        [torch.zeros_like(p) if p.grad is None else p.grad for p in sh.parts]),
+        params.tree())
 
 
 def make_train_step(cfg: ArchConfig, optimizer, param_specs=None) -> Callable:
@@ -351,25 +499,35 @@ def make_train_step(cfg: ArchConfig, optimizer, param_specs=None) -> Callable:
     (the first add fills it), so no second f32 tree is held, then divide
     by A; the loss is summed and divided alike, `ce` and `aux` averaged.
     metrics: {"loss", "ce", "aux", "grad_norm"} (0-d device tensors; a
-    step reads nothing back to the host)."""
-    if param_specs is not None:
-        raise NotImplementedError("param_specs pins a mesh's gradient layout: the LM "
-                                  "mesh slice (ROADMAP A13c)")
-    _no_policy(cfg.policy)
+    step reads nothing back to the host).
+
+    With `param_specs` (`launch/sharding.param_specs`) the state is placed
+    on a mesh (`launch/train.build`): a `ShardedLM` and the optimizer
+    state as `Sharded` parts. Micro-batch i's data shard d is then rows
+    [i·B/A + d·B/(A·dp), ...), as the reference reshapes the batch into
+    micro-batches and shards each one; each data shard's backward runs
+    right after its forward, adding its gradients into the parts."""
 
     def train_step(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
+        sharded = isinstance(params, SH.ShardedLM)
+        if param_specs is not None and not sharded:
+            raise TypeError("make_train_step(param_specs=...) steps a state placed on a "
+                            "mesh (launch.train.build); got an unsharded LM")
         params.requires_grad_(True)
         for p in params.parameters():
             p.grad = None
+        home = params.device
         A = cfg.accum_steps
         n = batch["tokens"].shape[0] // A
         loss, ms = 0.0, []
         for i in range(A):
-            l, m = forward_train(cfg, params, {k: v[i * n:(i + 1) * n]
-                                               for k, v in batch.items()})
-            l.backward()
-            loss = loss + l.detach()
+            m = {"ce": 0.0, "aux": 0.0}
+            for part_loss, ce, aux in _shard_losses(cfg, params,
+                                                    _rows(batch, slice(i * n, (i + 1) * n))):
+                part_loss.backward()
+                loss = loss + part_loss.detach().to(home)
+                m = {"ce": m["ce"] + ce.detach().to(home), "aux": m["aux"] + aux.detach().to(home)}
             ms.append(m)
         if A > 1:
             with torch.no_grad():
@@ -377,8 +535,8 @@ def make_train_step(cfg: ArchConfig, optimizer, param_specs=None) -> Callable:
                     if p.grad is not None:
                         p.grad.div_(A)
         loss = loss / A
-        metrics = {k: torch.stack([m[k].detach() for m in ms]).mean() for k in ms[0]}
-        grads = _grads(params)
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        grads = _sharded_grads(params) if sharded else _grads(params)
         with torch.no_grad():
             grad_norm = _global_norm(grads)
         _, new_opt = optimizer.update(grads, opt_state, params.tree(), step)

@@ -1,13 +1,30 @@
 """Mixture-of-Experts FFN: token-choice top-k routing, capacity-bounded,
 sort-based dispatch (dropless up to the capacity factor). Port of
-`repro/models/moe.py`'s single-device path, `moe_apply`.
+`repro/models/moe.py`.
+
+Two dispatch paths, as the reference's:
+
+  moe_apply          one dispatch over all tokens into an [E, C, d] buffer.
+  moe_apply_sharded  expert parallelism over a ShardingPolicy's mesh: the
+                     tokens split into dp shards (dp·tp when the sequence
+                     divides the model axis), each dispatching its own
+                     T_loc tokens at C_loc = capacity(T_loc, ...) over
+                     E_pad experts (dead experts zero-padded, their logits
+                     -inf); two `all_to_all`s over each data group's model
+                     ranks carry every expert's buffer to the rank that
+                     stores it and back. Per-shard capacity decides which
+                     tokens drop, so its output is the reference's sharded
+                     output, not `moe_apply`'s.
+
+The mesh is single-controller (`launch/mesh.py`): the shards run in turn
+on the tokens' device, and the collectives are the mesh module's plain
+functions in rank order.
 
 The combine adds each token's top_k contributions in the order of the
 stable expert sort, rounding to the compute dtype after each add, as the
 reference's `.at[st].add` does; it is a loop of top_k adds, not an
 `index_add_` (atomics on the card would make the bits vary from run to
-run). Nothing in the dispatch reads the device back. `moe_apply_sharded`,
-the expert-parallel path, waits for the mesh slice (A13c).
+run). Nothing in the dispatch reads the device back.
 """
 from __future__ import annotations
 
@@ -15,7 +32,8 @@ import math
 
 import torch
 
-from repro_torch.models.layers import _act, dense_init
+from repro_torch.launch import mesh as Mesh
+from repro_torch.models.layers import _act, _recording, _remat, dense_init
 
 
 def moe_init(gen, d_model: int, d_ff: int, n_experts: int, *, gated=True,
@@ -68,9 +86,10 @@ def _route(logits, top_k: int, C: int, E: int):
     return probs, gate_w, gate_e, order, keep, slot
 
 
-def _dispatch_combine(xt, logits, top_k: int, C: int, E: int, ffn):
-    """Shared local dispatch: sort-by-expert, capacity-bounded scatter,
-    expert FFN callback, weighted combine. xt: [T, d] (local)."""
+def _dispatch(xt, logits, top_k: int, C: int, E: int):
+    """Sort-by-expert, capacity-bounded scatter. xt: [T, d] (local) ->
+    (the [E, C, d] expert buffer, the aux loss, the routing `_combine`
+    reads)."""
     T, d = xt.shape
     dev = xt.device
     probs, gate_w, gate_e, order, keep, slot = _route(logits, top_k, C, E)
@@ -85,8 +104,15 @@ def _dispatch_combine(xt, logits, top_k: int, C: int, E: int, ffn):
     st = order // top_k  # the sorted entries' tokens
     buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=dev)
     buf[slot] = xt[st]
-    out = ffn(buf[: E * C].reshape(E, C, d))  # [E, C, d]
+    return buf[: E * C].reshape(E, C, d), aux, (gate_w, order, keep, slot, T, top_k)
 
+
+def _combine(out, xt, routing):
+    """The weighted combine of the experts' output `out` [E, C, d] into
+    the tokens' [T, d]."""
+    gate_w, order, keep, slot, T, top_k = routing
+    E, C, d = out.shape
+    dev = xt.device
     vals = out.reshape(E * C, d)[slot.clamp(0, E * C - 1)]
     w = (gate_w.reshape(T * top_k)[order] * keep).to(xt.dtype)
     contrib = vals * w[:, None]  # [T·k, d] in sorted order
@@ -97,7 +123,14 @@ def _dispatch_combine(xt, logits, top_k: int, C: int, E: int, ffn):
     y = torch.zeros((T, d), dtype=xt.dtype, device=dev)
     for j in range(top_k):
         y = y + contrib[visit[:, j]]
-    return y, aux
+    return y
+
+
+def _dispatch_combine(xt, logits, top_k: int, C: int, E: int, ffn):
+    """Shared local dispatch: sort-by-expert, capacity-bounded scatter,
+    expert FFN callback, weighted combine. xt: [T, d] (local)."""
+    buf, aux, routing = _dispatch(xt, logits, top_k, C, E)
+    return _combine(ffn(buf), xt, routing), aux
 
 
 def moe_apply(p, x, *, top_k: int, act: str = "silu", capacity_factor: float = 1.25):
@@ -107,15 +140,87 @@ def moe_apply(p, x, *, top_k: int, act: str = "silu", capacity_factor: float = 1
     E = p["router"].shape[1]
     C = capacity(T, top_k, E, capacity_factor)
     xt = x.reshape(T, d)
-    logits = xt.float() @ p["router"].float()
+    logits = _router_logits(xt, p["router"], E)
     ffn = lambda buf: _expert_ffn(buf, p["w_up"], p.get("w_gate"), p["w_down"], act)  # noqa: E731
     y, aux = _dispatch_combine(xt, logits, top_k, C, E, ffn)
     return y.reshape(B, S, d), aux
 
 
+def _router_logits(xt, router, E_pad: int):
+    """[T, E_pad] f32 logits, the dead experts' pinned to -inf."""
+    logits = xt.float() @ router.float()
+    E = logits.shape[1]
+    if E_pad > E:
+        logits = torch.cat([logits, logits.new_full((logits.shape[0], E_pad - E),
+                                                    -math.inf)], 1)
+    return logits
+
+
+def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
+                      capacity_factor: float = 1.25, policy=None):
+    """Expert-parallel path (see the module docstring). x: [B, S, d], the
+    global tokens -> (y [B, S, d], aux_loss scalar). Requires: policy set,
+    B divisible by the batch axes (`sharded_path_ok`).
+
+    Shard (i, m) of the policy's (data dp, model tp) grid holds rows
+    [i·B/dp, (i+1)·B/dp) and, when the sequence divides the model axis,
+    sequence block m (else every model rank holds the data shard's whole
+    sequence and re-dispatches it, as the reference's do). Expert e lives
+    on model rank e // (E_pad / tp); the FFN of a rank's experts runs on
+    the capacity rows every rank of its data group sent it, with the
+    weights gathered over the batch axes (here: the weights as given), a
+    remat unit under autograd as the reference's `jax.checkpoint`. `aux`
+    is the mean over the shards (the reference's `pmean`)."""
+    B, S, d = x.shape
+    E = p["router"].shape[1]
+    tp = policy.tp_size
+    dp = policy.dp_size
+    E_pad = -(-E // tp) * tp  # zero-pad dead experts (granite: 40 -> 48)
+    E_loc = E_pad // tp
+    # split tokens over the model axis too when the sequence divides: each
+    # token is dispatched once (with batch-only sharding every model rank
+    # re-dispatches the same tokens)
+    seq_sharded = S % tp == 0 and S > 1
+    n_shards = dp * (tp if seq_sharded else 1)
+    T_loc = (B * S) // n_shards
+    C_loc = capacity(T_loc, top_k, E_pad, capacity_factor)
+    Bl, Sl = B // dp, (S // tp if seq_sharded else S)
+    w_up, w_down = _pad_e(p["w_up"], E_pad), _pad_e(p["w_down"], E_pad)
+    w_gate = _pad_e(p["w_gate"], E_pad) if "w_gate" in p else None
+    record = _recording(x, *(t for t in (w_up, w_gate, w_down) if t is not None))
+
+    def expert_ffn(buf, m):
+        e = slice(m * E_loc, (m + 1) * E_loc)
+        return _expert_ffn(buf, w_up[e], None if w_gate is None else w_gate[e], w_down[e],
+                           act)
+
+    ys, auxes = [], []
+    for i in range(dp):
+        rows = x[i * Bl:(i + 1) * Bl]
+        xts = [(rows[:, m * Sl:(m + 1) * Sl] if seq_sharded else rows).reshape(T_loc, d)
+               for m in range(tp)]
+        sent = [_dispatch(xt, _router_logits(xt, p["router"], E_pad), top_k, C_loc, E_pad)
+                for xt in xts]
+        # experts to their owner rank; every rank's tokens concatenate on
+        # the capacity axis: [E_loc, C_loc * tp, d] a rank
+        bufs = Mesh.all_to_all([b for b, _, _ in sent], split_dim=0, concat_dim=1)
+        outs = [_remat(expert_ffn, b, m, record=record) for m, b in enumerate(bufs)]
+        back = Mesh.all_to_all(outs, split_dim=1, concat_dim=0)  # [E_pad, C_loc, d]
+        y = [_combine(o, xt, r).reshape(Bl, Sl, d)
+             for o, xt, (_, _, r) in zip(back, xts, sent)]
+        ys.append(torch.cat(y, 1) if seq_sharded else y[0])
+        auxes.extend(a for _, a, _ in (sent if seq_sharded else sent[:1]))
+    return torch.cat(ys, 0), Mesh.pmean(auxes)[0]
+
+
+def _pad_e(w, E_pad):
+    if w is None or w.shape[0] == E_pad:
+        return w
+    return torch.cat([w, w.new_zeros((E_pad - w.shape[0],) + tuple(w.shape[1:]))], 0)
+
+
 def sharded_path_ok(policy, x_shape, n_experts: int) -> bool:
-    """Static check: can moe_apply_sharded run for these shapes? (False
-    with no policy: the one-device port always takes `moe_apply`.)"""
+    """Static check: can moe_apply_sharded run for these shapes?"""
     if policy is None:
         return False
     B, S, _ = x_shape

@@ -21,6 +21,15 @@ The serving cache keeps the reference's layout: `{"b{i}": {"k", "v" |
 Training runs the same functions under autograd: `stack_apply_train`
 remats each group (the reference's `jax.checkpoint(group_body)`) while
 autograd records, and `chunked_ce_loss` is the loss head.
+
+Under a ShardingPolicy the MoE takes `moe_apply_sharded` wherever
+`sharded_path_ok` says so, as the reference's does. The reference's
+other policy effects (`_shard`, `_residual_spec`: sharding constraints
+on the residual stream and the logits) are layouts, with no counterpart
+in the single-controller port. The stack functions take a `gather` hook:
+on a mesh, each group's weights are gathered from their parts inside the
+group's remat unit (`launch/sharding.gather_tree`), so no step holds more
+than one group's gathered weights.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import functools
 import torch
 from torch import nn
 
+from repro_torch.launch.mesh import Sharded
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -41,9 +51,9 @@ from repro_torch.models import ssm as S
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
-    """Mesh-axis names used in activation constraints. None = no constraints
-    (one device). The port's layers refuse a policy until the mesh slice
-    (ROADMAP A13c)."""
+    """Mesh-axis names and sizes of a sharded run. None = one device.
+    The sizes pick the MoE's sharded path and its per-shard capacity, and
+    `replicate_kv`'s kv repeat; the axis names are layouts."""
 
     batch: tuple = ("data",)  # axes sharding the batch dim
     model: str = "model"  # tensor-parallel axis
@@ -138,10 +148,18 @@ def _apply_mlp(cfg, p, x, mlp_kind: str):
     if mlp_kind == "dense":
         return x + L.mlp_apply(p["mlp"], h, act=cfg.act), 0.0
     if M.sharded_path_ok(cfg.policy, h.shape, cfg.moe_experts):
-        raise NotImplementedError("moe_apply_sharded belongs to the LM mesh slice "
-                                  "(ROADMAP A13c)")
-    y, aux = M.moe_apply(p["mlp"], h, top_k=cfg.moe_top_k, act=cfg.act,
-                         capacity_factor=cfg.moe_capacity_factor)
+        # its own remat unit, as the reference's: the expert hiddens are
+        # recomputed in the backward pass
+        def moe_fn(pp, hh):
+            return M.moe_apply_sharded(pp, hh, top_k=cfg.moe_top_k, act=cfg.act,
+                                       capacity_factor=cfg.moe_capacity_factor,
+                                       policy=cfg.policy)
+
+        y, aux = L._remat(moe_fn, p["mlp"], h,
+                          record=L._recording(h, *_tensors(p["mlp"])))
+    else:
+        y, aux = M.moe_apply(p["mlp"], h, top_k=cfg.moe_top_k, act=cfg.act,
+                             capacity_factor=cfg.moe_capacity_factor)
     return x + y, aux
 
 
@@ -220,14 +238,22 @@ def _tensors(tree) -> list:
         return list(tree.parameters())
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, Sharded):
+        return tree.parts
     return [tree]
 
 
-def stack_apply_train(cfg, gparams, x, pattern, memory=None, causal=True):
+def _group(gp, gather):
+    return gp if gather is None else gather(gp)
+
+
+def stack_apply_train(cfg, gparams, x, pattern, memory=None, causal=True, gather=None):
     """The groups in order; while autograd records, each group is one
     remat unit (its activations recomputed in the backward pass), as the
-    reference's checkpointed scan body."""
+    reference's checkpointed scan body. `gather` (on a mesh) turns a
+    group's parts into its weights inside the unit."""
     def group_body(h, aux, gp):
+        gp = _group(gp, gather)
         for i, (mx, ml) in enumerate(pattern):
             h, a = block_apply_train(cfg, gp[f"b{i}"], h, mx, ml, memory, causal)
             aux = aux + a
@@ -247,11 +273,13 @@ def block_apply_prefill(cfg, p, x, mixer: str, mlp_kind: str, max_len: int,
     d = cfg.attn_dims
     h = _apply_norm(cfg, p["norm1"], x)
     if mixer in ("attn", "attn_full"):
-        L._no_policy(cfg.policy)
         pos = torch.arange(Sq, device=x.device)
         q, k, v = L._qkv(p["attn"], h, d, pos)
-        o = L.chunked_attention(q, k, v, causal=(mixer == "attn"),
-                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        kr, vr = L.replicate_kv(k, v, d.n_heads, d.n_kv,
+                                cfg.policy.tp_size if cfg.policy else 0)
+        o = L.chunked_attention(q, kr, vr, causal=(mixer == "attn"),
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                policy=cfg.policy)
         x = x + L._proj_out(o, p["attn"]["wo"])
         pad = max_len - Sq
         cache = {"k": L._pad_seq(k.to(cache_dtype), pad),
@@ -277,9 +305,11 @@ def _stack_leaves(per_group: list) -> dict:
             for b in per_group[0]}
 
 
-def stack_apply_prefill(cfg, gparams, x, pattern, max_len, cache_dtype, memory=None):
+def stack_apply_prefill(cfg, gparams, x, pattern, max_len, cache_dtype, memory=None,
+                        gather=None):
     per_group = []
     for gp in gparams:
+        gp = _group(gp, gather)
         caches = {}
         for i, (mx, ml) in enumerate(pattern):
             x, caches[f"b{i}"] = block_apply_prefill(cfg, gp[f"b{i}"], x, mx, ml,
@@ -296,10 +326,11 @@ def stack_cache_init(cfg, pattern, n_groups, batch, max_len, dtype, device=None)
     return {f"b{i}": one(mx) for i, (mx, ml) in enumerate(pattern)}
 
 
-def stack_apply_decode(cfg, gparams, x, cache, cur_len, pattern):
+def stack_apply_decode(cfg, gparams, x, cache, cur_len, pattern, gather=None):
     """One token through every group; the stacked cache is written in
     place (group g's rows) and returned: the cache passed in is consumed."""
     for g, gp in enumerate(gparams):
+        gp = _group(gp, gather)
         for i, (mx, ml) in enumerate(pattern):
             bc = {n: a[g] for n, a in cache[f"b{i}"].items()}
             x, _ = block_apply_decode(cfg, gp[f"b{i}"], x, bc, cur_len, mx, ml)
@@ -349,10 +380,13 @@ def _ce_chunk(xc, W, yc, mc):
     return nll.sum(), mc.sum()
 
 
-def chunked_ce_loss(cfg, params, x, labels, mask, *, chunk: int = 512):
+def chunked_ce_loss(cfg, params, x, labels, mask, *, chunk: int = 512, count=None):
     """Cross-entropy without a [B,S,V] resident: a loop over seq chunks,
     each a remat unit while autograd records (the backward recomputes the
-    [B, chunk, V] logits block rather than keeping one a chunk)."""
+    [B, chunk, V] logits block rather than keeping one a chunk). `count`
+    (a data shard's part of a sharded batch) is the whole batch's mask
+    sum: the shard's nll sum over it, so that the shards' parts add up to
+    the reference's Σ nll / Σ mask."""
     B, Sq, d = x.shape
     W = _unembed_matrix(cfg, params)
     chunk = min(chunk, Sq)
@@ -365,7 +399,7 @@ def chunked_ce_loss(cfg, params, x, labels, mask, *, chunk: int = 512):
         s = slice(i * chunk, (i + 1) * chunk)
         nll, m = L._remat(_ce_chunk, x[:, s], W, labels[:, s], mask[:, s], record=record)
         tot, cnt = tot + nll, cnt + m
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot / torch.clamp_min(cnt if count is None else count, 1.0)
 
 
 def logits_last(cfg, params, x_last):

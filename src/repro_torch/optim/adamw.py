@@ -13,6 +13,15 @@ together), and Adafactor, whose factoring and update clip depend on a
 leaf's shape, runs on each stacked leaf and keeps its state stacked.
 AdamW is elementwise and keeps `m` and `v` in the port's layout.
 
+On a mesh (`launch/train.build`) the leaves of the params, the gradients
+and the optimizer state are `Sharded`, stored as per-shard parts. AdamW
+updates each part in place, element by element. The global norm sums
+the squares of the parts that hold each block once (not the replicas),
+in shard order. Adafactor's row and column means span the shards, so it
+updates one leaf at a time: the leaf and its stats gathered, the
+reference's update, the results written back into the parts (the peak
+grows by one leaf, never the model).
+
 `step` is a 0-d int tensor on the parameters' device (a Python int works
 too): the schedule and the bias corrections are computed on the device,
 so an update reads nothing back to the host. An update writes the
@@ -27,6 +36,8 @@ import math
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.launch.mesh import Sharded
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
@@ -66,8 +77,34 @@ def _merge(per_group):
 
 
 def _value(leaf):
-    """A view leaf as one tensor (a stacked leaf as a fresh [G, ...] copy)."""
-    return torch.stack(list(leaf)) if isinstance(leaf, _Stacked) else leaf
+    """A view leaf as one tensor (a stacked leaf as a fresh [G, ...] copy;
+    a `Sharded` one joined from its parts)."""
+    if isinstance(leaf, _Stacked):
+        return torch.stack([_value(g) for g in leaf])
+    return leaf.join() if isinstance(leaf, Sharded) else leaf
+
+
+def _write(leaf, value):
+    """Write `value` into a view leaf, in place (a stacked leaf's groups,
+    a `Sharded` leaf's parts)."""
+    if isinstance(leaf, _Stacked):
+        for g, v in zip(leaf, value):
+            _write(g, v)
+    elif isinstance(leaf, Sharded):
+        leaf.assign(value)
+    else:
+        leaf.copy_(value)
+
+
+def _sq_sum(g):
+    """Σ g² in f32: a `Sharded` leaf's parts that hold each block once,
+    added in shard order on the mesh's home."""
+    if isinstance(g, Sharded):
+        s = 0
+        for k in g.owners():
+            s = s + torch.sum(g.parts[k].to(torch.float32) ** 2).to(g.mesh.home)
+        return s
+    return torch.sum(g.to(torch.float32) ** 2)
 
 
 def _view_items(tree, path=()):
@@ -107,7 +144,7 @@ def _global_norm(tree):
         parts = list(leaf) if isinstance(leaf, _Stacked) else [leaf]
         s = 0
         for g in parts:
-            s = s + torch.sum(g.to(torch.float32) ** 2)
+            s = s + _sq_sum(g)
         total = total + s
     return torch.sqrt(total)
 
@@ -152,12 +189,20 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0,
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
 
-        def upd(p, g, m, v):
+        def upd_t(p, g, m, v, scale, lr_t, bc1, bc2):
             g = g.to(torch.float32) * scale
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
             u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             p.sub_(lr_t * (u + weight_decay * p))
+
+        def upd(p, g, m, v):
+            if not isinstance(p, Sharded):
+                return upd_t(p, g, m, v, scale, lr_t, bc1, bc2)
+            for k, pk in enumerate(p.parts):
+                on = [x.to(pk.device) if torch.is_tensor(x) else x
+                      for x in (scale, lr_t, bc1, bc2)]
+                upd_t(pk, g.parts[k], m.parts[k], v.parts[k], *on)
 
         _tree_map(upd, params, grads, state["m"], state["v"])
         return params, state
@@ -187,6 +232,8 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip_norm=1.0,
             return (len(leaf),) + tuple(leaf[0].shape), leaf[0].device
         return tuple(leaf.shape), leaf.device
 
+    # a sharded state's stats are made by launch/train.build (placed by
+    # `_opt_specs`); `update` reads and writes them through their parts
     def init(params):
         stats = {}
         for path, leaf in _view_items(_views(params)):
@@ -204,7 +251,8 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip_norm=1.0,
         lr_t = sched(step)
         new_stats = {}
         for path, pleaf in items:
-            s = _get(state["stats"], path)
+            s_leaves = _get(state["stats"], path)
+            s = {k: _value(v) for k, v in s_leaves.items()}
             p = _value(pleaf)
             g = _value(_get(gviews, path)).to(torch.float32) * scale
             g2 = g * g + eps
@@ -222,12 +270,11 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip_norm=1.0,
             # relative step size (Adafactor's update clipping, d=1.0)
             rms_u = torch.sqrt(torch.mean(u * u) + eps)
             u = u / torch.clamp_min(rms_u, 1.0)
-            new_p = p - lr_t * u
-            if isinstance(pleaf, _Stacked):
-                for i, t_ in enumerate(pleaf):
-                    t_.copy_(new_p[i])
-            else:
-                pleaf.copy_(new_p)
+            _write(pleaf, p - lr_t * u)
+            if any(isinstance(v, Sharded) for v in s_leaves.values()):
+                for k, v in new_s.items():  # the stats' parts, in place
+                    s_leaves[k].assign(v)
+                new_s = s_leaves
             _set(new_stats, path, new_s)
         return params, {"stats": new_stats}
 

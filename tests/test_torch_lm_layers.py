@@ -295,11 +295,25 @@ def test_ssm_decode():
 
 
 def test_policy_is_refused_until_the_mesh_slice():
+    """The mesh slice has come: a policy is accepted, its pins change no
+    number (chunked attention, the SSD scan), `replicate_kv` repeats kv
+    heads to the model axis as the reference's does, and the MoE's
+    sharded path is taken where the reference's is."""
     from repro_torch.models.transformer import ShardingPolicy
 
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        TL.chunked_attention(q, q, q, causal=True, policy=ShardingPolicy())
+    pol = ShardingPolicy(tp_size=4, dp_size=2)
+    q, k = torch.randn(1, 8, 4, 8), torch.randn(1, 8, 1, 8)
+    assert torch.equal(TL.chunked_attention(q, k, k, causal=True, q_chunk=4, kv_chunk=4,
+                                            policy=pol),
+                       TL.chunked_attention(q, k, k, causal=True, q_chunk=4, kv_chunk=4))
+    for tp in (0, 1, 2, 4, 3):
+        got = TL.replicate_kv(k, k, 4, 1, tp)[0]
+        want = JL.replicate_kv(jnp.asarray(k.numpy()), jnp.asarray(k.numpy()), 4, 1, tp)[0]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    dims, tdims, p = _ssm()
+    x = _t(_randn(2, 12, 32, scale=0.5))
+    assert all(torch.equal(a, b) for a, b in zip(TS.ssm_apply(_p(p), x, tdims, policy=pol),
+                                                 TS.ssm_apply(_p(p), x, tdims)))
     assert not TM.sharded_path_ok(None, (2, 4, 8), 4)
     assert TM.sharded_path_ok(ShardingPolicy(dp_size=2), (2, 4, 8), 4) == \
         JM.sharded_path_ok(ShardingPolicy(dp_size=2), (2, 4, 8), 4)

@@ -375,9 +375,10 @@ def test_cast_once_per_model():
 
 def test_build_model_bundle_and_the_slices_still_to_come():
     """`build_model`'s serving entries run (its cache layout is prefill's);
-    `forward_train` gives a finite loss, a sharding policy names the mesh
-    slice, and with no card an entry point raises instead of falling back
-    to the CPU."""
+    `forward_train` gives a finite loss, prefill under a sharding policy
+    (the mesh slice) serves as without one where the policy changes no
+    number (gemma: no MoE), and with no card an entry point raises
+    instead of falling back to the CPU."""
     cfg = get_reduced("gemma-2b")
     model = Md.build_model(cfg)
     assert model["config"] is cfg
@@ -393,9 +394,13 @@ def test_build_model_bundle_and_the_slices_still_to_come():
     loss, _ = model["forward_train"](params, {"tokens": tokens, "labels": tokens,
                                               "mask": torch.ones((2, 5))})
     assert loss.shape == () and torch.isfinite(loss)
-    bad = cfg.with_policy(T.ShardingPolicy())
-    with pytest.raises(NotImplementedError, match="A13c"):
-        Md.prefill(bad, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 8)
+    under_policy = cfg.with_policy(T.ShardingPolicy(tp_size=2, dp_size=2))
+    for batch in (tokens, tokens[:1]):  # B 2 splits over data 2, B 1 does not
+        got, got_cache = Md.prefill(under_policy, params, {"tokens": batch}, 9)
+        want, want_cache = model["prefill"](params, {"tokens": batch}, 9)
+        assert torch.equal(got, want)
+        assert all(torch.equal(got_cache[b][n], want_cache[b][n]) for b in want_cache
+                   for n in want_cache[b])
     if not torch.cuda.is_available():  # no quiet fallback to the CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             Md.init_params(cfg, 0)

@@ -1,0 +1,257 @@
+"""The port's sharding rules (`repro_torch.launch.sharding`), its
+production mesh and collectives (`launch.mesh`) and the cluster env
+(`launch.cluster`) against the reference, in-process on the CPU.
+
+The reference's rules read only `mesh.axis_names` and
+`mesh.devices.shape`, so a stub mesh over `np.empty(shape)` runs them on
+the production meshes without 256 or 512 devices (its own check,
+tests/test_sharding.py, is tier 2: a subprocess with 512 fake devices).
+Shapes come from `jax.eval_shape` on the reference's side and from the
+`meta` device on the port's: nothing is allocated, jamba's 398 B
+included."""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import all_arch_names
+from repro.configs import get_config as jget_config
+from repro.launch import cluster as JC
+from repro.launch import sharding as JSH
+from repro.launch.dryrun import make_policy
+from repro.models import model as JMd
+from repro.optim.adamw import for_config as jfor_config
+from repro_torch.configs import get_config
+from repro_torch.launch import cluster as TC
+from repro_torch.launch import mesh as TM
+from repro_torch.launch import sharding as SH
+from repro_torch.models import model as Md
+from repro_torch.optim.adamw import for_config
+from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
+
+torch.set_num_threads(2)
+
+MESHES = ({"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
+          {"data": 2, "model": 2}, {"data": 4, "model": 1}, {"data": 1, "model": 2})
+
+
+class _StubMesh:
+    """What the reference's rules read of a mesh."""
+
+    def __init__(self, shape):
+        self.axis_names = tuple(shape)
+        self.shape = dict(shape)
+        self.devices = np.empty(tuple(shape.values()))
+
+
+def _port_mesh(shape):
+    return TM.Mesh(shape, ["meta"] * math.prod(shape.values()))
+
+
+def _flat_ref(tree):
+    leaves = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    return {tuple(getattr(k, "key", str(k)) for k in p): tuple(v) for p, v in leaves}
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, path + (k,)).items()}
+    return {path: tuple(tree)}
+
+
+def _assert_same(got, want, tag):
+    g, w = _flat(got), _flat_ref(want)
+    assert g.keys() == w.keys(), (tag, sorted(set(g) ^ set(w))[:5])
+    bad = [(k, g[k], w[k]) for k in w if g[k] != w[k]]
+    assert not bad, (tag, bad[:3])
+
+
+@pytest.fixture(scope="module")
+def reference_shapes():
+    """{config: the reference's train-state shapes}, `jax.eval_shape`."""
+    out = {}
+    for name in all_arch_names():
+        cfg = jget_config(name)
+        opt = jfor_config(cfg)
+
+        def init(key, cfg=cfg, opt=opt):
+            p = JMd.init_params(cfg, key)
+            return {"params": p, "opt": opt.init(p), "step": jnp.zeros((), jnp.int32)}
+
+        out[name] = jax.eval_shape(init, jax.random.PRNGKey(0))
+    return out
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s.values())))
+def test_train_state_specs_match_reference(reference_shapes, shape):
+    """param_specs and train_state_specs (AdamW's m/v; Adafactor's r/c
+    for jamba) equal the reference's leaf for leaf, for all ten configs
+    at full size; the port's shapes come from the meta device."""
+    stub, mesh = _StubMesh(shape), _port_mesh(shape)
+    for name in all_arch_names():
+        jcfg = jget_config(name).with_policy(make_policy(stub))
+        cfg = get_config(name).with_policy(SH.policy_for(mesh))
+        assert dataclasses.astuple(cfg.policy) == dataclasses.astuple(jcfg.policy)
+        shapes = SH.state_shapes(cfg, for_config(cfg))
+        assert all(t.device.type == "meta" for t in SH._leaves(shapes))
+        want = JSH.train_state_specs(jcfg, reference_shapes[name], stub)
+        _assert_same(SH.train_state_specs(cfg, shapes, mesh), want, f"{name} {shape}")
+        _assert_same(SH.param_specs(cfg, shapes["params"], mesh),
+                     JSH.param_specs(jcfg, reference_shapes[name]["params"], stub),
+                     f"{name} {shape} params")
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s.values())))
+def test_batch_and_cache_specs_match_reference(shape):
+    """batch_specs of the train cell's inputs and cache_specs of the
+    decode cells' caches (seq_shard off and on) equal the reference's."""
+    stub, mesh = _StubMesh(shape), _port_mesh(shape)
+    for name in all_arch_names():
+        jcfg = jget_config(name).with_policy(make_policy(stub))
+        cfg = get_config(name).with_policy(SH.policy_for(mesh))
+        _, jb = JMd.input_specs(jcfg, "train_4k")
+        _, tb = Md.input_specs(cfg, "train_4k")
+        _assert_same(SH.batch_specs(cfg, tb), JSH.batch_specs(jcfg, jb), f"{name} batch")
+        for cell in ("decode_32k", "long_500k"):
+            _, jd = JMd.input_specs(jcfg, cell)
+            _, td = Md.input_specs(cfg, cell)
+            for seq_shard in (False, True):
+                _assert_same(SH.cache_specs(cfg, td["cache"], mesh, seq_shard=seq_shard),
+                             JSH.cache_specs(jcfg, jd["cache"], stub, seq_shard=seq_shard),
+                             f"{name} {cell} seq_shard={seq_shard}")
+
+
+def test_every_spec_is_legal_on_the_production_meshes():
+    """tests/test_sharding.py's check, on the port: every train-state and
+    cache spec divides its leaf on (16, 16) and (2, 16, 16)."""
+    for multi in (False, True):
+        mesh = TM.make_production_mesh(multi_pod=multi, device="cpu")
+        assert mesh.shape == ({"pod": 2, "data": 16, "model": 16} if multi else
+                              {"data": 16, "model": 16})
+        for name in all_arch_names():
+            cfg = get_config(name).with_policy(SH.policy_for(mesh))
+            shapes = SH.state_shapes(cfg, for_config(cfg))
+            specs = SH.train_state_specs(cfg, shapes, mesh)
+            for leaf, spec in zip(SH._leaves(shapes),
+                                  SH._leaves(specs, is_leaf=lambda x: isinstance(x, TM.P))):
+                mesh.check(leaf.shape, spec)
+            for cell in ("decode_32k", "long_500k"):
+                if not Md.shape_supported(cfg, cell):
+                    continue
+                _, sp = Md.input_specs(cfg, cell)
+                cs = SH.cache_specs(cfg, sp["cache"], mesh,
+                                    seq_shard=Md.SHAPES[cell]["batch"] == 1)
+                for leaf, spec in zip(SH._leaves(sp["cache"]),
+                                      SH._leaves(cs, is_leaf=lambda x: isinstance(x, TM.P))):
+                    mesh.check(leaf.shape, spec)
+
+
+def test_shard_bytes_reckon_the_parts():
+    """shard_bytes from the specs equals the bytes of the parts `named`
+    places, shard by shard; the parts add up to the whole state plus the
+    blocks the specs replicate."""
+    from repro_torch.configs import get_reduced
+
+    mesh = TM.make_host_mesh(data=2, model=2, device="cpu")
+    cfg = get_reduced("gemma-2b").with_policy(SH.policy_for(mesh))
+    params = Md.init_params(cfg, 0, device="cpu")
+    shapes = SH.ref_layout(params.tree())
+    specs = SH.param_specs(cfg, shapes, mesh)
+    placed = SH.ShardedLM.place(cfg, mesh, params, specs)
+    got = [0] * mesh.size
+    for sh in placed.leaves():
+        for s, p in enumerate(sh.parts):
+            got[s] += p.numel() * p.element_size()
+    reckoned = SH.shard_bytes(specs, shapes, mesh)
+    assert got == reckoned
+    whole = sum(p.numel() * 4 for p in params.parameters())
+    # a block held by k shards is k - 1 copies more than the state's
+    extra = sum(sh.parts[0].numel() * 4 * (mesh.size - math.prod(
+        mesh.axis_size(a) for part in sh.spec for a in TM._names(part)))
+        for sh in placed.leaves())
+    assert sum(reckoned) == whole + extra and extra > 0  # wk/wv (kv=1), the norms
+    for sh, leaf in zip(placed.leaves(), (p for p in SH._leaves(params.tree()))):
+        assert torch.equal(sh.join(), leaf)
+        assert all(p.data_ptr() != q.data_ptr() for i, p in enumerate(sh.parts)
+                   for q in sh.parts[i + 1:])
+
+
+def test_gather_backward_adds_into_every_part():
+    """`Sharded.gather`'s backward hands each part its block of the
+    gradient, replicas included, and the gradients of two gathers add up
+    in the parts (a reduce-scatter of their sum)."""
+    mesh = TM.make_host_mesh(data=2, model=2, device="cpu")
+    t = torch.arange(24.0).reshape(4, 6)
+    for spec in (TM.P("data", "model"), TM.P(None, "model"), TM.P()):
+        sh = TM.Sharded.place(mesh, t, spec)
+        for p in sh.parts:
+            p.requires_grad_(True)
+        w1, w2 = torch.randn(4, 6), torch.randn(4, 6)
+        ((sh.gather() * w1).sum() + (sh.gather() * w2).sum()).backward()
+        for s, p in enumerate(sh.parts):
+            assert torch.equal(p.grad, (w1 + w2)[sh.block(s)]), (spec, s)
+        sh.assign(t * 2)
+        assert torch.equal(sh.join(), t * 2)
+
+
+def test_collectives():
+    """all_to_all (tiled and not) and pmean as jax.lax's, in rank order."""
+    parts = [torch.arange(24.0).reshape(4, 6) + 100 * r for r in range(4)]
+    got = TM.all_to_all(parts, split_dim=0, concat_dim=1)
+    for j in range(4):
+        assert torch.equal(got[j], torch.cat([p[j:j + 1] for p in parts], 1))
+    back = TM.all_to_all(got, split_dim=1, concat_dim=0)
+    assert all(torch.equal(a, b) for a, b in zip(back, parts))
+    untiled = TM.all_to_all(parts, split_dim=0, concat_dim=0, tiled=False)
+    assert torch.equal(untiled[2], torch.stack([p[2] for p in parts]))
+    with pytest.raises(ValueError, match="does not split"):
+        TM.all_to_all(parts, split_dim=1, concat_dim=0)
+    assert all(torch.equal(m, sum(parts) / 4) for m in TM.pmean(parts))
+
+
+# --- the cluster env ------------------------------------------------------------------
+
+
+ENVS = [
+    {},
+    {"COORDINATOR_ADDRESS": "10.0.0.1:1234", "NUM_PROCESSES": "4", "PROCESS_ID": "2"},
+    {"COORDINATOR_ADDRESS": "10.0.0.1:1234"},
+    {"SLURM_NTASKS": "8", "SLURM_PROCID": "3", "SLURM_STEP_NODELIST": "node[01-04],x"},
+    {"SLURM_NTASKS": "2", "SLURM_NODELIST": "gpu-a,gpu-b"},
+    {"SLURM_NTASKS": "2", "SLURM_PROCID": "1"},
+    {"SLURM_NTASKS": "1", "SLURM_PROCID": "0"},
+]
+
+
+@pytest.mark.parametrize("env", ENVS, ids=range(len(ENVS)))
+def test_cluster_env_matches_reference(env):
+    got, want = TC.cluster_env(env), JC.cluster_env(env)
+    assert (got.num_processes, got.process_id, got.coordinator, got.is_coordinator) == \
+        (want.num_processes, want.process_id, want.coordinator, want.is_coordinator)
+    for batch in (8, 12, 16, 7):
+        try:
+            want_slice = JC.host_batch_slice(batch, want)
+        except ValueError as e:
+            with pytest.raises(ValueError, match="% hosts"):
+                TC.host_batch_slice(batch, got)
+            assert "% hosts" in str(e)
+            continue
+        assert TC.host_batch_slice(batch, got) == want_slice
+
+
+def test_init_cluster_is_single_process():
+    """One process: the reference's no-op. Several: the multi-process
+    mesh is ROADMAP A13d."""
+    info = TC.init_cluster(TC.ClusterInfo(1, 0, None))
+    assert info == TC.ClusterInfo(1, 0, None) and info.is_coordinator
+    assert TC.init_cluster() == TC.cluster_env()
+    with pytest.raises(NotImplementedError, match="A13d"):
+        TC.init_cluster(TC.ClusterInfo(4, 1, "host:1"))
+    mesh = TC.cluster_mesh(device="cpu")
+    assert mesh.shape == {"data": 16, "model": 16} and mesh.home == torch.device("cpu")
+    assert TC.cluster_mesh(multi_pod=True, device="cpu").shape["pod"] == 2

@@ -380,12 +380,25 @@ def test_serving_after_training_builds_no_graph():
 
 
 def test_the_mesh_half_is_named():
-    """A sharding pin, a policy or a mesh of several devices is the LM
-    mesh slice (A13c)."""
-    cfg = get_reduced("gemma-2b")
-    with pytest.raises(NotImplementedError, match="A13c"):
-        Md.make_train_step(cfg, TA.adamw(), param_specs={})
-    with pytest.raises(NotImplementedError, match="A13c"):
-        Md.make_train_step(cfg.with_policy(T.ShardingPolicy()), TA.adamw())
-    with pytest.raises(NotImplementedError, match="A13c"):
-        TL.build(cfg, TM.make_host_mesh(data=2, device="cpu"), device="cpu")
+    """The LM mesh (A13c) is here: `build` on a mesh of several devices
+    places the state by its specs and steps it; a step built with
+    `param_specs` refuses an unsharded state; a one-device mesh keeps the
+    one-device state. Several processes are the next item, A13d."""
+    from repro_torch.launch import cluster, sharding
+
+    cfg = dataclasses.replace(get_reduced("gemma-2b"), **F32)
+    params = Md.init_params(cfg, 0, device="cpu")
+    step = Md.make_train_step(cfg, TA.adamw(), param_specs={})
+    with pytest.raises(TypeError, match="placed on a mesh"):
+        step({"params": params, "opt": TA.adamw().init(params.tree()),
+              "step": torch.zeros((), dtype=torch.int32)}, _torch(_batch(cfg)))
+    pcfg, state, step, specs = TL.build(cfg, TM.make_host_mesh(data=2, device="cpu"),
+                                        device="cpu")
+    assert pcfg.policy.dp_size == 2 and isinstance(state["params"], sharding.ShardedLM)
+    assert specs["params"]["tok"]["embed"] == TM.P("model", "data")
+    state, m = step(state, _torch(_batch(cfg)))
+    assert torch.isfinite(m["loss"]) and int(state["step"]) == 1
+    _, one, _, none = TL.build(cfg, TM.make_host_mesh(device="cpu"), device="cpu")
+    assert isinstance(one["params"], Md.LM) and none is None
+    with pytest.raises(NotImplementedError, match="A13d"):
+        cluster.init_cluster(cluster.ClusterInfo(2, 0, "host:1"))
