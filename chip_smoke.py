@@ -8,8 +8,9 @@ port's paths (`GPSession` with its defaults: heap trees of depth 5, one
 device, elite cache, K-generation blocks; then postfix genomes with and
 without subexpression dedup; then the two-pass fitness kernels pearson
 and r2 on those paths; the island model; streaming at the paper's 5.5M
-rows and the scalar baseline; the multi-tenant service; the mesh; LM
-serving and training of the model zoo) through the
+rows and the scalar baseline; the multi-tenant service; the mesh, in one
+process and one process a card; LM serving and training of the model
+zoo) through the
 user's entry points, and checks the
 results against the same sessions run on the CPU. Every phase prints
 one JSON line; any failure raises, so the exit code is non-zero. The
@@ -33,7 +34,7 @@ Phases:
      device time per call (torch.profiler, a window that recorded no
      kernel taken again up to 3 times: `device_ms`) and CUDA launches
      per call (every kernel must make one, of its own kernel; no
-     `merge_tiles_kernel` is left), the plain version's time, the bound
+     `merge_tiles_kernel` is left), the plain version's time (kernel c), the bound
      (the larger of bytes / 3.35 TB/s and f32 ops / 67 TFLOP/s), and for
      B4 with kernel r the library yardstick `torch.cdist(preds, y[None],
      p=1)` (`library_ms`). Then the unique table under each of its
@@ -67,7 +68,7 @@ Phases:
      launches and the dedup counters of each run, each generation's
      counter row showing the branch it took (the table overflowed in
      every generation of the cap-100 runs and in none of the others),
-     its first 3 generations bitwise equal to the CPU's, the exact/off
+     its first 2 generations bitwise equal to the CPU's, the exact/off
      histories equal to each other, no synchronisation in a block
   6b. kat7 at full width under pearson, 20 generations each: the heap path
      (B1), postfix with dedup off (B2) and exact at caps 1,400 (B3) and
@@ -82,7 +83,7 @@ Phases:
      tournament sizes 4, 7, 10, 13 of the reference's island bench: 20
      generations on the card with `eval_fitness` launched exactly once a
      generation and no other port kernel, one block under
-     torch.cuda.set_sync_debug_mode("error"), the first 3 generations'
+     torch.cuda.set_sync_debug_mode("error"), the first 2 generations'
      history and per-island history bitwise equal to the CPU's; torus
      and broadcast-best, 5 generations each; postfix islands with dedup
      exact at cap I·P·N + 1 = 50,401 (the table and B4, with B2 gated)
@@ -113,7 +114,7 @@ Phases:
      (within rtol 1e-5 on kepler under mse, bitwise on an integer
      lattice); one JSON line of the phase's figures
   9. the multi-tenant service (`repro_torch.service.GPService` on the
-     card): serve_gp's synthetic stream of 128 jobs (24-96 rows, 3
+     card): serve_gp's synthetic stream of 64 jobs (24-96 rows, 3
      features, kernels r/mse/pearson, 10-39 generations) through 64
      slots of 64 depth-5 trees in blocks of 8 generations: every job
      done, one tenant block built, B1 launched exactly slots x 8 x blocks
@@ -135,7 +136,7 @@ Phases:
      one card each where there are more): (a) kat7 4 x 200 islands with
      phase 7's options on (pod 2, data 2, model 2), 20 generations, B1
      exactly 8 launches a generation (one a shard) and no other kernel,
-     one block under torch.cuda.set_sync_debug_mode("error"), the first 3
+     one block under torch.cuda.set_sync_debug_mode("error"), the first 2
      generations' history and per-island history bitwise the same mesh's
      on the CPU, wall ms a generation and peak memory, and one profiled
      generation (CUDA launches, device busy time, idle share) beside the
@@ -152,7 +153,7 @@ Phases:
      (data 4, model 2): kat7 finite and non-increasing, the dyadic
      lattice card == CPU; (f) kat7 in chunks of 4,096 rows on (data 2,
      model 2), card == CPU; (g) (a)'s state checkpointed and resharded
-     onto (pod 4, data 2, model 1), bitwise, then 3 generations card ==
+     onto (pod 4, data 2, model 1), bitwise, then 2 generations card ==
      CPU; (h) `python -m repro_torch.launch.evolve --mesh
      data=2,model=2,pod=2` as a subprocess
   11. LM serving on the card (`repro_torch.models`: prefill, then greedy
@@ -213,6 +214,24 @@ Phases:
      attention dims, a 32,768-token cache on data 8, cur_len 0, 7,
      16,383, 16,384 and 32,767, against `attn_decode` (out 2e-5, cache
      1e-6)
+  14. the mesh over processes (`launch.cluster.init_cluster`, one process
+     a card, NCCL): W = the smaller of 4 and the card count processes
+     from multiprocessing's spawn, each given COORDINATOR_ADDRESS,
+     NUM_PROCESSES and PROCESS_ID (on one card W = 1, a group of one:
+     the line says `"multi_rank": false` and why); (a) phase 10 (a)'s
+     islands, 20 generations: every process's history and per-island
+     history bit for bit phase 10 (a)'s, B1 exactly once a local shard a
+     generation and no other kernel, one block under
+     set_sync_debug_mode("error"), wall ms a generation, each process's
+     peak MB and one profiled generation; (b) postfix kat7 on (data 2,
+     model 2) with dedup exact at cap 6,301 (B2's siblings, the table and
+     B4 once a local shard a generation), 5 generations, bit for bit the
+     same session in one process; (c) gemma-2b at full width in bf16, B 4
+     x S 1,024 on (data 2, model 2), AdamW: the first loss bit for bit
+     phase 13 (b)'s, step ms (CUDA events), tokens/s, each card's peak MB,
+     one profiled step on process 0; (d) reduced gemma-2b's state after 2
+     steps saved from the processes (process 0 writes) and restored here
+     bit for bit every process's. A process that fails fails the phase
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -237,6 +256,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -635,7 +655,10 @@ def kernel_vs_plain():
                 max_rel = max(max_rel, rel, rel_w)
                 if lattice:
                     continue
-                reps = 5 if P * D < 1e7 else 3  # the plain versions take 0.04-4 s a call
+                # the plain versions take 0.04-13 s a call, 10^3-10^5 x the
+                # kernels': timed on the main path's kernel c only, once
+                # after the warm call at the large shape
+                reps = (5 if P * D < 1e7 else 1) if kname == "c" else 0
                 fk = {k: v for k, v in kw.items() if k not in ("max_depth", "fn_codes")}
                 codes = kw["fn_codes"]
                 # the probe at the path's shape: one elite row and one cached
@@ -683,7 +706,8 @@ def kernel_vs_plain():
                 row = {}
                 for kern_name, (fn, plain_fn, (bound, bound_by)) in timed.items():
                     row[kern_name] = dict(ms=time_ms(fn, 50), **device_ms(fn),
-                                          plain_ms=time_ms(plain_fn, reps),
+                                          plain_ms=(time_ms(plain_fn, reps) if reps
+                                                    else None),
                                           bound_ms=bound, bound_by=bound_by,
                                           library_ms=None)
                 if kname == "r":
@@ -1270,14 +1294,14 @@ POSTFIX_RUNS = (  # (label, session options, kernels the run must launch, overfl
 def postfix_paths():
     """Phase 6 -> {label: run}: kat7 with postfix genomes at full width
     (P = 100, depth 5, F = 9, D = 10,000, kernel c, CLASSIFY_SET), 30
-    generations per run, the first 3 card == CPU bitwise (the plain
+    generations per run, the first 2 card == CPU bitwise (the plain
     postfix stack machine on the CPU takes seconds a generation). Every
     exact/off run's history must equal the dedup-off run's (dedup is
     bitwise); the semantic tier's is tolerance-pinned (rtol 1e-5 against
     dedup off)."""
     runs = {}
     for label, kw, expect, overflow in POSTFIX_RUNS:
-        run = run_dataset("kat7", 100, 30, 3, block_check=True, expect=expect,
+        run = run_dataset("kat7", 100, 30, 2, block_check=True, expect=expect,
                           overflow=overflow, genome="postfix", **kw)
         runs[label] = run
         emit("postfix_path", run=label, **run)
@@ -1497,14 +1521,14 @@ def island_paths():
     runs = {}
     main_state, main_isl, runs["ring"] = _island_run(20, {"eval_fitness": 20},
                                                      block_check=True)
-    cpu = GPSession.from_dataset("kat7", generations=3, device="cpu", **_island_kw())
+    cpu = GPSession.from_dataset("kat7", generations=2, device="cpu", **_island_kw())
     cpu.init(key=prng.PRNGKey(0))
     cpu.evolve()
-    card_isl = np.asarray(runs["ring"]["history"][:3], np.float32)
+    card_isl = np.asarray(runs["ring"]["history"][:2], np.float32)
     if not (np.array_equal(card_isl, np.asarray(cpu.history, np.float32)) and np.array_equal(
-            np.asarray(cpu.island_history), np.asarray(main_isl[:3]))):
-        raise AssertionError(f"island card vs CPU: {main_isl[:3]} vs {cpu.island_history}")
-    runs["ring"]["cpu_bitwise_generations"] = 3
+            np.asarray(cpu.island_history), np.asarray(main_isl[:2]))):
+        raise AssertionError(f"island card vs CPU: {main_isl[:2]} vs {cpu.island_history}")
+    runs["ring"]["cpu_bitwise_generations"] = 2
     emit("islands", run="ring", **runs["ring"])
     for topology in ("torus", "broadcast-best"):
         *_, runs[topology] = _island_run(5, {"eval_fitness": 5}, island_topology=topology)
@@ -2024,12 +2048,12 @@ def _service_block_probe(svc, extra):
 
 
 def _service_scale():
-    """(a) serve_gp's synthetic stream of 128 jobs through 64 slots of 64
+    """(a) serve_gp's synthetic stream of 64 jobs through 64 slots of 64
     depth-5 trees (4,096 trees a block generation) on the card."""
     from repro_torch.launch.serve_gp import synthetic_stream
     from repro_torch.service import DONE, GPService
 
-    jobs = synthetic_stream(128, seed=0)
+    jobs = synthetic_stream(64, seed=0)
     svc = GPService(slots=SVC_SLOTS, pop_size=SVC_POP, max_depth=5, n_features=3,
                     data_cap=SVC_CAP, block_size=SVC_BLOCK)
     assert svc.backend == "cuda", svc.backend
@@ -2250,11 +2274,15 @@ def _mesh_run(sess, gens, expect, tag):
     """Drive `sess` for `gens` generations on the card, the launch counts
     set to 0 just before and read just after: each kernel of `expect`
     ({name: launches}) must have launched exactly that often, every other
-    kernel not at all -> (wall s, peak memory bytes, launches)."""
+    kernel not at all -> (wall s, peak memory bytes, launches). Over
+    several processes (phase 14) they start the clock together."""
     sess.init(key=prng.PRNGKey(0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gp_eval.reset_launches()
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     sess.evolve(gens)
     torch.cuda.synchronize()
@@ -2303,7 +2331,7 @@ def _profiled_generation(sess):
 def _mesh_islands(gens=20):
     """(a) kat7 4 x 200 islands (phase 7's options) on (pod 2, data 2,
     model 2): B1 exactly 8 launches a generation (one a shard) and no other
-    kernel, one block under set_sync_debug_mode("error"), the first 3
+    kernel, one block under set_sync_debug_mode("error"), the first 2
     generations card == CPU bitwise; a profiled generation beside the
     single-device 4 x 200 session's."""
     top = MeshTopology(**MESH3)
@@ -2323,7 +2351,8 @@ def _mesh_islands(gens=20):
                wall_s=wall, gens_per_s=gens / wall, wall_ms_per_generation=wall / gens * 1e3,
                peak_memory_bytes=peak, host_syncs=sess.stats["host_syncs"],
                history=sess.history, island_best=isl[-1].tolist(),
-               cpu_bitwise_generations=_vs_cpu(sess, 3, "islands", topology=top,
+               island_history=isl.tolist(),
+               cpu_bitwise_generations=_vs_cpu(sess, 2, "islands", topology=top,
                                                **_island_kw()))
     saved = engine.GPState(*(t.clone() for t in sess.state))
     torch.cuda.synchronize()
@@ -2475,7 +2504,7 @@ def _mesh_stream(gens=3):
                                                                        **kw))
 
 
-def _mesh_reshard(saved, cfg, gens=3):
+def _mesh_reshard(saved, cfg, gens=2):
     """(g) (a)'s state checkpointed and resumed on (pod 4, data 2, model 1)
     through `reshard_gp_state`: every leaf bitwise, then `gens` more
     generations card == CPU bitwise."""
@@ -3538,6 +3567,292 @@ def lm_mesh_paths(single):
     return runs
 
 
+# --- phase 14: the mesh over processes -----------------------------------------------
+
+MP_GENS = 20  # (a): phase 10 (a)'s generations
+MP_POSTFIX_GENS = 5  # (b)
+MP_TIMEOUT_S = 600
+
+
+def _mp_islands(gens=MP_GENS):
+    """(a) phase 10 (a)'s session (kat7 4 x 200 islands on (pod 2, data 2,
+    model 2)) with this process's shards: B1 exactly once a local shard a
+    generation and no other kernel, then one block under
+    set_sync_debug_mode("error") and one generation under torch.profiler
+    (each process's CUDA launches, device busy time and idle share)."""
+    sess = GPSession.from_dataset("kat7", topology=MeshTopology(**MESH3), **_island_kw())
+    mesh = sess.mesh
+    n = len(mesh.local)
+    wall, peak, launches = _mesh_run(sess, gens, {"eval_fitness": n * gens}, "mp islands")
+    out = dict(local_shards=list(mesh.local), placement=_placement(mesh), generations=gens,
+               launches=launches, wall_ms_per_generation=wall / gens * 1e3,
+               peak_mb=peak / 2**20, host_syncs=sess.stats["host_syncs"],
+               history=sess.history, island_history=np.asarray(
+                   sess.island_history, np.float32).tolist())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.evolve_block(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["sync_debug_block"] = "no synchronisation in a 1-generation block"
+    out["profiled_generation"] = _profiled_generation(sess)
+    return out
+
+
+def _mp_postfix_session():
+    return GPSession.from_dataset("kat7", pop_size=100, genome="postfix",
+                                  topology=MeshTopology(data=2, model=2), dedup_cap=6301)
+
+
+def _mp_postfix(gens=MP_POSTFIX_GENS):
+    """(b) postfix kat7 pop 100 on (data 2, model 2), dedup exact at cap
+    6,301: B2's siblings, the unique table and B4 each once a local shard
+    a generation."""
+    sess = _mp_postfix_session()
+    n = len(sess.mesh.local)
+    names = dict((label, k) for label, _, k in MESH_POSTFIX)["exact_cap6301"]
+    wall, peak, launches = _mesh_run(sess, gens, {k: n * gens for k in names}, "mp postfix")
+    return dict(local_shards=list(sess.mesh.local), generations=gens, launches=launches,
+                wall_ms_per_generation=wall / gens * 1e3, peak_mb=peak / 2**20,
+                history=sess.history)
+
+
+def _mp_train(profile, B=4, S=1024, steps=2):
+    """(c) gemma-2b at full width in bf16 on (data 2, model 2) (phase 13
+    (b)'s seed-0 state and batches): one warm step and `steps` timed by
+    CUDA events on every process, then one more, profiled on process 0;
+    every step's loss, as phase 13 (b) records them."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    cfg = lm_configs.get_config("gemma-2b")
+    mesh = lm_mesh.make_host_mesh(**LM_MESH)
+    _, state, step, _ = lm_train.build(cfg, mesh)
+    batches = _train_batches(cfg, B, S, mesh.home, steps + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(steps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, m = step(state, batches[i])
+        ev[1].record()
+        losses.append(m["loss"].item())
+        if i:
+            times.append(ev[0].elapsed_time(ev[1]))
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.synchronize()
+    out = dict(local_shards=list(mesh.local), batch=B, seq=S, losses=losses,
+               step_ms=statistics.median(times), step_ms_all=times,
+               tokens_per_s=B * S / statistics.median(times) * 1e3, peak_mb=peak_mb)
+    if not profile:
+        state, m = step(state, batches[steps + 1])
+        losses.append(m["loss"].item())
+        return out
+    with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[steps + 1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses.append(m["loss"].item())
+    launches, busy, n_dev, top_ops = _raw_trace(prof)
+    out.update(cuda_launches_per_step=launches, device_events_per_step=n_dev,
+               profiled_step_ms=wall * 1e3, device_busy_ms=busy,
+               idle_share=1 - busy / (wall * 1e3), top_ops=top_ops)
+    return out
+
+
+def _mp_reduced_state(steps=2):
+    """Reduced gemma-2b in f32 on (data 2, model 2) from seed 0, `steps`
+    train steps -> the state joined as host numpy (the reference's layout)."""
+    cfg = dataclasses.replace(lm_configs.get_reduced("gemma-2b"), compute_dtype="float32")
+    mesh = lm_mesh.make_host_mesh(**LM_MESH)
+    _, state, step, _ = lm_train.build(cfg, mesh)
+    for b in _train_batches(cfg, 4, 32, mesh.home, steps):
+        state, _ = step(state, b)
+    return lm_convert.train_state_to_numpy(state)
+
+
+def _mp_digests(tree, path=""):
+    """{leaf path: sha256 of its dtype, shape and bytes} of a host tree."""
+    import hashlib
+
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _mp_digests(v, f"{path}/{k}").items()}
+    a = np.asarray(tree)
+    return {path: hashlib.sha256(f"{a.dtype}{a.shape}".encode() + a.tobytes()).hexdigest()}
+
+
+def _mp_tree_of(paths):
+    """A nested dict with a leaf at each "/a/b" path: the structure to
+    restore a checkpoint into."""
+    tree = {}
+    for p in paths:
+        node, keys = tree, p.strip("/").split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = 0
+    return tree
+
+
+def _mp_child(rank, world, addr, outdir):
+    """One process of phase 14: the launch environment a user sets, then
+    `init_cluster()` (NCCL, its card cuda:{rank mod cards}), the kernels'
+    library (built once by the parent), (a)-(d), and its figures written
+    to outdir/rank{rank}.json. An error ends the process with a non-zero
+    code, which fails the phase."""
+    from repro_torch.ckpt import checkpoint as lm_ckpt
+    from repro_torch.launch import cluster
+
+    import torch.distributed as dist
+
+    os.environ.update(COORDINATOR_ADDRESS=addr, NUM_PROCESSES=str(world),
+                      PROCESS_ID=str(rank))
+    cluster.init_cluster()
+    build.load("gp_eval")
+    out = dict(rank=rank, world=dist.get_world_size(), backend=dist.get_backend(),
+               card=str(torch.device("cuda", torch.cuda.current_device())))
+    t0 = time.perf_counter()
+    out["islands"] = _mp_islands()
+    out["postfix"] = _mp_postfix()
+    out["train"] = _mp_train(profile=rank == 0)
+    host = _mp_reduced_state()
+    lm_ckpt.save(host, os.path.join(outdir, "ckpt"), 2)
+    out["checkpoint"] = _mp_digests(host)
+    out["run_s"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    cluster.close_cluster()
+
+
+def _mp_spawn(world, outdir):
+    """Start `world` processes of `_mp_child` (multiprocessing's spawn) and
+    wait for them: one that fails stops the others (they would wait for
+    it in a collective) and fails the phase."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        addr = f"localhost:{sk.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mp_child, args=(r, world, addr, outdir)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"mp: process exit codes {codes} (a failed or timed-out rank)")
+    out = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mp_paths(islands, gemma):
+    """Phase 14: the mesh over processes, one a card (W = the smaller of 4
+    and the card count): (a) phase 10 (a)'s session on every process, the
+    history and per-island history bit for bit `islands`' (phase 10 (a),
+    one process); (b) the postfix session on (data 2, model 2) at cap
+    6,301, bit for bit the same session in this one process; (c) gemma-2b's
+    train steps, every loss bit for bit `gemma`'s (phase 13 (b), the same
+    state and batches in one process); (d) reduced gemma-2b's state after
+    2 steps, saved from the processes (process 0 writes) and restored here
+    bit for bit every process's, and every process's the same 2 steps'
+    in this one process (each leaf's digest). -> {run: figures} (launches
+    from process 0)."""
+    import gc
+
+    from repro_torch.ckpt import checkpoint as lm_ckpt
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    world = min(4, torch.cuda.device_count())
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    outdir = tempfile.mkdtemp(prefix="mp-", dir=root)
+    try:
+        t0 = time.perf_counter()
+        ranks = _mp_spawn(world, outdir)
+        spawn_s = time.perf_counter() - t0
+        multi = dict(ranks=world, multi_rank=world > 1, backend=ranks[0]["backend"],
+                     cards=[r["card"] for r in ranks])
+        if world == 1:
+            multi["multi_rank_reason"] = ("one card: NCCL takes one rank a card, so the "
+                                          "group holds one process and no value crosses "
+                                          "processes; the gloo tests hold several on the CPU")
+        if [r["world"] for r in ranks] != [world] * world or ranks[0]["backend"] != "nccl":
+            raise AssertionError(f"mp: worlds {[r['world'] for r in ranks]}, "
+                                 f"backend {ranks[0]['backend']}")
+        for r in ranks:
+            a = r["islands"]
+            if a["history"] != islands["history"] or a["island_history"] != islands[
+                    "island_history"] or a["host_syncs"] != 1:
+                raise AssertionError(f"mp islands, process {r['rank']}: history "
+                                     f"{a['history']} vs one process's {islands['history']}")
+            if r["train"]["losses"] != gemma["losses"]:
+                raise AssertionError(f"mp train, process {r['rank']}: losses "
+                                     f"{r['train']['losses']} vs one process's "
+                                     f"{gemma['losses']}")
+        one = _mp_postfix_session()
+        one.init(key=prng.PRNGKey(0))
+        one.evolve(MP_POSTFIX_GENS)
+        if any(r["postfix"]["history"] != one.history for r in ranks):
+            raise AssertionError(f"mp postfix: {[r['postfix']['history'] for r in ranks]} "
+                                 f"vs one process's {one.history}")
+        back = lm_ckpt.restore(os.path.join(outdir, "ckpt"), 2,
+                               like=_mp_tree_of(ranks[0]["checkpoint"]))
+        if any(r["checkpoint"] != _mp_digests(back) for r in ranks):
+            raise AssertionError("mp checkpoint: the restored state differs from a "
+                                 "process's state")
+        here = _mp_digests(_mp_reduced_state())  # the single controller, this process
+        if any(r["checkpoint"] != here for r in ranks):
+            bad = sorted(k for k in here if ranks[0]["checkpoint"].get(k) != here[k])
+            raise AssertionError(f"mp checkpoint: the processes' state differs from the "
+                                 f"same steps in one process at {bad[:5]}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    t = [r["train"] for r in ranks]
+    emit("mp", run="islands", nvidia_smi=card, **multi,
+         launches=[r["islands"]["launches"] for r in ranks],
+         local_shards=[r["islands"]["local_shards"] for r in ranks],
+         wall_ms_per_generation=[r["islands"]["wall_ms_per_generation"] for r in ranks],
+         peak_mb=[r["islands"]["peak_mb"] for r in ranks],
+         profiled_generation=[r["islands"]["profiled_generation"] for r in ranks],
+         single_process_wall_ms_per_generation=islands["wall_ms_per_generation"],
+         single_process_profiled_generation=islands["profiled_generation"],
+         history_bitwise_phase10=True, sync_debug_block=True)
+    emit("mp", run="postfix", nvidia_smi=card, **multi,
+         launches=[r["postfix"]["launches"] for r in ranks],
+         wall_ms_per_generation=[r["postfix"]["wall_ms_per_generation"] for r in ranks],
+         history_bitwise_one_process=True)
+    emit("mp", run="train_bf16", arch="gemma-2b", nvidia_smi=card, **multi,
+         losses=t[0]["losses"], losses_bitwise_phase13=True,
+         step_ms=[x["step_ms"] for x in t], step_ms_all=[x["step_ms_all"] for x in t],
+         tokens_per_s=t[0]["tokens_per_s"], peak_mb=[x["peak_mb"] for x in t],
+         **{k: t[0][k] for k in ("cuda_launches_per_step", "device_events_per_step",
+                                 "profiled_step_ms", "device_busy_ms", "idle_share")},
+         single_process_step_ms=gemma["step_ms"], single_process_peak_mb=gemma["peak_mb"])
+    emit("mp", run="checkpoint", nvidia_smi=card, **multi, restored_bitwise=True,
+         one_process_bitwise=True,
+         spawn_s=spawn_s, child_run_s=[r["run_s"] for r in ranks],
+         phase_s=time.perf_counter() - t_phase)
+    return {"islands": ranks[0]["islands"], "postfix": ranks[0]["postfix"]}
+
+
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
             ("postfix_exact_cap100", {"genome": "postfix"}),
             ("postfix_exact_cap6301", {"genome": "postfix", "dedup_cap": 6301}),
@@ -3739,8 +4054,10 @@ def main():
     lap("11 lm serve")
     lm_train_runs = lm_train_paths()
     lap("12 lm train")
-    lm_mesh_paths(lm_train_runs["train_gemma-2b"])
+    lm_mesh_runs = lm_mesh_paths(lm_train_runs["train_gemma-2b"])
     lap("13 lm mesh")
+    mp_runs = mp_paths(mesh_runs["islands"], lm_mesh_runs["train_gemma-2b"])
+    lap("14 mesh over processes")
     emit("timing", phase_s=laps, total_s=time.perf_counter() - t0)
     # the mesh path's launches (phase 10), from the run whose work each
     # kernel does there; the probe is not on it (mesh steps carry no cache)
@@ -3748,6 +4065,10 @@ def main():
                "eval_fitness_from_subtrees": "postfix_exact_cap1400",
                "eval_fitness_from_preds": "postfix_exact_cap6301",
                "unique_table": "postfix_exact_cap6301"}
+    # the multi-process path's launches (phase 14, process 0): B1 in (a),
+    # B2, the table and B4 in (b); B3 and the probe are not on it
+    mp_of = {"eval_fitness": "islands", "eval_fitness_postfix": "postfix",
+             "eval_fitness_from_preds": "postfix", "unique_table": "postfix"}
     # the streaming path's launches: B1 in the 5.5M-row mse run, B2 in kat7's
     # postfix run; no other kernel is on it
     stream_paths_of = {"eval_fitness": stream_runs["scale"]["mse"],
@@ -3820,6 +4141,10 @@ def main():
                           if name in mesh_of else 0),
         "mesh_generations": (mesh_runs[mesh_of[name]]["generations"]
                              if name in mesh_of else None),
+        "mp_launches": (mp_runs[mp_of[name]]["launches"].get(name, 0)
+                        if name in mp_of else 0),
+        "mp_generations": (mp_runs[mp_of[name]]["generations"]
+                           if name in mp_of else None),
         **two_pass_fields(name)}
         for name in gp_eval.KERNELS]}),
         flush=True)

@@ -21,6 +21,11 @@ like.
 and hands the numpy snapshot to one background IO thread: the thread
 never touches a CUDA tensor, and the generation loop waits only for the
 copy.
+
+Over several processes (`launch.cluster.init_cluster`) every process
+calls a save with the whole state (a mesh state joins its leaves to
+every process first), process 0 alone writes it, and a barrier follows,
+so no process reads a checkpoint before it is committed.
 """
 from __future__ import annotations
 
@@ -76,9 +81,31 @@ def _host_leaves(tree):
     return f"PyTreeDef({_treedef(tree)})", flat
 
 
+def _cluster():
+    """torch.distributed where several processes run, else None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return dist
+    return None
+
+
+def _writes() -> bool:
+    """Does this process write checkpoints (process 0, or the only one)?"""
+    d = _cluster()
+    return d is None or d.get_rank() == 0
+
+
 def save(tree, directory: str, step: int) -> str:
-    """Synchronous save. Returns the checkpoint path."""
-    return _write(directory, step, *_host_leaves(tree))
+    """Synchronous save (process 0 writes, every process waits for it).
+    Returns the checkpoint path."""
+    snap = _host_leaves(tree)
+    path = os.path.join(directory, f"step_{step:08d}")
+    if _writes():
+        _write(directory, step, *snap)
+    if _cluster():
+        _cluster().barrier()
+    return path
 
 
 def _write(directory: str, step: int, treedef: str, flat) -> str:
@@ -179,9 +206,10 @@ class CheckpointManager:
             return False
         snap = _host_leaves(tree)  # blocks for the device-to-host copy only
         self.wait()
-        self._thread = threading.Thread(target=self._save, args=(snap, step),
-                                        daemon=True)
-        self._thread.start()
+        if _writes():
+            self._thread = threading.Thread(target=self._save, args=(snap, step),
+                                            daemon=True)
+            self._thread.start()
         return True
 
     def _save(self, snap, step: int):
@@ -197,9 +225,12 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def wait(self):
+        """Join the IO thread; over several processes, a barrier after it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _cluster():
+            _cluster().barrier()
 
     def restore_latest(self, like):
         """(state restored in the structure of `like`, step) of the

@@ -17,6 +17,10 @@ mesh and place each leaf. The divisibility fallbacks of
     `engine._pick_step_builder` gives (islands % pod == 0, pop_size %
     model == 0; it validates the rest). A reference checkpoint's leaves
     (numpy, key as uint32[..., 2]) come across bit for bit.
+
+Over several processes every process reads the same host state and
+places its own shards' parts (`Sharded.place`); the GP state stays
+whole on each process's home.
 """
 from __future__ import annotations
 

@@ -1023,10 +1023,30 @@ def _merge_moments_on_mesh(kern, fit_spec, partial_m, y, weight):
     """Complete phase 1 across one data-axis group WITHOUT finalizing: the
     group's per-shard moment partials f32[P*, M] (a list in data-rank
     order, with each shard's y and weight) -> the merged moments, a copy
-    on every shard's device. `_reduce_moments_on_mesh` finalizes for the
-    generation step; the streaming fold (`build_stream_fold`) merges the
-    result into its accumulator instead. Three lowerings, picked by the
-    kernel's protocol surface:
+    on every shard's device (`_merge_moments`). The generation step
+    finalizes them at the leads (`_mesh_fitness`); the streaming fold
+    (`build_stream_fold`) merges them into its accumulator instead."""
+    y_m = None
+    if _hoists_y(kern):
+        y_m = [_y_moments(kern, fit_spec, yy, ww) for yy, ww in zip(y, weight)]
+    return _merge_moments(kern, fit_spec, partial_m, y_m)
+
+
+def _hoists_y(kern) -> bool:
+    """Does the data-axis merge psum each shard's y moments apart?"""
+    return kern.combine_moments is None and bool(kern.y_moment_idx)
+
+
+def _y_moments(kern, fit_spec, y, weight):
+    """A shard's y moments [My], made where its y lives: a group sends
+    these, not its y and weight, across processes."""
+    return kern.y_moments(y.float(), fit._weights(y, weight), fit_spec)
+
+
+def _merge_moments(kern, fit_spec, partial_m, y_m=None):
+    """The data-axis merge of `partial_m` (with each shard's y moments
+    `y_m` where `_hoists_y`), in three lowerings picked by the kernel's
+    protocol surface:
 
       plain sum          psum of the whole [P*, M] partials (r/c/m/mse)
       + y-hoisting       a kernel with `y_moment_idx` and no
@@ -1042,9 +1062,7 @@ def _merge_moments_on_mesh(kern, fit_spec, partial_m, y, weight):
         if not kern.y_moment_idx:
             return _mesh.psum(partial_m)
         tree_m = _mesh.psum([p[..., list(kern.tree_moment_idx)] for p in partial_m])[0]
-        y_m = _mesh.psum([kern.y_moments(yy.float(), fit._weights(yy, ww), fit_spec)
-                          for yy, ww in zip(y, weight)])[0]
-        merged = fit.scatter_tree_y(kern, tree_m, y_m)
+        merged = fit.scatter_tree_y(kern, tree_m, _mesh.psum(y_m)[0])
     else:
         if kern.y_moment_idx:
             # row 0's y columns are every row's (tree-independent by contract)
@@ -1060,13 +1078,18 @@ def _merge_moments_on_mesh(kern, fit_spec, partial_m, y, weight):
     return [merged.to(p.device) for p in partial_m]
 
 
-def _reduce_moments_on_mesh(kern, fit_spec, partial_m, y, weight):
-    """Complete phase 1 across one data-axis group and finalize: the
-    per-shard partials f32[P*, M] -> fitness f32[P*], a copy on every
-    shard's device (see `_merge_moments_on_mesh`)."""
-    merged = _merge_moments_on_mesh(kern, fit_spec, partial_m, y, weight)[0]
-    fitness = kern.reduce_moments(merged, fit_spec)
-    return [fitness.to(p.device) for p in partial_m]
+def _merge_over(mesh, kern, fit_spec, data_axis, partial: dict, y, weight) -> dict:
+    """`_merge_moments` over every data-axis group holding a shard of
+    `partial` ({shard: partials}, this process's) -> {shard: the merged
+    moments}: each shard's y moments are made where its y lives, and a
+    group spanning processes sends the moments only."""
+    def merge(p, m=None):
+        return _merge_moments(kern, fit_spec, p, m)
+
+    if not _hoists_y(kern):
+        return _mesh.over(mesh, data_axis, merge, partial)
+    y_m = {s: _y_moments(kern, fit_spec, y[s], weight[s]) for s in partial}
+    return _mesh.over(mesh, data_axis, merge, partial, y_m)
 
 
 def _moment_kernel(cfg: GPConfig, data_axis):
@@ -1080,20 +1103,21 @@ def _moment_kernel(cfg: GPConfig, data_axis):
     return kern
 
 
-def _mesh_fitness(cfg: GPConfig, kern, mesh, data_axis, op, arg, X, y, weight) -> dict:
-    """{lead: f32[R]}: every shard's rows (op/arg, lists over the shards)
-    evaluated on its data slice, the moments merged over each data-axis
-    group and finalized at the group's lead (its data-rank-0 shard)."""
-    partial = [_eval_moments(cfg, op[s], arg[s], X[s], y[s], weight[s],
-                             cfg.tree_spec.const_table(mesh.devices[s]))
-               for s in range(mesh.size)]
-    return {g[0]: _reduce_moments_on_mesh(kern, cfg.fitness, [partial[s] for s in g],
-                                          [y[s] for s in g], [weight[s] for s in g])[0]
-            for g in mesh.groups(data_axis)}
+def _mesh_fitness(cfg: GPConfig, kern, mesh, data_axis, op, arg, X, y, weight,
+                  leads) -> dict:
+    """{lead: f32[R]} for this process's `leads`: each of its shards' rows
+    (op/arg, {shard: rows}) evaluated on the shard's data slice (one
+    backend call a shard), the moments merged over each data-axis group
+    and finalized at the leads."""
+    partial = {s: _eval_moments(cfg, op[s], arg[s], X[s], y[s], weight[s],
+                                cfg.tree_spec.const_table(mesh.devices[s]))
+               for s in mesh.local}
+    merged = _merge_over(mesh, kern, cfg.fitness, data_axis, partial, y, weight)
+    return {s: kern.reduce_moments(merged[s], cfg.fitness) for s in leads}
 
 
 def _mesh_tables(cfg: GPConfig, mesh) -> None:
-    for dev in dict.fromkeys(mesh.devices):
+    for dev in dict.fromkeys(mesh.devices[s] for s in mesh.local):
         _device_tables(cfg, dev)
 
 
@@ -1145,14 +1169,16 @@ def _sharded_step_builder(cfg: GPConfig, mesh, *, data_axis="data", model_axis="
         key=P(), op=pop_spec, arg=pop_spec, fitness=pop_spec, best_op=P(), best_arg=P(),
         best_fitness=P(), generation=P(), cache_op=P(), cache_arg=P(), cache_fit=P())
     n_local = cfg.pop_size // n_shards
-    leads = [g[0] for g in mesh.groups(data_axis)]
+    every_lead = [g[0] for g in mesh.groups(data_axis)]
+    leads = [s for s in every_lead if mesh.is_local(s)]
     _mesh_tables(cfg, mesh)
     breeding = [(g, constant(np.tile(cfg.mix.probs(), (len(g), 1)), mesh.devices[g[0]]))
                 for g in _by_device(mesh, leads)]
 
     def step(states, X, y, weight):
-        fit_local = _mesh_fitness(cfg, kern, mesh, data_axis, [t.op for t in states],
-                                  [t.arg for t in states], X, y, weight)
+        fit_local = _mesh_fitness(cfg, kern, mesh, data_axis,
+                                  {s: states[s].op for s in mesh.local},
+                                  {s: states[s].arg for s in mesh.local}, X, y, weight, leads)
         st = {s: states[s] for s in leads}
         fit_g = _mesh.over(mesh, model_axis, _mesh.all_gather, fit_local, tiled=True)
         op_g = _mesh.over(mesh, model_axis, _mesh.all_gather,
@@ -1194,14 +1220,14 @@ def _sharded_step_builder(cfg: GPConfig, mesh, *, data_axis="data", model_axis="
             if cfg.elitism and mesh.rank(s, model_axis) == 0:  # the pod's own champion
                 new_op[s] = torch.cat([pod_op[s][None], new_op[s][1:]])
                 new_arg[s] = torch.cat([pod_arg[s][None], new_arg[s][1:]])
-        if pod_axis:
+        if pod_axis and leads:  # a process with no lead takes part in no pod group
             order = {s: torch.argsort(fit_g[s], stable=True)[:cfg.migrate_k] for s in leads}
             new_op, new_arg = _mesh.over(
                 mesh, pod_axis, lambda *a: isl.migrate(cfg, *a), new_op, new_arg,
                 {s: op_g[s].index_select(0, order[s]) for s in leads},
                 {s: arg_g[s].index_select(0, order[s]) for s in leads},
                 {s: st[s].generation for s in leads},
-                {s: mesh.rank(s, model_axis) == n_model - 1 for s in leads})
+                {s: mesh.rank(s, model_axis) == n_model - 1 for s in every_lead})
         return {s: GPState(st[s].key, new_op[s], new_arg[s], fit_local[s], *best[s],
                            st[s].generation + 1, st[s].cache_op, st[s].cache_arg,
                            st[s].cache_fit)
@@ -1247,7 +1273,8 @@ def _sharded_island_step_builder(cfg: GPConfig, mesh, *, data_axis="data",
         best_op=P(pod, None), best_arg=P(pod, None), best_fitness=P(pod),
         generation=P(), cache_op=P(pod, None, None), cache_arg=P(pod, None, None),
         cache_fit=P(pod, None))
-    leads = [g[0] for g in mesh.groups(data_axis)]
+    every_lead = [g[0] for g in mesh.groups(data_axis)]
+    leads = [s for s in every_lead if mesh.is_local(s)]
     _mesh_tables(cfg, mesh)
     I_local = I // n_pods
     breeding = []  # (leads, their islands' table rows, each island's model rank)
@@ -1259,10 +1286,11 @@ def _sharded_island_step_builder(cfg: GPConfig, mesh, *, data_axis="data",
         breeding.append((g, constant(rows, dev, np.int64), constant(ranks, dev, np.int64)))
 
     def step(states, X, y, weight):
-        Il, Pl, N = states[0].op.shape
+        Il, Pl, N = states[mesh.local[0]].op.shape
         flat = _mesh_fitness(cfg, kern, mesh, data_axis,
-                             [t.op.reshape(Il * Pl, N) for t in states],
-                             [t.arg.reshape(Il * Pl, N) for t in states], X, y, weight)
+                             {s: states[s].op.reshape(Il * Pl, N) for s in mesh.local},
+                             {s: states[s].arg.reshape(Il * Pl, N) for s in mesh.local},
+                             X, y, weight, leads)
         fit_local = {s: f.reshape(Il, Pl) for s, f in flat.items()}
         st = {s: states[s] for s in leads}
         fit_g = _mesh.over(mesh, model_axis, _mesh.all_gather, fit_local, dim=1, tiled=True)
@@ -1300,14 +1328,14 @@ def _sharded_island_step_builder(cfg: GPConfig, mesh, *, data_axis="data",
             if cfg.elitism and mesh.rank(s, model_axis) == 0:  # each island's champion
                 new_op[s] = torch.cat([c_op[s][:, None], new_op[s][:, 1:]], 1)
                 new_arg[s] = torch.cat([c_arg[s][:, None], new_arg[s][:, 1:]], 1)
-        if icfg.migrate_k and I > 1:
+        if icfg.migrate_k and I > 1 and leads:
             elites = {s: isl.island_elites(op_g[s], arg_g[s], fit_g[s], icfg.migrate_k)
                       for s in leads}
             new_op, new_arg = _mesh.over(
                 mesh, pod_axis, lambda *a: isl.migrate_sharded(icfg, *a), new_op, new_arg,
                 {s: e[0] for s, e in elites.items()}, {s: e[1] for s, e in elites.items()},
                 {s: st[s].generation for s in leads}, c_fit,
-                {s: mesh.rank(s, model_axis) == n_model - 1 for s in leads})
+                {s: mesh.rank(s, model_axis) == n_model - 1 for s in every_lead})
         return {s: GPState(keys[s], new_op[s], new_arg[s], fit_local[s], *best[s],
                            st[s].generation + 1, st[s].cache_op, st[s].cache_arg,
                            st[s].cache_fit)
@@ -1322,24 +1350,42 @@ def _pick_step_builder(cfg: GPConfig):
 
 
 def _split_state(mesh, state: GPState, specs: GPState) -> list:
+    """Per-shard states (a list over the shards, None for another
+    process's shard)."""
     leaves = [mesh.split(t, spec) for t, spec in zip(state, specs)]
-    return [GPState(*(leaf[s] for leaf in leaves)) for s in range(mesh.size)]
+    return [GPState(*(leaf[s] for leaf in leaves)) if mesh.is_local(s) else None
+            for s in range(mesh.size)]
 
 
-def _join_state(mesh, leads: dict, specs: GPState) -> GPState:
-    """The global state from the leads' states ({lead: GPState}): the
-    state specs name no data axis, so the leads hold every block."""
-    return GPState(*(mesh.join({s: getattr(t, name) for s, t in leads.items()}, spec)
+def _join_state(mesh, states, specs: GPState) -> GPState:
+    """The global state from per-shard states (a list over the shards or a
+    {shard: GPState} dict; over several processes, every shard of this
+    process): the state specs name no data axis, so the leads hold every
+    block."""
+    items = (states.items() if isinstance(states, dict) else
+             [(s, t) for s, t in enumerate(states) if t is not None])
+    return GPState(*(mesh.join({s: getattr(t, name) for s, t in items}, spec)
                      for name, spec in zip(GPState._fields, specs)))
 
 
-def _replicate(mesh, data_axis, leads: dict) -> list:
+def _replicate(mesh, data_axis, leads: dict, like=None) -> list:
     """Per-shard states from the leads': each data-axis group's lead
-    state, copied to its replicas' devices."""
+    state, copied to its replicas' devices; a group spanning processes
+    broadcasts it from the lead's process (`like`, the per-shard states,
+    gives the shapes to the others)."""
     out = [None] * mesh.size
     for group in mesh.groups(data_axis):
-        for s in group:
-            out[s] = GPState(*(t.to(mesh.devices[s]) for t in leads[group[0]]))
+        local = [s for s in group if mesh.is_local(s)]
+        if not local:
+            continue
+        lead = group[0]
+        if len(mesh.group_procs(group)) > 1:
+            src = _mesh.exchange(mesh, [lead], {lead: leads[lead]} if lead in local else {},
+                                 like=like[local[0]], procs=mesh.group_procs(group))[lead]
+        else:
+            src = leads[lead]
+        for s in local:
+            out[s] = GPState(*(t.to(mesh.devices[s]) for t in src))
     return out
 
 
@@ -1367,9 +1413,10 @@ def sharded_evolve_step(cfg: GPConfig, mesh, *, data_axis="data", model_axis="mo
         cfg, mesh, data_axis=data_axis, model_axis=model_axis, pod_axis=pod_axis)
 
     def run(state: GPState, X, y, weight=None) -> GPState:
-        leads = step(_split_state(mesh, state, state_specs), _shards(mesh, X, data_spec),
-                     _shards(mesh, y, y_spec), _shards(mesh, weight, w_spec))
-        return _join_state(mesh, leads, state_specs)
+        states = _split_state(mesh, state, state_specs)
+        leads = step(states, _shards(mesh, X, data_spec), _shards(mesh, y, y_spec),
+                     _shards(mesh, weight, w_spec))
+        return _join_state(mesh, _replicate(mesh, data_axis, leads, states), state_specs)
 
     return run, dict(state=state_specs, X=data_spec, y=y_spec, weight=w_spec)
 
@@ -1393,8 +1440,7 @@ def sharded_evolve_block(cfg: GPConfig, mesh, *, n_steps: int, data_axis="data",
     n_pods = mesh.axis_size(pod_axis)
     step, state_specs, data_spec, y_spec, w_spec = _pick_step_builder(cfg)(
         cfg, mesh, data_axis=data_axis, model_axis=model_axis, pod_axis=pod_axis)
-    leads = [g[0] for g in mesh.groups(data_axis)]
-    hist_spec = P(pod_axis) if island else P()
+    hist_spec = P(None, pod_axis) if island else P()
 
     def done(cur, i, limit):
         if not (island and cfg.stop_fitness is not None):
@@ -1408,18 +1454,19 @@ def sharded_evolve_block(cfg: GPConfig, mesh, *, n_steps: int, data_axis="data",
     def block(state: GPState, X, y, weight, limit):
         X, y, weight = (_shards(mesh, X, data_spec), _shards(mesh, y, y_spec),
                         _shards(mesh, weight, w_spec))
-        lim = {s: None if limit is None else limit.to(mesh.devices[s]) for s in leads}
+        lim = {s: None if limit is None else limit.to(mesh.devices[s]) for s in mesh.local}
         states = _split_state(mesh, state, state_specs)
-        cur = {s: states[s] for s in leads}
+        first = mesh.local[0]  # every shard holds the replicated counters
         hist, rows = [], []
         for i in range(n_steps):
-            d = done(cur, i, lim)
-            rows.append(_counter_row(cfg, cur[0], d[0], mesh=True, n_pods=n_pods))
-            nxt = step(states, X, y, weight)
-            cur = {s: _freeze(d[s], cur[s], nxt[s]) for s in leads}
-            states = _replicate(mesh, data_axis, cur)
-            hist.append(mesh.join({s: t.best_fitness for s, t in cur.items()}, hist_spec))
-        return _join_state(mesh, cur, state_specs), torch.stack(hist), torch.stack(rows)
+            d = done({s: states[s] for s in mesh.local}, i, lim)
+            rows.append(_counter_row(cfg, states[first], d[first], mesh=True, n_pods=n_pods))
+            nxt = _replicate(mesh, data_axis, step(states, X, y, weight), states)
+            states = [None if t is None else _freeze(d[s], t, nxt[s])
+                      for s, t in enumerate(states)]
+            hist.append({s: states[s].best_fitness for s in mesh.local})
+        hist = mesh.join({s: torch.stack([h[s] for h in hist]) for s in mesh.local}, hist_spec)
+        return _join_state(mesh, states, state_specs), hist, torch.stack(rows)
 
     return block, dict(state=state_specs, X=data_spec, y=y_spec, weight=w_spec,
                        limit=P(), history=P(None, pod_axis) if island else P(),
@@ -1436,21 +1483,28 @@ def build_stream_fold(cfg: GPConfig, mesh, *, data_axis: str = "data"):
     reduction) and merged into the accumulator by the kernel's merge;
     finalize the last accumulator once with `reduce_moments`. Every
     replica along model and pod would compute the same merged moments,
-    so the fold evaluates on one data-axis group, the first shard's."""
+    so the fold evaluates on one data-axis group, the first shard's (over
+    several processes, each process's first shard's group)."""
     kern = _stream_kernel(cfg)
-    group = mesh.groups(data_axis)[0]
-    devs = [mesh.devices[s] for s in group]
-    for dev in dict.fromkeys(devs):
+    # over several processes each folds on its first shard's group
+    firsts = {mesh.procs.index(q) for q in mesh.processes}
+    shards = [s for g in mesh.groups(data_axis) if firsts & set(g) for s in g
+              if mesh.is_local(s)]
+    for dev in dict.fromkeys(mesh.devices[s] for s in shards):
         _device_tables(cfg, dev)
 
     def fold(acc, op, arg, X, y, weight):
-        Xs = mesh.split(X, P(None, data_axis), shards=group)
-        ys = mesh.split(y, P(data_axis), shards=group)
-        ws = [None] * len(group) if weight is None else mesh.split(
-            weight, P(data_axis), shards=group)
-        partial = [_eval_moments(cfg, op.to(d), arg.to(d), Xs[i], ys[i], ws[i],
-                                 cfg.tree_spec.const_table(d)) for i, d in enumerate(devs)]
-        merged = _merge_moments_on_mesh(kern, cfg.fitness, partial, ys, ws)[0]
-        return kern.merge_moments(acc, merged.to(acc.device), cfg.fitness)
+        Xs = mesh.split(X, P(None, data_axis), shards=shards)
+        ys = mesh.split(y, P(data_axis), shards=shards)
+        ws = [None] * len(shards) if weight is None else mesh.split(
+            weight, P(data_axis), shards=shards)
+        partial, yd, wd = {}, {}, {}
+        for i, s in enumerate(shards):
+            d = mesh.devices[s]
+            partial[s] = _eval_moments(cfg, op.to(d), arg.to(d), Xs[i], ys[i], ws[i],
+                                       cfg.tree_spec.const_table(d))
+            yd[s], wd[s] = ys[i], ws[i]
+        merged = _merge_over(mesh, kern, cfg.fitness, data_axis, partial, yd, wd)
+        return kern.merge_moments(acc, merged[mesh.local[0]].to(acc.device), cfg.fitness)
 
     return fold

@@ -209,7 +209,10 @@ def _due(every: int, generation, is_receiver):
 
 def migrate_sharded(icfg: IslandConfig, new_op, new_arg, elite_op, elite_arg,
                     generation, fit_best, is_receiver):
-    """Island migration on a mesh: pods x in-device islands.
+    """Island migration on a mesh: pods x in-device islands. Over several
+    processes `launch.mesh.over` hands it the whole pod group (the remote
+    pods' values fetched first), so its `all_gather`s and `ppermute`s
+    cross the processes with the single controller's results.
 
     Every argument is a list over one pod-axis group (one entry a pod,
     in pod-rank order; one entry without a pod axis), each entry that
@@ -278,7 +281,8 @@ def migrate_sharded(icfg: IslandConfig, new_op, new_arg, elite_op, elite_arg,
 
 def migrate(cfg, op_local, arg_local, elite_op, elite_arg, generation, is_receiver):
     """The classic layout's pod ring on a mesh (islands=1, the population
-    sharded over pods): the pod slices are the islands, and every
+    sharded over pods; over processes as `migrate_sharded`): the pod
+    slices are the islands, and every
     `migrate_every` generations each pod's `migrate_k` best trees go to
     the next pod, replacing its receiving shard's last k offspring.
 

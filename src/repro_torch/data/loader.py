@@ -67,7 +67,10 @@ def shard_dataset(X_rows, y, mesh, data_axis: str = "data"):
     X [F, D'/data] feature-major, y and weight [D'/data], each on its
     shard's device, with D' the row count padded up to the data axis and
     weight the padding mask (zero on padded columns), so fitness stays
-    exact. The engine's mesh steps take the lists as they are."""
+    exact. The engine's mesh steps take the lists as they are. Over
+    several processes a process places only its own shards' columns (None
+    in the others' slots); every process makes the dataset from the same
+    seed or source."""
     from repro_torch.launch.mesh import P
 
     n = mesh.axis_size(data_axis)

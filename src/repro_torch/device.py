@@ -10,9 +10,20 @@ import numpy as np
 import torch
 
 
+_PROCESS_CARD: list = []  # the card `launch.cluster.init_cluster` gave this process
+
+
+def set_process_card(card) -> None:
+    """Make `card` what `resolve_device(None)` gives: one process a card."""
+    _PROCESS_CARD[:] = [torch.device(card)]
+
+
 def resolve_device(device=None) -> torch.device:
     """`torch.device` for an entry point's `device=` argument: None means
-    the card; a CUDA device is checked to exist."""
+    the card (the process's own after `init_cluster`, else every card);
+    a CUDA device is checked to exist."""
+    if device is None and _PROCESS_CARD:
+        device = _PROCESS_CARD[0]
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

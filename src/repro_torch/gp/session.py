@@ -57,7 +57,11 @@ sub-populations or the island layout's islands over `pod`
 turn (all on one card when there is one; `device="cpu"` puts them on the
 CPU), blocks still read the host once, and the global state lives on
 the mesh's first device. Streamed sessions on a mesh fold each chunk
-across the data axis (`engine.build_stream_fold`).
+across the data axis (`engine.build_stream_fold`). After
+`launch.cluster.init_cluster()` the same session runs with one process a
+card: each process builds the same mesh over every process's cards,
+holds its own shards, reads the host once a block, and returns the same
+global state and history as one process would.
 """
 from __future__ import annotations
 
@@ -109,7 +113,9 @@ class MeshTopology:
            migration composed across both levels.
 
     Declarative: `build(device)` makes the `launch/mesh.Mesh`, its
-    shards on the cards of `device` in turn (`make_host_mesh`)."""
+    shards on the cards of `device` in turn (`make_host_mesh`; once a
+    cluster is up, on every process's cards, each process holding its
+    own shards)."""
 
     data: int = 1
     model: int = 1

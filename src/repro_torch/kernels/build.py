@@ -16,6 +16,7 @@ needs `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -50,7 +51,8 @@ def nvcc() -> str:
 
 
 def _compile(name: str) -> Path:
-    """The library of `csrc/<name>.cu`, compiled unless already built."""
+    """The library of `csrc/<name>.cu`, compiled unless already built; the
+    processes of one launch build it once, under a file lock."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     lib = build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -58,6 +60,15 @@ def _compile(name: str) -> Path:
         BUILD_INFO[name] = {"seconds": 0.0, "ptxas": "", "path": str(lib)}
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():  # another process built it meanwhile
+            BUILD_INFO[name] = {"seconds": 0.0, "ptxas": "", "path": str(lib)}
+            return lib
+        return _nvcc(name, src, lib)
+
+
+def _nvcc(name: str, src: Path, lib: Path) -> Path:
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],

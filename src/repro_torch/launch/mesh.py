@@ -1,12 +1,27 @@
 """The device mesh of the port's sharded runs, and its collectives.
 
 Port of `repro/launch/mesh.py` together with the parts of `jax.sharding`
-and `shard_map` the GP engine and the LM mesh use. The mesh is single-controller, as
-the reference's is: one process holds every shard, runs each shard's
-part of a generation in turn, and joins the shards where the reference
-runs a collective. So `GPSession(topology=MeshTopology(data=2, model=2,
-pod=2))` needs one process on any number of devices, and the same code
-runs on one card, on several, or on the CPU (`device="cpu"`).
+and `shard_map` the GP engine and the LM mesh use. In one process the
+mesh is single-controller: the process holds every shard, runs each
+shard's part of a generation in turn, and joins the shards where the
+reference runs a collective. So `GPSession(topology=MeshTopology(data=2,
+model=2, pod=2))` needs one process on any number of devices, and the
+same code runs on one card, on several, or on the CPU (`device="cpu"`).
+
+Over several processes (`launch/cluster.init_cluster`, one process a
+card) each shard belongs to one process (`Mesh.procs`): the cards are
+numbered process-major, as `jax.devices()` orders them, and shard s sits
+on global card s mod the card count. A process makes and holds only its
+own shards' parts (a remote shard's slot is None, or absent from a
+`{shard: value}` dict), and a group that spans processes fetches its
+remote members' values through `torch.distributed` (one subgroup a set
+of processes, made once when the mesh is built: `new_group` needs every
+process to call it, in one order) before it runs the same group
+function. So every process gets the single controller's bits: a
+reduction is an all-gather of the members followed by the in-order sum,
+min or max. GP moments and norms are small; an LM gradient, which is
+large, is reduced by an all-to-all of the blocks each process holds
+followed by the same in-order sum (`Sharded.settle`).
 
 Axes, in the reference's order (`pod` first, and only when it is > 1):
 
@@ -73,12 +88,48 @@ def _names(part) -> tuple:
     return part if isinstance(part, tuple) else (part,)
 
 
+def process_rank() -> tuple[int, int]:
+    """(world size, this process's rank) of the `torch.distributed` group,
+    (1, 0) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def shard_owners(n_shards: int, processes: int, cards: int = 1) -> list[tuple[int, int]]:
+    """(process, local card) of each shard: the processes' cards numbered
+    process-major (`cards` a process), shard s on global card s mod the
+    card count."""
+    total = processes * cards
+    return [divmod(s % total, cards) for s in range(n_shards)]
+
+
+_GROUPS: dict = {}  # sorted process ranks -> their torch.distributed subgroup
+
+
+def _subgroup(procs: tuple):
+    """The process group of `procs` (None: the whole world), made on first
+    use; every process must reach this in the same order (`Mesh` makes
+    its groups when it is built)."""
+    import torch.distributed as dist
+
+    if len(procs) == dist.get_world_size():
+        return None
+    if procs not in _GROUPS:
+        _GROUPS[procs] = dist.new_group(list(procs))
+    return _GROUPS[procs]
+
+
 class Mesh:
     """Named axes and one device per shard. Shards are numbered row-major
     over `axis_names` (the last axis fastest); `devices[s]` is shard s's
-    device and `devices[0]` the mesh's home, where global tensors live."""
+    device and `procs[s]` the process that holds it (every shard this
+    process's unless `procs` is given). The home, where this process's
+    global tensors live, is its first shard's device."""
 
-    def __init__(self, shape: dict, devices):
+    def __init__(self, shape: dict, devices, procs=None):
         self.axis_names = tuple(shape)
         for name in self.axis_names:
             if name not in AXES:
@@ -90,9 +141,39 @@ class Mesh:
         if len(self.devices) != self.size:
             raise ValueError(f"a {self.shape} mesh has {self.size} shards, got "
                              f"{len(self.devices)} devices")
+        world, self.process = process_rank()
+        self.procs = (self.process,) * self.size if procs is None else tuple(procs)
+        if len(self.procs) != self.size:
+            raise ValueError(f"{len(self.procs)} owners for {self.size} shards")
+        self.local = tuple(s for s in range(self.size) if self.procs[s] == self.process)
+        if not self.local:
+            raise ValueError(f"process {self.process} holds none of the {self.size} shards "
+                             f"of {self.shape}")
+        self.processes = tuple(sorted(set(self.procs)))
+        self.multi = len(self.processes) > 1
+        self._plans = {}
+        if self.multi:
+            if max(self.processes) >= world:
+                raise ValueError(f"shards on processes {self.processes}, world size {world}")
+            for axis in (*self.axis_names, batch_axes(self)):
+                for group in self.groups(axis):
+                    self.group_procs(group)
+            self.group_procs(range(self.size))
 
     def __repr__(self):
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
+
+    def is_local(self, s: int) -> bool:
+        """Does this process hold shard `s`?"""
+        return self.procs[s] == self.process
+
+    def group_procs(self, group) -> tuple:
+        """The processes holding the shards of `group`, sorted; their
+        subgroup is made here the first time."""
+        procs = tuple(sorted({self.procs[s] for s in group}))
+        if len(procs) > 1:
+            _subgroup(procs)
+        return procs
 
     @property
     def size(self) -> int:
@@ -100,7 +181,7 @@ class Mesh:
 
     @property
     def home(self) -> torch.device:
-        return self.devices[0]
+        return self.devices[self.local[0]]
 
     def axis_size(self, axis) -> int:
         """Shards along `axis` (1 for None or an axis the mesh lacks)."""
@@ -118,16 +199,25 @@ class Mesh:
         return self.coords(s).get(axis, 0) if axis else 0
 
     def groups(self, axis) -> list[list[int]]:
-        """The shards that differ only in their rank along `axis`, one
-        list per group in rank order (singletons for None or an axis the
-        mesh lacks), groups in the order of their first shard."""
-        if not axis or axis not in self.shape:
+        """The shards that differ only in their rank along `axis` (a name,
+        or a tuple of names: their combined rank, major first), one list
+        per group in rank order (singletons for None or axes the mesh
+        lacks), groups in the order of their first shard."""
+        names = tuple(a for a in _names(axis) if a in self.shape)
+        if not names:
             return [[s] for s in range(self.size)]
-        stride = math.prod(self.shape[a] for a in
-                           self.axis_names[self.axis_names.index(axis) + 1:])
-        n = self.shape[axis]
-        return [[s + r * stride for r in range(n)] for s in range(self.size)
-                if self.rank(s, axis) == 0]
+        out = {}
+        for s in range(self.size):
+            c = self.coords(s)
+            out.setdefault(tuple(v for a, v in c.items() if a not in names), []).append(s)
+        return [sorted(g, key=lambda s: self.batch_rank(s, names)) for g in out.values()]
+
+    def batch_rank(self, s: int, axes) -> int:
+        """Shard `s`'s combined rank along `axes` (major first)."""
+        k, c = 0, self.coords(s)
+        for a in _names(axes):
+            k = k * self.axis_size(a) + c.get(a, 0)
+        return k
 
     def _block(self, s: int, shape, spec) -> tuple:
         """Shard `s`'s slices of a global tensor of `shape` under `spec`."""
@@ -153,11 +243,12 @@ class Mesh:
     def split(self, t, spec, shards=None) -> list:
         """The per-shard parts of global tensor `t` under `spec` (all
         shards, or those listed in `shards`), each contiguous on its
-        shard's device."""
+        shard's device; None for a shard of another process."""
         t = torch.as_tensor(t)
+        self.check(t.shape, spec)
         shards = range(self.size) if shards is None else shards
         return [t[self._block(s, t.shape, spec)].contiguous().to(self.devices[s])
-                for s in shards]
+                if self.is_local(s) else None for s in shards]
 
     def owners(self, spec) -> list[int]:
         """The shards that hold each block of a tensor under `spec` once:
@@ -169,10 +260,16 @@ class Mesh:
     def join(self, parts, spec, device=None):
         """The global tensor on `device` (default: the home device) from
         per-shard `parts` (a list over the shards, or a dict holding at
-        least the shards read here): each block comes from the first
-        shard that holds it, rank 0 on every axis the spec does not name."""
+        least the shards read here; over several processes, every shard of
+        this process): each block comes from the first shard that holds it,
+        rank 0 on every axis the spec does not name. Over several
+        processes it is a gather to every process: a block this process
+        holds (a replica's copy is the same) is read here, the others come
+        from their owners, with no host read."""
         dev = self.home if device is None else torch.device(device)
         owners = self.owners(spec)
+        if self.multi:
+            parts = self._gather_blocks(parts, spec, owners)
         first = parts[owners[0]]
         if len(owners) == 1:
             return first.to(dev)
@@ -184,16 +281,54 @@ class Mesh:
             out[self._block(s, shape, spec)] = parts[s].to(dev)
         return out
 
+    def _holder(self, o: int, spec, procs=None):
+        """A shard of process `procs` (default: this one) that holds owner
+        `o`'s block under `spec`, or None."""
+        named = {a for part in spec for a in _names(part)}
+        co = self.coords(o)
+        for s in range(self.size):
+            if self.procs[s] == (self.process if procs is None else procs) and all(
+                    self.coords(s)[a] == co[a] for a in named if a in co):
+                return s
+        return None
+
+    def _gather_plan(self, spec, owners) -> tuple:
+        """({owner: this process's shard holding its block, or None}, does
+        some process hold no copy of some block), from the layout alone,
+        so every process takes the same decision."""
+        key = tuple(spec)
+        if key not in self._plans:
+            self._plans[key] = (
+                {o: self._holder(o, spec) for o in owners},
+                any(self._holder(o, spec, q) is None for o in owners for q in self.processes))
+        return self._plans[key]
+
+    def _gather_blocks(self, parts, spec, owners) -> dict:
+        """{owner: its block} on this process: a local holder's part, or
+        the owner's, fetched from its process when some process holds no
+        copy of a block."""
+        get = parts.get if isinstance(parts, dict) else (lambda s: parts[s])
+        local, fetch = self._gather_plan(spec, owners)
+        if not fetch:
+            return {o: get(s) for o, s in local.items()}
+        like = get(self.local[0])
+        got = exchange(self, owners, {o: get(o) for o in owners if self.is_local(o)},
+                       like=like, procs=self.processes)
+        return {o: get(s) if s is not None else got[o] for o, s in local.items()}
+
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1, device=None) -> Mesh:
     """A mesh over the cards of `resolve_device(device)` (default: every
-    card of the process). Shard s goes to card s mod the card count, so
-    one shard a card while there are cards enough, and the placement
-    cycles where there are fewer cards than shards (8 shards on one card
-    all share it, as the reference's fake host devices share one CPU).
-    An indexed device (`cuda:1`) puts every shard on it; `device="cpu"`
-    puts every shard on the CPU. Axes: ("pod", "data", "model") when
-    pod > 1, else ("data", "model")."""
+    card of the process; after `init_cluster`, the process's own card).
+    Shard s goes to card s mod the card count, so one shard a card while
+    there are cards enough, and the placement cycles where there are
+    fewer cards than shards (8 shards on one card all share it, as the
+    reference's fake host devices share one CPU). An indexed device
+    (`cuda:1`) puts every shard on it; `device="cpu"` puts every shard on
+    the CPU. Over several processes the cards are every process's, in
+    process order (`shard_owners`), and a shard of another process is on
+    the `meta` device here. Axes: ("pod", "data", "model") when pod > 1,
+    else ("data", "model")."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         cards = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
@@ -202,7 +337,12 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1, device=None) -> 
     shape = {"pod": pod, "data": data, "model": model} if pod > 1 else {
         "data": data, "model": model}
     n = math.prod(shape.values())
-    return Mesh(shape, [cards[s % len(cards)] for s in range(n)])
+    world, rank = process_rank()
+    if world == 1:
+        return Mesh(shape, [cards[s % len(cards)] for s in range(n)])
+    owners = shard_owners(n, world, len(cards))
+    return Mesh(shape, [cards[c] if q == rank else torch.device("meta") for q, c in owners],
+                procs=[q for q, _ in owners])
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -214,6 +354,83 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 
 def batch_axes(mesh) -> tuple:
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+# --- values across processes -------------------------------------------------------
+
+
+def _flat(item) -> tuple[list, object]:
+    """(the tensors of `item`, its structure): a tensor, or dicts, lists
+    and tuples of tensors."""
+    if isinstance(item, dict):
+        keys = list(item)
+        subs = [_flat(item[k]) for k in keys]
+        return [t for ts, _ in subs for t in ts], ("dict", keys, [d for _, d in subs])
+    if isinstance(item, (list, tuple)):
+        subs = [_flat(v) for v in item]
+        return [t for ts, _ in subs for t in ts], (type(item), [d for _, d in subs])
+    return [item], None
+
+
+def _unflat(it, tree):
+    if tree is None:
+        return next(it)
+    if tree[0] == "dict":
+        return {k: _unflat(it, d) for k, d in zip(tree[1], tree[2])}
+    vals = [_unflat(it, d) for d in tree[1]]
+    return tree[0](*vals) if hasattr(tree[0], "_fields") else tree[0](vals)
+
+
+def _bytes(t) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def exchange(mesh: Mesh, group, values: dict, like=None, procs=None) -> dict:
+    """Every member of `group`'s value on each process taking part, from
+    each process's own: `values` holds this process's members of `group`
+    (a tensor, or a dict/list/tuple of tensors, of one structure, shape
+    and dtype across the members, as every shard's value is under SPMD);
+    `like` gives that structure to a process that holds no member;
+    `procs` are the processes taking part (default: the members'). One
+    all-gather over their subgroup, of the members' values packed into
+    bytes; members of one process stay as they are."""
+    import torch.distributed as dist
+
+    group = list(group)
+    procs = mesh.group_procs(group) if procs is None else tuple(procs)
+    me = mesh.process
+    if procs == (me,):
+        return dict(values)
+    per = {q: [s for s in group if mesh.procs[s] == q] for q in procs}
+    mine = per.get(me, [])
+    leaves, tree = _flat(values[mine[0]] if mine else like)
+    sizes = [_bytes(t).numel() for t in leaves]
+    pads = [-n % 8 for n in sizes]  # each leaf 8-byte aligned in the row
+    row = sum(sizes) + sum(pads)
+    k = max(len(v) for v in per.values())
+    dev = leaves[0].device
+    buf = torch.zeros((k, row), dtype=torch.uint8, device=dev)
+    for i, s in enumerate(mine):
+        off = 0
+        for t, n, pad in zip(_flat(values[s])[0], sizes, pads):
+            buf[i, off:off + n] = _bytes(t)
+            off += n + pad
+    outs = [torch.empty_like(buf) for _ in procs]
+    dist.all_gather(outs, buf, group=_subgroup(procs) if len(procs) > 1 else None)
+    full = {}
+    for q, out in zip(procs, outs):
+        for i, s in enumerate(per[q]):
+            if q == me:
+                full[s] = values[s]
+                continue
+            got, off = [], 0
+            for t, n, pad in zip(leaves, sizes, pads):
+                seg = out[i, off:off + n]
+                got.append(((seg != 0) if t.dtype == torch.bool else
+                            seg.view(t.dtype)).reshape(t.shape))
+                off += n + pad
+            full[s] = _unflat(iter(got), tree)
+    return full
 
 
 # --- collectives over the per-shard tensors of one axis group -----------------
@@ -290,23 +507,34 @@ def ppermute(parts: list, perm) -> list:
 def over(mesh: Mesh, axis, fn, *parts, **kw):
     """Apply the group function `fn` (a collective, or any function of
     per-shard lists in rank order) to every group of `axis`. Each of
-    `parts` is a dict {shard: value} holding whole groups; the result is
-    a dict in the same form, or a tuple of them where `fn` returns a
-    tuple of lists."""
+    `parts` is a dict {shard: value} holding whole groups (over several
+    processes: this process's shards of each group the first of `parts`
+    names; an argument that holds every member, such as a flag made from
+    the shard's coordinates, is taken as it is, the others' remote
+    members are fetched with `exchange`). The result is a dict in the
+    same form, this process's shards only, or a tuple of them where `fn`
+    returns a tuple of lists."""
     outs, single = ({},), True
     for group in mesh.groups(axis):
-        members = [s for s in group if s in parts[0]]
+        local = [s for s in group if mesh.is_local(s)]
+        members = [s for s in local if s in parts[0]]
         if not members:
             continue
-        if len(members) != len(group):
+        if len(members) != len(local):
             raise ValueError(f"shards {members} are not the whole {axis!r} group {group}")
-        res = fn(*([p[s] for s in members] for p in parts), **kw)
+        args = [[p[s] for s in group] if all(s in p for s in group) else None for p in parts]
+        fetch = [i for i, a in enumerate(args) if a is None]
+        if fetch:
+            got = exchange(mesh, group, {s: tuple(parts[i][s] for i in fetch) for s in local})
+            for j, i in enumerate(fetch):
+                args[i] = [got[s][j] for s in group]
+        res = fn(*args, **kw)
         single = not isinstance(res, tuple)
         res = (res,) if single else res
         if len(outs) != len(res):
             outs = tuple({} for _ in res)
         for out, vals in zip(outs, res):
-            out.update(zip(members, vals))
+            out.update((s, v) for s, v in zip(group, vals) if s in members)
     return outs[0] if single else outs
 
 
@@ -317,18 +545,28 @@ class _Gather(torch.autograd.Function):
     """The global tensor from a `Sharded`'s parts; the backward hands each
     part its block of the gradient (every shard that holds a block, the
     replicas too), so gradients of several gathers add up in the parts:
-    the all-gather's transpose, a reduce-scatter."""
+    the all-gather's transpose, a reduce-scatter. Over several processes
+    a gather for pass `key` (a data shard's rows, `Sharded.gather`) keeps
+    the blocks of the pass's gradient that `Sharded.settle` reads instead
+    (`Sharded._kept`), and the settle adds the passes' into the parts in
+    pass order once every process has run its own."""
 
     @staticmethod
-    def forward(ctx, sh, device, *parts):
-        ctx.sh = sh
-        return sh.mesh.join(parts, sh.spec, device)
+    def forward(ctx, sh, device, key, *local):
+        ctx.sh, ctx.key = sh, key
+        return sh.mesh.join(sh.parts, sh.spec, device)
 
     @staticmethod
     def backward(ctx, grad):
         sh = ctx.sh
-        return (None, None, *(grad[sh.block(s)].to(p.device, copy=True).contiguous()
-                              for s, p in enumerate(sh.parts)))
+        local = [s for s in sh.mesh.local]
+        if ctx.key is not None:
+            kept = sh.pending.setdefault(ctx.key, {})
+            for b, blk in sh._kept(ctx.key):
+                kept[b] = grad[blk].clone() if b not in kept else kept[b] + grad[blk]
+            return (None, None, None, *(None for _ in local))
+        return (None, None, None, *(grad[sh.block(s)].to(sh.parts[s].device, copy=True)
+                                    .contiguous() for s in local))
 
 
 class Sharded:
@@ -336,11 +574,14 @@ class Sharded:
     split by `spec` (`Mesh.split`); shards that hold the same block (the
     axes the spec does not name) keep copies of it, as the devices of a
     mesh do. `join` is the global tensor, `gather` the same as a step of
-    autograd's graph, `assign` writes a global value into the parts."""
+    autograd's graph, `assign` writes a global value into the parts. Over
+    several processes a part of another process is None."""
 
     def __init__(self, mesh: Mesh, spec, parts: list, shape):
         self.mesh, self.spec, self.parts = mesh, PartitionSpec(*spec), list(parts)
         self.shape = torch.Size(shape)
+        self.pending = {}  # pass -> {block: its gradient's block} (`settle`)
+        self._keeps = {}
 
     @classmethod
     def place(cls, mesh: Mesh, t, spec) -> "Sharded":
@@ -348,27 +589,35 @@ class Sharded:
         shard's device (no part aliases `t` or another part)."""
         t = torch.as_tensor(t)
         spec = PartitionSpec(*spec)
-        parts = []
-        for s in range(mesh.size):
+        mesh.check(t.shape, spec)
+        parts = [None] * mesh.size
+        for s in mesh.local:
             block = t[mesh._block(s, t.shape, spec)]
-            parts.append(torch.empty(block.shape, dtype=t.dtype,
-                                     device=mesh.devices[s]).copy_(block))
+            parts[s] = torch.empty(block.shape, dtype=t.dtype,
+                                   device=mesh.devices[s]).copy_(block)
         return cls(mesh, spec, parts, t.shape)
 
     @classmethod
     def zeros(cls, mesh: Mesh, spec, shape, dtype=torch.float32) -> "Sharded":
         spec = PartitionSpec(*spec)
         shape = torch.Size(shape)
-        return cls(mesh, spec, [torch.zeros([b.stop - b.start for b in mesh._block(s, shape, spec)],
-                                            dtype=dtype, device=mesh.devices[s])
-                                for s in range(mesh.size)], shape)
+        mesh.check(shape, spec)
+        parts = [None] * mesh.size
+        for s in mesh.local:
+            parts[s] = torch.zeros([b.stop - b.start for b in mesh._block(s, shape, spec)],
+                                   dtype=dtype, device=mesh.devices[s])
+        return cls(mesh, spec, parts, shape)
 
     def __repr__(self):
         return f"Sharded({tuple(self.shape)}, {self.spec!r}, {self.mesh.shape})"
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.parts[0].dtype
+        return self.parts[self.mesh.local[0]].dtype
+
+    def local(self) -> list:
+        """This process's parts, in shard order."""
+        return [self.parts[s] for s in self.mesh.local]
 
     @property
     def ndim(self) -> int:
@@ -382,20 +631,100 @@ class Sharded:
         return self.mesh.owners(self.spec)
 
     def join(self, device=None) -> torch.Tensor:
-        return self.mesh.join([p.detach() for p in self.parts], self.spec, device)
+        return self.mesh.join([None if p is None else p.detach() for p in self.parts],
+                              self.spec, device)
 
-    def gather(self, device=None) -> torch.Tensor:
-        """The global tensor on `device`, differentiable in the parts."""
+    def gather(self, device=None, key=None) -> torch.Tensor:
+        """The global tensor on `device`, differentiable in the parts. On a
+        mesh of several processes `key` names the pass (a batch rank) the
+        gather serves: its gradient waits for `settle`."""
         dev = self.mesh.home if device is None else torch.device(device)
-        if any(p.requires_grad for p in self.parts) and torch.is_grad_enabled():
-            return _Gather.apply(self, dev, *self.parts)
+        local = self.local()
+        if any(p.requires_grad for p in local) and torch.is_grad_enabled():
+            return _Gather.apply(self, dev, key if self.mesh.multi else None, *local)
         return self.mesh.join(self.parts, self.spec, dev)
+
+    def settle(self, axes) -> None:
+        """Add the gradients the passes kept (`gather` with a key, one pass
+        a rank along the batch `axes`) into the local parts' `.grad`, pass
+        after pass in rank order, as one process adds each pass's backward
+        in turn: the reduce-scatter over the processes, each process
+        sending each other process only the blocks of its passes'
+        gradients that process's parts hold (`_swap_blocks`), then the
+        in-order sum. Every process calls it for the same tensors in one
+        order."""
+        if not self.pending:
+            return
+        for group in self.mesh.groups(axes):
+            local = [s for s in group if self.mesh.is_local(s)]
+            if not local:
+                continue
+            got = self._swap_blocks(group, local, axes)
+            for s in local:
+                p = self.parts[s]
+                g = p.grad
+                for m in group:
+                    add = got[m, s].to(p.device)
+                    g = add.clone() if g is None else g + add
+                p.grad = g
+        self.pending = {}
+
+    def _kept(self, key) -> list:
+        """[(block key, slices)] of pass `key`'s gradient that `settle`
+        reads here: every shard's block in each batch group where this
+        process holds a shard of batch rank `key`."""
+        if key not in self._keeps:
+            mesh, axes = self.mesh, batch_axes(self.mesh)
+            out = {}
+            for group in mesh.groups(axes):
+                if any(mesh.is_local(m) and mesh.batch_rank(m, axes) == key for m in group):
+                    for s in group:
+                        blk = self.block(s)
+                        out.setdefault(tuple((b.start, b.stop) for b in blk), blk)
+            self._keeps[key] = list(out.items())
+        return self._keeps[key]
+
+    def _swap_blocks(self, group, local, axes) -> dict:
+        """{(member m, local shard s): m's pass gradient's block of s} for
+        the members of a batch group: the local members' blocks sliced
+        here, the others' from one all-to-all over the group's processes,
+        in which a process sends each other process, member after member
+        of its own, the blocks of that process's shards."""
+        import torch.distributed as dist
+
+        mesh, me = self.mesh, self.mesh.process
+
+        def blocks(m, shards):
+            g = self.pending[mesh.batch_rank(m, axes)]
+            return [g[tuple((b.start, b.stop) for b in self.block(s))] for s in shards]
+
+        got = {(m, s): b for m in local for s, b in zip(local, blocks(m, local))}
+        procs = mesh.group_procs(group)
+        if len(procs) == 1:
+            return got
+        per = {q: [s for s in group if mesh.procs[s] == q] for q in procs}
+        like = got[local[0], local[0]]
+        n = like.numel()
+        send = torch.cat([b.reshape(-1) for q in procs if q != me
+                          for m in local for b in blocks(m, per[q])])
+        sizes_in = [0 if q == me else len(local) * len(per[q]) * n for q in procs]
+        sizes_out = [0 if q == me else len(per[q]) * len(local) * n for q in procs]
+        recv = send.new_empty(sum(sizes_out))
+        dist.all_to_all_single(recv, send, sizes_out, sizes_in,
+                               group=_subgroup(procs))
+        off = 0
+        for q in procs:
+            for m in (per[q] if q != me else ()):
+                for s in local:
+                    got[m, s] = recv[off:off + n].view(like.shape)
+                    off += n
+        return got
 
     def assign(self, value) -> None:
         """Write the global tensor `value` into every part, in place."""
         with torch.no_grad():
-            for s, p in enumerate(self.parts):
-                p.copy_(value[self.block(s)])
+            for s in self.mesh.local:
+                self.parts[s].copy_(value[self.block(s)])
 
     def with_parts(self, parts: list) -> "Sharded":
         """Another tensor of this layout (a gradient, a moment) from `parts`."""

@@ -318,12 +318,13 @@ def map_sharded(fn, tree):
     return fn(tree) if isinstance(tree, Sharded) else tree
 
 
-def gather_tree(tree, device, dtype=None):
+def gather_tree(tree, device, dtype=None, key=None):
     """Every `Sharded` leaf of `tree` gathered onto `device` (autograd
     records the gather where the parts require grad), a floating leaf cast
-    to `dtype` after the gather: one group's weights, in a ZeRO-3 step."""
+    to `dtype` after the gather: one group's weights, in a ZeRO-3 step
+    (for pass `key` over several processes, `Sharded.gather`)."""
     def one(sh):
-        t = sh.gather(device)
+        t = sh.gather(device, key)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
     return map_sharded(one, tree)
@@ -356,7 +357,15 @@ class ShardedLM:
         return _leaves(self._tree)
 
     def parameters(self):
-        return (p for sh in self.leaves() for p in sh.parts)
+        """This process's parts."""
+        return (p for sh in self.leaves() for p in sh.local())
+
+    def settle(self) -> None:
+        """Add the passes' kept gradients into the parts (`Sharded.settle`
+        over the batch axes), leaf by leaf in tree order on every process."""
+        axes = batch_axes(self.mesh)
+        for sh in self.leaves():
+            sh.settle(axes)
 
     def requires_grad_(self, flag: bool = True) -> "ShardedLM":
         for p in self.parameters():
@@ -398,7 +407,8 @@ def join_rows(sh: Sharded, dim: int, rows: slice, device) -> torch.Tensor:
 def write_rows(sh: Sharded, dim: int, rows: slice, value) -> None:
     """Write `value` (rows `rows` of dimension `dim` of the global tensor)
     into every part that holds them, the replicas too."""
-    for s, part in enumerate(sh.parts):
+    for s in sh.mesh.local:
+        part = sh.parts[s]
         hit = _overlap(sh, s, dim, rows)
         if hit is not None:
             part[hit[0]] = value[hit[1]].to(part.device)

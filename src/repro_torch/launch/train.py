@@ -1,21 +1,26 @@
 """LM training entry point: config → mesh → sharded train loop with
 checkpoint/restart (port of `repro/launch/train.py`). Runs reduced
 configs end to end on the CPU and on the card, and full configs on a
-mesh of the cards (one process holds every shard: `launch/mesh.py`).
+mesh of the cards: one process holding every shard (`launch/mesh.py`),
+or one process a card after `launch.cluster.init_cluster`, each holding
+its own shards' parts.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --reduced \\
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
 
 `train` runs on `make_host_mesh(data=<cards>, model=1)` unless given a
-mesh: on one card a one-shard mesh, which keeps the state an `LM` (the
-single-device step). On a larger mesh `build` places the state by
+mesh (over several processes, every process's cards): on one card a
+one-shard mesh, which keeps the state an `LM` (the single-device step). On a larger mesh `build` places the state by
 `train_state_specs` (a `ShardedLM` and `Sharded` optimizer state).
 Checkpoints hold the train state in the reference's layout, whole
 host-gathered leaves (`models.convert.train_state_to_numpy`); a restore
 places them on the run's mesh (`ckpt.elastic.reshard_state`), whatever
 mesh saved them. A resumed run skips the batches of the steps it
 restored, so its history continues the uninterrupted run's (the
-reference restarts the stream from its first batch).
+reference restarts the stream from its first batch). Over several
+processes every process makes the same batches, joins the state for a
+checkpoint (process 0 writes it, `ckpt.checkpoint`) and only the
+coordinator logs.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.loader import lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, process_rank
 from repro_torch.models import convert
 from repro_torch.models import model as Md
 from repro_torch.optim.adamw import for_config
@@ -44,21 +49,31 @@ def build(cfg, mesh=None, seed: int = 0, device=None):
     params from `seed`, the config's optimizer, step 0. With no mesh, or
     a one-shard mesh, the state is one device's (`specs` None); else it
     is placed on `mesh` by `train_state_specs` and the step built with
-    `param_specs`."""
+    `param_specs`: the params drawn part by part on the process's home
+    device (each stack group, the embeddings, the norms) in one seeded
+    stream, as one device draws them, each placed at once, so a process
+    keeps its own parts and never holds the whole state."""
     if mesh is not None:
         cfg = cfg.with_policy(SH.policy_for(mesh))
         device = mesh.home
     dev = resolve_device(device)
     opt = for_config(cfg)
-    params = Md.init_params(cfg, seed, device=dev)
     if mesh is None or mesh.size == 1:
+        params = Md.init_params(cfg, seed, device=dev)
         state = {"params": params, "opt": opt.init(params.tree()),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
         return cfg, state, Md.make_train_step(cfg, opt), None
     shapes = SH.state_shapes(cfg, opt)
     specs = SH.train_state_specs(cfg, shapes, mesh)
-    sharded = SH.ShardedLM.place(cfg, mesh, params, specs["params"])
-    del params
+    pspecs = specs["params"]
+
+    def place(name, sub):  # a group of a stack is a one-group stack's
+        if name in ("stack", "enc_stack"):
+            return SH.named(mesh, pspecs[name], [sub])[0]
+        return SH.named(mesh, pspecs[name], sub)
+
+    with torch.no_grad():
+        sharded = SH.ShardedLM(cfg, mesh, Md.init_params(cfg, seed, device=dev, place=place))
     meta_opt = opt.init(Md.init_params(cfg, 0, device="meta").tree())
     state = {"params": sharded, "opt": SH.zeros(mesh, specs["opt"], meta_opt),
              "step": torch.zeros((), dtype=torch.int32, device=mesh.home)}
@@ -68,9 +83,12 @@ def build(cfg, mesh=None, seed: int = 0, device=None):
 def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None = None,
           ckpt_every: int = 50, mesh=None, log=print, seed: int = 0, device=None):
     dev = resolve_device(device)
+    world, rank = process_rank()
     if mesh is None:
         cards = torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
-        mesh = make_host_mesh(data=max(1, cards), model=1, device=dev)
+        mesh = make_host_mesh(data=max(1, cards) * world, model=1, device=dev)
+    if rank:
+        log = _quiet
     cfg, state, step, specs = build(cfg, mesh, seed)
     dev = mesh.home
     manager = CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir else None
@@ -99,6 +117,10 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None = None,
         manager.maybe_save(convert.train_state_to_numpy(state), steps, force=True)
         manager.wait()
     return state, history, monitor
+
+
+def _quiet(*_):
+    pass
 
 
 def main(argv=None):

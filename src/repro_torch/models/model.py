@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as TM
 from repro_torch.launch import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import AttnDims
@@ -188,24 +189,38 @@ def _generator(key, device: torch.device):
     return torch.Generator(device=device).manual_seed(int(key))
 
 
-def init_params(cfg: ArchConfig, key=0, device=None) -> LM:
+def init_params(cfg: ArchConfig, key=0, device=None, place=None):
     """Full parameter module (f32 master copies; served through the
     compute-dtype copy `_cast` makes). `key` is a seed or a
     `torch.Generator` on `device`; the weights have the reference's
     distribution and scale, not its bits (`models.convert` carries the
-    reference's across). `device="meta"` builds shapes only."""
+    reference's across). `device="meta"` builds shapes only. With
+    `place(name, subtree)` each top-level subtree, and each group of a
+    stack on its own, goes through `place` as soon as it is drawn, so the
+    whole tree never exists at once: the result is the tree of what
+    `place` returned (`launch.train.build` keeps a process's parts)."""
     dev = resolve_device(device)
     gen = _generator(key, dev)
     f32 = torch.float32
+
+    def keep(name, sub):  # in the LM's own layout (its key order), then placed
+        if place is None:
+            return sub
+        stack = name.endswith("stack")
+        sub = LM(cfg, {name: [sub] if stack else sub}).tree()[name]
+        return place(name, sub[0] if stack else sub)
+
     tree: dict[str, Any] = {
-        "tok": T.embed_init(cfg, gen, f32, dev),
-        "stack": T.stack_init(cfg, gen, cfg.pattern, cfg.n_groups, f32, dev),
-        "final_norm": T._norm_init(cfg, f32, dev),
+        "tok": keep("tok", T.embed_init(cfg, gen, f32, dev)),
+        "stack": [keep("stack", g)
+                  for g in T.stack_init(cfg, gen, cfg.pattern, cfg.n_groups, f32, dev)],
+        "final_norm": keep("final_norm", T._norm_init(cfg, f32, dev)),
     }
     if cfg.family == "encdec":
-        tree["enc_stack"] = T.stack_init(cfg, gen, ENC_PATTERN, cfg.enc_layers, f32, dev)
-        tree["enc_norm"] = T._norm_init(cfg, f32, dev)
-    return LM(cfg, tree)
+        tree["enc_stack"] = [keep("enc_stack", g) for g in
+                             T.stack_init(cfg, gen, ENC_PATTERN, cfg.enc_layers, f32, dev)]
+        tree["enc_norm"] = keep("enc_norm", T._norm_init(cfg, f32, dev))
+    return tree if place else LM(cfg, tree)
 
 
 def _cast(params: LM, dtype) -> LM:
@@ -269,42 +284,55 @@ def _encode_memory(cfg, params, batch, gather=None, device=None):
 
 
 def _shard_plan(cfg, params, B: int) -> list:
-    """The passes of a batch of B rows: [(rows, device, cfg, aux share)].
-    One pass on the params' device for an `LM`. On a mesh, each data shard
-    in turn (its rows, its model-rank-0 shard's device, the policy as one
-    data shard sees it, 1/dp of the aux loss), or one pass over all rows
-    on the mesh's home where B does not divide over the data shards."""
+    """The passes of a batch of B rows: [(rows, device, cfg, aux share,
+    pass key)]. One pass on the params' device for an `LM`. On a mesh,
+    each data shard in turn (its rows, its model-rank-0 shard's device,
+    the policy as one data shard sees it, 1/dp of the aux loss), or one
+    pass over all rows on the mesh's home where B does not divide over the
+    data shards. Over several processes a process runs its own data
+    shards' passes (the processes of one data shard's model group run the
+    same rows on the same gathered weights: the model axis stores, it
+    does not split the dense compute), each keyed by its batch rank so
+    that `ShardedLM.settle` adds the passes' gradients in rank order."""
     if not isinstance(params, SH.ShardedLM):
-        return [(slice(0, B), params.device, cfg, 1.0)]
+        return [(slice(0, B), params.device, cfg, 1.0, None)]
     dp, tp = cfg.policy.dp_size, cfg.policy.tp_size
+    mesh = params.mesh
     if B % dp:
-        return [(slice(0, B), params.mesh.home, cfg, 1.0)]
+        return [(slice(0, B), mesh.home, cfg, 1.0, None)]
     local = cfg.with_policy(dataclasses.replace(cfg.policy, dp_size=1))
     n = B // dp
-    return [(slice(d * n, (d + 1) * n), params.mesh.devices[d * tp], local, 1.0 / dp)
-            for d in range(dp)]
+    if not mesh.multi:
+        return [(slice(d * n, (d + 1) * n), mesh.devices[d * tp], local, 1.0 / dp, None)
+                for d in range(dp)]
+    axes = TM.batch_axes(mesh)
+    mine = {}
+    for s in mesh.local:
+        mine.setdefault(mesh.batch_rank(s, axes), s)
+    return [(slice(d * n, (d + 1) * n), mesh.devices[mine[d]], local, 1.0 / dp, d)
+            for d in sorted(mine)]
 
 
-def _weights(params, device, dtype, cast):
+def _weights(params, device, dtype, cast, key=None):
     """(the tree the model reads, the gather hook, the `tok` and
     `final_norm` weights in `dtype`): an `LM` through `cast` (`_train_cast`
     in the graph to train, `_cast`'s cached copy to serve), or a
     `ShardedLM`'s parts with a hook that gathers a group onto `device` in
-    `dtype`."""
+    `dtype` (for pass `key` over several processes)."""
     if isinstance(params, SH.ShardedLM):
         p = params.tree()
 
         def gather(tree):
-            return SH.gather_tree(tree, device, dtype)
+            return SH.gather_tree(tree, device, dtype, key)
 
         return p, gather, gather(p["tok"]), gather(p["final_norm"])
     p = cast(params, dtype)
     return p, None, p["tok"], p["final_norm"]
 
 
-def _forward(cfg, params, batch, device, count=None):
+def _forward(cfg, params, batch, device, count=None, key=None):
     """forward_train's (ce, aux) of one pass of `_shard_plan`."""
-    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _train_cast)
+    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _train_cast, key)
     tokens = batch["tokens"].to(device)
     x = T.embed_tokens(cfg, tok, tokens)
     if cfg.pos_embed == "sinusoidal":
@@ -330,11 +358,11 @@ def _shard_losses(cfg, params, batch):
     of the aux loss), so the parts add up to the batch's."""
     plan = _shard_plan(cfg, params, batch["tokens"].shape[0])
     count = None
-    if len(plan) > 1:
+    if len(plan) > 1 or plan[0][4] is not None:  # the batch's rows over several passes
         count = batch["mask"].to(torch.float32).sum()
-    for rows, dev, pcfg, share in plan:
+    for rows, dev, pcfg, share, key in plan:
         ce, aux = _forward(pcfg, params, _rows(batch, rows), dev,
-                           None if count is None else count.to(dev))
+                           None if count is None else count.to(dev), key)
         aux = aux * share if share != 1.0 else aux
         yield ce + cfg.aux_loss_weight * aux, ce, aux
 
@@ -345,7 +373,9 @@ def forward_train(cfg: ArchConfig, params, batch):
     aux_loss_weight * aux`. Differentiable in the masters wherever they
     require grad (`make_train_step` turns that on). `params` is an `LM`
     or, on a mesh, a `ShardedLM` (the data shards' parts added on the
-    mesh's home)."""
+    mesh's home). Over several processes use `make_train_step`, which
+    adds every process's passes."""
+    _single_controller(params, "forward_train")
     parts = list(_shard_losses(cfg, params, batch))
     if len(parts) == 1:
         loss, ce, aux = parts[0]
@@ -363,6 +393,13 @@ def forward_train(cfg: ArchConfig, params, batch):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     return T.stack_cache_init(cfg, cfg.pattern, cfg.n_groups, batch, max_len,
                               getattr(torch, cfg.cache_dtype), resolve_device(device))
+
+
+def _single_controller(params, what: str) -> None:
+    if isinstance(params, SH.ShardedLM) and params.mesh.multi:
+        raise NotImplementedError(
+            f"{what} on a mesh of several processes: sharded serving over processes is "
+            "ROADMAP A13e; a train step runs there (make_train_step)")
 
 
 def _cache_rows(cache, rows, device):
@@ -402,11 +439,12 @@ def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
     each data shard decodes its rows in turn: its cache rows joined from
     their parts (the model axis is storage only), the step run, the rows
     written back into the parts."""
+    _single_controller(params, "decode_step")
     plan = _shard_plan(cfg, params, token.shape[0])
     if len(plan) == 1 and not isinstance(cache, SH.ShardedCache):
         return _decode(plan[0][2], params, cache, token, cur_len, plan[0][1])
     outs = []
-    for rows, dev, pcfg, _ in plan:
+    for rows, dev, pcfg, _, _ in plan:
         pos = cur_len.to(dev) if isinstance(cur_len, torch.Tensor) else cur_len
         local = _cache_rows(cache, rows, dev)
         logits, local = _decode(pcfg, params, local, token[rows].to(dev), pos, dev)
@@ -449,12 +487,13 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int):
     (a `ShardedCache`; sequence-sharded when the policy names a
     `seq_axis_for_cache`)."""
     B = batch["tokens"].shape[0]
+    _single_controller(params, "prefill")
     plan = _shard_plan(cfg, params, B)
     if not isinstance(params, SH.ShardedLM):
         return _prefill(plan[0][2], params, batch, max_len, plan[0][1])
     home = params.device
     logits, caches = [], []
-    for rows, dev, pcfg, _ in plan:
+    for rows, dev, pcfg, _, _ in plan:
         lg, c = _prefill(pcfg, params, _rows(batch, rows), max_len, dev)
         logits.append(lg.to(home))
         caches.append(c)
@@ -482,8 +521,33 @@ def _sharded_grads(params) -> dict:
     """A `ShardedLM`'s gradients: a tree of `Sharded` of the parts' grads
     (zeros for a part the loss does not reach)."""
     return SH.map_sharded(lambda sh: sh.with_parts(
-        [torch.zeros_like(p) if p.grad is None else p.grad for p in sh.parts]),
-        params.tree())
+        [p if p is None else torch.zeros_like(p) if p.grad is None else p.grad
+         for p in sh.parts]), params.tree())
+
+
+def _pass_losses(params, table: list, keys: list):
+    """(loss, [per micro-batch {"ce", "aux"}]) from `table`: each
+    micro-batch's f32[3] (loss, ce, aux) of this process's passes (batch
+    ranks `keys`), added pass after pass in rank order, micro-batch after
+    micro-batch, as one process adds them. Over several processes
+    (keyed passes) every pass's rows are gathered over the batch axes
+    first, so every process adds the same numbers in the same order."""
+    if keys and keys[0] is not None:
+        mesh = params.mesh
+        axes = TM.batch_axes(mesh)
+        mine = torch.stack([torch.stack(rows) for rows in table], 1)  # [passes, A, 3]
+        got = TM.over(mesh, axes, lambda v: [torch.stack(v, 1)] * len(v),
+                      {s: mine[keys.index(mesh.batch_rank(s, axes))] for s in mesh.local})
+        whole = got[mesh.local[0]]  # [A, dp, 3]
+        table = [list(whole[i]) for i in range(whole.shape[0])]
+    loss, ms = 0.0, []
+    for rows in table:
+        m = {"ce": 0.0, "aux": 0.0}
+        for r in rows:
+            loss = loss + r[0]
+            m = {"ce": m["ce"] + r[1], "aux": m["aux"] + r[2]}
+        ms.append(m)
+    return loss, ms
 
 
 def make_train_step(cfg: ArchConfig, optimizer, param_specs=None) -> Callable:
@@ -506,7 +570,12 @@ def make_train_step(cfg: ArchConfig, optimizer, param_specs=None) -> Callable:
     state as `Sharded` parts. Micro-batch i's data shard d is then rows
     [i·B/A + d·B/(A·dp), ...), as the reference reshapes the batch into
     micro-batches and shards each one; each data shard's backward runs
-    right after its forward, adding its gradients into the parts."""
+    right after its forward, adding its gradients into the parts. Over
+    several processes each process runs its own data shards' passes and
+    the passes' gradients, losses and norms are added across the
+    processes in the single controller's order (`ShardedLM.settle`,
+    `_pass_losses`): every process ends the step with the same state and
+    metrics as one process holding every shard."""
 
     def train_step(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
@@ -520,15 +589,19 @@ def make_train_step(cfg: ArchConfig, optimizer, param_specs=None) -> Callable:
         home = params.device
         A = cfg.accum_steps
         n = batch["tokens"].shape[0] // A
-        loss, ms = 0.0, []
+        keys = [k for *_, k in _shard_plan(cfg, params, n)]
+        table = []
         for i in range(A):
-            m = {"ce": 0.0, "aux": 0.0}
+            rows = []
             for part_loss, ce, aux in _shard_losses(cfg, params,
                                                     _rows(batch, slice(i * n, (i + 1) * n))):
                 part_loss.backward()
-                loss = loss + part_loss.detach().to(home)
-                m = {"ce": m["ce"] + ce.detach().to(home), "aux": m["aux"] + aux.detach().to(home)}
-            ms.append(m)
+                rows.append(torch.stack([part_loss.detach().to(home), ce.detach().to(home),
+                                         aux.detach().to(home)]))
+            if sharded:
+                params.settle()
+            table.append(rows)
+        loss, ms = _pass_losses(params, table, keys)
         if A > 1:
             with torch.no_grad():
                 for p in params.parameters():

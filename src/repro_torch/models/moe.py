@@ -16,9 +16,12 @@ Two dispatch paths, as the reference's:
                      tokens drop, so its output is the reference's sharded
                      output, not `moe_apply`'s.
 
-The mesh is single-controller (`launch/mesh.py`): the shards run in turn
-on the tokens' device, and the collectives are the mesh module's plain
-functions in rank order.
+The shards run in turn on the tokens' device, and the collectives are
+the mesh module's plain functions in rank order. Over several processes
+(`launch.cluster.init_cluster`) each process of a data shard's model
+group runs this dispatch for the whole group on the gathered weights,
+as it runs the dense layers: the model axis stores the experts, and the
+`all_to_all`s stay in the process (crossing processes is ROADMAP A13e).
 
 The combine adds each token's top_k contributions in the order of the
 stable expert sort, rounding to the compute dtype after each add, as the

@@ -227,10 +227,12 @@ def block_apply_decode(cfg, p, x, cache, cur_len, mixer: str, mlp_kind: str):
 # --------------------------------------------------------------------------
 
 
-def stack_init(cfg, gen, pattern, n_groups: int, dtype, device=None) -> list:
-    """`n_groups` groups' parameter trees (a `Stack` holds them)."""
-    return [{f"b{i}": block_init(cfg, gen, mx, ml, dtype, device)
-             for i, (mx, ml) in enumerate(pattern)} for _ in range(n_groups)]
+def stack_init(cfg, gen, pattern, n_groups: int, dtype, device=None):
+    """`n_groups` groups' parameter trees (a `Stack` holds them), made one
+    at a time as they are drawn."""
+    for _ in range(n_groups):
+        yield {f"b{i}": block_init(cfg, gen, mx, ml, dtype, device)
+               for i, (mx, ml) in enumerate(pattern)}
 
 
 def _tensors(tree) -> list:
@@ -239,7 +241,7 @@ def _tensors(tree) -> list:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
     if isinstance(tree, Sharded):
-        return tree.parts
+        return tree.local()
     return [tree]
 
 

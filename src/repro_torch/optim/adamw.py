@@ -37,7 +37,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.launch.mesh import Sharded
+from repro_torch.launch.mesh import Sharded, exchange
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
@@ -96,15 +96,36 @@ def _write(leaf, value):
         leaf.copy_(value)
 
 
-def _sq_sum(g):
+def _part_sq(p):
+    return torch.sum(p.to(torch.float32) ** 2)
+
+
+def _sq_sum(g, owned=None):
     """Σ g² in f32: a `Sharded` leaf's parts that hold each block once,
-    added in shard order on the mesh's home."""
+    added in shard order on the mesh's home (`owned`: each owner part's
+    sum, where they come from other processes, `_owned_sums`)."""
     if isinstance(g, Sharded):
         s = 0
         for k in g.owners():
-            s = s + torch.sum(g.parts[k].to(torch.float32) ** 2).to(g.mesh.home)
+            part = _part_sq(g.parts[k]) if owned is None else owned[k]
+            s = s + part.to(g.mesh.home)
         return s
     return torch.sum(g.to(torch.float32) ** 2)
+
+
+def _owned_sums(leaves) -> dict:
+    """{id(leaf): {owner shard: Σ part²}} for the `Sharded` leaves of a
+    mesh of several processes: each process sums its own parts, and one
+    exchange hands every process every owner's sum."""
+    sharded = [g for g in leaves if isinstance(g, Sharded) and g.mesh.multi]
+    if not sharded:
+        return {}
+    mesh = sharded[0].mesh
+    home = mesh.home
+    mine = {s: torch.stack([_part_sq(g.parts[s]).to(home) for g in sharded])
+            for s in mesh.local}
+    every = exchange(mesh, range(mesh.size), mine, procs=mesh.processes)
+    return {id(g): {k: every[k][i] for k in g.owners()} for i, g in enumerate(sharded)}
 
 
 def _view_items(tree, path=()):
@@ -139,12 +160,14 @@ def _global_norm(tree):
     """sqrt of the sum of squares: one partial sum a reference leaf (a
     stacked leaf's groups added in order), the leaves added in the
     reference's order."""
+    items = [list(leaf) if isinstance(leaf, _Stacked) else [leaf]
+             for _, leaf in _view_items(_views(tree))]
+    owned = _owned_sums([g for parts in items for g in parts])
     total = 0
-    for _, leaf in _view_items(_views(tree)):
-        parts = list(leaf) if isinstance(leaf, _Stacked) else [leaf]
+    for parts in items:
         s = 0
         for g in parts:
-            s = s + _sq_sum(g)
+            s = s + _sq_sum(g, owned.get(id(g)))
         total = total + s
     return torch.sqrt(total)
 
@@ -199,7 +222,8 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0,
         def upd(p, g, m, v):
             if not isinstance(p, Sharded):
                 return upd_t(p, g, m, v, scale, lr_t, bc1, bc2)
-            for k, pk in enumerate(p.parts):
+            for k in p.mesh.local:  # this process's parts
+                pk = p.parts[k]
                 on = [x.to(pk.device) if torch.is_tensor(x) else x
                       for x in (scale, lr_t, bc1, bc2)]
                 upd_t(pk, g.parts[k], m.parts[k], v.parts[k], *on)

@@ -9,7 +9,8 @@ it to the next step's gradient, which is the standard convergence fix
   * `compressed_psum(grads, residual)` — drop-in for `launch.mesh.psum`
     over one axis group of the port's mesh (each argument a list of the
     shards' gradient trees in rank order; `mesh.over` applies it to every
-    group of an axis).
+    group of an axis, over several processes too: the remote shards'
+    trees are fetched first, so every process gets the same sums).
   * `quantize/dequantize` — used by tests and by the checkpoint codec.
 
 `torch.round` rounds half to even, as `jnp.round` does.

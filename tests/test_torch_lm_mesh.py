@@ -41,6 +41,7 @@ from repro_torch.models import moe as M
 from repro_torch.models.transformer import ShardingPolicy
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 from torch_lm_mesh_ref import CP, F32, GROUPS, MOE, TRAIN, TRAIN_STEPS
+from torch_mp import run_processes
 
 TA = importlib.import_module("repro_torch.optim.adamw")
 
@@ -310,6 +311,17 @@ def _train(ref, name):
     return cfg, specs, state, shapes, metrics
 
 
+_SINGLE = {}
+
+
+def _single(ref, name):
+    """`_train`'s run of `name`, made once a test worker (the gloo test
+    holds the processes' steps to it)."""
+    if name not in _SINGLE:
+        _SINGLE[name] = _train(ref, name)
+    return _SINGLE[name]
+
+
 @pytest.mark.parametrize("name", list(TRAIN))
 def test_sharded_train_steps_match_reference(ref, name):
     """Two `launch.train` steps on (data 2, model 2) from the reference's
@@ -318,7 +330,7 @@ def test_sharded_train_steps_match_reference(ref, name):
     shape the reference's shard shape. granite runs at capacity factor
     1.0 with 2 micro-batches (its drops depend on the accumulation
     order); jamba's optimizer is Adafactor."""
-    cfg, specs, state, shapes, metrics = _train(ref, name)
+    cfg, specs, state, shapes, metrics = _single(ref, name)
     _close(shapes, _tree(ref, f"train.{name}.shards"), f"{name} shard shapes", 0, 0)
     for i, m in enumerate(metrics):
         for k, v in m.items():
@@ -406,3 +418,59 @@ def test_sharded_serving_equals_the_policy_path(cf):
     if cf == 8.0:
         plain, _ = run(cfg, params)
         torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+# --- over several processes ----------------------------------------------------------
+
+
+def test_train_steps_over_gloo_processes(ref, tmp_path):
+    """gemma-2b and granite (capacity factor 1.0, 2 micro-batches) on
+    (data 2, model 2) over 4 gloo processes, one shard a process
+    (`torch_mp_worker.py`): two train steps from the reference's initial
+    state give every process the single controller's losses, metrics and
+    final state bit for bit, and the reference's within
+    `test_sharded_train_steps_match_reference`'s tolerances; gemma's
+    state, saved from the processes, restores in one process bit for
+    bit; `compressed_psum` over the data axis is the single controller's."""
+    names = ("gemma-2b", "granite-moe-3b-a800m")
+    rng = np.random.RandomState(3)
+    grads, resid = (rng.randn(4, 8, 3).astype(np.float32) for _ in range(2))
+    inputs = {"train": {n: (_tree(ref, f"train.{n}.init"),
+                            [{k: ref[f"train.{n}.batch{i}.{k}"] for k in ("tokens", "labels",
+                                                                           "mask")}
+                             for i in range(TRAIN_STEPS)]) for n in names},
+              "compress": (grads, resid)}
+    outs = run_processes(tmp_path, "lm", inputs)
+    assert [o["local"].tolist() for o in outs] == [[0], [1], [2], [3]]
+    for name in names:
+        _, _, state, _, metrics = _single(ref, name)
+        host = convert.train_state_to_numpy(state)
+        want = {"/" + "/".join(k): v for k, v in _flat(host).items()}
+        for r, o in enumerate(outs):
+            for i, m in enumerate(metrics):
+                for k, v in m.items():
+                    got = o[f"{name}.step{i}.{k}"]
+                    np.testing.assert_array_equal(got, np.float32(v),
+                                                  err_msg=f"process {r} {name} step {i} {k}")
+                    np.testing.assert_allclose(got, ref[f"train.{name}.step{i}.{k}"],
+                                               rtol=RTOL, atol=ATOL)
+            for k, v in want.items():
+                np.testing.assert_array_equal(o[f"{name}.final{k}"], v,
+                                              err_msg=f"process {r} {name} {k}")
+        _close(host["params"], _tree(ref, f"train.{name}.final")["params"], f"{name} params",
+               RTOL, PARAM_ATOL.get(name, ATOL))
+        if name == "gemma-2b":
+            from repro_torch.ckpt import checkpoint as tckpt
+
+            back = tckpt.restore(str(tmp_path / "ckpt_lm"), TRAIN_STEPS, like=host)
+            for k, v in _flat(back).items():
+                np.testing.assert_array_equal(v, _flat(host)[k], err_msg=f"restored {k}")
+    from repro_torch.optim import compress as TC
+
+    one = TM.make_host_mesh(data=2, model=2, device="cpu")
+    mean, new_r = TM.over(one, "data", TC.compressed_psum,
+                          {s: {"w": _t(grads[s])} for s in range(4)},
+                          {s: {"w": _t(resid[s])} for s in range(4)})
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o[f"compress.{r}.mean"], mean[r]["w"].numpy())
+        np.testing.assert_array_equal(o[f"compress.{r}.resid"], new_r[r]["w"].numpy())

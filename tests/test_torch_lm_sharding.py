@@ -31,6 +31,7 @@ from repro_torch.launch import mesh as TM
 from repro_torch.launch import sharding as SH
 from repro_torch.models import model as Md
 from repro_torch.optim.adamw import for_config
+from torch_mp import run_processes
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
 
 torch.set_num_threads(2)
@@ -181,6 +182,43 @@ def test_shard_bytes_reckon_the_parts():
                    for q in sh.parts[i + 1:])
 
 
+@pytest.mark.parametrize("name", ["gemma-2b", "whisper-medium"])
+def test_build_draws_the_state_part_by_part(monkeypatch, name):
+    """`launch.train.build` on a mesh draws the params part by part (the
+    embeddings, each stack group, the norms; whisper's encoder stack too),
+    each placed before the next is drawn, and ends with the parts of the
+    whole seed-0 state, bit for bit."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train as TL
+
+    mesh = TM.make_host_mesh(data=2, model=2, device="cpu")
+    cfg = get_reduced(name)
+    calls, original = [], Md.init_params
+
+    def spy(cfg, key=0, device=None, place=None):
+        def traced(k, sub):
+            calls.append(k)
+            return place(k, sub)
+        return original(cfg, key, device, traced if place else None)
+
+    monkeypatch.setattr(Md, "init_params", spy)
+    pcfg, state, _, _ = TL.build(cfg, mesh, device="cpu")
+    whole = original(pcfg, 0, device="cpu").tree()
+    placed = state["params"].tree()
+    stacks = [k for k in whole if k.endswith("stack")]
+    assert sorted(calls) == sorted([k for k in whole if k not in stacks] + [
+        k for k in stacks for _ in whole[k]])
+
+    def keys(tree):  # the tree's structure, keys in their order
+        if isinstance(tree, dict):
+            return [(k, keys(v)) for k, v in tree.items()]
+        return [keys(v) for v in tree] if isinstance(tree, list) else None
+
+    assert keys(placed) == keys(whole)  # the layout and key order of a placed LM
+    for sh, leaf in zip(SH._leaves(placed), SH._leaves(whole)):
+        assert torch.equal(sh.join(), leaf)
+
+
 def test_gather_backward_adds_into_every_part():
     """`Sharded.gather`'s backward hands each part its block of the
     gradient, replicas included, and the gradients of two gathers add up
@@ -244,14 +282,78 @@ def test_cluster_env_matches_reference(env):
         assert TC.host_batch_slice(batch, got) == want_slice
 
 
-def test_init_cluster_is_single_process():
-    """One process: the reference's no-op. Several: the multi-process
-    mesh is ROADMAP A13d."""
+def test_init_cluster_is_single_process(tmp_path):
+    """One process: the reference's no-op. Two processes given a
+    coordinator join one gloo group (`init_cluster(device="cpu")`) and
+    share a mesh's shards, each holding its own, and a psum across them
+    adds in rank order; several with no coordinator raise a clear error."""
     info = TC.init_cluster(TC.ClusterInfo(1, 0, None))
     assert info == TC.ClusterInfo(1, 0, None) and info.is_coordinator
     assert TC.init_cluster() == TC.cluster_env()
-    with pytest.raises(NotImplementedError, match="A13d"):
-        TC.init_cluster(TC.ClusterInfo(4, 1, "host:1"))
+    with pytest.raises(ValueError, match="need a coordinator address"):
+        TC.init_cluster(TC.ClusterInfo(2, 0, None))
+    outs = run_processes(tmp_path, "init", n=2)
+    assert [(int(o["world"]), str(o["backend"]), o["local"].tolist()) for o in outs] == [
+        (2, "gloo", [0, 2]), (2, "gloo", [1, 3])]
+    assert [float(o["psum"]) for o in outs] == [1.0 + 3.0, 2.0 + 4.0]
     mesh = TC.cluster_mesh(device="cpu")
     assert mesh.shape == {"data": 16, "model": 16} and mesh.home == torch.device("cpu")
     assert TC.cluster_mesh(multi_pod=True, device="cpu").shape["pod"] == 2
+
+
+# --- the process layout -----------------------------------------------------------------
+
+OWNERS = {  # (processes, cards a process) -> (process, local card) of shards 0..7
+    (1, 1): [(0, 0)] * 8,
+    (1, 2): [(0, 0), (0, 1)] * 4,
+    (2, 1): [(0, 0), (1, 0)] * 4,
+    (2, 2): [(0, 0), (0, 1), (1, 0), (1, 1)] * 2,
+    (4, 1): [(0, 0), (1, 0), (2, 0), (3, 0)] * 2,
+    (4, 2): [(0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (2, 1), (3, 0), (3, 1)],
+}
+
+
+def _as_process(monkeypatch, world, rank, made=None):
+    """This process seen as `rank` of `world` (no process group is made:
+    the subgroups the mesh asks for are recorded in `made`)."""
+    made = [] if made is None else made
+    monkeypatch.setattr(TM, "process_rank", lambda: (world, rank))
+    monkeypatch.setattr(TM, "_subgroup", made.append)
+
+
+@pytest.mark.parametrize("processes,cards", list(OWNERS))
+def test_shard_owners_and_locality(monkeypatch, processes, cards):
+    """`make_host_mesh`'s placement over processes: the cards numbered
+    process-major, shard s on global card s mod the card count; each
+    process holds (`is_local`, `local`) exactly its own shards, and its
+    home is its first shard's card."""
+    owners = TM.shard_owners(8, processes, cards)
+    assert owners == OWNERS[processes, cards]
+    for rank in range(processes):
+        _as_process(monkeypatch, processes, rank)
+        devices = [f"cuda:{c}" if q == rank else "meta" for q, c in owners]
+        mesh = TM.Mesh({"pod": 2, "data": 2, "model": 2}, devices,
+                       procs=[q for q, _ in owners])
+        mine = [s for s in range(8) if owners[s][0] == rank]
+        assert list(mesh.local) == mine and mesh.multi == (processes > 1)
+        assert [mesh.is_local(s) for s in range(8)] == [s in mine for s in range(8)]
+        assert mesh.home == torch.device("cuda", owners[mine[0]][1])
+        if processes > 1:
+            with pytest.raises(ValueError, match="holds none"):
+                TM.Mesh({"data": 1}, ["meta"], procs=[(rank + 1) % processes])
+
+
+def test_every_rank_builds_the_subgroups_in_one_order(monkeypatch):
+    """`new_group` needs every process to call it, in one order: each rank
+    of 4 asks for the same subgroups (sorted process tuples), in the same
+    order, when it builds a mesh, on (pod 2, data 2, model 2) with two
+    shards a process and on (data 2, model 2) with one."""
+    for shape in ({"data": 2, "model": 2, "pod": 2}, {"data": 2, "model": 2}):
+        made = []
+        for rank in range(4):
+            seen = []
+            _as_process(monkeypatch, 4, rank, seen)
+            TM.make_host_mesh(device="cpu", **shape)
+            made.append(seen)
+        assert all(m == made[0] for m in made) and made[0]
+        assert all(list(p) == sorted(set(p)) and len(p) > 1 for p in made[0])

@@ -383,7 +383,8 @@ def test_the_mesh_half_is_named():
     """The LM mesh (A13c) is here: `build` on a mesh of several devices
     places the state by its specs and steps it; a step built with
     `param_specs` refuses an unsharded state; a one-device mesh keeps the
-    one-device state. Several processes are the next item, A13d."""
+    one-device state. Several processes need a coordinator and a card or
+    the CPU (the processes' steps: `test_torch_lm_mesh.py`)."""
     from repro_torch.launch import cluster, sharding
 
     cfg = dataclasses.replace(get_reduced("gemma-2b"), **F32)
@@ -400,5 +401,7 @@ def test_the_mesh_half_is_named():
     assert torch.isfinite(m["loss"]) and int(state["step"]) == 1
     _, one, _, none = TL.build(cfg, TM.make_host_mesh(device="cpu"), device="cpu")
     assert isinstance(one["params"], Md.LM) and none is None
-    with pytest.raises(NotImplementedError, match="A13d"):
-        cluster.init_cluster(cluster.ClusterInfo(2, 0, "host:1"))
+    with pytest.raises(ValueError, match="need a coordinator address"):
+        cluster.init_cluster(cluster.ClusterInfo(2, 0, None))
+    with pytest.raises(ValueError, match="on a card or on the CPU"):
+        cluster.init_cluster(cluster.ClusterInfo(2, 0, "host:1"), device="meta")

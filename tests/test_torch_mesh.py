@@ -42,8 +42,10 @@ from repro_torch.launch import evolve as tevolve
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.mesh import P
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
-from torch_mesh_data import (HOIST, LAT3, MERGE_KERNELS, MIXES, RATES, TOPOLOGIES, TOURN,
-                             dyadic, hoist_kernel, lattice, merge_inputs, real)
+from torch_mp import run_processes
+from torch_mesh_data import (HOIST, LAT3, MERGE_KERNELS, MIXES, POD_TOPOLOGIES, RATES,
+                             TOPOLOGIES, TOURN, dyadic, hoist_kernel, lattice, merge_inputs,
+                             real)
 
 torch.set_num_threads(2)
 
@@ -103,6 +105,24 @@ _REFERENCE = textwrap.dedent("""
             Xr, yr = real()
             put_state("real", js(init_state(cfg, jax.random.PRNGKey(0)),
                                  *on(mesh, Xr, yr, np.ones(128, np.float32))))
+
+    def pod_session(topo):
+        # (p) (c)'s session on (pod 2, data 2, model 1), whose pods span
+        # processes when 4 processes hold one shard each
+        X, y = lattice(40, 4)
+        hetero = dict(islands=4, island_mixes=tuple(OperatorMix(*m) for m in MIXES),
+                      island_tourn_sizes=TOURN, island_point_rates=RATES)
+        s = GPSession(backend="jnp", pop_size=16, generations=6, migrate_every=2,
+                      migrate_k=1, island_topology=topo,
+                      topology=MeshTopology(data=2, model=1, pod=2), **hetero, **LAT3)
+        s.fit(X, y, key=jax.random.PRNGKey(5))
+        put_session("p_" + topo, s)
+
+    def scen_pods_ring():
+        pod_session("ring")
+
+    def scen_pods_broadcast():
+        pod_session("broadcast-best")
 
     def scen_blocks():
         # (b) 8-step blocks on (data 4, model 2): a limit of 5, then
@@ -218,8 +238,9 @@ _REFERENCE = textwrap.dedent("""
     np.savez(sys.argv[1], **out)
     print("REFERENCE_OK")
 """)
-# scenario groups, one subprocess each, run at once (20-30 s each alone)
-_GROUPS = ("classic", "blocks,torus", "ring,broadcast", "sessions,folds")
+# scenario groups, one subprocess each, run at once (40-50 s each alone)
+_GROUPS = ("classic", "blocks,torus,pods_broadcast", "ring,broadcast,pods_ring",
+           "sessions,folds")
 
 
 def _start_reference(path):
@@ -521,7 +542,8 @@ def hoist():
 def test_merge_lowerings_match_reference(ref, hoist, name):
     """psum (r), the hoisted psum (a kernel registered on both sides with
     y columns and no combine) and the gathered in-order fold (pearson,
-    r2) give the reference's merged moments on every shard."""
+    r2) give the reference's merged moments on every shard, as lists and
+    over a mesh's data groups."""
     kern = tfit.get_kernel(name)
     assert (kern.combine_moments is None, bool(kern.y_moment_idx)) == {
         "r": (True, False), "hoist": (True, True), "pearson": (False, True),
@@ -533,8 +555,12 @@ def test_merge_lowerings_match_reference(ref, hoist, name):
     got = tengine._merge_moments_on_mesh(kern, FitnessSpec(name), parts, ys, ws)
     for i, g in enumerate(got):
         np.testing.assert_array_equal(g.numpy(), ref[f"merge.{name}.out"][i])
-    fitness = tengine._reduce_moments_on_mesh(kern, FitnessSpec(name), parts, ys, ws)
-    assert torch.equal(fitness[3], kern.reduce_moments(got[0], FitnessSpec(name)))
+    # the step's form over a mesh's data groups: each shard's y moments made
+    # where its y lives, the same merged moments on every shard
+    over = tengine._merge_over(_mesh(data=4), kern, FitnessSpec(name), "data",
+                               dict(enumerate(parts)), dict(enumerate(ys)),
+                               dict(enumerate(ws)))
+    assert all(torch.equal(over[s], got[0]) for s in range(4))
 
 
 # --- the classic layout -------------------------------------------------------------
@@ -626,6 +652,18 @@ def test_island_mesh_session_bitwise(ref, topology):
     assert not rows[:, :2].any()  # no cache columns on a mesh
 
 
+@pytest.mark.parametrize("topology", POD_TOPOLOGIES)
+def test_pods_on_one_model_rank(ref, topology):
+    """(p) (c)'s session on (pod 2, data 2, model 1), the layout whose
+    pods span processes in `test_mesh_over_gloo_processes`: state,
+    history and per-island history are the reference's."""
+    X, y = lattice(40, 4)
+    s = GPSession(device="cpu", pop_size=16, generations=6, migrate_every=2, migrate_k=1,
+                  island_topology=topology, topology=MeshTopology(data=2, model=1, pod=2),
+                  **_hetero(), **LAT3)
+    _assert_session(ref, f"p_{topology}", s.fit(X, y, key=prng.PRNGKey(5)))
+
+
 def test_padded_session_with_sample_weight(ref):
     """(d) 126 rows on (data 4, model 2): padded to 128 with zero weight,
     the sample weights multiplied in; n_rows is 126."""
@@ -704,3 +742,57 @@ def test_reshard_onto_another_mesh(ref, tmp_path):
     with pytest.raises(ValueError, match="islands 4 % pod axis 8"):
         reshard_gp_state(back, s.config, _mesh(pod=8), pod_axis="pod")
 
+
+
+# --- over several processes ----------------------------------------------------------
+
+
+def test_mesh_over_gloo_processes(ref, tmp_path):
+    """The mesh over 4 gloo processes (`init_cluster(device="cpu")`;
+    `torch_mp_worker.py`): two shards a process on (pod 2, data 2,
+    model 2), one on (data 2, model 2) and on (pod 2, data 2, model 1),
+    whose pod groups span processes, so that migration crosses them. On
+    every process (a)'s classic steps, (c)'s island sessions (one host
+    read a block), (p)'s sessions and (f)'s postfix sessions with dedup
+    exact at caps 1,400 and 6,301 are the reference's bit for bit; (p)'s
+    classic steps and the postfix history are the in-process single
+    controller's; (c)'s ring state, saved from the processes (process 0
+    writes), restores in one process bit for bit."""
+    outs = run_processes(tmp_path, "gp")
+    assert [o["local"].tolist() for o in outs] == [[0, 4], [1, 5], [2, 6], [3, 7]]
+    pods = _mesh(data=2, model=1, pod=2)
+    assert [o["pods_local"].tolist() for o in outs] == [[0], [1], [2], [3]]
+    owner = [q for q, _ in tmesh.shard_owners(pods.size, 4)]
+    assert [[owner[s] for s in g] for g in pods.groups("pod")] == [[0, 2], [1, 3]]
+    X, y = lattice(40, 4)
+    one = GPSession(device="cpu", pop_size=16, generations=5, genome="postfix",
+                    dedup="exact", dedup_cap=6301, topology=MeshTopology(data=2, model=2),
+                    **LAT3).fit(X, y, key=prng.PRNGKey(8))
+    step, _ = tengine.sharded_evolve_step(_cfg_a(), pods, pod_axis="pod")
+    s = tengine.init_state(_cfg_a(), prng.PRNGKey(0), device="cpu")
+    classic = []
+    for _ in range(6):
+        s = step(s, *_data_a())
+        classic.append(tengine.state_to_numpy(s))
+    for r, o in enumerate(outs):
+        for tag, want in [(f"a{g}", f"a{g}") for g in range(6)] + [
+                (f"c_{t}", f"c_{t}") for t in TOPOLOGIES] + [
+                (f"p_{t}", f"p_{t}") for t in POD_TOPOLOGIES] + [
+                ("f1400", "f"), ("f6301", "f")]:
+            for name in tengine.GPState._fields:
+                np.testing.assert_array_equal(o[f"{tag}.{name}"], ref[f"{want}.{name}"],
+                                              err_msg=f"process {r} {tag}: GPState.{name}")
+            for k in ("history", "island"):
+                if f"{want}.{k}" in ref and not tag.startswith("a"):
+                    np.testing.assert_array_equal(o[f"{tag}.{k}"], ref[f"{want}.{k}"],
+                                                  err_msg=f"process {r} {tag} {k}")
+            if not tag.startswith("a"):
+                assert int(o[f"{tag}.host_syncs"]) == 1, (r, tag)
+        for g, want in enumerate(classic):
+            for name, leaf in want.items():
+                np.testing.assert_array_equal(o[f"p_classic{g}.{name}"], leaf,
+                                              err_msg=f"process {r} p_classic{g}: {name}")
+        np.testing.assert_array_equal(o["f6301.history"], np.asarray(one.history, np.float32))
+    back = tckpt.restore(str(tmp_path / "ckpt_gp"), 1,
+                         like=tengine.init_state(_cfg_a(), prng.PRNGKey(0), device="cpu"))
+    _assert_state(ref, "c_ring", back)

@@ -9,6 +9,9 @@ MIXES = ((0.1, 0.1, 0.1, 0.7), (0.05, 0.05, 0.05, 0.85), (0.1, 0.3, 0.3, 0.3),
 TOURN = (4, 10, 7, 3)
 RATES = (0.1, 0.25, 0.5, 0.3)
 TOPOLOGIES = ("ring", "torus", "broadcast-best")
+# the island sessions of (pod 2, data 2, model 1), whose pods span
+# processes: the pod ring's ppermute (ring) and the champion's all_gather
+POD_TOPOLOGIES = ("ring", "broadcast-best")
 MERGE_KERNELS = ("r", "hoist", "pearson", "r2")
 LAT3 = dict(kernel="r", max_depth=3, p_const=0.0, fn_set="add,sub,mul")
 
