@@ -114,7 +114,7 @@ Phases:
      (within rtol 1e-5 on kepler under mse, bitwise on an integer
      lattice); one JSON line of the phase's figures
   9. the multi-tenant service (`repro_torch.service.GPService` on the
-     card): serve_gp's synthetic stream of 64 jobs (24-96 rows, 3
+     card): serve_gp's synthetic stream of 48 jobs (24-96 rows, 3
      features, kernels r/mse/pearson, 10-39 generations) through 64
      slots of 64 depth-5 trees in blocks of 8 generations: every job
      done, one tenant block built, B1 launched exactly slots x 8 x blocks
@@ -134,10 +134,10 @@ Phases:
   10. the mesh (`GPSession(topology=MeshTopology(...))`, one process; its
      shard -> device placement printed: 8 shards share one card, and take
      one card each where there are more): (a) kat7 4 x 200 islands with
-     phase 7's options on (pod 2, data 2, model 2), 20 generations, B1
+     phase 7's options on (pod 2, data 2, model 2), 10 generations, B1
      exactly 8 launches a generation (one a shard) and no other kernel,
-     one block under torch.cuda.set_sync_debug_mode("error"), the first 2
-     generations' history and per-island history bitwise the same mesh's
+     one block under torch.cuda.set_sync_debug_mode("error"), the first
+     generation's history and per-island history bitwise the same mesh's
      on the CPU, wall ms a generation and peak memory, and one profiled
      generation (CUDA launches, device busy time, idle share) beside the
      single-device 4 x 200 session's; (b) the classic layout, kat7 pop 100
@@ -165,7 +165,7 @@ Phases:
      whisper-medium at their published widths and depths in f32:
      teacher-forced decode logits == the forward pass's within 2e-3 (B 1,
      12 tokens, a prefix of 4); (c) the same four in bf16: B 8, a
-     1,024-token prompt (whisper: stub frames [8, 1500, 1024]), 32 greedy
+     1,024-token prompt (whisper: stub frames [8, 1500, 1024]), 16 greedy
      tokens, twice with the tokens bitwise equal; prefill ms, decode ms a
      token (median of the warm steps' CUDA events), tokens/s, peak MB,
      the bound (bf16 weights + the cache over 3.35 TB/s), and one profiled
@@ -182,7 +182,7 @@ Phases:
      update), the MoE routing equal; (b) gemma-2b, mamba2-370m and
      whisper-medium at B 4 x S 1,024 and granite-moe-3b-a800m at B 8 x S
      512 in its 4 micro-batches, bf16 at full width with the published
-     optimizer: one warm and 2 timed steps (granite 1; CUDA events), tokens/s, peak
+     optimizer: one warm and one timed step (CUDA events), tokens/s, peak
      MB beside the memory reckoning, one profiled step (CUDA launches,
      device busy, idle share) beside the bound, one step under
      set_sync_debug_mode("error"); (c) two runs of reduced granite and of
@@ -219,7 +219,7 @@ Phases:
      from multiprocessing's spawn, each given COORDINATOR_ADDRESS,
      NUM_PROCESSES and PROCESS_ID (on one card W = 1, a group of one:
      the line says `"multi_rank": false` and why); (a) phase 10 (a)'s
-     islands, 20 generations: every process's history and per-island
+     islands, 10 generations: every process's history and per-island
      history bit for bit phase 10 (a)'s, B1 exactly once a local shard a
      generation and no other kernel, one block under
      set_sync_debug_mode("error"), wall ms a generation, each process's
@@ -231,7 +231,27 @@ Phases:
      phase 13 (b)'s, step ms (CUDA events), tokens/s, each card's peak MB,
      one profiled step on process 0; (d) reduced gemma-2b's state after 2
      steps saved from the processes (process 0 writes) and restored here
-     bit for bit every process's. A process that fails fails the phase
+     bit for bit every process's; (e) granite-moe-3b-a800m's sharded
+     serve of phase 13 (c) (full width, bf16, capacity factor 8, B 8, a
+     512-token prompt, 16 greedy tokens, one shard a process): every
+     process's tokens and last logits bit for bit phase 13 (c)'s, prefill
+     ms, decode ms a token, tokens/s, each card's peak MB, the bytes a
+     process sent and received in a decode step (the cache rows'
+     reckoned), CUDA launches and idle share of one profiled decode step
+     on process 0; (f) granite's train step of phase 12 (b) (B 8 x S 512
+     in 4 micro-batches, AdamW) on (data 2, model 2): every process's
+     losses the same, the first bit for bit the same step in the parent
+     process (phase 12 (b)'s one-device loss beside it),
+     every expert FFN on E_loc = 20 experts, step ms, tokens/s, peak MB,
+     one profiled step on process 0 where W > 1, one device's figures
+     beside; (g)
+     reduced granite in f32 (capacity factor 1.0, 2 micro-batches): 2
+     train steps, prefill and 3 decode steps, every process's metrics,
+     state digests and logits bit for bit the same run in this process;
+     (h) `cp_decode_attention` at phase 13 (d)'s dims and cur_lens on
+     data W: against `attn_decode` (out 2e-5, cache 1e-6), bit for bit
+     the same calls in this process, the bytes a process sent in one
+     layer (the partials' only). A process that fails fails the phase
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -311,7 +331,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
+def device_ms(fn, calls: int = 10, windows: int = 3) -> dict:
     """The device's own time per call of `fn`, from torch.profiler over
     `calls` warm calls: the mean device time of the recorded kernels (the
     tracer may drop a few) times the CUDA launches per call that the host
@@ -2048,12 +2068,12 @@ def _service_block_probe(svc, extra):
 
 
 def _service_scale():
-    """(a) serve_gp's synthetic stream of 64 jobs through 64 slots of 64
+    """(a) serve_gp's synthetic stream of 48 jobs through 64 slots of 64
     depth-5 trees (4,096 trees a block generation) on the card."""
     from repro_torch.launch.serve_gp import synthetic_stream
     from repro_torch.service import DONE, GPService
 
-    jobs = synthetic_stream(64, seed=0)
+    jobs = synthetic_stream(48, seed=0)
     svc = GPService(slots=SVC_SLOTS, pop_size=SVC_POP, max_depth=5, n_features=3,
                     data_cap=SVC_CAP, block_size=SVC_BLOCK)
     assert svc.backend == "cuda", svc.backend
@@ -2328,11 +2348,11 @@ def _profiled_generation(sess):
                 wall_ms=wall * 1e3, device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3))
 
 
-def _mesh_islands(gens=20):
+def _mesh_islands(gens=10):
     """(a) kat7 4 x 200 islands (phase 7's options) on (pod 2, data 2,
     model 2): B1 exactly 8 launches a generation (one a shard) and no other
-    kernel, one block under set_sync_debug_mode("error"), the first 2
-    generations card == CPU bitwise; a profiled generation beside the
+    kernel, one block under set_sync_debug_mode("error"), the first
+    generation card == CPU bitwise; a profiled generation beside the
     single-device 4 x 200 session's."""
     top = MeshTopology(**MESH3)
     sess = GPSession.from_dataset("kat7", topology=top, **_island_kw())
@@ -2352,7 +2372,7 @@ def _mesh_islands(gens=20):
                peak_memory_bytes=peak, host_syncs=sess.stats["host_syncs"],
                history=sess.history, island_best=isl[-1].tolist(),
                island_history=isl.tolist(),
-               cpu_bitwise_generations=_vs_cpu(sess, 2, "islands", topology=top,
+               cpu_bitwise_generations=_vs_cpu(sess, 1, "islands", topology=top,
                                                **_island_kw()))
     saved = engine.GPState(*(t.clone() for t in sess.state))
     torch.cuda.synchronize()
@@ -2373,7 +2393,7 @@ def _mesh_islands(gens=20):
 def _mesh_classic(gens=10):
     """(b) the classic layout, kat7 pop 100 on (pod 2, data 2, model 2):
     B1 8 launches a generation, the pod ring's migrations in the counter
-    rows, the first 3 generations card == CPU bitwise."""
+    rows, the first 2 generations card == CPU bitwise."""
     top = MeshTopology(**MESH3)
     sess = GPSession.from_dataset("kat7", pop_size=100, topology=top)
     wall, _, launches = _mesh_run(sess, gens, {"eval_fitness": 8 * gens}, "classic")
@@ -2381,7 +2401,7 @@ def _mesh_classic(gens=10):
     if not np.array_equal(rows[:, counters.MIGRATIONS], [(g % 10 == 9) * 2 for g in range(gens)]):
         raise AssertionError(f"mesh classic: counter rows {rows.tolist()}")
     return dict(generations=gens, launches=launches, wall_s=wall, history=sess.history,
-                cpu_bitwise_generations=_vs_cpu(sess, 3, "classic", pop_size=100,
+                cpu_bitwise_generations=_vs_cpu(sess, 2, "classic", pop_size=100,
                                                 topology=top))
 
 
@@ -2713,7 +2733,7 @@ def _lm_bound_ms(cfg, served, cache):
     return (weights + cache_bytes) / HBM_BYTES_PER_S * 1e3, weights, cache_bytes
 
 
-def _lm_serve_timed(name, B=8, P=1024, tokens=32):
+def _lm_serve_timed(name, B=8, P=1024, tokens=16):
     """(c) a bf16 serve at full width: prefill of B x P tokens, then
     `tokens` greedy tokens with the position and the token on the card,
     twice (the tokens bitwise equal); the second run timed (prefill by
@@ -2833,8 +2853,6 @@ def lm_paths():
 # (config, B, S): lm_batches' traffic; granite in its published 4 micro-batches
 LM_TRAIN_FULL = (("gemma-2b", 4, 1024), ("mamba2-370m", 4, 1024),
                  ("whisper-medium", 4, 1024), ("granite-moe-3b-a800m", 8, 512))
-# granite's step is its 4 micro-batches: one timed step (the others two)
-TRAIN_TIMED_STEPS = {"granite-moe-3b-a800m": 1}
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # card == CPU in f32 (tests/test_torch_lm_train.py)
 # jamba's gradients: 8 layers of SSD and MoE at capacity factor 1.0 (grad norm
 # 27, the others' <= 8) carry f32 sum-order differences further: measured
@@ -3009,7 +3027,7 @@ def _train_losses(cfg, B, S, n):
     return losses
 
 
-def _train_timed(name, B, S, steps=2):
+def _train_timed(name, B, S, steps=1):
     """(b) a bf16 train step at full width (the published optimizer and
     accum_steps): one warm step, `steps` timed by CUDA events (the
     median), then one under torch.profiler (CUDA launches, device busy,
@@ -3180,8 +3198,7 @@ def lm_train_paths():
     gemma_losses = None
     for name, B, S in LM_TRAIN_FULL:
         t0 = time.perf_counter()
-        runs[f"train_{name}"], losses = _train_timed(name, B, S,
-                                                     TRAIN_TIMED_STEPS.get(name, 2))
+        runs[f"train_{name}"], losses = _train_timed(name, B, S)
         if name == "gemma-2b":
             gemma_losses = losses
         emit("lm_train", run="train_bf16", arch=name, nvidia_smi=card,
@@ -3205,7 +3222,7 @@ MESH_CF1 = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
 # (c): the sharded serve against one device's in f32, phase 11 (b)'s bound at
 # full width (decode == forward)
 MESH_SERVE_F32_ATOL = 2e-3
-F32_STEPS = 4  # (c)'s f32 comparison: prefill and 4 decode steps
+F32_STEPS = 2  # (c)'s f32 comparison: prefill and 2 decode steps
 
 
 def _lm_mesh_host_state(cfg):
@@ -3494,13 +3511,27 @@ def _lm_mesh_serve(B=8, P=512, tokens=16):
                bf16_logit_scale=float(want.abs().max()),
                bf16_greedy_tokens_as_single_device=same_tokens,
                serve_s=second_s, first_serve_s=first_s, single_device_serve_s=single_s,
-               first_tokens=toks[0, :8].tolist())
+               first_tokens=toks[0, :8].tolist(), tokens_all=toks.tolist(),
+               last_logits_sha256=_sha(got[:, -1]))
     del params, sharded, got, want, got32, want32
     torch.cuda.empty_cache()
     return out
 
 
-def _lm_mesh_cp_decode(S=32_768, cur_lens=(0, 7, 16_383, 16_384, 32_767)):
+def _sha(t) -> str:
+    """sha256 of a tensor's dtype, shape and bytes (a bitwise comparison
+    across processes through JSON)."""
+    import hashlib
+
+    a = t.detach().contiguous().cpu()
+    head = f"{a.dtype}{tuple(a.shape)}".encode()
+    return hashlib.sha256(head + a.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+CP_LENS = (0, 7, 16_383, 16_384, 32_767)
+
+
+def _lm_mesh_cp_decode(S=32_768, cur_lens=CP_LENS):
     """(d) cp_decode_attention at gemma-2b's attention dims (d 2,048, 8
     heads, kv 1, d_head 256) in f32, B 1, a 32,768-token cache on data 8,
     the cache rolled forward through `cur_lens`: against attn_decode on
@@ -3569,7 +3600,7 @@ def lm_mesh_paths(single):
 
 # --- phase 14: the mesh over processes -----------------------------------------------
 
-MP_GENS = 20  # (a): phase 10 (a)'s generations
+MP_GENS = 10  # (a): phase 10 (a)'s generations
 MP_POSTFIX_GENS = 5  # (b)
 MP_TIMEOUT_S = 600
 
@@ -3697,6 +3728,277 @@ def _mp_tree_of(paths):
     return tree
 
 
+class _Moved:
+    """The bytes this process's `torch.distributed` collectives sent and
+    received while the block runs (the module's functions wrapped; a
+    collective's own part of its output is not counted as received)."""
+
+    NAMES = ("all_gather", "all_gather_into_tensor", "all_to_all_single", "all_reduce",
+             "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.sent = self.received = self.calls = 0
+        self.originals = {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self.originals.items():
+            setattr(dist, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        import torch.distributed as dist
+
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        def wrapped(*a, **k):
+            group = k.get("group")
+            n = dist.get_world_size(group)
+            me = dist.get_rank(group)
+            self.calls += 1
+            if name == "all_gather":
+                self.sent += nbytes(a[1])
+                self.received += sum(nbytes(o) for o in a[0]) - nbytes(a[1])
+            elif name == "all_gather_into_tensor":
+                self.sent += nbytes(a[1])
+                self.received += nbytes(a[0]) - nbytes(a[1])
+            elif name == "all_to_all_single":
+                out_sizes = a[2] if len(a) > 2 else k.get("output_split_sizes")
+                own = (out_sizes[me] if out_sizes else a[0].numel() // n) * a[0].element_size()
+                self.sent += nbytes(a[1]) - own
+                self.received += nbytes(a[0]) - own
+            else:
+                self.sent += nbytes(a[0]) * (n > 1)
+                self.received += nbytes(a[0]) * (n > 1)
+            return fn(*a, **k)
+
+        return wrapped
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self.originals.items():
+            setattr(dist, name, fn)
+
+
+def _mp_serve(profile, B=8, P=512, tokens=16):
+    """(e) phase 13 (c)'s serve over the processes: granite-moe-3b-a800m at
+    full width, bf16, capacity factor 8, its seed-0 weights placed on
+    (data 2, model 2) (this process's parts only), B 8, a 512-token prompt
+    and 16 greedy tokens; prefill and decode timed by CUDA events, then one
+    more decode step (profiled on process 0) with the bytes its
+    collectives moved. Returns the figures with the tokens and the last
+    logits' digest."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    cfg = dataclasses.replace(lm_configs.get_config("granite-moe-3b-a800m"),
+                              moe_capacity_factor=8.0)
+    mesh = lm_mesh.make_host_mesh(**LM_MESH)
+    pcfg = cfg.with_policy(lm_SH.policy_for(mesh))
+    params = lm_model.init_params(cfg, 0, device=mesh.home)
+    sharded = lm_SH.ShardedLM.place(pcfg, mesh, params, lm_SH.param_specs(
+        pcfg, lm_SH.ref_layout(params.tree()), mesh))
+    del params
+    torch.cuda.empty_cache()
+    batch = _lm_inputs(cfg, B, P, mesh.home)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, cache = lm_model.prefill(pcfg, sharded, batch, max_len=P + tokens + 1)
+    ev[1].record()
+    cur = torch.tensor(P, dtype=torch.int32, device=mesh.home)
+    toks = []
+    for _ in range(tokens):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        logits, cache = lm_model.decode_step(pcfg, sharded, cache, tok, cur)
+        cur = cur + 1
+    ev[2].record()
+    torch.cuda.synchronize()
+    last = _sha(logits[:, -1])
+    prefill_ms, decode_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / tokens
+    tok = logits.argmax(-1).to(torch.int32)
+    # the cache rows a step fetches: each local part's rows from every
+    # other process of its model group (reckoned from the layout)
+    groups = {s: next(g for g in mesh.groups("model") if s in g) for s in mesh.local}
+    cache_rx = sum(sh.parts[s].numel() * sh.parts[s].element_size()
+                   * sum(not mesh.is_local(m) for m in groups[s])
+                   for c in cache._tree.values() for sh in c.values() for s in mesh.local)
+    with _Moved() as moved:
+        if profile:
+            with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                lm_model.decode_step(pcfg, sharded, cache, tok, cur)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        else:
+            lm_model.decode_step(pcfg, sharded, cache, tok, cur)
+            torch.cuda.synchronize()
+    out = dict(local_shards=list(mesh.local), batch=B, prompt=P, tokens=tokens,
+               tokens_all=torch.cat(toks, 1).tolist(), last_logits_sha256=last,
+               prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               tokens_per_s=B / decode_ms * 1e3,
+               peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+               decode_step_bytes_received=moved.received, decode_step_bytes_sent=moved.sent,
+               decode_step_cache_bytes_received=cache_rx,
+               decode_step_collectives=moved.calls)
+    if profile:
+        launches, busy, n_dev, _ = _raw_trace(prof)
+        out.update(cuda_launches_per_decode_step=launches, device_busy_ms=busy,
+                   profiled_decode_step_ms=wall * 1e3, idle_share=1 - busy / (wall * 1e3))
+    del sharded, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_train_granite(profile, third=True, B=8, S=512):
+    """(f) phase 12 (b)'s granite step over the processes: granite-moe-3b-a800m
+    at full width, bf16, B 8 x S 512 in its 4 micro-batches, AdamW, on
+    (data 2, model 2) from the seed-0 state (`launch.train.build`) and
+    phase 12 (b)'s batches: one warm step, one timed by CUDA events, and
+    with `third` a third (under torch.profiler with `profile`, on one
+    process); each expert FFN call's buffer and weight shapes."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    cfg = lm_configs.get_config("granite-moe-3b-a800m")
+    mesh = lm_mesh.make_host_mesh(**LM_MESH)
+    _, state, step, _ = lm_train.build(cfg, mesh)
+    batches = _train_batches(cfg, B, S, mesh.home, 3)
+    shapes, ffn = set(), lm_moe._expert_ffn
+
+    def recording(buf, w_up, w_gate, w_down, act):
+        shapes.add((tuple(buf.shape), tuple(w_up.shape)))
+        return ffn(buf, w_up, w_gate, w_down, act)
+
+    lm_moe._expert_ffn = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        state, m = step(state, batches[0])
+        losses.append(m["loss"].item())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, m = step(state, batches[1])
+        ev[1].record()
+        losses.append(m["loss"].item())
+        step_ms = ev[0].elapsed_time(ev[1])
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        out = dict(local_shards=list(mesh.local), batch=B, seq=S,
+                   accum_steps=cfg.accum_steps, step_ms=step_ms,
+                   tokens_per_s=B * S / step_ms * 1e3, peak_mb=peak_mb)
+        torch.cuda.synchronize()
+        if profile:
+            with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, m = step(state, batches[2])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches, busy, n_dev, _ = _raw_trace(prof)
+            del prof
+            out.update(cuda_launches_per_step=launches, device_events_per_step=n_dev,
+                       profiled_step_ms=wall * 1e3, device_busy_ms=busy,
+                       idle_share=1 - busy / (wall * 1e3))
+        if third:
+            if not profile:  # the processes take every step together
+                state, m = step(state, batches[2])
+            losses.append(m["loss"].item())
+    finally:
+        lm_moe._expert_ffn = ffn
+    out.update(losses=losses, expert_ffn_shapes=sorted(shapes))
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_granite_first(B=8, S=512):
+    """(f)'s first step in this one process, on the same mesh and from the
+    same state and batch: the single controller's loss, which every
+    process's first loss equals bit for bit. (One device's loss, phase 12
+    (b), is another function: its dispatch's capacity and aux statistics
+    span the micro-batch's tokens, a shard's only its own.)"""
+    cfg = lm_configs.get_config("granite-moe-3b-a800m")
+    mesh = lm_mesh.make_host_mesh(**LM_MESH)
+    _, state, step, _ = lm_train.build(cfg, mesh)
+    _, m = step(state, _train_batches(cfg, B, S, mesh.home, 1)[0])
+    loss = m["loss"].item()
+    del state, step, m
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _mp_bits(steps=2, decode=3):
+    """(g) reduced granite in f32, capacity factor 1.0, 2 micro-batches:
+    `steps` train steps on (data 2, model 2) from seed 0, then prefill and
+    `decode` greedy steps with the trained params -> (each step's metrics,
+    the state's leaf digests, the logits' digests), for the processes and
+    for the single controller in this process alike."""
+    cfg = dataclasses.replace(lm_configs.get_reduced("granite-moe-3b-a800m"),
+                              compute_dtype="float32", cache_dtype="float32",
+                              moe_capacity_factor=1.0, accum_steps=2)
+    mesh = lm_mesh.make_host_mesh(**LM_MESH)
+    pcfg, state, step, _ = lm_train.build(cfg, mesh)
+    metrics = []
+    for b in _train_batches(cfg, 4, 32, mesh.home, steps):
+        state, m = step(state, b)
+        metrics.append({k: v.item() for k, v in m.items()})
+    digests = _mp_digests(lm_convert.train_state_to_numpy(state))
+    params = state["params"]
+    logits, cache = lm_model.prefill(pcfg, params, _lm_inputs(cfg, 4, 8, mesh.home),
+                                     max_len=8 + decode)
+    seen = [_sha(logits)]
+    for t in range(decode):
+        logits, cache = lm_model.decode_step(pcfg, params, cache, logits.argmax(-1), 8 + t)
+        seen.append(_sha(logits))
+    return dict(metrics=metrics, state=digests, logits=seen)
+
+
+def _mp_cp_decode(world, S=32_768, cur_lens=CP_LENS):
+    """(h) phase 13 (d)'s `cp_decode_attention` on data `world` (over the
+    processes one slice a process, or in one process): gemma-2b's
+    attention dims in f32, B 1, a 32,768-token cache rolled forward
+    through `cur_lens`, each output against `attn_decode` at 2e-5 and this
+    process's cache slices at 1e-6 (the reference cache rolled forward by
+    `attn_decode`); the outputs' and slices' digests and the bytes this
+    process sent in one layer."""
+    from repro_torch.models.layers import AttnDims, attn_decode, attn_init
+
+    mesh = lm_mesh.make_host_mesh(data=world, model=1)
+    dev = mesh.home
+    dims = AttnDims(d_model=2048, n_heads=8, n_kv=1, d_head=256)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = attn_init(gen, dims, torch.float32, dev)
+    ck = torch.randn((1, S, 1, 256), generator=gen, device=dev) * 0.3
+    cv = torch.randn((1, S, 1, 256), generator=gen, device=dev) * 0.3
+    ref_k, ref_v, n = ck.clone(), cv.clone(), S // world
+    outs, errs, moved = [], [], None
+    for i, cur_len in enumerate(cur_lens):
+        x = torch.randn((1, 1, 2048), generator=gen, device=dev) * 0.3
+        want, ref_k, ref_v = attn_decode(p, x, ref_k, ref_v, cur_len, dims)
+        pos = torch.tensor(cur_len, device=dev)
+        if i == 0:
+            with _Moved() as moved:
+                o, ck, cv = lm_serving.cp_decode_attention(p, x, ck, cv, pos, dims, mesh)
+        else:
+            o, ck, cv = lm_serving.cp_decode_attention(p, x, ck, cv, pos, dims, mesh)
+        torch.testing.assert_close(o, want, rtol=2e-5, atol=2e-5,
+                                   msg=lambda m: f"mp cp decode out cur_len {cur_len}: {m}")
+        errs.append(float((o - want).abs().max()))
+        outs.append(_sha(o))
+    slices = {}
+    for s in mesh.local:
+        for tag, got, ref in (("k", ck, ref_k), ("v", cv, ref_v)):
+            part = got.parts[s] if isinstance(got, lm_mesh.Sharded) else got[:, s * n:(s + 1) * n]
+            torch.testing.assert_close(part, ref[:, s * n:(s + 1) * n], rtol=1e-6, atol=1e-6,
+                                       msg=lambda m: f"mp cp decode cache {tag} slice {s}: {m}")
+            slices[f"{tag}{s}"] = _sha(part)
+    return dict(shards=world, cache=S, cur_lens=list(cur_lens), out=outs, out_max_abs_err=errs,
+                slices=slices, layer_bytes_sent=moved.sent if mesh.multi else 0,
+                partial_bytes=(8 * 256 + 2 * 8) * 4,
+                cache_slice_bytes=2 * n * 256 * 4)
+
+
 def _mp_child(rank, world, addr, outdir):
     """One process of phase 14: the launch environment a user sets, then
     `init_cluster()` (NCCL, its card cuda:{rank mod cards}), the kernels'
@@ -3722,6 +4024,14 @@ def _mp_child(rank, world, addr, outdir):
     lm_ckpt.save(host, os.path.join(outdir, "ckpt"), 2)
     out["checkpoint"] = _mp_digests(host)
     out["run_s"] = time.perf_counter() - t0
+    out["serve"] = _mp_serve(profile=rank == 0)
+    # on one card (W = 1) the step is the single controller's, whose
+    # profile and trace cost more than the rest of (f): runs with W > 1
+    # profile it
+    out["granite"] = _mp_train_granite(profile=rank == 0 and world > 1, third=world > 1)
+    out["bits"] = _mp_bits()
+    out["cp"] = _mp_cp_decode(world)
+    out["run_efgh_s"] = time.perf_counter() - t0 - out["run_s"]
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     cluster.close_cluster()
@@ -3760,7 +4070,7 @@ def _mp_spawn(world, outdir):
     return out
 
 
-def mp_paths(islands, gemma):
+def mp_paths(islands, gemma, serve, granite):
     """Phase 14: the mesh over processes, one a card (W = the smaller of 4
     and the card count): (a) phase 10 (a)'s session on every process, the
     history and per-island history bit for bit `islands`' (phase 10 (a),
@@ -3770,8 +4080,17 @@ def mp_paths(islands, gemma):
     state and batches in one process); (d) reduced gemma-2b's state after
     2 steps, saved from the processes (process 0 writes) and restored here
     bit for bit every process's, and every process's the same 2 steps'
-    in this one process (each leaf's digest). -> {run: figures} (launches
-    from process 0)."""
+    in this one process (each leaf's digest); (e) granite's sharded serve,
+    every process's greedy tokens and last logits bit for bit `serve`'s
+    (phase 13 (c), one process); (f) granite's train step, every
+    process's losses the same and the first bit for bit the same step in
+    this one process (`granite`'s, phase 12 (b) on one device, beside it),
+    every expert FFN on E_loc experts; (g)
+    reduced granite's train steps, prefill and decode steps, every
+    process's metrics and digests bit for bit the same run in this one
+    process; (h) `cp_decode_attention` on data W against `attn_decode` and
+    bit for bit the same calls in this one process, only the partials
+    sent. -> {run: figures} (launches from process 0)."""
     import gc
 
     from repro_torch.ckpt import checkpoint as lm_ckpt
@@ -3823,6 +4142,41 @@ def mp_paths(islands, gemma):
             bad = sorted(k for k in here if ranks[0]["checkpoint"].get(k) != here[k])
             raise AssertionError(f"mp checkpoint: the processes' state differs from the "
                                  f"same steps in one process at {bad[:5]}")
+        e_loc = -(-40 // LM_MESH["model"])  # granite's 40 experts over the model axis
+        t1 = time.perf_counter()
+        first = _mp_granite_first()  # the single controller, this process
+        for r in ranks:
+            e, f = r["serve"], r["granite"]
+            if (e["tokens_all"] != serve["tokens_all"]
+                    or e["last_logits_sha256"] != serve["last_logits_sha256"]):
+                raise AssertionError(f"mp serve, process {r['rank']}: tokens "
+                                     f"{e['tokens_all'][0][:8]} vs one process's "
+                                     f"{serve['tokens_all'][0][:8]}, or the last logits differ")
+            if not (f["losses"][0] == first and all(math.isfinite(x) for x in f["losses"])
+                    and f["losses"] == ranks[0]["granite"]["losses"]):
+                raise AssertionError(f"mp granite train, process {r['rank']}: losses "
+                                     f"{f['losses']} vs one process's first {first}")
+            if any(b[0] != e_loc or w[0] != e_loc for b, w in f["expert_ffn_shapes"]):
+                raise AssertionError(f"mp granite train, process {r['rank']}: expert FFN "
+                                     f"shapes {f['expert_ffn_shapes']}, not {e_loc} experts")
+        bits = _mp_bits()  # the single controller, this process
+        for r in ranks:
+            if r["bits"] != bits:
+                bad = [k for k in ("metrics", "logits") if r["bits"][k] != bits[k]] + sorted(
+                    k for k in bits["state"] if r["bits"]["state"].get(k) != bits["state"][k])
+                raise AssertionError(f"mp bits, process {r['rank']}: differs from one "
+                                     f"process at {bad[:5]}")
+        cp = _mp_cp_decode(world)  # the same calls in this one process
+        for r in ranks:
+            c = r["cp"]
+            if c["out"] != cp["out"] or any(v != cp["slices"][k] for k, v in c["slices"].items()):
+                raise AssertionError(f"mp cp decode, process {r['rank']}: differs from the "
+                                     f"same calls in one process")
+            if world > 1 and c["layer_bytes_sent"] != c["partial_bytes"]:
+                raise AssertionError(f"mp cp decode, process {r['rank']}: sent "
+                                     f"{c['layer_bytes_sent']} B in a layer, not the "
+                                     f"partials' {c['partial_bytes']}")
+        here_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     t = [r["train"] for r in ranks]
@@ -3847,8 +4201,53 @@ def mp_paths(islands, gemma):
                                  "profiled_step_ms", "device_busy_ms", "idle_share")},
          single_process_step_ms=gemma["step_ms"], single_process_peak_mb=gemma["peak_mb"])
     emit("mp", run="checkpoint", nvidia_smi=card, **multi, restored_bitwise=True,
-         one_process_bitwise=True,
-         spawn_s=spawn_s, child_run_s=[r["run_s"] for r in ranks],
+         one_process_bitwise=True, spawn_s=spawn_s, child_run_s=[r["run_s"] for r in ranks])
+    e = [r["serve"] for r in ranks]
+    emit("mp", run="serve_bf16", arch="granite-moe-3b-a800m", nvidia_smi=card, **multi,
+         batch=e[0]["batch"], prompt=e[0]["prompt"], tokens=e[0]["tokens"],
+         tokens_bitwise_phase13=True, last_logits_bitwise_phase13=True,
+         first_tokens=e[0]["tokens_all"][0][:8],
+         prefill_ms=[x["prefill_ms"] for x in e],
+         decode_ms_per_token=[x["decode_ms_per_token"] for x in e],
+         tokens_per_s=e[0]["tokens_per_s"], peak_mb=[x["peak_mb"] for x in e],
+         decode_step_bytes_received=[x["decode_step_bytes_received"] for x in e],
+         decode_step_bytes_sent=[x["decode_step_bytes_sent"] for x in e],
+         decode_step_cache_bytes_received=[x["decode_step_cache_bytes_received"] for x in e],
+         decode_step_collectives=[x["decode_step_collectives"] for x in e],
+         **{k: e[0][k] for k in ("cuda_launches_per_decode_step", "profiled_decode_step_ms",
+                                 "device_busy_ms", "idle_share")},
+         single_process_serve_s=serve["serve_s"])
+    f = [r["granite"] for r in ranks]
+    emit("mp", run="train_granite_bf16", arch="granite-moe-3b-a800m", nvidia_smi=card,
+         **multi, batch=f[0]["batch"], seq=f[0]["seq"], accum_steps=f[0]["accum_steps"],
+         losses=f[0]["losses"], first_loss_bitwise_one_process=True,
+         single_device_loss_abs_diff=abs(f[0]["losses"][0] - granite["losses"][0]),
+         single_device_note=("one device's step is another function: its MoE dispatch "
+                             "takes capacity and aux statistics over the micro-batch's "
+                             "tokens, a shard over its own"),
+         step_ms=[x["step_ms"] for x in f],
+         tokens_per_s=f[0]["tokens_per_s"], peak_mb=[x["peak_mb"] for x in f],
+         expert_ffn_shapes=[x["expert_ffn_shapes"] for x in f], experts_per_process=e_loc,
+         **{k: f[0].get(k) for k in ("cuda_launches_per_step", "device_events_per_step",
+                                     "profiled_step_ms", "device_busy_ms", "idle_share")},
+         profiled=("process 0's third step" if world > 1 else
+                   "not profiled on one card: the step is the single controller's"),
+         single_device_first_loss=granite["losses"][0],
+         single_device_step_ms=granite["step_ms"],
+         single_device_tokens_per_s=granite["tokens_per_s"],
+         single_device_peak_mb=granite["peak_mb"],
+         single_device_cuda_launches=granite["cuda_launches_per_step"],
+         single_device_idle_share=granite["idle_share"],
+         single_device_expert_buffer="moe_apply: [40, C, 1536], all 40 experts")
+    emit("mp", run="bits_granite_f32", nvidia_smi=card, **multi,
+         metrics=ranks[0]["bits"]["metrics"], state_leaves=len(bits["state"]),
+         logits_steps=len(bits["logits"]), bitwise_one_process=True)
+    c = [r["cp"] for r in ranks]
+    emit("mp", run="cp_decode", nvidia_smi=card, **multi, shards=world, cache=cp["cache"],
+         cur_lens=cp["cur_lens"], out_max_abs_err=[x["out_max_abs_err"] for x in c],
+         bitwise_one_process=True, layer_bytes_sent=[x["layer_bytes_sent"] for x in c],
+         partial_bytes=cp["partial_bytes"], cache_slice_bytes=cp["cache_slice_bytes"],
+         child_run_efgh_s=[r["run_efgh_s"] for r in ranks], parent_check_s=here_s,
          phase_s=time.perf_counter() - t_phase)
     return {"islands": ranks[0]["islands"], "postfix": ranks[0]["postfix"]}
 
@@ -4056,7 +4455,8 @@ def main():
     lap("12 lm train")
     lm_mesh_runs = lm_mesh_paths(lm_train_runs["train_gemma-2b"])
     lap("13 lm mesh")
-    mp_runs = mp_paths(mesh_runs["islands"], lm_mesh_runs["train_gemma-2b"])
+    mp_runs = mp_paths(mesh_runs["islands"], lm_mesh_runs["train_gemma-2b"],
+                       lm_mesh_runs["serve_granite"], lm_train_runs["train_granite-moe-3b-a800m"])
     lap("14 mesh over processes")
     emit("timing", phase_s=laps, total_s=time.perf_counter() - t0)
     # the mesh path's launches (phase 10), from the run whose work each

@@ -21,7 +21,12 @@ function. So every process gets the single controller's bits: a
 reduction is an all-gather of the members followed by the in-order sum,
 min or max. GP moments and norms are small; an LM gradient, which is
 large, is reduced by an all-to-all of the blocks each process holds
-followed by the same in-order sum (`Sharded.settle`).
+followed by the same in-order sum (`Sharded.settle`). Where work splits
+over a group's ranks rather than replicating (the MoE's experts over the
+model axis), `AxisGroup` runs a process's own ranks and its
+differentiable collectives (`all_to_all`, the join of the ranks' slices,
+the in-order sum of a shared weight's gradients) move only what the
+ranks exchange.
 
 Axes, in the reference's order (`pod` first, and only when it is > 1):
 
@@ -257,7 +262,7 @@ class Mesh:
         return [s for s in range(self.size)
                 if all(r == 0 for a, r in self.coords(s).items() if a not in named)]
 
-    def join(self, parts, spec, device=None):
+    def join(self, parts, spec, device=None, window=None):
         """The global tensor on `device` (default: the home device) from
         per-shard `parts` (a list over the shards, or a dict holding at
         least the shards read here; over several processes, every shard of
@@ -265,11 +270,23 @@ class Mesh:
         rank 0 on every axis the spec does not name. Over several
         processes it is a gather to every process: a block this process
         holds (a replica's copy is the same) is read here, the others come
-        from their owners, with no host read."""
+        from their owners, with no host read.
+
+        With `window` (axis, r), where the spec names a dimension by
+        `axis` alone, only the slice of that dimension rank r holds is
+        joined, from the shards of rank r on `axis`; over several
+        processes their blocks come from the processes holding that slice,
+        each of which joins it too."""
         dev = self.home if device is None else torch.device(device)
-        owners = self.owners(spec)
+        owners, procs = self.owners(spec), self.processes
+        if window is not None:
+            axis, r = window
+            owners = [s for s in owners if self.rank(s, axis) == r]
+            procs = tuple(sorted({self.procs[s] for s in range(self.size)
+                                  if self.rank(s, axis) == r}))
+            spec = PartitionSpec(*(None if part == axis else part for part in spec))
         if self.multi:
-            parts = self._gather_blocks(parts, spec, owners)
+            parts = self._gather_blocks(parts, spec, owners, procs)
         first = parts[owners[0]]
         if len(owners) == 1:
             return first.to(dev)
@@ -280,6 +297,22 @@ class Mesh:
         for s in owners:
             out[self._block(s, shape, spec)] = parts[s].to(dev)
         return out
+
+    def axis_group(self, axis, s: int) -> "AxisGroup":
+        """The group of `axis` holding shard `s`, as the ranks this process
+        runs of it (`AxisGroup`): every rank in one process, its own ranks
+        where the group spans processes."""
+        group = next(g for g in self.groups(axis) if s in g)
+        owners = tuple(self.procs[m] for m in group)
+        key = ("axis_group", tuple(group))
+        if key not in self._plans:
+            if len(set(owners)) == 1:
+                self._plans[key] = AxisGroup(len(group))
+            else:
+                self._plans[key] = AxisGroup(
+                    len(group), [r for r, q in enumerate(owners) if q == self.process],
+                    owners, self.process)
+        return self._plans[key]
 
     def _holder(self, o: int, spec, procs=None):
         """A shard of process `procs` (default: this one) that holds owner
@@ -292,28 +325,28 @@ class Mesh:
                 return s
         return None
 
-    def _gather_plan(self, spec, owners) -> tuple:
+    def _gather_plan(self, spec, owners, procs) -> tuple:
         """({owner: this process's shard holding its block, or None}, does
-        some process hold no copy of some block), from the layout alone,
+        one of `procs` hold no copy of some block), from the layout alone,
         so every process takes the same decision."""
-        key = tuple(spec)
+        key = (tuple(spec), tuple(owners))
         if key not in self._plans:
             self._plans[key] = (
                 {o: self._holder(o, spec) for o in owners},
-                any(self._holder(o, spec, q) is None for o in owners for q in self.processes))
+                any(self._holder(o, spec, q) is None for o in owners for q in procs))
         return self._plans[key]
 
-    def _gather_blocks(self, parts, spec, owners) -> dict:
+    def _gather_blocks(self, parts, spec, owners, procs) -> dict:
         """{owner: its block} on this process: a local holder's part, or
-        the owner's, fetched from its process when some process holds no
-        copy of a block."""
+        the owner's, fetched from its process among `procs` (the processes
+        joining these blocks) when one of them holds no copy of a block."""
         get = parts.get if isinstance(parts, dict) else (lambda s: parts[s])
-        local, fetch = self._gather_plan(spec, owners)
+        local, fetch = self._gather_plan(spec, owners, procs)
         if not fetch:
             return {o: get(s) for o, s in local.items()}
-        like = get(self.local[0])
+        like = next(get(s) for s in self.local if get(s) is not None)
         got = exchange(self, owners, {o: get(o) for o in owners if self.is_local(o)},
-                       like=like, procs=self.processes)
+                       like=like, procs=procs)
         return {o: get(s) if s is not None else got[o] for o, s in local.items()}
 
 
@@ -538,6 +571,191 @@ def over(mesh: Mesh, axis, fn, *parts, **kw):
     return outs[0] if single else outs
 
 
+# --- the ranks of one axis group, in one process or across several -------------------
+
+
+def _from_bytes(seg, like) -> torch.Tensor:
+    return seg.view(like.dtype).reshape(like.shape)
+
+
+def _swap(procs, send: list, recv_sizes: list, device) -> list:
+    """One `all_to_all_single` over the subgroup of `procs`: send[i] (a
+    list of tensors, packed as bytes) goes to procs[i] -> the bytes from
+    each process, recv_sizes[i] of them from procs[i]."""
+    import torch.distributed as dist
+
+    flat = [torch.cat([_bytes(t) for t in ts]) if ts else
+            torch.empty(0, dtype=torch.uint8, device=device) for ts in send]
+    recv = torch.empty(sum(recv_sizes), dtype=torch.uint8, device=device)
+    dist.all_to_all_single(recv, torch.cat(flat), recv_sizes, [f.numel() for f in flat],
+                           group=_subgroup(procs))
+    return list(recv.split(recv_sizes))
+
+
+class AxisGroup:
+    """The ranks of one axis group (a data shard's model group) that this
+    process runs, and differentiable collectives between them. Each
+    collective takes and returns one value a rank this process runs
+    (`ranks`, ascending). In one process `ranks` is every rank and the
+    collectives are plain list functions; where the group spans processes
+    (`owners`: each rank's process) a process runs its own ranks and the
+    collectives cross the group's processes (`all_to_all_single` over
+    their subgroup, of the tensors' bytes) with the same bits: they move
+    data, and the one sum (`fanout`'s backward) adds every rank's term in
+    rank order on every process.
+
+    The gradients are those of a loss every rank of the group computes
+    alike (the model axis replicates the dense compute): `split` of a
+    replicated tensor hands each rank its slice and its backward joins
+    every rank's slice of the gradient, `gather` joins the ranks' slices
+    and its backward keeps each rank its own, `fanout` hands each rank a
+    replicated weight and its backward adds the ranks' gradients."""
+
+    def __init__(self, size: int, ranks=None, owners=None, me: int = 0):
+        self.size = size
+        self.ranks = tuple(range(size)) if ranks is None else tuple(ranks)
+        self.owners = owners
+        self.spans = owners is not None
+        if self.spans:
+            self.me = me
+            self.procs = tuple(sorted(set(owners)))
+            self.of = {q: [r for r in range(size) if owners[r] == q] for q in self.procs}
+
+    def __repr__(self):
+        return f"AxisGroup(size={self.size}, ranks={self.ranks})"
+
+    def split(self, x, dim: int) -> list:
+        """This process's ranks' slices of `x` (the same on every rank)
+        along `dim`, rank r the r-th of `size`."""
+        if not self.spans:
+            return list(torch.split(x, x.shape[dim] // self.size, dim))
+        return list(_SplitOwn.apply(self, dim, x))
+
+    def gather(self, xs: list, dim: int):
+        """Every rank's slice joined along `dim` in rank order (the same
+        tensor on every rank)."""
+        if not self.spans:
+            return torch.cat(xs, dim)
+        return _GatherCat.apply(self, dim, *xs)
+
+    def fanout(self, w) -> list:
+        """`w` (the same on every rank) for each rank this process runs;
+        the gradients of every rank add up into `w`'s in rank order."""
+        return list(_Fanout.apply(self, w))
+
+    def all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
+        """`all_to_all` (tiled) over the group: rank r's chunk j goes to
+        rank j, which joins what it gets along `concat_dim` in rank order;
+        the backward is the reverse all-to-all."""
+        if not self.spans:
+            return all_to_all(xs, split_dim, concat_dim)
+        return list(_AllToAll.apply(self, split_dim, concat_dim, *xs))
+
+    def every(self, xs: list) -> list:
+        """Every rank's value in rank order, from this process's ranks'
+        (the backward keeps each rank its own value's gradient)."""
+        if not self.spans:
+            return list(xs)
+        return list(self.gather([x.unsqueeze(0) for x in xs], 0).unbind(0))
+
+    # the collectives' data movement, outside autograd
+
+    def _every(self, xs: list) -> list:
+        if not self.spans:
+            return list(xs)
+        like = xs[0]
+        n = _bytes(like).numel()
+        got = _swap(self.procs, [list(xs)] * len(self.procs),
+                    [len(self.of[q]) * n for q in self.procs], like.device)
+        out = [None] * self.size
+        for q, buf in zip(self.procs, got):
+            for i, r in enumerate(self.of[q]):
+                out[r] = (xs[self.ranks.index(r)] if q == self.me else
+                          _from_bytes(buf[i * n:(i + 1) * n], like))
+        return out
+
+    def _all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
+        chunks = {r: x.chunk(self.size, split_dim) for r, x in zip(self.ranks, xs)}
+        like = chunks[self.ranks[0]][0]
+        n = like.numel() * like.element_size()
+        send = [[chunks[r][j] for r in self.ranks for j in self.of[q]] for q in self.procs]
+        got = _swap(self.procs, send, [len(self.of[q]) * len(self.ranks) * n
+                                       for q in self.procs], like.device)
+        recv = {}
+        for q, buf in zip(self.procs, got):
+            k = 0
+            for r in self.of[q]:
+                for j in self.ranks:
+                    recv[r, j] = (chunks[r][j] if q == self.me else
+                                  _from_bytes(buf[k * n:(k + 1) * n], like))
+                    k += 1
+        return [torch.cat([recv[r, j] for r in range(self.size)], concat_dim)
+                for j in self.ranks]
+
+
+def _filled(grads) -> list:
+    """The gradients of outputs of one shape, zeros for those unused."""
+    like = next(t for t in grads if t is not None)
+    return [torch.zeros_like(like) if t is None else t for t in grads]
+
+
+class _SplitOwn(torch.autograd.Function):
+    """`AxisGroup.split` across processes."""
+
+    @staticmethod
+    def forward(ctx, g, dim, x):
+        n = x.shape[dim] // g.size
+        ctx.g, ctx.dim = g, dim
+        return tuple(x.narrow(dim, r * n, n).clone(memory_format=torch.contiguous_format)
+                     for r in g.ranks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, None, torch.cat(ctx.g._every(_filled(grads)), ctx.dim)
+
+
+class _GatherCat(torch.autograd.Function):
+    """`AxisGroup.gather` across processes."""
+
+    @staticmethod
+    def forward(ctx, g, dim, *xs):
+        ctx.g, ctx.dim, ctx.n = g, dim, xs[0].shape[dim]
+        return torch.cat(g._every(xs), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = ctx.n
+        return (None, None, *(grad.narrow(ctx.dim, r * n, n) for r in ctx.g.ranks))
+
+
+class _Fanout(torch.autograd.Function):
+    """`AxisGroup.fanout`: copies forward, the in-order sum of every
+    rank's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, g, w):
+        ctx.g = g
+        return tuple(w.clone() for _ in g.ranks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, psum(ctx.g._every(_filled(grads)))[0]
+
+
+class _AllToAll(torch.autograd.Function):
+    """`AxisGroup.all_to_all` across processes."""
+
+    @staticmethod
+    def forward(ctx, g, split_dim, concat_dim, *xs):
+        ctx.args = (g, split_dim, concat_dim)
+        return tuple(g._all_to_all(xs, split_dim, concat_dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g, split_dim, concat_dim = ctx.args
+        return (None, None, None, *g._all_to_all(_filled(grads), concat_dim, split_dim))
+
+
 # --- a tensor stored as per-shard parts ----------------------------------------
 
 
@@ -552,21 +770,23 @@ class _Gather(torch.autograd.Function):
     pass order once every process has run its own."""
 
     @staticmethod
-    def forward(ctx, sh, device, key, *local):
-        ctx.sh, ctx.key = sh, key
-        return sh.mesh.join(sh.parts, sh.spec, device)
+    def forward(ctx, sh, device, key, window, *local):
+        ctx.sh, ctx.key, ctx.window = sh, key, window
+        return sh.mesh.join(sh.parts, sh.spec, device, window)
 
     @staticmethod
     def backward(ctx, grad):
-        sh = ctx.sh
+        sh, window = ctx.sh, ctx.window
         local = [s for s in sh.mesh.local]
         if ctx.key is not None:
             kept = sh.pending.setdefault(ctx.key, {})
-            for b, blk in sh._kept(ctx.key):
+            for b, blk in sh._kept(ctx.key, window):
                 kept[b] = grad[blk].clone() if b not in kept else kept[b] + grad[blk]
-            return (None, None, None, *(None for _ in local))
-        return (None, None, None, *(grad[sh.block(s)].to(sh.parts[s].device, copy=True)
-                                    .contiguous() for s in local))
+            return (None, None, None, None, *(None for _ in local))
+        return (None, None, None, None, *(
+            None if not sh.in_window(s, window) else
+            grad[sh.block(s, window)].to(sh.parts[s].device, copy=True).contiguous()
+            for s in local))
 
 
 class Sharded:
@@ -623,9 +843,19 @@ class Sharded:
     def ndim(self) -> int:
         return len(self.shape)
 
-    def block(self, s: int) -> tuple:
-        """Shard `s`'s slices of the global tensor."""
-        return self.mesh._block(s, self.shape, self.spec)
+    def block(self, s: int, window=None) -> tuple:
+        """Shard `s`'s slices of the global tensor, or of its `window`
+        (`Mesh.join`'s (axis, rank) slice)."""
+        if window is None:
+            return self.mesh._block(s, self.shape, self.spec)
+        axis = window[0]
+        shape = [n // self.mesh.axis_size(axis) if part == axis else n
+                 for n, part in zip(self.shape, (*self.spec, *[None] * self.ndim))]
+        return self.mesh._block(s, shape, P(*(None if part == axis else part
+                                               for part in self.spec)))
+
+    def in_window(self, s: int, window) -> bool:
+        return window is None or self.mesh.rank(s, window[0]) == window[1]
 
     def owners(self) -> list[int]:
         return self.mesh.owners(self.spec)
@@ -634,15 +864,16 @@ class Sharded:
         return self.mesh.join([None if p is None else p.detach() for p in self.parts],
                               self.spec, device)
 
-    def gather(self, device=None, key=None) -> torch.Tensor:
-        """The global tensor on `device`, differentiable in the parts. On a
-        mesh of several processes `key` names the pass (a batch rank) the
-        gather serves: its gradient waits for `settle`."""
+    def gather(self, device=None, key=None, window=None) -> torch.Tensor:
+        """The global tensor on `device`, or its `window` (`Mesh.join`),
+        differentiable in the parts. On a mesh of several processes `key`
+        names the pass (a batch rank) the gather serves: its gradient
+        waits for `settle`."""
         dev = self.mesh.home if device is None else torch.device(device)
         local = self.local()
         if any(p.requires_grad for p in local) and torch.is_grad_enabled():
-            return _Gather.apply(self, dev, key if self.mesh.multi else None, *local)
-        return self.mesh.join(self.parts, self.spec, dev)
+            return _Gather.apply(self, dev, key if self.mesh.multi else None, window, *local)
+        return self.mesh.join(self.parts, self.spec, dev, window)
 
     def settle(self, axes) -> None:
         """Add the gradients the passes kept (`gather` with a key, one pass
@@ -669,20 +900,22 @@ class Sharded:
                 p.grad = g
         self.pending = {}
 
-    def _kept(self, key) -> list:
+    def _kept(self, key, window=None) -> list:
         """[(block key, slices)] of pass `key`'s gradient that `settle`
         reads here: every shard's block in each batch group where this
-        process holds a shard of batch rank `key`."""
-        if key not in self._keeps:
+        process holds a shard of batch rank `key` (those in `window`, the
+        slices in its coordinates, for a gather of a window)."""
+        if (key, window) not in self._keeps:
             mesh, axes = self.mesh, batch_axes(self.mesh)
             out = {}
             for group in mesh.groups(axes):
                 if any(mesh.is_local(m) and mesh.batch_rank(m, axes) == key for m in group):
                     for s in group:
-                        blk = self.block(s)
-                        out.setdefault(tuple((b.start, b.stop) for b in blk), blk)
-            self._keeps[key] = list(out.items())
-        return self._keeps[key]
+                        if self.in_window(s, window):
+                            out.setdefault(tuple((b.start, b.stop) for b in self.block(s)),
+                                           self.block(s, window))
+            self._keeps[key, window] = list(out.items())
+        return self._keeps[key, window]
 
     def _swap_blocks(self, group, local, axes) -> dict:
         """{(member m, local shard s): m's pass gradient's block of s} for

@@ -11,11 +11,15 @@ cache slice and the shards merge with the flash identity
     o  = psum(o_i · exp(m_i − m)) / l
 
 so the traffic per layer is O(B·H·hd) instead of O(B·H·S/shards). The
-cache write lands only on the owning shard. The mesh is single-controller
-(`launch/mesh.py`): each shard of a sequence group runs in turn, and the
-merge is the mesh module's `pmax`/`psum` in rank order. As in the
-reference, `decode_step` does not use it; numerics are held against
-`layers.attn_decode`.
+cache write lands only on the owning shard. In one process each shard
+of a sequence group runs in turn, and the merge is the mesh module's
+`pmax`/`psum` in rank order. Over several processes
+(`launch.cluster.init_cluster`) each process computes its own shards'
+partials over its own cache slices, the partials alone cross processes
+(one exchange over the group), and every process merges them in the
+same rank order: the single controller's bits, with the cache slices
+never leaving their process. As in the reference, `decode_step` does
+not use it; numerics are held against `layers.attn_decode`.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.launch.mesh import P, over, pmax, psum
+from repro_torch.launch.mesh import P, Sharded, over, pmax, psum
 from repro_torch.models.layers import AttnDims, _positions, _proj_out, _qkv
 
 
@@ -60,35 +64,48 @@ def _write_owned(cache, new, cur_len, offset: int):
     return cache
 
 
+def _cp_partial(dims: AttnDims, p, x, ck, cv, cur_len, rank: int):
+    """One shard's part of a decode-attention layer over its cache slices
+    [B,S_loc,KV,hd] (rank `rank` along the sequence axis): the owner's
+    write of the new k, v (in place), then the partial attention ->
+    ((o, m, l), ck, cv)."""
+    S_loc = ck.shape[1]
+    offset = rank * S_loc
+    q, k, v = _qkv(p, x, dims, _positions(cur_len, x.shape[0], x.device))
+    ck = _write_owned(ck, k, cur_len, offset)
+    cv = _write_owned(cv, v, cur_len, offset)
+    valid = (torch.arange(S_loc, device=x.device) + offset) <= cur_len
+    return _local_attend(q, ck, cv, valid, 1.0 / math.sqrt(dims.d_head)), ck, cv
+
+
+def _cp_merge(partials: list, ps: list, xs: list) -> list:
+    """The flash merge of one sequence group's partials (o, m, l), in rank
+    order: O(B·H·hd) a shard -> the attention output [B,1,d] of each rank
+    whose x is given (None for the others)."""
+    ms = [m for _, m, _ in partials]
+    m_g = pmax(ms)
+    cs = [torch.exp(m - mg) for m, mg in zip(ms, m_g)]
+    l_g = psum([l * c for (_, _, l), c in zip(partials, cs)])
+    o_g = psum([o * c[..., None] for (o, _, _), c in zip(partials, cs)])
+    return [None if x is None else
+            _proj_out((o / torch.clamp_min(l, 1e-30)[..., None]).to(x.dtype), p["wo"])
+            for o, l, x, p in zip(o_g, l_g, xs, ps)]
+
+
 def make_cp_decode_attention(dims: AttnDims, seq_axis: str = "data"):
     """The group function of one decode-attention layer with a seq-sharded
     cache: fn(ps, xs, ks, vs, lens) over one `seq_axis` group's per-shard
     lists in rank order (params, x [B,1,d], cache slices [B,S_loc,KV,hd],
     cur_len) → (attn outputs [B,1,d], new k slices, new v slices), one a
-    shard. The cache slices are written in place and returned. `seq_axis`
-    names the axis the group runs over (`cp_decode_attention` passes the
-    function to `mesh.over`)."""
-    scale = 1.0 / math.sqrt(dims.d_head)
+    shard: each shard's partial (`_cp_partial`), then their merge
+    (`_cp_merge`). The cache slices are written in place and returned.
+    `seq_axis` names the axis the group runs over."""
 
     def attend(ps, xs, ks, vs, lens):
-        partial = []
-        for r, (p, x, ck, cv, cur_len) in enumerate(zip(ps, xs, ks, vs, lens)):
-            S_loc = ck.shape[1]
-            offset = r * S_loc
-            q, k, v = _qkv(p, x, dims, _positions(cur_len, x.shape[0], x.device))
-            ck = _write_owned(ck, k, cur_len, offset)
-            cv = _write_owned(cv, v, cur_len, offset)
-            valid = (torch.arange(S_loc, device=x.device) + offset) <= cur_len
-            partial.append((_local_attend(q, ck, cv, valid, scale), ck, cv))
-        # flash merge across the shards: O(B·H·hd) moves
-        ms = [m for (_, m, _), _, _ in partial]
-        m_g = pmax(ms)
-        cs = [torch.exp(m - mg) for m, mg in zip(ms, m_g)]
-        l_g = psum([l * c for ((_, _, l), _, _), c in zip(partial, cs)])
-        o_g = psum([o * c[..., None] for ((o, _, _), _, _), c in zip(partial, cs)])
-        outs = [_proj_out((o / torch.clamp_min(l, 1e-30)[..., None]).to(x.dtype), p["wo"])
-                for o, l, x, p in zip(o_g, l_g, xs, ps)]
-        return outs, [ck for _, ck, _ in partial], [cv for _, _, cv in partial]
+        got = [_cp_partial(dims, p, x, ck, cv, n, r)
+               for r, (p, x, ck, cv, n) in enumerate(zip(ps, xs, ks, vs, lens))]
+        return (_cp_merge([g[0] for g in got], ps, xs), [g[1] for g in got],
+                [g[2] for g in got])
 
     return attend
 
@@ -96,17 +113,45 @@ def make_cp_decode_attention(dims: AttnDims, seq_axis: str = "data"):
 def cp_decode_attention(p, x, cache_k, cache_v, cur_len, dims: AttnDims,
                         mesh, *, seq_axis: str = "data", batch_axes: tuple = ()):
     """One decode-attention layer over `mesh` with the cache's sequence dim
-    on `seq_axis` (the long-context layout): x [B,1,d], cache [B,S,KV,hd]
-    global tensors → (attn_out [B,1,d], new_k, new_v) on the mesh's home.
-    `cur_len` is an int or a 0-d tensor."""
-    attend = make_cp_decode_attention(dims, seq_axis)
+    on `seq_axis` (the long-context layout): x [B,1,d] a global tensor, the
+    cache [B,S,KV,hd] global tensors or `Sharded` parts under that layout
+    → (attn_out [B,1,d] on the mesh's home, new_k, new_v): the cache as
+    given, global tensors joined on the home or the parts written in
+    place. `cur_len` is an int or a 0-d tensor.
+
+    Each shard's partial runs in turn, then each sequence group's merge
+    in rank order. Over several processes a process runs its own
+    shards' partials, and only the partials (o, m, l) cross processes,
+    exchanged over each sequence group: every process merges them in
+    rank order, so the output is the single controller's bit for bit.
+    The cache slices never cross: the cache comes back as `Sharded`, this
+    process's slices written in place, even where it was given whole."""
     b = tuple(batch_axes) if batch_axes else None
     cache_spec, xspec = P(b, seq_axis, None, None), P(b, None, None)
-    shards = range(mesh.size)
-    ps = {s: {n: w.to(mesh.devices[s]) for n, w in p.items()} for s in shards}
+    local = mesh.local
+    ps = {s: {n: w.to(mesh.devices[s]) for n, w in p.items()} if s in local else None
+          for s in range(mesh.size)}
+    xs = dict(enumerate(mesh.split(x, xspec)))
     lens = {s: cur_len.to(mesh.devices[s]) if isinstance(cur_len, torch.Tensor) else cur_len
-            for s in shards}
-    outs, ks, vs = over(mesh, seq_axis, attend, ps, dict(enumerate(mesh.split(x, xspec))),
-                        dict(enumerate(mesh.split(cache_k, cache_spec))),
-                        dict(enumerate(mesh.split(cache_v, cache_spec))), lens)
-    return (mesh.join(outs, xspec), mesh.join(ks, cache_spec), mesh.join(vs, cache_spec))
+            for s in local}
+    ks, vs = (c.parts if isinstance(c, Sharded) else mesh.split(c, cache_spec)
+              for c in (cache_k, cache_v))
+    partials = {}
+    for s in local:
+        partials[s], ks[s], vs[s] = _cp_partial(dims, ps[s], xs[s], ks[s], vs[s], lens[s],
+                                                mesh.rank(s, seq_axis))
+    outs = over(mesh, seq_axis, _cp_merge, partials, ps, xs)
+    new_k, new_v = [ks[s] for s in local], [vs[s] for s in local]
+    out = mesh.join(outs, xspec)
+    caches = []
+    for given, new in ((cache_k, new_k), (cache_v, new_v)):
+        parts = [None] * mesh.size
+        for s, t in zip(local, new):
+            parts[s] = t
+        sh = Sharded(mesh, cache_spec, parts, given.shape)
+        if isinstance(given, Sharded):
+            given.parts = parts
+            caches.append(given)
+        else:
+            caches.append(sh if mesh.multi else mesh.join(parts, cache_spec))
+    return out, caches[0], caches[1]

@@ -22,7 +22,13 @@ per-shard parts split by its spec (the counterpart of `device_put` with a
 `NamedSharding`). A stack in the port's layout (a list of groups) takes
 each group's slice of the stacked spec (the spec minus its lead).
 `ShardedLM` is the parameter tree of a train state placed so, and
-`ShardedCache` a serving cache placed by `cache_specs`.
+`ShardedCache` a serving cache placed by `cache_specs`. Over several
+processes both hold this process's parts only: a pass gathers a group's
+weights from the parts (an MoE's experts only for the pass's own model
+ranks where the expert dim lies on the model axis, `gather_tree`), a
+cache is placed from each process's own passes and a data shard's rows
+are joined from its model group's parts, the other processes' fetched
+(`ShardedCache.rows`).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch.mesh import Mesh, P, Sharded, _names, batch_axes
+from repro_torch.launch.mesh import Mesh, P, Sharded, _names, batch_axes, exchange
 
 _TP = "model"
 
@@ -318,16 +324,35 @@ def map_sharded(fn, tree):
     return fn(tree) if isinstance(tree, Sharded) else tree
 
 
-def gather_tree(tree, device, dtype=None, key=None):
+EXPERT_LEAVES = ("w_up", "w_gate", "w_down")
+
+
+def gather_tree(tree, device, dtype=None, key=None, experts=None):
     """Every `Sharded` leaf of `tree` gathered onto `device` (autograd
     records the gather where the parts require grad), a floating leaf cast
     to `dtype` after the gather: one group's weights, in a ZeRO-3 step
-    (for pass `key` over several processes, `Sharded.gather`)."""
-    def one(sh):
-        t = sh.gather(device, key)
+    (for pass `key` over several processes, `Sharded.gather`). With
+    `experts` (the model ranks a pass runs of a model group that spans
+    processes) an MoE's expert stacks whose expert dim lies on the model
+    axis come as a list, each rank's slice gathered over the batch axes
+    only: a process never gathers another rank's experts."""
+    def one(sh, window=None):
+        t = sh.gather(device, key, window)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
-    return map_sharded(one, tree)
+    def walk(node):
+        if isinstance(node, Sharded):
+            return one(node)
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        moe = experts is not None and "router" in node
+        return {k: [one(v, (_TP, r)) for r in experts]
+                if moe and k in EXPERT_LEAVES and v.spec[0] == _TP else walk(v)
+                for k, v in node.items()}
+
+    return walk(tree)
 
 
 class ShardedLM:
@@ -406,7 +431,7 @@ def join_rows(sh: Sharded, dim: int, rows: slice, device) -> torch.Tensor:
 
 def write_rows(sh: Sharded, dim: int, rows: slice, value) -> None:
     """Write `value` (rows `rows` of dimension `dim` of the global tensor)
-    into every part that holds them, the replicas too."""
+    into every part of this process that holds them, the replicas too."""
     for s in sh.mesh.local:
         part = sh.parts[s]
         hit = _overlap(sh, s, dim, rows)
@@ -418,10 +443,41 @@ class ShardedCache:
     """A serving cache (`{"b{i}": {name: [n_groups, B, ...]}}`) placed on
     a mesh by `cache_specs`, each leaf a `Sharded`. A data shard's decode
     reads its rows (dim 1) joined from the parts (`rows`) and writes them
-    back (`write_rows`)."""
+    back (`write_rows`). Over several processes a process holds its own
+    parts only, as a `Sharded` does: a data shard's rows are joined from
+    its model group's parts, the other processes' fetched from them, and
+    each process writes back its own; the whole cache is never built on
+    one process."""
 
     def __init__(self, mesh: Mesh, tree: dict):
         self.mesh, self._tree = mesh, tree
+
+    @classmethod
+    def place(cls, mesh: Mesh, spec_tree, passes: list, B: int) -> "ShardedCache":
+        """The cache of a batch of B rows computed in passes (`passes`:
+        [(rows, the rows' cache)], this process's, in row order) placed by
+        `spec_tree`: each of this process's parts cut from the passes that
+        computed its rows."""
+        tree = {}
+        for b, leaves in passes[0][1].items():
+            tree[b] = {}
+            for n, first in leaves.items():
+                shape = (first.shape[0], B, *first.shape[2:])
+                spec = P(*spec_tree[b][n])
+                parts = [None] * mesh.size
+                for s in mesh.local:
+                    blk = mesh._block(s, shape, spec)
+                    got = [c[b][n][:, max(blk[1].start, r.start) - r.start:
+                                   min(blk[1].stop, r.stop) - r.start]
+                           for r, c in passes if r.start < blk[1].stop and blk[1].start < r.stop]
+                    if sum(g.shape[1] for g in got) != blk[1].stop - blk[1].start:
+                        raise ValueError(f"{b}/{n}: shard {s}'s rows {blk[1]} span passes of "
+                                         "other processes (a cache not split by batch)")
+                    src = torch.cat(got, 1)[(slice(None), slice(None), *blk[2:])]
+                    parts[s] = torch.empty(src.shape, dtype=src.dtype,
+                                           device=mesh.devices[s]).copy_(src)
+                tree[b][n] = Sharded(mesh, spec, parts, shape)
+        return cls(mesh, tree)
 
     def __getitem__(self, b):
         return self._tree[b]
@@ -429,9 +485,33 @@ class ShardedCache:
     def __iter__(self):
         return iter(self._tree)
 
-    def rows(self, rows: slice, device) -> dict:
-        return {b: {n: join_rows(sh, 1, rows, device) for n, sh in c.items()}
-                for b, c in self._tree.items()}
+    def rows(self, rows: slice, device, group=None) -> dict:
+        """Rows `rows` (dim 1) of every leaf on `device`. Over several
+        processes `group` lists the shards to read them from (a data
+        shard's model group, whose processes each call this for the same
+        rows): this process's parts read here, the others' fetched in one
+        exchange over the group's processes; without `group`, every
+        process joins whole leaves (a batch run as one pass)."""
+        if not self.mesh.multi:
+            return {b: {n: join_rows(sh, 1, rows, device) for n, sh in c.items()}
+                    for b, c in self._tree.items()}
+        if group is None:
+            return {b: {n: sh.join(device)[:, rows] for n, sh in c.items()}
+                    for b, c in self._tree.items()}
+        leaves = [sh for c in self._tree.values() for sh in c.values()]
+        mine = {s: tuple(sh.parts[s][_overlap(sh, s, 1, rows)[0]] for sh in leaves)
+                for s in group if self.mesh.is_local(s)}
+        got = exchange(self.mesh, group, mine)
+        outs = []
+        for i, sh in enumerate(leaves):
+            shape = list(sh.shape)
+            shape[1] = rows.stop - rows.start
+            out = torch.empty(shape, dtype=sh.dtype, device=device)
+            for s in group:
+                out[_overlap(sh, s, 1, rows)[1]] = got[s][i].to(device)
+            outs.append(out)
+        it = iter(outs)
+        return {b: {n: next(it) for n in c} for b, c in self._tree.items()}
 
     def write_rows(self, rows: slice, local: dict) -> None:
         for b, c in self._tree.items():
@@ -441,3 +521,4 @@ class ShardedCache:
     def join(self, device=None) -> dict:
         """The global cache (a plain one) on `device` (default: home)."""
         return {b: {n: sh.join(device) for n, sh in c.items()} for b, c in self._tree.items()}
+

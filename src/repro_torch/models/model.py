@@ -30,6 +30,17 @@ ZeRO-3 layout in turn, in one process:
 A data shard's loss is its nll sum over the whole batch's mask count plus
 its share of the aux loss (the reference's `pmean`), so the shards'
 parts add up to the reference's loss.
+
+Over several processes (`launch.cluster.init_cluster`, one a card) each
+process runs its own data shards' passes (`_shard_plan`): the processes
+of a data shard's model group run its rows through the same dense
+weights, and each runs its own model ranks of the MoE, gathering only
+those ranks' experts (`launch.mesh.AxisGroup` carries the all-to-alls
+across the group). `make_train_step`, `forward_train`, `prefill` and
+`decode_step` all run there: a process keeps its own parts of the state
+and of the cache (`ShardedCache`), and every process returns the single
+controller's losses, metrics and [B, 1, V] logits bit for bit, gathered
+over the batch axes.
 """
 from __future__ import annotations
 
@@ -290,10 +301,12 @@ def _shard_plan(cfg, params, B: int) -> list:
     the policy as one data shard sees it, 1/dp of the aux loss), or one
     pass over all rows on the mesh's home where B does not divide over the
     data shards. Over several processes a process runs its own data
-    shards' passes (the processes of one data shard's model group run the
-    same rows on the same gathered weights: the model axis stores, it
-    does not split the dense compute), each keyed by its batch rank so
-    that `ShardedLM.settle` adds the passes' gradients in rank order."""
+    shards' passes, each keyed by its batch rank so that
+    `ShardedLM.settle` adds the passes' gradients in rank order: the
+    processes of one data shard's model group run the same rows through
+    the same dense weights (the model axis stores, it does not split the
+    dense compute), and each runs its own model ranks of the MoE (the
+    pass's policy carries its model group, `AxisGroup`)."""
     if not isinstance(params, SH.ShardedLM):
         return [(slice(0, B), params.device, cfg, 1.0, None)]
     dp, tp = cfg.policy.dp_size, cfg.policy.tp_size
@@ -309,21 +322,28 @@ def _shard_plan(cfg, params, B: int) -> list:
     mine = {}
     for s in mesh.local:
         mine.setdefault(mesh.batch_rank(s, axes), s)
-    return [(slice(d * n, (d + 1) * n), mesh.devices[mine[d]], local, 1.0 / dp, d)
+    return [(slice(d * n, (d + 1) * n), mesh.devices[mine[d]],
+             local.with_policy(local.policy.with_group(mesh.axis_group(cfg.policy.model,
+                                                                       mine[d]))), 1.0 / dp, d)
             for d in sorted(mine)]
 
 
-def _weights(params, device, dtype, cast, key=None):
+def _weights(cfg, params, device, cast, key=None):
     """(the tree the model reads, the gather hook, the `tok` and
-    `final_norm` weights in `dtype`): an `LM` through `cast` (`_train_cast`
-    in the graph to train, `_cast`'s cached copy to serve), or a
-    `ShardedLM`'s parts with a hook that gathers a group onto `device` in
-    `dtype` (for pass `key` over several processes)."""
+    `final_norm` weights in the compute dtype): an `LM` through `cast`
+    (`_train_cast` in the graph to train, `_cast`'s cached copy to serve),
+    or a `ShardedLM`'s parts with a hook that gathers a group onto
+    `device` (for pass `key` over several processes; where the pass's
+    model group spans processes, the MoE's experts of its own ranks
+    only)."""
+    dtype = _dtype(cfg)
     if isinstance(params, SH.ShardedLM):
         p = params.tree()
+        group = cfg.policy.group
+        experts = group.ranks if group is not None and group.spans else None
 
         def gather(tree):
-            return SH.gather_tree(tree, device, dtype, key)
+            return SH.gather_tree(tree, device, dtype, key, experts)
 
         return p, gather, gather(p["tok"]), gather(p["final_norm"])
     p = cast(params, dtype)
@@ -332,7 +352,7 @@ def _weights(params, device, dtype, cast, key=None):
 
 def _forward(cfg, params, batch, device, count=None, key=None):
     """forward_train's (ce, aux) of one pass of `_shard_plan`."""
-    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _train_cast, key)
+    p, gather, tok, norm = _weights(cfg, params, device, _train_cast, key)
     tokens = batch["tokens"].to(device)
     x = T.embed_tokens(cfg, tok, tokens)
     if cfg.pos_embed == "sinusoidal":
@@ -373,16 +393,20 @@ def forward_train(cfg: ArchConfig, params, batch):
     aux_loss_weight * aux`. Differentiable in the masters wherever they
     require grad (`make_train_step` turns that on). `params` is an `LM`
     or, on a mesh, a `ShardedLM` (the data shards' parts added on the
-    mesh's home). Over several processes use `make_train_step`, which
-    adds every process's passes."""
-    _single_controller(params, "forward_train")
+    mesh's home in pass order). Over several processes every process
+    gets the single controller's values: its passes' parts and the
+    others', gathered over the batch axes as `make_train_step` gathers
+    them (the others' are values; `make_train_step` differentiates
+    every pass)."""
+    home = params.device
+    keys = [k for *_, k in _shard_plan(cfg, params, batch["tokens"].shape[0])]
     parts = list(_shard_losses(cfg, params, batch))
-    if len(parts) == 1:
+    if len(parts) == 1 and keys[0] is None:
         loss, ce, aux = parts[0]
         return loss, {"ce": ce, "aux": aux}
-    home = params.device
-    loss, ce, aux = (sum(t.to(home) for t in col) for col in zip(*parts))
-    return loss, {"ce": ce, "aux": aux}
+    loss, ms = _pass_losses(params, [[torch.stack([t.to(home) for t in part])
+                                      for part in parts]], keys)
+    return loss, ms[0]
 
 
 # --------------------------------------------------------------------------
@@ -395,24 +419,38 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
                               getattr(torch, cfg.cache_dtype), resolve_device(device))
 
 
-def _single_controller(params, what: str) -> None:
-    if isinstance(params, SH.ShardedLM) and params.mesh.multi:
-        raise NotImplementedError(
-            f"{what} on a mesh of several processes: sharded serving over processes is "
-            "ROADMAP A13e; a train step runs there (make_train_step)")
-
-
-def _cache_rows(cache, rows, device):
+def _cache_rows(cache, rows, device, key=None):
     """The rows of a cache (dim 1 of its stacked leaves): a slice view of a
-    plain cache, or joined onto `device` from a sharded one's parts."""
+    plain cache, or joined onto `device` from a sharded one's parts (over
+    several processes, pass `key`'s from its data shard's model group)."""
     if isinstance(cache, SH.ShardedCache):
-        return cache.rows(rows, device)
+        mesh, group = cache.mesh, None
+        if mesh.multi and key is not None:
+            axes = TM.batch_axes(mesh)
+            group = next(g for g in mesh.groups("model") if mesh.batch_rank(g[0], axes) == key)
+        return cache.rows(rows, device, group)
     return {b: {n: a[:, rows] for n, a in c.items()} for b, c in cache.items()}
+
+
+def _gather_passes(params, keys: list, values: list):
+    """The passes' `values` (one a pass, batch-major; `keys` the passes'
+    keys of `_shard_plan`) joined on dim 0 on the params' device, in pass
+    order. Over several processes every pass's value is fetched over the
+    batch axes first, so every process gets the single controller's
+    tensor."""
+    home = params.device
+    if keys[0] is None:
+        return torch.cat([v.to(home) for v in values], 0)
+    mesh = params.mesh
+    axes = TM.batch_axes(mesh)
+    got = TM.over(mesh, axes, lambda vs: [torch.cat(vs, 0)] * len(vs),
+                  {s: values[keys.index(mesh.batch_rank(s, axes))] for s in mesh.local})
+    return got[mesh.local[0]].to(home)
 
 
 @torch.no_grad()
 def _decode(cfg, params, cache, token, cur_len, device):
-    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _cast)
+    p, gather, tok, norm = _weights(cfg, params, device, _cast)
     x = T.embed_tokens(cfg, tok, token)
     if cfg.pos_embed == "sinusoidal":
         pe = _sinusoidal(cache_max_len(cache), cfg.d_model, x.dtype, x.device)
@@ -438,20 +476,23 @@ def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
     On a mesh (`ShardedLM` params and the `ShardedCache` `prefill` made)
     each data shard decodes its rows in turn: its cache rows joined from
     their parts (the model axis is storage only), the step run, the rows
-    written back into the parts."""
-    _single_controller(params, "decode_step")
+    written back into the parts. Over several processes a process steps
+    its own data shards' rows: it reads them from its model group's parts
+    (the other processes' fetched), writes back its own parts, and gets
+    every pass's logits over the batch axes: every process returns the
+    single controller's [B, 1, V]."""
     plan = _shard_plan(cfg, params, token.shape[0])
     if len(plan) == 1 and not isinstance(cache, SH.ShardedCache):
         return _decode(plan[0][2], params, cache, token, cur_len, plan[0][1])
     outs = []
-    for rows, dev, pcfg, _, _ in plan:
+    for rows, dev, pcfg, _, key in plan:
         pos = cur_len.to(dev) if isinstance(cur_len, torch.Tensor) else cur_len
-        local = _cache_rows(cache, rows, dev)
+        local = _cache_rows(cache, rows, dev, key)
         logits, local = _decode(pcfg, params, local, token[rows].to(dev), pos, dev)
         if isinstance(cache, SH.ShardedCache):  # a plain cache's rows are views
             cache.write_rows(rows, local)
-        outs.append(logits.to(params.device))
-    return torch.cat(outs, 0), cache
+        outs.append(logits)
+    return _gather_passes(params, [k for *_, k in plan], outs), cache
 
 
 def cache_max_len(cache) -> int:
@@ -463,7 +504,7 @@ def cache_max_len(cache) -> int:
 
 @torch.no_grad()
 def _prefill(cfg, params, batch, max_len, device):
-    p, gather, tok, norm = _weights(params, device, _dtype(cfg), _cast)
+    p, gather, tok, norm = _weights(cfg, params, device, _cast)
     tokens = batch["tokens"].to(device)
     Sq = tokens.shape[1]
     x = T.embed_tokens(cfg, tok, tokens)
@@ -485,24 +526,25 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int):
     On a mesh (`ShardedLM` params) each data shard prefills its rows in
     turn, and the cache comes back placed on the mesh by `cache_specs`
     (a `ShardedCache`; sequence-sharded when the policy names a
-    `seq_axis_for_cache`)."""
+    `seq_axis_for_cache`). Over several processes a process prefills its
+    own data shards' rows and places its own parts of the cache from
+    them; every process returns the single controller's logits."""
     B = batch["tokens"].shape[0]
-    _single_controller(params, "prefill")
     plan = _shard_plan(cfg, params, B)
     if not isinstance(params, SH.ShardedLM):
         return _prefill(plan[0][2], params, batch, max_len, plan[0][1])
-    home = params.device
-    logits, caches = [], []
+    logits, passes = [], []
     for rows, dev, pcfg, _, _ in plan:
         lg, c = _prefill(pcfg, params, _rows(batch, rows), max_len, dev)
-        logits.append(lg.to(home))
-        caches.append(c)
-    whole = {b: {n: torch.cat([c[b][n].to(home) for c in caches], 1) for n in caches[0][b]}
-             for b in caches[0]}
-    specs = SH.cache_specs(cfg, whole, params.mesh,
+        logits.append(lg)
+        passes.append((rows, c))
+    first = passes[0][1]
+    shapes = {b: {n: torch.empty((a.shape[0], B, *a.shape[2:]), dtype=a.dtype, device="meta")
+                  for n, a in c.items()} for b, c in first.items()}
+    specs = SH.cache_specs(cfg, shapes, params.mesh,
                            seq_shard=cfg.policy.seq_axis_for_cache is not None)
-    return torch.cat(logits, 0), SH.ShardedCache(params.mesh, SH.named(params.mesh, specs,
-                                                                         whole))
+    return (_gather_passes(params, [k for *_, k in plan], logits),
+            SH.ShardedCache.place(params.mesh, specs, passes, B))
 
 
 # --------------------------------------------------------------------------
@@ -533,13 +575,9 @@ def _pass_losses(params, table: list, keys: list):
     (keyed passes) every pass's rows are gathered over the batch axes
     first, so every process adds the same numbers in the same order."""
     if keys and keys[0] is not None:
-        mesh = params.mesh
-        axes = TM.batch_axes(mesh)
         mine = torch.stack([torch.stack(rows) for rows in table], 1)  # [passes, A, 3]
-        got = TM.over(mesh, axes, lambda v: [torch.stack(v, 1)] * len(v),
-                      {s: mine[keys.index(mesh.batch_rank(s, axes))] for s in mesh.local})
-        whole = got[mesh.local[0]]  # [A, dp, 3]
-        table = [list(whole[i]) for i in range(whole.shape[0])]
+        whole = _gather_passes(params, keys, list(mine[:, None]))  # [dp, A, 3]
+        table = [list(whole[:, i]) for i in range(whole.shape[1])]
     loss, ms = 0.0, []
     for rows in table:
         m = {"ce": 0.0, "aux": 0.0}

@@ -12,16 +12,19 @@ Two dispatch paths, as the reference's:
                      E_pad experts (dead experts zero-padded, their logits
                      -inf); two `all_to_all`s over each data group's model
                      ranks carry every expert's buffer to the rank that
-                     stores it and back. Per-shard capacity decides which
-                     tokens drop, so its output is the reference's sharded
-                     output, not `moe_apply`'s.
+                     stores it and back (where the sequence does not
+                     divide, the ranks share one dispatch and each runs
+                     its experts' slice of the buffer). Per-shard capacity
+                     decides which tokens drop, so its output is the
+                     reference's sharded output, not `moe_apply`'s.
 
-The shards run in turn on the tokens' device, and the collectives are
-the mesh module's plain functions in rank order. Over several processes
-(`launch.cluster.init_cluster`) each process of a data shard's model
-group runs this dispatch for the whole group on the gathered weights,
-as it runs the dense layers: the model axis stores the experts, and the
-`all_to_all`s stay in the process (crossing processes is ROADMAP A13e).
+In one process the model ranks run in turn on the tokens' device, and
+the collectives are plain list functions in rank order. Over several
+processes (`launch.cluster.init_cluster`, one a card) the process of
+model rank m runs rank m only: it gathers and runs its E_loc experts
+alone, and the `all_to_all`s, the join of the ranks' outputs and the
+router's gradient cross the model group's processes
+(`launch.mesh.AxisGroup`), with the single controller's bits.
 
 The combine adds each token's top_k contributions in the order of the
 stable expert sort, rounding to the compute dtype after each add, as the
@@ -166,20 +169,32 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
     B divisible by the batch axes (`sharded_path_ok`).
 
     Shard (i, m) of the policy's (data dp, model tp) grid holds rows
-    [i·B/dp, (i+1)·B/dp) and, when the sequence divides the model axis,
-    sequence block m (else every model rank holds the data shard's whole
-    sequence and re-dispatches it, as the reference's do). Expert e lives
-    on model rank e // (E_pad / tp); the FFN of a rank's experts runs on
-    the capacity rows every rank of its data group sent it, with the
-    weights gathered over the batch axes (here: the weights as given), a
-    remat unit under autograd as the reference's `jax.checkpoint`. `aux`
-    is the mean over the shards (the reference's `pmean`)."""
+    [i·B/dp, (i+1)·B/dp). Expert e lives on model rank e // (E_pad / tp);
+    rank m runs the FFN of its E_loc experts only, with the weights
+    gathered over the batch axes (here: the weights as given, or, from a
+    pass over processes, rank m's slice of them), a remat unit under
+    autograd as the reference's `jax.checkpoint`.
+
+      * Where the sequence divides the model axis, rank m holds sequence
+        block m: it dispatches its own tokens, two `all_to_all`s carry
+        every expert's buffer to the rank that stores it and back, it
+        combines its own tokens, and the ranks' outputs join over the
+        model axis (the dense layers replicate the data shard's tokens);
+        each rank routes with its own view of the router, whose
+        gradients add up in rank order.
+      * Else (decode among them) every rank's tokens are the data shard's
+        whole tokens, as the reference's re-dispatch: one dispatch, each
+        rank's experts run on its slice of the expert buffer, and the
+        slices join into the whole buffer before the combine.
+
+    The ranks are the policy's `group` (`launch.mesh.AxisGroup`): all of
+    them in turn in one process, its own over processes. `aux` is the
+    mean over the shards (the reference's `pmean`), in rank order."""
     B, S, d = x.shape
     E = p["router"].shape[1]
     tp = policy.tp_size
     dp = policy.dp_size
     E_pad = -(-E // tp) * tp  # zero-pad dead experts (granite: 40 -> 48)
-    E_loc = E_pad // tp
     # split tokens over the model axis too when the sequence divides: each
     # token is dispatched once (with batch-only sharding every model rank
     # re-dispatches the same tokens)
@@ -188,32 +203,49 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
     T_loc = (B * S) // n_shards
     C_loc = capacity(T_loc, top_k, E_pad, capacity_factor)
     Bl, Sl = B // dp, (S // tp if seq_sharded else S)
-    w_up, w_down = _pad_e(p["w_up"], E_pad), _pad_e(p["w_down"], E_pad)
-    w_gate = _pad_e(p["w_gate"], E_pad) if "w_gate" in p else None
-    record = _recording(x, *(t for t in (w_up, w_gate, w_down) if t is not None))
+    group = policy.group if policy.group is not None else Mesh.AxisGroup(tp)
+    ws = {k: _expert_slices(p[k], group, E_pad) for k in ("w_up", "w_gate", "w_down")
+          if k in p}
+    record = _recording(x, *(t for v in ws.values() for t in v))
 
-    def expert_ffn(buf, m):
-        e = slice(m * E_loc, (m + 1) * E_loc)
-        return _expert_ffn(buf, w_up[e], None if w_gate is None else w_gate[e], w_down[e],
-                           act)
+    def expert_ffn(buf, j):
+        return _expert_ffn(buf, ws["w_up"][j], ws["w_gate"][j] if "w_gate" in ws else None,
+                           ws["w_down"][j], act)
 
     ys, auxes = [], []
     for i in range(dp):
         rows = x[i * Bl:(i + 1) * Bl]
-        xts = [(rows[:, m * Sl:(m + 1) * Sl] if seq_sharded else rows).reshape(T_loc, d)
-               for m in range(tp)]
-        sent = [_dispatch(xt, _router_logits(xt, p["router"], E_pad), top_k, C_loc, E_pad)
-                for xt in xts]
-        # experts to their owner rank; every rank's tokens concatenate on
-        # the capacity axis: [E_loc, C_loc * tp, d] a rank
-        bufs = Mesh.all_to_all([b for b, _, _ in sent], split_dim=0, concat_dim=1)
-        outs = [_remat(expert_ffn, b, m, record=record) for m, b in enumerate(bufs)]
-        back = Mesh.all_to_all(outs, split_dim=1, concat_dim=0)  # [E_pad, C_loc, d]
-        y = [_combine(o, xt, r).reshape(Bl, Sl, d)
-             for o, xt, (_, _, r) in zip(back, xts, sent)]
-        ys.append(torch.cat(y, 1) if seq_sharded else y[0])
-        auxes.extend(a for _, a, _ in (sent if seq_sharded else sent[:1]))
+        if seq_sharded:
+            xts = [r.reshape(T_loc, d) for r in group.split(rows, 1)]
+            sent = [_dispatch(xt, _router_logits(xt, router, E_pad), top_k, C_loc, E_pad)
+                    for xt, router in zip(xts, group.fanout(p["router"]))]
+            # experts to their owner rank; every rank's tokens concatenate on
+            # the capacity axis: [E_loc, C_loc * tp, d] a rank
+            bufs = group.all_to_all([b for b, _, _ in sent], 0, 1)
+            outs = [_remat(expert_ffn, b, j, record=record) for j, b in enumerate(bufs)]
+            back = group.all_to_all(outs, 1, 0)  # [E_pad, C_loc, d]
+            ys.append(group.gather([_combine(o, xt, r).reshape(Bl, Sl, d)
+                                    for o, xt, (_, _, r) in zip(back, xts, sent)], 1))
+            auxes.extend(group.every([a for _, a, _ in sent]))
+        else:
+            xt = rows.reshape(T_loc, d)
+            buf, aux, routing = _dispatch(xt, _router_logits(xt, p["router"], E_pad), top_k,
+                                          C_loc, E_pad)
+            outs = [_remat(expert_ffn, b, j, record=record)
+                    for j, b in enumerate(group.split(buf, 0))]  # [E_loc, C_loc, d] a rank
+            ys.append(_combine(group.gather(outs, 0), xt, routing).reshape(Bl, S, d))
+            auxes.append(aux)
     return torch.cat(ys, 0), Mesh.pmean(auxes)[0]
+
+
+def _expert_slices(w, group, E_pad) -> list:
+    """The expert slices [E_loc, ...] of `w` for the ranks `group` runs:
+    `w` as given where it is already the list of them (a pass over
+    processes gathers only its ranks' experts), else split from the
+    zero-padded whole."""
+    if isinstance(w, list):
+        return w
+    return group.split(_pad_e(w, E_pad), 0)
 
 
 def _pad_e(w, E_pad):

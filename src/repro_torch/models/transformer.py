@@ -61,10 +61,20 @@ class ShardingPolicy:
     dp_size: int = 16  # product of batch-axis sizes (for divisibility rules)
     seq_shard_residual: bool = True  # Megatron-SP style residual layout
     seq_axis_for_cache: str | None = None  # context-parallel KV/long-context
+    # not a field (the layout is the same): a pass's model group over
+    # processes (`launch.mesh.AxisGroup`), whose own ranks the MoE runs;
+    # None runs every rank in turn
+    group = None
 
     def __hash__(self):
         return hash((self.batch, self.model, self.tp_size, self.dp_size,
                      self.seq_shard_residual, self.seq_axis_for_cache))
+
+    def with_group(self, group) -> "ShardingPolicy":
+        """This policy for a pass that runs `group`'s own model ranks."""
+        out = dataclasses.replace(self)
+        object.__setattr__(out, "group", group)
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -149,7 +159,10 @@ def _apply_mlp(cfg, p, x, mlp_kind: str):
         return x + L.mlp_apply(p["mlp"], h, act=cfg.act), 0.0
     if M.sharded_path_ok(cfg.policy, h.shape, cfg.moe_experts):
         # its own remat unit, as the reference's: the expert hiddens are
-        # recomputed in the backward pass
+        # recomputed in the backward pass, and with them, over processes,
+        # the unit's collectives, which every process of the model group
+        # recomputes in one order (its graph is the others'); under
+        # no_grad (serving) nothing is recomputed
         def moe_fn(pp, hh):
             return M.moe_apply_sharded(pp, hh, top_k=cfg.moe_top_k, act=cfg.act,
                                        capacity_factor=cfg.moe_capacity_factor,
@@ -240,6 +253,8 @@ def _tensors(tree) -> list:
         return list(tree.parameters())
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):  # a pass's expert slices (`gather_tree`)
+        return [t for v in tree for t in _tensors(v)]
     if isinstance(tree, Sharded):
         return tree.local()
     return [tree]

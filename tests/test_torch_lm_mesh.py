@@ -18,6 +18,7 @@ steps at rtol 1e-4 / atol 1e-5 (jamba's and mamba2's params at atol
 being the port's own (ROADMAP C 25); resharding bit for bit."""
 import dataclasses
 import fcntl
+import functools
 import importlib
 import os
 import subprocess
@@ -251,6 +252,44 @@ def test_moe_apply_sharded_gradients_flow():
     assert p["router"].grad.abs().sum() > 0
 
 
+def test_router_gradient_adds_the_model_ranks_in_order(monkeypatch):
+    """The single controller's router gradient where the sequence splits
+    over the model axis (tp 4, S 8) is its model ranks' partials (each
+    rank's tokens through its own view of the router) added in rank
+    order, bit for bit as the processes add them; at capacity factor 8
+    (no drops) it is the unsharded `moe_apply`'s within the train steps'
+    tolerance (through the output: the shards' aux is the mean of their
+    own)."""
+    pol = ShardingPolicy(batch=("data",), model="model", tp_size=4, dp_size=1)
+    g = torch.Generator().manual_seed(1)
+    p = {k: v.requires_grad_(True) for k, v in M.moe_init(g, 16, 32, 8).items()}
+    x = torch.randn(2, 8, 16, generator=g)
+    w = torch.randn(2, 8, 16, generator=g)
+    views, fanout = [], TM.AxisGroup.fanout
+
+    def keeping(self, t):
+        out = fanout(self, t)
+        for v in out:
+            v.retain_grad()
+        views.extend(out)
+        return out
+
+    monkeypatch.setattr(TM.AxisGroup, "fanout", keeping)
+    y, aux = M.moe_apply_sharded(p, x, top_k=2, capacity_factor=8.0, policy=pol)
+    ((y * w).sum() + aux).backward()
+    assert len(views) == 4 and all(v.grad is not None for v in views)
+    total = views[0].grad
+    for v in views[1:]:
+        total = total + v.grad
+    assert torch.equal(p["router"].grad, total)
+    grads = []  # through the output alone (the shards' aux is their mean, not moe_apply's)
+    for fn in (functools.partial(M.moe_apply_sharded, policy=pol), M.moe_apply):
+        q = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        (fn(q, x, top_k=2, capacity_factor=8.0)[0] * w).sum().backward()
+        grads.append(q["router"].grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=RTOL, atol=ATOL)
+
+
 # --- context-parallel decode --------------------------------------------------------
 
 
@@ -474,3 +513,74 @@ def test_train_steps_over_gloo_processes(ref, tmp_path):
     for r, o in enumerate(outs):
         np.testing.assert_array_equal(o[f"compress.{r}.mean"], mean[r]["w"].numpy())
         np.testing.assert_array_equal(o[f"compress.{r}.resid"], new_r[r]["w"].numpy())
+
+
+def _serve_inputs():
+    """`torch_mp_worker.serve_runs`' inputs, from numpy seeds: granite's
+    prompts (B 4 and 3, 8 tokens), `forward_train`'s batches (B 4 x S 16),
+    the SERVE_TRAIN steps' batches, and a cp decode layer at `CP`'s dims
+    with its cache and one x a cur_len."""
+    from torch_mp_worker import SERVE_TRAIN
+
+    rng = np.random.RandomState(7)
+
+    def batch(B, S, vocab=256):
+        return {"tokens": rng.randint(0, vocab, (B, S)).astype(np.int32),
+                "labels": rng.randint(0, vocab, (B, S)).astype(np.int32),
+                "mask": (rng.rand(B, S) > 0.1).astype(np.float32)}
+
+    dims = {k: CP[k] for k in ("d_model", "n_heads", "n_kv", "d_head")}
+    g = torch.Generator().manual_seed(3)
+    p = {k: v.numpy() for k, v in L.attn_init(g, L.AttnDims(**dims), torch.float32,
+                                              "cpu").items()}
+    kv = (CP["B"], CP["S"], CP["n_kv"], CP["d_head"])
+    return {"prompts": {B: rng.randint(0, 256, (B, 8)) for B in (4, 3)},
+            "forward": {n: batch(4, 16) for n in ("gemma-2b", "granite-moe-3b-a800m")},
+            "train": {tag: [batch(*shape) for _ in range(2)] for tag, _, shape in SERVE_TRAIN},
+            "cp": {"dims": dims, "p": p, "cur_lens": CP["cur_lens"],
+                   "ck": (rng.randn(*kv) * 0.5).astype(np.float32),
+                   "cv": (rng.randn(*kv) * 0.5).astype(np.float32),
+                   "xs": [(rng.randn(CP["B"], 1, CP["d_model"]) * 0.5).astype(np.float32)
+                          for _ in CP["cur_lens"]]}}
+
+
+def test_serving_over_gloo_processes(tmp_path):
+    """Sharded serving and the MoE split over 4 gloo processes, one shard
+    a process (`torch_mp_worker.serve_runs`): reduced granite's prefill
+    and 3 greedy decode steps (capacity factors 8 and 1, B 4 and the
+    one-pass B 3) give every process the single controller's logits and
+    joined cache bit for bit, as do `forward_train` (gemma-2b, granite),
+    granite's train steps where the sequence does not divide the model
+    axis (5 experts) and where the expert dim lies on the model axis (6),
+    and `cp_decode_attention` on (data 4, model 1) (its output, and each
+    process's cache slices). Every expert FFN of the sharded dispatch
+    runs on E_loc = 3 experts' buffer and weights, in a process as in the
+    single controller (the one-pass B 3 takes `moe_apply`'s 5, as the
+    reference's does), and with 6 experts each process gathers its 3
+    alone (the single controller gathers the 6 and splits them); a cp
+    decode layer sends only the partials (o, m, l)."""
+    from torch_mp_worker import serve_runs
+
+    inputs = _serve_inputs()
+    outs = run_processes(tmp_path, "serve", inputs)
+    want, experts = {}, {}
+    serve_runs(inputs, want, experts)
+    for run, sizes in experts.items():
+        assert sizes == ({(5, 5)} if run.endswith(".B3") else {(3, 3)}), (run, sizes)
+    n = CP["S"] // 4
+    for r, o in enumerate(outs):
+        assert o["experts"].tolist() == sorted([*experts, "window.train.e6_s16"]), r
+        for run, sizes in experts.items():
+            assert {tuple(e) for e in o[f"experts.{run}"]} == sizes, f"process {r} {run}"
+        assert o["experts.window.train.e6_s16"].tolist() == [3], r
+        for k, v in want.items():
+            if k.startswith("cp.") and k.split(".")[1] in "kv":
+                continue
+            np.testing.assert_array_equal(o[k], v, err_msg=f"process {r} {k}")
+        for tag in "kv":
+            np.testing.assert_array_equal(o[f"cp.{tag}.{r}"], want[f"cp.{tag}.{r}"],
+                                          err_msg=f"process {r} cp cache {tag}")
+        partials = CP["B"] * CP["n_heads"] * (CP["d_head"] + 2) * 4  # o, m, l in f32
+        slice_bytes = CP["B"] * n * CP["n_kv"] * CP["d_head"] * 4
+        assert o["cp.sent_bytes"].tolist() == [partials], o["cp.sent_bytes"]
+        assert partials < slice_bytes

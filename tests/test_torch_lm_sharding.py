@@ -357,3 +357,34 @@ def test_every_rank_builds_the_subgroups_in_one_order(monkeypatch):
             made.append(seen)
         assert all(m == made[0] for m in made) and made[0]
         assert all(list(p) == sorted(set(p)) and len(p) > 1 for p in made[0])
+
+
+@pytest.mark.parametrize("B", [4, 3])
+def test_sharded_cache_holds_a_process_parts(monkeypatch, B):
+    """`ShardedCache.place` for each process of 4 on (data 2, model 2),
+    reckoned on `meta` tensors from reduced granite's `cache_specs`: the
+    process holds exactly its own shard's part (its data shard's rows,
+    its model rank's kv heads; all rows, replicated, for the one-pass
+    B 3), cut from its own passes only, and None for the others."""
+    from repro_torch.configs import get_reduced
+
+    cfg = get_reduced("granite-moe-3b-a800m")
+    G, S, KV, hd = cfg.n_groups, 12, cfg.n_kv, cfg.d_head
+    for rank in range(4):
+        _as_process(monkeypatch, 4, rank)
+        mesh = TM.Mesh({"data": 2, "model": 2}, ["meta"] * 4, procs=[0, 1, 2, 3])
+        pcfg = cfg.with_policy(SH.policy_for(mesh))
+        n = B // 2 if B % 2 == 0 else B
+        d = mesh.batch_rank(rank, ("data",)) if n < B else 0
+        one = {"b0": {k: torch.empty((G, n, S, KV, hd), device="meta") for k in "kv"}}
+        shapes = {"b0": {k: torch.empty((G, B, S, KV, hd), device="meta") for k in "kv"}}
+        specs = SH.cache_specs(pcfg, shapes, mesh, seq_shard=False)
+        cache = SH.ShardedCache.place(mesh, specs, [(slice(d * n, (d + 1) * n), one)], B)
+        for k in "kv":
+            sh = cache["b0"][k]
+            assert tuple(sh.spec) == ((None, "data", None, "model", None) if B == 4
+                                      else (None,) * 5)
+            assert [s for s in range(4) if sh.parts[s] is not None] == [rank]
+            want = (G, B // 2, S, KV // 2, hd) if B == 4 else (G, B, S, KV, hd)
+            assert tuple(sh.parts[rank].shape) == want
+            assert tuple(sh.shape) == (G, B, S, KV, hd)

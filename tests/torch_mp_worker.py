@@ -148,6 +148,150 @@ def lm(tmp, inputs, out):
             mean[s]["w"].numpy(), new_r[s]["w"].numpy())
 
 
+GRANITE = "granite-moe-3b-a800m"
+# the train steps of `serve_runs`: (tag, replace, B x S); granite's 5 experts
+# lie on the model axis' FFN split (its expert stacks are (None, data,
+# model)), 6 put the expert dim on the model axis (each rank's slice
+# gathered alone); S 15 does not divide the model axis (the re-dispatch)
+SERVE_TRAIN = (("e5_s15", {"moe_capacity_factor": 1.0, "accum_steps": 2}, (4, 15)),
+               ("e6_s16", {"moe_capacity_factor": 1.0, "accum_steps": 2,
+                           "moe_experts": 6}, (4, 16)))
+
+
+def serve_runs(inputs, out, experts=None):
+    """The `serve` scenario on this process's meshes (one process: the
+    single controller), every result into `out`: reduced granite's
+    prefill and 3 greedy decode steps at capacity factors 8 and 1 for B 4
+    and B 3 (the one-pass branch) on (data 2, model 2), the logits and
+    the joined cache; `forward_train`'s (loss, ce, aux) of reduced
+    gemma-2b and granite; the SERVE_TRAIN granite train steps (metrics
+    and the final state); `cp_decode_attention` on (data 4, model 1)
+    through the cur_lens of `inputs["cp"]` (the outputs, the cache
+    slices). `experts`, a dict, gets each run's set of (the expert
+    buffer's, the weights') leading sizes over its expert FFN calls, and
+    under "window.{run}" the leading sizes of the slices gathered alone
+    (`Sharded.gather` with a window)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as TM
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.serving import cp_decode_attention
+    from repro_torch.models import convert
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as Md
+    from repro_torch.models import moe as M
+    from torch_lm_mesh_ref import F32
+
+    ffn, gather, run = M._expert_ffn, TM.Sharded.gather, [None]
+    if experts is not None:
+        def recording(buf, w_up, w_gate, w_down, act):
+            experts.setdefault(run[0], set()).add((buf.shape[0], w_up.shape[0]))
+            return ffn(buf, w_up, w_gate, w_down, act)
+
+        def gathering(sh, device=None, key=None, window=None):
+            t = gather(sh, device, key, window)
+            if window is not None:
+                experts.setdefault(f"window.{run[0]}", set()).add(t.shape[0])
+            return t
+
+        M._expert_ffn, TM.Sharded.gather = recording, gathering
+    try:
+        mesh = TM.make_host_mesh(data=2, model=2, device="cpu")
+
+        def placed(cfg):
+            pcfg = cfg.with_policy(SH.policy_for(mesh))
+            params = Md.init_params(cfg, 0, device="cpu")
+            return pcfg, SH.ShardedLM.place(pcfg, mesh, params, SH.param_specs(
+                pcfg, SH.ref_layout(params.tree()), mesh))
+
+        for cf in (8.0, 1.0):
+            pcfg, params = placed(dataclasses.replace(get_reduced(GRANITE), **F32,
+                                                      moe_capacity_factor=cf))
+            for B in (4, 3):
+                tag = run[0] = f"serve.cf{cf:g}.B{B}"
+                tokens = torch.from_numpy(inputs["prompts"][B])
+                logits, cache = Md.prefill(pcfg, params, {"tokens": tokens}, max_len=12)
+                outs = [logits]
+                for t in range(3):
+                    logits, cache = Md.decode_step(pcfg, params, cache, logits.argmax(-1),
+                                                   torch.tensor(8 + t))
+                    outs.append(logits)
+                out[f"{tag}.logits"] = torch.cat(outs, 1).numpy()
+                for k, v in _flat(convert.cache_to_numpy(cache)).items():
+                    out[f"{tag}.cache{k}"] = v
+        for name, batch in inputs["forward"].items():
+            run[0] = f"forward.{name}"
+            pcfg, params = placed(dataclasses.replace(get_reduced(name), **F32))
+            loss, m = Md.forward_train(pcfg, params, {k: torch.from_numpy(v)
+                                                      for k, v in batch.items()})
+            out[f"forward.{name}"] = torch.stack([loss, m["ce"], m["aux"]]).detach().numpy()
+        for tag, extra, _ in SERVE_TRAIN:
+            run[0] = f"train.{tag}"
+            cfg = dataclasses.replace(get_reduced(GRANITE), **F32, **extra)
+            _, state, step, _ = TL.build(cfg, mesh, device="cpu")
+            for i, b in enumerate(inputs["train"][tag]):
+                state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+                for k, v in m.items():
+                    out[f"train.{tag}.step{i}.{k}"] = v.numpy()
+            for k, v in _flat(convert.train_state_to_numpy(state)).items():
+                out[f"train.{tag}.final{k}"] = v
+        cp = inputs["cp"]
+        cmesh = TM.make_host_mesh(data=4, model=1, device="cpu")
+        dims = L.AttnDims(**cp["dims"])
+        p = {k: torch.from_numpy(v) for k, v in cp["p"].items()}
+        ck, cv = torch.from_numpy(cp["ck"]), torch.from_numpy(cp["cv"])
+        for cur_len, x in zip(cp["cur_lens"], cp["xs"]):
+            o, ck, cv = cp_decode_attention(p, torch.from_numpy(x), ck, cv,
+                                            torch.tensor(cur_len), dims, cmesh,
+                                            seq_axis="data")
+            out[f"cp.{cur_len}.o"] = o.numpy()
+        n = cp["ck"].shape[1] // 4
+        for s in cmesh.local:
+            for tag, c in (("k", ck), ("v", cv)):
+                out[f"cp.{tag}.{s}"] = (c.parts[s] if hasattr(c, "parts") else
+                                        c[:, s * n:(s + 1) * n]).numpy()
+    finally:
+        M._expert_ffn, TM.Sharded.gather = ffn, gather
+    return cmesh, dims, p
+
+
+def serve(tmp, inputs, out):
+    """`serve_runs` on this process's shards (one a process), the expert
+    FFN's leading sizes, and the bytes `torch.distributed` moved out of
+    this process in one more cp decode layer (its collectives wrapped)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.serving import cp_decode_attention
+
+    experts = {}
+    cmesh, dims, p = serve_runs(inputs, out, experts)
+    for run, sizes in experts.items():
+        out[f"experts.{run}"] = np.asarray(sorted(sizes), np.int64)
+    out["experts"] = np.asarray(sorted(experts))
+    sent, originals = [], {n: getattr(dist, n) for n in (
+        "all_gather", "all_gather_into_tensor", "all_to_all_single", "all_reduce",
+        "broadcast", "reduce_scatter_tensor", "send", "isend")}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            t = a[0] if name in ("all_reduce", "broadcast", "send", "isend") else a[1]
+            sent.append(t.numel() * t.element_size())
+            return fn(*a, **k)
+        return wrapped
+
+    cp = inputs["cp"]
+    ck, cv = torch.from_numpy(cp["ck"]), torch.from_numpy(cp["cv"])
+    for name, fn in originals.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        cp_decode_attention(p, torch.from_numpy(cp["xs"][0]), ck, cv, torch.tensor(3), dims,
+                            cmesh, seq_axis="data")
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    out["cp.sent_bytes"] = np.asarray(sent, np.int64)
+
+
 def main():
     scenario, tmp = sys.argv[1], sys.argv[2]
     from repro_torch.launch.cluster import close_cluster, init_cluster
@@ -156,7 +300,7 @@ def main():
     with open(os.path.join(tmp, "mp_inputs.pkl"), "rb") as f:
         inputs = pickle.load(f)
     out = {}
-    {"init": init, "gp": gp, "lm": lm}[scenario](tmp, inputs, out)
+    {"init": init, "gp": gp, "lm": lm, "serve": serve}[scenario](tmp, inputs, out)
     assert "jax" not in sys.modules, "a process of the port imported jax"
     np.savez(os.path.join(tmp, f"mp_{scenario}.{info.process_id}.npz"), **out)
     close_cluster()

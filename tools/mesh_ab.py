@@ -1,8 +1,9 @@
 """Phase 13 (b) of chip_smoke.py (gemma-2b's bf16 train step, one process
 driving (data 2, model 2) over the card or cards) for another tree and
 this one, in the order parent, change, change, parent, one process each;
-the first run of this tree also runs phase 10 (a) and phase 14 (the mesh
-over processes), which phase 14 needs:
+the first run of this tree also runs phase 14 (the mesh over processes)
+and what it needs: phase 10 (a), phase 13 (c) and phase 12 (b)'s granite
+step:
 
     python3 tools/mesh_ab.py PARENT_DIR
 
@@ -48,8 +49,10 @@ if with_mp:
     try:
         c.build.load("gp_eval")
         _, _, isl = c._mesh_islands()
+        serve = c._lm_mesh_serve()
+        granite, _ = c._train_timed("granite-moe-3b-a800m", 8, 512)
         gc.collect(); torch.cuda.empty_cache()
-        c.mp_paths(isl, r)
+        c.mp_paths(isl, r, serve, granite)
         print("MP_OK", flush=True)
     except Exception:
         traceback.print_exc()
