@@ -252,6 +252,23 @@ Phases:
      data W: against `attn_decode` (out 2e-5, cache 1e-6), bit for bit
      the same calls in this process, the bytes a process sent in one
      layer (the partials' only). A process that fails fails the phase
+  15. the dry run held against the card (`repro_torch.launch.dryrun`:
+     the port's own code on `meta` tensors, as process r of a fake
+     process group; no value computed, no byte moved). One child process
+     (`--dryrun`, started after phase 10 and read here; CUDA is never
+     initialized in it; a failed child fails the phase) runs: (a) phase
+     13 (b)'s gemma-2b bf16 step (B 4 x S 1,024 on (data 2, model 2)) as
+     the single controller: its argument bytes must equal the bytes
+     phase 13 (b) placed on the card (its state's storages and one
+     batch) exactly, and its argument + temp GB print beside that step's
+     `max_memory_allocated`; (b) phase 10 (a)'s islands with the cuda
+     backend on `meta`, one block of phase 10 (a)'s generations: its B1
+     launches must equal phase 10 (a)'s count; (c) phase 14 (e)'s
+     granite decode step as each rank of 4: with four processes in phase
+     14 each process's bytes sent and received and its collectives must
+     equal the dry run's of its rank, with one card they print with
+     `"multi_rank": false`; (d) gemma-2b's train_4k cell on (data 16,
+     model 16), rank 0: its record and trace_s
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -304,6 +321,7 @@ from repro_torch.models import transformer as lm_T  # noqa: E402
 from repro_torch.obs import counters  # noqa: E402
 from repro_torch.data import loader as lm_data  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import mesh as lm_mesh  # noqa: E402
 from repro_torch.launch import serving as lm_serving  # noqa: E402
 from repro_torch.launch import sharding as lm_SH  # noqa: E402
@@ -3580,6 +3598,9 @@ def lm_mesh_paths(single):
          configs=runs["card_vs_cpu"])
     t0 = time.perf_counter()
     runs["train_gemma-2b"], holder, pcfg = _lm_mesh_train_timed(single)
+    # phase 15 (a)'s yardstick: the state's storages on the card
+    runs["train_gemma-2b"]["placed_state_bytes"] = sum(
+        lm_dryrun._storages(holder["state"]).values())
     emit("lm_mesh", run="train_bf16", arch="gemma-2b", nvidia_smi=card,
          run_s=time.perf_counter() - t0, **runs["train_gemma-2b"])
     t0 = time.perf_counter()
@@ -4249,7 +4270,152 @@ def mp_paths(islands, gemma, serve, granite):
          partial_bytes=cp["partial_bytes"], cache_slice_bytes=cp["cache_slice_bytes"],
          child_run_efgh_s=[r["run_efgh_s"] for r in ranks], parent_check_s=here_s,
          phase_s=time.perf_counter() - t_phase)
-    return {"islands": ranks[0]["islands"], "postfix": ranks[0]["postfix"]}
+    return {"islands": ranks[0]["islands"], "postfix": ranks[0]["postfix"], "serve": e,
+            "world": world}
+
+
+# --- phase 15: the dry run held against the card ----------------------------------------
+
+DRY_TRAIN = dict(B=4, S=1024)  # phase 13 (b)'s step (`_lm_mesh_train_timed`)
+DRY_SERVE = dict(B=8, P=512, tokens=16)  # phase 14 (e)'s decode (`_mp_serve`)
+DRY_RANKS = 4  # (c): the ranks of phase 14 on four cards
+DRY_TIMEOUT_S = 900
+
+
+def _dryrun_child(out_path, gens):
+    """Phase 15's dry runs (`python3 chip_smoke.py --dryrun OUT GENS`), in
+    a process of their own: a dry run joins a fake process group for the
+    whole process. Writes {part: record} to OUT; nothing touches the
+    card (CUDA must stay uninitialized)."""
+
+    def strip(rec):
+        return {k: v for k, v in rec.items() if k != "not_portable"}
+
+    res = {}
+    t0 = time.perf_counter()
+    res["a"] = strip(lm_dryrun.run_cell(
+        "gemma-2b", {"kind": "train", "batch": DRY_TRAIN["B"], "seq": DRY_TRAIN["S"]}, False,
+        "", processes=1, mesh=LM_MESH))
+    res["b"] = strip(lm_dryrun.run_gp_cell(dict(
+        name="karoo-kat7", rows=10_000, n_features=9, kernel="c", n_classes=2,
+        fn_set=prim.CLASSIFY_SET, topology=MESH3, **_island_kw()), False, "",
+        eval_impl="cuda", block_steps=gens, processes=1))
+    granite = dataclasses.replace(lm_configs.get_config("granite-moe-3b-a800m"),
+                                  moe_capacity_factor=8.0)
+    decode = {"kind": "decode", "batch": DRY_SERVE["B"],
+              "seq": DRY_SERVE["P"] + DRY_SERVE["tokens"] + 1}
+    res["c"] = [strip(lm_dryrun.run_cell("granite-moe-3b-a800m", decode, False, "", rank=r,
+                                         processes=DRY_RANKS, cfg=granite, mesh=LM_MESH))
+                for r in range(DRY_RANKS)]
+    res["d"] = strip(lm_dryrun.run_cell("gemma-2b", "train_4k", False, ""))
+    res["child_s"] = time.perf_counter() - t0
+    res["cuda_initialized"] = torch.cuda.is_initialized()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _dryrun_start(gens):
+    """Start phase 15's child (it runs while phases 11-14 use the card)
+    -> (the process, its output path, its start time)."""
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    out = SCRATCH / "dryrun.json"
+    if out.exists():
+        out.unlink()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun",
+                             str(out), str(gens)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def _batch_bytes(cfg, B, S) -> int:
+    batch = _train_batches(cfg, B, S, DEV, 1)[0]
+    return sum(t.numel() * t.element_size() for t in batch.values())
+
+
+def dryrun_paths(child, islands, gemma, mp):
+    """Phase 15: phase 15's child read and held against phases 10 (a), 13
+    (b) and 14 (e) (see the docstring)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    proc, out, started = child
+    try:
+        log, _ = proc.communicate(timeout=max(1.0, DRY_TIMEOUT_S - (t_phase - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dry run: the child ran past {DRY_TIMEOUT_S} s")
+    waited = time.perf_counter() - t_phase
+    if proc.returncode:
+        raise AssertionError(f"dry run: the child exited {proc.returncode}:\n{log[-4000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    out.unlink()
+    bad = [k for k in "abd" if res[k]["status"] != "ok"] + [
+        f"c{r}" for r, c in enumerate(res["c"]) if c["status"] != "ok"]
+    if bad or res["cuda_initialized"]:
+        raise AssertionError(f"dry run: cells {bad} failed or CUDA was initialized: "
+                             f"{[res[k].get('error') for k in 'abd']}")
+    # (a) the arguments against the bytes phase 13 (b) placed on the card
+    a = res["a"]
+    if (gemma["batch"], gemma["seq"]) != (DRY_TRAIN["B"], DRY_TRAIN["S"]):
+        raise AssertionError(f"dry run (a): phase 13 (b) ran B {gemma['batch']} x S "
+                             f"{gemma['seq']}, not {DRY_TRAIN}")
+    placed = gemma["placed_state_bytes"] + _batch_bytes(
+        lm_configs.get_config("gemma-2b"), DRY_TRAIN["B"], DRY_TRAIN["S"])
+    argument = a["memory"]["argument_gb"] * 2**30
+    if argument != placed:
+        raise AssertionError(f"dry run (a): argument {argument} B, placed on the card "
+                             f"{placed} B")
+    reckoned_gb = a["memory"]["argument_gb"] + a["memory"]["temp_gb"]
+    cards = len(set(lm_mesh.make_host_mesh(**LM_MESH, device=DEV).devices))
+    emit("dryrun", run="a_gemma_train_single_controller", nvidia_smi=card, mesh=LM_MESH,
+         batch=DRY_TRAIN["B"], seq=DRY_TRAIN["S"], argument_bytes=int(argument),
+         placed_bytes=placed, argument_equal_placed=True, memory=a["memory"],
+         argument_plus_temp_gb=reckoned_gb, card_peak_gb=gemma["peak_mb"] / 1024,
+         reckoned_over_peak=reckoned_gb / (gemma["peak_mb"] / 1024), shard_cards=cards,
+         **({} if cards == 1 else {"peak_note": (
+             f"the shards took {cards} cards: the peak is cuda:0's alone, the reckoning "
+             "every shard's")}),
+         flops=a["flops"], trace_s=a["trace_s"])
+    # (b) B1's launches against phase 10 (a)'s
+    b = res["b"]
+    want = {"eval_fitness": islands["launches"]["eval_fitness"]}
+    if b["kernel_launches"] != want:
+        raise AssertionError(f"dry run (b): launches {b['kernel_launches']}, phase 10 (a) "
+                             f"{want} in {islands['generations']} generations")
+    emit("dryrun", run="b_gp_mesh_cuda_meta", nvidia_smi=card, shape=b["shape"],
+         generations=islands["generations"], kernel_launches=b["kernel_launches"],
+         phase10_launches=islands["launches"], launches_equal=True,
+         received_bytes=b["received_bytes"], collective_calls=b["collective_calls"],
+         memory=b["memory"], trace_s=b["trace_s"])
+    # (c) each rank's bytes against phase 14 (e)'s processes
+    e = mp["serve"]
+    if (e[0]["batch"], e[0]["prompt"], e[0]["tokens"]) != (
+            DRY_SERVE["B"], DRY_SERVE["P"], DRY_SERVE["tokens"]):
+        raise AssertionError(f"dry run (c): phase 14 (e) served B {e[0]['batch']}, a "
+                             f"{e[0]['prompt']}-token prompt, {e[0]['tokens']} tokens")
+    c = res["c"]
+    dry = [[x["sent_bytes"], x["received_bytes"], x["collective_calls"]] for x in c]
+    multi = mp["world"] == DRY_RANKS
+    if multi:
+        got = [[x["decode_step_bytes_sent"], x["decode_step_bytes_received"],
+                x["decode_step_collectives"]] for x in e]
+        if got != dry:
+            raise AssertionError(f"dry run (c): processes {got}, dry run {dry}")
+    emit("dryrun", run="c_granite_decode_ranks", nvidia_smi=card, ranks=DRY_RANKS,
+         multi_rank=multi, **({} if multi else {"multi_rank_reason": (
+             f"phase 14 ran {mp['world']} process(es): no byte crossed, so each rank's "
+             "dry-run bytes print alone")}),
+         dry_sent_received_calls=dry, phase14_equal=multi or None,
+         collective_bytes=[x["collective_bytes"] for x in c],
+         memory=[x["memory"] for x in c], trace_s=[x["trace_s"] for x in c])
+    # (d) one production cell
+    d = res["d"]
+    emit("dryrun", run="d_gemma_train_4k_sp", nvidia_smi=card, record=d, trace_s=d["trace_s"])
+    emit("dryrun", run="done", child_s=res["child_s"], waited_s=waited,
+         phase_s=time.perf_counter() - t_phase)
+    return res
 
 
 PROFILED = (("heap", {}), ("postfix_off", {"genome": "postfix", "dedup": "off"}),
@@ -4449,6 +4615,7 @@ def main():
     lap("9 service")
     mesh_runs = mesh_paths()
     lap("10 mesh")
+    dry_child = _dryrun_start(mesh_runs["islands"]["generations"])
     lm_paths()
     lap("11 lm serve")
     lm_train_runs = lm_train_paths()
@@ -4458,6 +4625,8 @@ def main():
     mp_runs = mp_paths(mesh_runs["islands"], lm_mesh_runs["train_gemma-2b"],
                        lm_mesh_runs["serve_granite"], lm_train_runs["train_granite-moe-3b-a800m"])
     lap("14 mesh over processes")
+    dryrun_paths(dry_child, mesh_runs["islands"], lm_mesh_runs["train_gemma-2b"], mp_runs)
+    lap("15 dry run")
     emit("timing", phase_s=laps, total_s=time.perf_counter() - t0)
     # the mesh path's launches (phase 10), from the run whose work each
     # kernel does there; the probe is not on it (mesh steps carry no cache)
@@ -4555,4 +4724,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dryrun"]:
+        _dryrun_child(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

@@ -188,9 +188,10 @@ class GPSession:
         self._cfg = make_config(config, **overrides)
         self._backend = _backends.get_backend(backend or self._cfg.eval_impl,
                                               self.device)
-        if self._backend.name == "cuda" and self.device.type != "cuda":
+        if self._backend.name == "cuda" and self.device.type not in ("cuda", "meta"):
             raise ValueError("backend 'cuda' runs the CUDA kernel and needs a CUDA "
-                             "device; use backend='torch' with device='cpu'")
+                             "device (or `meta`, the dry run's shapes); use "
+                             "backend='torch' with device='cpu'")
         if self._backend.jittable:
             self._cfg = dataclasses.replace(self._cfg, eval_impl=self._backend.name)
         if self._mesh is not None and not self._backend.supports_topology:

@@ -49,9 +49,13 @@ untouched, so the dedup path launches both branches of the reference's
 
 On CPU tensors each wrapper runs its plain PyTorch version (the
 `*_plain` function beside it); on CUDA tensors it launches the kernel or
-raises. `launches[name]` counts each wrapper's kernel launches on CUDA
-tensors (the tests and `chip_smoke.py` read it): one a call, or one per
-chunk of at most POP_CHUNK trees for B1-B4 (`pop_chunks`).
+raises; on `meta` tensors (the dry run, `launch/dryrun.py`) it checks
+its inputs as for a launch, launches nothing and returns its output
+empty on `meta`. `launches[name]` counts each wrapper's kernel launches
+on CUDA tensors (the tests and `chip_smoke.py` read it): one a call, or
+one per chunk of at most POP_CHUNK trees for B1-B4 (`pop_chunks`).
+`meta_launches[name]` counts, on `meta` tensors, the launches a card
+would make for the same call.
 """
 from __future__ import annotations
 
@@ -73,6 +77,8 @@ KERNELS = ("eval_fitness", "eval_fitness_postfix", "eval_fitness_from_subtrees",
 # launch of the kernel alone (B1-B4 merge their data tiles inside it); a
 # call makes one, B1-B4 one per POP_CHUNK trees.
 launches = dict.fromkeys(KERNELS, 0)
+# the launches each wrapper would make on the card, for calls on `meta` tensors
+meta_launches = dict.fromkeys(KERNELS, 0)
 STACK_TEMPLATES = (8, 12)  # register-stack sizes compiled into csrc/gp_eval.cu
 SMS = 132  # streaming multiprocessors of an H100 SXM
 # the unique table: dynamic shared memory of its persistent block (nearly
@@ -111,6 +117,7 @@ _TICKETS: dict[torch.device, torch.Tensor] = {}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        meta_launches[k] = 0
 
 
 def _lib():
@@ -180,6 +187,14 @@ def _check(dev, **tensors) -> None:
                              f"{tuple(shape)} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
+
+
+def _planned(name: str, n: int, out, gate=None):
+    """A call on `meta` tensors: check the gate, count the `n` launches a
+    card would make and return `out` (empty, on `meta`) with nothing run."""
+    _check(out.device, gate=(gate, torch.bool, ()))
+    meta_launches[name] += n
+    return out
 
 
 def _ptr(t):
@@ -269,7 +284,7 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
     kernel and ignored: an indexed load of X[arg, d] does the job here.
     """
     del gather
-    if not op.is_cuda:
+    if not (op.is_cuda or op.is_meta):
         return eval_fitness_plain(op, arg, X, y, weight, const_table,
                                   max_depth=max_depth, kernel=kernel,
                                   n_classes=n_classes, precision=precision,
@@ -290,6 +305,8 @@ def eval_fitness(op, arg, X, y, weight, const_table, *, max_depth: int,
     tiles, partial, out = _tile_buffers(P, D, data_tile, M, None, dev)
     if P == 0:
         return out
+    if op.is_meta:
+        return _planned("eval_fitness", len(pop_chunks(P)), out)
     slots = constant(postorder_slots(N), dev, np.int32)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
@@ -334,7 +351,7 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
                              STACK_TEMPLATES that holds it
     gate, run_when, out      see the module docstring
     Other arguments as `eval_fitness`."""
-    if not op.is_cuda:
+    if not (op.is_cuda or op.is_meta):
         res = eval_fitness_postfix_plain(op, arg, X, y, weight, const_table,
                                          stack_size=stack_size, kernel=kernel,
                                          n_classes=n_classes, precision=precision,
@@ -357,6 +374,8 @@ def eval_fitness_postfix(op, arg, X, y, weight, const_table, *, stack_size: int,
     tiles, partial, out = _tile_buffers(P, D, data_tile, M, out, dev)
     if P == 0:
         return out
+    if op.is_meta:
+        return _planned("eval_fitness_postfix", len(pop_chunks(P)), out, gate)
     g, rw = _gate_args(gate, run_when, dev)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
@@ -405,7 +424,7 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
 
     root:  int32[P]     unique-slot id per tree (DedupPlan.root)
     uniq:  f32[U, D]    unique-subexpression values (`unique_table`)"""
-    if not root.is_cuda:
+    if not (root.is_cuda or root.is_meta):
         res = eval_fitness_from_subtrees_plain(root, uniq, y, weight, kernel=kernel,
                                                n_classes=n_classes, precision=precision,
                                                data_tile=data_tile)
@@ -420,6 +439,8 @@ def eval_fitness_from_subtrees(root, uniq, y, weight, *, kernel: str = "r",
     tiles, partial, out = _tile_buffers(P, D, data_tile, M, out, dev)
     if P == 0:
         return out
+    if root.is_meta:
+        return _planned("eval_fitness_from_subtrees", len(pop_chunks(P)), out, gate)
     g, rw = _gate_args(gate, run_when, dev)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
@@ -446,7 +467,7 @@ def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: i
     """B4: moments of pre-gathered predictions preds f32[P, D] -> f32[P, M],
     one CUDA launch: B3's block body on row preds[p]. The gather stays
     outside, as the reference's XLA-level `uniq[root]` does."""
-    if not preds.is_cuda:
+    if not (preds.is_cuda or preds.is_meta):
         res = eval_fitness_from_preds_plain(preds, y, weight, kernel=kernel,
                                             n_classes=n_classes, precision=precision,
                                             data_tile=data_tile)
@@ -460,6 +481,8 @@ def eval_fitness_from_preds(preds, y, weight, *, kernel: str = "r", n_classes: i
     tiles, partial, out = _tile_buffers(P, D, data_tile, M, out, dev)
     if P == 0:
         return out
+    if preds.is_meta:
+        return _planned("eval_fitness_from_preds", len(pop_chunks(P)), out, gate)
     g, rw = _gate_args(gate, run_when, dev)
     tickets = _tickets(P, dev)
     for s, n in pop_chunks(P):
@@ -544,7 +567,7 @@ def unique_table(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None, gate=N
     without a fault. With a gate, the kernel fills the table only where
     `gate == run_when` (the table is then left unwritten: its readers are
     gated the same way)."""
-    if not plan.uop.is_cuda:
+    if not (plan.uop.is_cuda or plan.uop.is_meta):
         return unique_table_plain(plan, X, const_table, fn_codes=fn_codes)
     (U,) = plan.uop.shape
     F, D = X.shape
@@ -554,6 +577,8 @@ def unique_table(plan: _eval.DedupPlan, X, const_table, *, fn_codes=None, gate=N
            n_unique=(plan.n_unique, torch.int32, ()), X=(X, torch.float32, (F, D)),
            const_table=(const_table, torch.float32, const_table.shape))
     uniq = torch.empty((U, D), dtype=torch.float32, device=dev)
+    if plan.uop.is_meta:
+        return _planned("unique_table", 1, uniq, gate)
     blocks, smem = table_geometry(D)
     g, rw = _gate_args(gate, run_when, dev)
     _call("unique_table", "gp_unique_table", dev, plan.uop.data_ptr(), plan.uarg.data_ptr(),
@@ -598,7 +623,7 @@ def predict_postfix(op, arg, X, const_table, *, stack_size: int, fn_codes=None):
     X f32[F, D]: B2's interpreter without the epilogue (the semantic
     dedup tier's probe), one warp per row (`probe_geometry`); any D, 32
     points a warp at a time. `stack_size` and `fn_codes` as for B2."""
-    if not op.is_cuda:
+    if not (op.is_cuda or op.is_meta):
         return predict_postfix_plain(op, arg, X, const_table, stack_size=stack_size,
                                      fn_codes=fn_codes)
     if not 1 <= stack_size <= max(STACK_TEMPLATES):
@@ -614,6 +639,8 @@ def predict_postfix(op, arg, X, const_table, *, stack_size: int, fn_codes=None):
     preds = torch.empty((P, D), dtype=torch.float32, device=dev)
     if P == 0 or D == 0:
         return preds
+    if op.is_meta:
+        return _planned("predict_postfix", 1, preds)
     _call("predict_postfix", "gp_predict_postfix", dev, op.data_ptr(), arg.data_ptr(), P, N,
           stack_size, X.data_ptr(), F, D, const_table.data_ptr(), const_table.shape[0],
           _fn_set(fn_codes).mask, rows, preds.data_ptr())

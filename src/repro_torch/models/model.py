@@ -697,9 +697,10 @@ def input_specs(cfg: ArchConfig, shape: str):
     cell: tensors on the `meta` device, no allocation.
 
     Returns (kind, specs_dict). kind ∈ {train, prefill, decode} selects
-    which step function the cell runs.
+    which step function the cell runs. `shape` is a `SHAPES` name or a
+    dict of the same keys (kind, seq, batch).
     """
-    s = SHAPES[shape]
+    s = SHAPES[shape] if isinstance(shape, str) else shape
     B, S = s["batch"], s["seq"]
     f32, i32, bf16 = torch.float32, torch.int32, torch.bfloat16
 

@@ -226,3 +226,78 @@ def test_not_ported_kernels_raise():
         del tfit._REGISTRY["host_only_test"]
     with pytest.raises(ValueError, match="unknown fitness kernel"):
         tfit.get_kernel("no_such_kernel")
+
+
+def test_wrappers_on_meta_count_a_cards_launches():
+    """On `meta` tensors (the dry run) every wrapper checks its inputs,
+    launches nothing and returns its output empty on `meta` with the
+    shape and dtype a launch gives, counting the launches a card would
+    make in `meta_launches` (B1-B4 one per POP_CHUNK trees) and none in
+    `launches`; the same calls on CPU tensors still give exactly the
+    plain versions' results."""
+    from repro_torch.core import eval as teval
+
+    spec = ttrees.TreeSpec(max_depth=3, n_features=2, genome="postfix")
+    heap = ttrees.TreeSpec(max_depth=3, n_features=2)
+    op, arg = ttrees.generate_population(prng.PRNGKey(1), 9, spec)
+    hop, harg = ttrees.generate_population(prng.PRNGKey(2), 9, heap)
+    rng = np.random.RandomState(0)
+    X = torch.from_numpy(rng.randn(2, 40).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 3, 40).astype(np.float32))
+    w = torch.ones(40)
+    const = spec.const_table()
+    codes = tuple(spec.fn_set.opcodes)
+    plan = teval.build_dedup_plan(op, arg, spec, 64)
+    uniq = gp_eval.unique_table_plain(plan, X, const, fn_codes=codes)
+    preds = uniq[plan.root.long()]
+    calls = {  # name -> (wrapper call on a device's tensors, its plain version)
+        "eval_fitness": lambda t: (gp_eval.eval_fitness(
+            t(hop), t(harg), t(X), t(y), t(w), t(const), max_depth=3, kernel="mse",
+            fn_codes=codes), (9, 1)),
+        "eval_fitness_postfix": lambda t: (gp_eval.eval_fitness_postfix(
+            t(op), t(arg), t(X), t(y), t(w), t(const), stack_size=spec.stack_size,
+            kernel="pearson", fn_codes=codes), (9, 7)),
+        "eval_fitness_from_subtrees": lambda t: (gp_eval.eval_fitness_from_subtrees(
+            t(plan.root), t(uniq), t(y), t(w), kernel="r2"), (9, 5)),
+        "eval_fitness_from_preds": lambda t: (gp_eval.eval_fitness_from_preds(
+            t(preds), t(y), t(w), kernel="c"), (9, 1)),
+        "unique_table": lambda t: (gp_eval.unique_table(
+            teval.DedupPlan(*(t(f) for f in plan)), t(X), t(const), fn_codes=codes),
+            (64, 40)),
+        "predict_postfix": lambda t: (gp_eval.predict_postfix(
+            t(op), t(arg), t(X), t(const), stack_size=spec.stack_size, fn_codes=codes),
+            (9, 40)),
+    }
+    plain = {
+        "eval_fitness": lambda: gp_eval.eval_fitness_plain(
+            hop, harg, X, y, w, const, max_depth=3, kernel="mse", fn_codes=codes),
+        "eval_fitness_postfix": lambda: gp_eval.eval_fitness_postfix_plain(
+            op, arg, X, y, w, const, stack_size=spec.stack_size, kernel="pearson",
+            fn_codes=codes),
+        "eval_fitness_from_subtrees": lambda: gp_eval.eval_fitness_from_subtrees_plain(
+            plan.root, uniq, y, w, kernel="r2"),
+        "eval_fitness_from_preds": lambda: gp_eval.eval_fitness_from_preds_plain(
+            preds, y, w, kernel="c"),
+        "unique_table": lambda: gp_eval.unique_table_plain(plan, X, const, fn_codes=codes),
+        "predict_postfix": lambda: gp_eval.predict_postfix_plain(
+            op, arg, X, const, stack_size=spec.stack_size, fn_codes=codes),
+    }
+    assert set(calls) == set(gp_eval.KERNELS)
+    for name, call in calls.items():
+        gp_eval.reset_launches()
+        out, shape = call(lambda a: a.to("meta"))
+        assert out.device.type == "meta" and out.dtype == torch.float32, name
+        assert tuple(out.shape) == shape, (name, out.shape)
+        assert gp_eval.meta_launches == {**dict.fromkeys(gp_eval.KERNELS, 0), name: 1}, name
+        assert not any(gp_eval.launches.values()), name
+        got, _ = call(lambda a: a)
+        assert torch.equal(got, plain[name]()), name
+        # the CPU call counts nothing in either
+        assert not any(gp_eval.launches.values()) and sum(gp_eval.meta_launches.values()) == 1
+    gp_eval.reset_launches()
+    big = torch.empty((gp_eval.POP_CHUNK + 1, 40), device="meta")
+    gp_eval.eval_fitness_from_preds(big, y.to("meta"), None)
+    assert gp_eval.meta_launches["eval_fitness_from_preds"] == 2
+    with pytest.raises(ValueError, match="contiguous"):
+        gp_eval.eval_fitness_from_preds(big, y.to("meta")[:20], None)
+    gp_eval.reset_launches()

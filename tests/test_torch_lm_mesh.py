@@ -17,12 +17,8 @@ steps at rtol 1e-4 / atol 1e-5 (jamba's and mamba2's params at atol
 1e-4, ROADMAP C 22 and 25), the sum orders of the data shards' losses, gradients and norms
 being the port's own (ROADMAP C 25); resharding bit for bit."""
 import dataclasses
-import fcntl
 import functools
 import importlib
-import os
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -41,7 +37,8 @@ from repro_torch.models import model as Md
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import ShardingPolicy
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
-from torch_lm_mesh_ref import CP, F32, GROUPS, MOE, TRAIN, TRAIN_STEPS
+from torch_lm_mesh_ref import CP, F32, MOE, TRAIN, TRAIN_STEPS, Reference
+from torch_dryrun_child import fixtures, moved_as_dry
 from torch_mp import run_processes
 
 TA = importlib.import_module("repro_torch.optim.adamw")
@@ -56,78 +53,9 @@ RTOL, ATOL = 1e-4, 1e-5
 PARAM_ATOL = {"jamba-1.5-large-398b": 1e-4, "mamba2-370m": 1e-4}
 
 
-def _start(path):
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(here, "..", "src"), here]),
-               JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    return [(f"{path}.{i}.npz", subprocess.Popen(
-        [sys.executable, os.path.join(here, "torch_lm_mesh_ref.py"), f"{path}.{i}.npz", group],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for i, group in enumerate(GROUPS)]
-
-
-def _finish(path, procs):
-    merged = {}
-    try:
-        for part, proc in procs:
-            stdout, stderr = proc.communicate(timeout=600)
-            assert proc.returncode == 0 and "REFERENCE_OK" in stdout, stderr[-3000:]
-            with np.load(part) as z:
-                merged.update(z)
-    finally:
-        for _, proc in procs:
-            proc.kill()
-            proc.wait()
-    np.savez(f"{path}.tmp.npz", **merged)
-    os.replace(f"{path}.tmp.npz", path)
-
-
-class _Reference:
-    """The reference runs' npz, made once per test run: the first worker
-    to take the lock file starts the subprocesses when the module starts
-    and releases the lock once the npz is written; other workers wait on
-    the lock and read it."""
-
-    def __init__(self, tmp_path_factory):
-        uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
-        root = tmp_path_factory.getbasetemp()
-        self.path = (root.parent if uid else root) / f"torch_lm_mesh_ref_{uid or 'solo'}.npz"
-        self.lock = open(f"{self.path}.lock", "w")
-        self.procs = None
-        try:
-            fcntl.flock(self.lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
-        except BlockingIOError:
-            return
-        if self.path.exists():
-            self.release()
-        else:
-            self.procs = _start(str(self.path))
-
-    def release(self):
-        if self.lock is not None:
-            self.lock.close()
-            self.lock = None
-
-    def load(self) -> dict:
-        if self.procs is not None:
-            procs, self.procs = self.procs, None
-            try:
-                _finish(str(self.path), procs)
-            finally:
-                self.release()
-        if self.lock is not None:
-            fcntl.flock(self.lock, fcntl.LOCK_EX)
-            if not self.path.exists():
-                _finish(str(self.path), _start(str(self.path)))
-            self.release()
-        with np.load(self.path) as z:
-            return dict(z)
-
-
 @pytest.fixture(scope="module", autouse=True)
 def _reference(tmp_path_factory):
-    r = _Reference(tmp_path_factory)
+    r = Reference(tmp_path_factory)
     yield r
     if r.procs is not None:  # no test here read it: finish it for the other workers
         r.load()
@@ -459,10 +387,14 @@ def test_sharded_serving_equals_the_policy_path(cf):
         torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
 
 
+# `launch/dryrun.py`'s records of the steps the gloo processes count
+_dryruns, dry = fixtures()
+
+
 # --- over several processes ----------------------------------------------------------
 
 
-def test_train_steps_over_gloo_processes(ref, tmp_path):
+def test_train_steps_over_gloo_processes(ref, dry, tmp_path):
     """gemma-2b and granite (capacity factor 1.0, 2 micro-batches) on
     (data 2, model 2) over 4 gloo processes, one shard a process
     (`torch_mp_worker.py`): two train steps from the reference's initial
@@ -470,7 +402,9 @@ def test_train_steps_over_gloo_processes(ref, tmp_path):
     final state bit for bit, and the reference's within
     `test_sharded_train_steps_match_reference`'s tolerances; gemma's
     state, saved from the processes, restores in one process bit for
-    bit; `compressed_psum` over the data axis is the single controller's."""
+    bit; `compressed_psum` over the data axis is the single controller's;
+    the bytes each process sends and receives in the first step are the
+    dry run's of that step as the same rank (`launch/dryrun.py`)."""
     names = ("gemma-2b", "granite-moe-3b-a800m")
     rng = np.random.RandomState(3)
     grads, resid = (rng.randn(4, 8, 3).astype(np.float32) for _ in range(2))
@@ -496,6 +430,7 @@ def test_train_steps_over_gloo_processes(ref, tmp_path):
             for k, v in want.items():
                 np.testing.assert_array_equal(o[f"{name}.final{k}"], v,
                                               err_msg=f"process {r} {name} {k}")
+            moved_as_dry(o, f"lm.{name}.train", dry, r)
         _close(host["params"], _tree(ref, f"train.{name}.final")["params"], f"{name} params",
                RTOL, PARAM_ATOL.get(name, ATOL))
         if name == "gemma-2b":
@@ -544,7 +479,7 @@ def _serve_inputs():
                           for _ in CP["cur_lens"]]}}
 
 
-def test_serving_over_gloo_processes(tmp_path):
+def test_serving_over_gloo_processes(dry, tmp_path):
     """Sharded serving and the MoE split over 4 gloo processes, one shard
     a process (`torch_mp_worker.serve_runs`): reduced granite's prefill
     and 3 greedy decode steps (capacity factors 8 and 1, B 4 and the
@@ -558,7 +493,10 @@ def test_serving_over_gloo_processes(tmp_path):
     single controller (the one-pass B 3 takes `moe_apply`'s 5, as the
     reference's does), and with 6 experts each process gathers its 3
     alone (the single controller gathers the 6 and splits them); a cp
-    decode layer sends only the partials (o, m, l)."""
+    decode layer sends only the partials (o, m, l); the bytes each
+    process sends and receives in a decode step of reduced granite and
+    gemma-2b (B 4, a 12-row cache) are the dry run's of that step as the
+    same rank (`launch/dryrun.py`)."""
     from torch_mp_worker import serve_runs
 
     inputs = _serve_inputs()
@@ -584,3 +522,5 @@ def test_serving_over_gloo_processes(tmp_path):
         slice_bytes = CP["B"] * n * CP["n_kv"] * CP["d_head"] * 4
         assert o["cp.sent_bytes"].tolist() == [partials], o["cp.sent_bytes"]
         assert partials < slice_bytes
+        for name in ("granite-moe-3b-a800m", "gemma-2b"):
+            moved_as_dry(o, f"serve.{name}.decode", dry, r)

@@ -42,6 +42,7 @@ from repro_torch.launch import evolve as tevolve
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.mesh import P
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
+from torch_dryrun_child import fixtures, moved_as_dry
 from torch_mp import run_processes
 from torch_mesh_data import (HOIST, LAT3, MERGE_KERNELS, MIXES, POD_TOPOLOGIES, RATES,
                              TOPOLOGIES, TOURN, dyadic, hoist_kernel, lattice, merge_inputs,
@@ -744,10 +745,14 @@ def test_reshard_onto_another_mesh(ref, tmp_path):
 
 
 
+# `launch/dryrun.py`'s records of the steps the gloo processes count
+_dryruns, dry = fixtures()
+
+
 # --- over several processes ----------------------------------------------------------
 
 
-def test_mesh_over_gloo_processes(ref, tmp_path):
+def test_mesh_over_gloo_processes(ref, dry, tmp_path):
     """The mesh over 4 gloo processes (`init_cluster(device="cpu")`;
     `torch_mp_worker.py`): two shards a process on (pod 2, data 2,
     model 2), one on (data 2, model 2) and on (pod 2, data 2, model 1),
@@ -757,7 +762,9 @@ def test_mesh_over_gloo_processes(ref, tmp_path):
     exact at caps 1,400 and 6,301 are the reference's bit for bit; (p)'s
     classic steps and the postfix history are the in-process single
     controller's; (c)'s ring state, saved from the processes (process 0
-    writes), restores in one process bit for bit."""
+    writes), restores in one process bit for bit; the bytes each process
+    sends and receives in one more block of (c)'s ring session are the
+    dry run's of that block as the same rank (`launch/dryrun.py`)."""
     outs = run_processes(tmp_path, "gp")
     assert [o["local"].tolist() for o in outs] == [[0, 4], [1, 5], [2, 6], [3, 7]]
     pods = _mesh(data=2, model=1, pod=2)
@@ -793,6 +800,7 @@ def test_mesh_over_gloo_processes(ref, tmp_path):
                 np.testing.assert_array_equal(o[f"p_classic{g}.{name}"], leaf,
                                               err_msg=f"process {r} p_classic{g}: {name}")
         np.testing.assert_array_equal(o["f6301.history"], np.asarray(one.history, np.float32))
+        moved_as_dry(o, "gp.block", dry, r)
     back = tckpt.restore(str(tmp_path / "ckpt_gp"), 1,
                          like=tengine.init_state(_cfg_a(), prng.PRNGKey(0), device="cpu"))
     _assert_state(ref, "c_ring", back)

@@ -1,11 +1,15 @@
-"""The reference's sharded LM runs for `test_torch_lm_mesh.py`, on 8
-fake XLA host devices: `python tests/torch_lm_mesh_ref.py OUT.npz GROUP`
-(GROUP one of `GROUPS`) writes the group's inputs and results to an npz.
-XLA takes the device count only before JAX starts, so the runs go in a
-process of their own; importing this module (the test does, for the
+"""The reference's sharded LM runs for `test_torch_lm_mesh.py` and
+`test_torch_dryrun.py`, on 8 fake XLA host devices: `python
+tests/torch_lm_mesh_ref.py OUT.npz GROUP` (GROUP one of `GROUPS`) writes
+the group's inputs and results to an npz; `Reference` runs every group
+once per test run and shares the merged npz between test workers. XLA
+takes the device count only before JAX starts, so the runs go in
+processes of their own; importing this module (the tests do, for the
 shapes) starts nothing and imports no JAX."""
 import dataclasses
+import fcntl
 import os
+import subprocess
 import sys
 import tempfile
 
@@ -24,7 +28,8 @@ MOE = dict(d=16, ff=32, B=4, S=(8, 64), top_k=2)
 CP = dict(d_model=32, n_heads=4, n_kv=2, d_head=8, B=2, S=64, cur_lens=(0, 7, 13, 40, 63))
 GROUPS = {"moe,cp,elastic": ("moe", "cp", "elastic"),
           "gemma,mamba2": ("gemma-2b", "mamba2-370m"),
-          "granite": ("granite-moe-3b-a800m",), "jamba": ("jamba-1.5-large-398b",)}
+          "granite": ("granite-moe-3b-a800m",), "jamba": ("jamba-1.5-large-398b",),
+          "dryrun": ("dryrun",)}
 
 out = {}
 
@@ -203,11 +208,106 @@ def scen_train(name):
     put_tree(f"train.{name}.final", jax.device_get(state))
 
 
+def scen_dryrun():
+    """Reduced gemma-2b's train cell (f32, B 4 x S 32) on (data 2, model 2)
+    lowered and compiled as the reference's dry run lowers a cell
+    (`launch/dryrun.lower_cell`: the state donated, the out_shardings
+    pinned), the shape added to the reference's SHAPES in this process:
+    XLA's memory_analysis (argument, output, alias, temp bytes) of a
+    device."""
+    import jax
+
+    jax.devices()  # the backend keeps its 8 devices: dryrun's import asks for 512
+    from repro.configs import get_reduced
+    from repro.launch import dryrun as JD
+    from repro.launch.mesh import make_host_mesh
+    from repro.models import model as JMd
+
+    JMd.SHAPES["train_b4_s32"] = dict(kind="train", seq=TRAIN_S, batch=TRAIN_B)
+    cfg = dataclasses.replace(get_reduced("gemma-2b"), **F32, **TRAIN["gemma-2b"])
+    mem = JD.lower_cell(cfg, "train_b4_s32",
+                        make_host_mesh(data=2, model=2)).compile().memory_analysis()
+    out["dryrun.gemma-2b.memory"] = np.asarray(
+        [mem.argument_size_in_bytes, mem.output_size_in_bytes, mem.alias_size_in_bytes,
+         mem.temp_size_in_bytes], np.int64)
+
+
+def _start(path):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(here, "..", "src"), here]),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    return [(f"{path}.{i}.npz", subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_lm_mesh_ref.py"), f"{path}.{i}.npz", group],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for i, group in enumerate(GROUPS)]
+
+
+def _finish(path, procs):
+    merged = {}
+    try:
+        for part, proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0 and "REFERENCE_OK" in stdout, stderr[-3000:]
+            with np.load(part) as z:
+                merged.update(z)
+    finally:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+    np.savez(f"{path}.tmp.npz", **merged)
+    os.replace(f"{path}.tmp.npz", path)
+
+
+class Reference:
+    """The reference runs' npz, made once per test run: the first worker
+    to take the lock file starts the subprocesses when the module starts
+    and releases the lock once the npz is written; other workers wait on
+    the lock and read it."""
+
+    def __init__(self, tmp_path_factory):
+        uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+        root = tmp_path_factory.getbasetemp()
+        self.path = (root.parent if uid else root) / f"torch_lm_mesh_ref_{uid or 'solo'}.npz"
+        self.lock = open(f"{self.path}.lock", "w")
+        self.procs = None
+        try:
+            fcntl.flock(self.lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            return
+        if self.path.exists():
+            self.release()
+        else:
+            self.procs = _start(str(self.path))
+
+    def release(self):
+        if self.lock is not None:
+            self.lock.close()
+            self.lock = None
+
+    def load(self) -> dict:
+        if self.procs is not None:
+            procs, self.procs = self.procs, None
+            try:
+                _finish(str(self.path), procs)
+            finally:
+                self.release()
+        if self.lock is not None:
+            fcntl.flock(self.lock, fcntl.LOCK_EX)
+            if not self.path.exists():
+                _finish(str(self.path), _start(str(self.path)))
+            self.release()
+        with np.load(self.path) as z:
+            return dict(z)
+
+
+
+
 if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     for scen in GROUPS[sys.argv[2]]:
-        {"moe": scen_moe, "cp": scen_cp, "elastic": scen_elastic}.get(
+        {"moe": scen_moe, "cp": scen_cp, "elastic": scen_elastic, "dryrun": scen_dryrun}.get(
             scen, lambda: scen_train(scen))()
     np.savez(sys.argv[1], **out)
     print("REFERENCE_OK")

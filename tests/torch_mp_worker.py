@@ -30,6 +30,64 @@ def _put_session(out, tag, s):
     out[f"{tag}.host_syncs"] = np.asarray(s.stats["host_syncs"])
 
 
+class Moved:
+    """The bytes this process's `torch.distributed` collectives send and
+    receive while the block runs, as `chip_smoke.py`'s `_Moved` counts
+    them (the module's functions wrapped; a collective's own part of its
+    output is neither sent nor received): what `launch/dryrun.py` reckons
+    for the same step (`tests/test_torch_dryrun.py`)."""
+
+    NAMES = ("all_gather", "all_gather_into_tensor", "all_to_all_single", "all_reduce",
+             "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.sent = self.received = self.calls = 0
+        self.originals = {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self.originals.items():
+            setattr(dist, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        import torch.distributed as dist
+
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        def wrapped(*a, **k):
+            group = k.get("group")
+            n = dist.get_world_size(group)
+            me = dist.get_rank(group)
+            self.calls += 1
+            if name == "all_gather":
+                self.sent += nbytes(a[1])
+                self.received += sum(nbytes(o) for o in a[0]) - nbytes(a[1])
+            elif name == "all_gather_into_tensor":
+                self.sent += nbytes(a[1])
+                self.received += nbytes(a[0]) - nbytes(a[1])
+            elif name == "all_to_all_single":
+                out_sizes = a[2] if len(a) > 2 else k.get("output_split_sizes")
+                own = (out_sizes[me] if out_sizes else a[0].numel() // n) * a[0].element_size()
+                self.sent += nbytes(a[1]) - own
+                self.received += nbytes(a[0]) - own
+            else:
+                self.sent += nbytes(a[0]) * (n > 1)
+                self.received += nbytes(a[0]) * (n > 1)
+            return fn(*a, **k)
+
+        return wrapped
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self.originals.items():
+            setattr(dist, name, fn)
+
+    def put(self, out, tag):
+        out[f"moved.{tag}"] = np.asarray([self.sent, self.received, self.calls], np.int64)
+
+
 def _flat(tree, path=""):
     if isinstance(tree, dict):
         return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{path}/{k}").items()}
@@ -96,6 +154,9 @@ def gp(tmp, inputs, out):
         _put_session(out, f"c_{topo}", sess)
         if topo == "ring":
             ckpt.save(sess.state, os.path.join(tmp, "ckpt_gp"), 1)
+            with Moved() as moved:  # one 1-generation block more, counted
+                sess.evolve_block(1)
+            moved.put(out, "gp.block")
     for topo in POD_TOPOLOGIES:
         sess = GPSession(device="cpu", pop_size=16, generations=6, migrate_every=2,
                          migrate_k=1, island_topology=topo,
@@ -131,7 +192,10 @@ def lm(tmp, inputs, out):
         cfg, _, step, _ = TL.build(cfg, mesh, device="cpu")
         state = reshard_state(init, cfg, mesh)
         for i, b in enumerate(batches):
-            state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+            with Moved() as moved:
+                state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+            if i == 0:
+                moved.put(out, f"lm.{name}.train")
             for k, v in m.items():
                 out[f"{name}.step{i}.{k}"] = v.numpy()
         host = convert.train_state_to_numpy(state)
@@ -156,6 +220,11 @@ GRANITE = "granite-moe-3b-a800m"
 SERVE_TRAIN = (("e5_s15", {"moe_capacity_factor": 1.0, "accum_steps": 2}, (4, 15)),
                ("e6_s16", {"moe_capacity_factor": 1.0, "accum_steps": 2,
                            "moe_experts": 6}, (4, 16)))
+
+
+# the decode steps `serve` counts: reduced configs in f32 on (data 2, model 2),
+# B 4, a cache of 12 rows after an 8-token prompt
+DECODE_COUNTED = {GRANITE: {"moe_capacity_factor": 8.0}, "gemma-2b": {}}
 
 
 def serve_runs(inputs, out, experts=None):
@@ -263,8 +332,26 @@ def serve(tmp, inputs, out):
 
     from repro_torch.launch.serving import cp_decode_attention
 
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as TM
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import model as Md
+    from torch_lm_mesh_ref import F32
+
     experts = {}
     cmesh, dims, p = serve_runs(inputs, out, experts)
+    mesh = TM.make_host_mesh(data=2, model=2, device="cpu")
+    for name, extra in DECODE_COUNTED.items():  # one decode step each, counted
+        cfg = dataclasses.replace(get_reduced(name), **F32, **extra)
+        pcfg = cfg.with_policy(SH.policy_for(mesh))
+        params = Md.init_params(cfg, 0, device="cpu")
+        sharded = SH.ShardedLM.place(pcfg, mesh, params, SH.param_specs(
+            pcfg, SH.ref_layout(params.tree()), mesh))
+        tokens = torch.from_numpy(inputs["prompts"][4])
+        logits, cache = Md.prefill(pcfg, sharded, {"tokens": tokens}, max_len=12)
+        with Moved() as moved:
+            Md.decode_step(pcfg, sharded, cache, logits.argmax(-1), torch.tensor(8))
+        moved.put(out, f"serve.{name}.decode")
     for run, sizes in experts.items():
         out[f"experts.{run}"] = np.asarray(sorted(sizes), np.int64)
     out["experts"] = np.asarray(sorted(experts))
