@@ -61,7 +61,7 @@ Phases:
      history bitwise equal to the CPU run; launches counted
   4. ligo: the same over 5 generations
   5. the kepler quickstart (KITCHEN_SINK, pop 200, 30 generations)
-  6. postfix kat7 at full width, 30 generations each: dedup="exact" with
+  6. postfix kat7 at full width, 10 generations each: dedup="exact" with
      the default cap (100: the table overflows and B2 does the work), with
      dedup="off" (B2), dedup_cap=1400 (B3) and dedup_cap=6301 (B4), then
      dedup="semantic" (cap 100, and the probe kernel); per-kernel
@@ -70,7 +70,7 @@ Phases:
      every generation of the cap-100 runs and in none of the others),
      its first 2 generations bitwise equal to the CPU's, the exact/off
      histories equal to each other, no synchronisation in a block
-  6b. kat7 at full width under pearson, 20 generations each: the heap path
+  6b. kat7 at full width under pearson, 10 generations each: the heap path
      (B1), postfix with dedup off (B2) and exact at caps 1,400 (B3) and
      6,301 (B4), the exact histories equal to the off one bit for bit;
      and under r2 on the heap path. Each history finite and
@@ -88,7 +88,7 @@ Phases:
      and broadcast-best, 5 generations each; postfix islands with dedup
      exact at cap I·P·N + 1 = 50,401 (the table and B4, with B2 gated)
      equal to dedup off (B2) bit for bit; a checkpoint resume (10
-     generations, then a new session +10) equal to the uninterrupted 20,
+     generations, then a new session +5) equal to the uninterrupted 10,
      with a Tracer whose JSON must validate and hold ingest, init, block
      and checkpoint spans; and `python -m repro_torch.launch.evolve
      --islands 4 --pop 200` as a subprocess twice on one checkpoint
@@ -114,7 +114,7 @@ Phases:
      (within rtol 1e-5 on kepler under mse, bitwise on an integer
      lattice); one JSON line of the phase's figures
   9. the multi-tenant service (`repro_torch.service.GPService` on the
-     card): serve_gp's synthetic stream of 48 jobs (24-96 rows, 3
+     card): serve_gp's synthetic stream of 32 jobs (24-96 rows, 3
      features, kernels r/mse/pearson, 10-39 generations) through 64
      slots of 64 depth-5 trees in blocks of 8 generations: every job
      done, one tenant block built, B1 launched exactly slots x 8 x blocks
@@ -134,7 +134,7 @@ Phases:
   10. the mesh (`GPSession(topology=MeshTopology(...))`, one process; its
      shard -> device placement printed: 8 shards share one card, and take
      one card each where there are more): (a) kat7 4 x 200 islands with
-     phase 7's options on (pod 2, data 2, model 2), 10 generations, B1
+     phase 7's options on (pod 2, data 2, model 2), 5 generations, B1
      exactly 8 launches a generation (one a shard) and no other kernel,
      one block under torch.cuda.set_sync_debug_mode("error"), the first
      generation's history and per-island history bitwise the same mesh's
@@ -191,9 +191,12 @@ Phases:
      32`: the loss falls, and a run stopped at step 10 and resumed from
      its checkpoint continues the uninterrupted history
   13. the LM mesh on the one card (`launch.sharding`'s specs, the
-     sharded train step of `launch.train.build`, `moe_apply_sharded`,
-     `launch.serving.cp_decode_attention`, `ckpt.elastic.reshard_state`;
-     no Pallas kernel, no kernel added to the `kernels` line): (a) the ten
+     sharded train step of `launch.train.build`, tensor parallelism over
+     the model axis (each model rank its own blocks, the ranks in turn),
+     `moe_apply_sharded`, `launch.serving.cp_decode_attention`,
+     `ckpt.elastic.reshard_state`; no Pallas kernel, no kernel added to
+     the `kernels` line; each run's figures printed beside those before
+     tensor parallelism under "prior"): (a) the ten
      reduced configs in f32 on (data 2, model 2), qwen3-moe and granite at
      capacity factor 1.0: one sharded train step card against CPU from the
      same seeded state, metrics, gradients, params and optimizer state as
@@ -206,7 +209,7 @@ Phases:
      idle share) under set_sync_debug_mode("error"); (e) (b)'s state saved
      whole and resharded onto (data 4, model 1) bit for bit, then a step;
      (c) granite-moe-3b-a800m at full width, bf16, capacity factor 8: B 8,
-     a 512-token prompt and 16 greedy tokens with the params on (data 2,
+     a 512-token prompt and 8 greedy tokens with the params on (data 2,
      model 2) and the cache split by `cache_specs`, every MoE call
      sharded, twice with the tokens bitwise equal, the same weights on one
      device fed the same tokens within 2e-3 in f32 (in bf16 the difference
@@ -219,7 +222,7 @@ Phases:
      from multiprocessing's spawn, each given COORDINATOR_ADDRESS,
      NUM_PROCESSES and PROCESS_ID (on one card W = 1, a group of one:
      the line says `"multi_rank": false` and why); (a) phase 10 (a)'s
-     islands, 10 generations: every process's history and per-island
+     islands, 5 generations: every process's history and per-island
      history bit for bit phase 10 (a)'s, B1 exactly once a local shard a
      generation and no other kernel, one block under
      set_sync_debug_mode("error"), wall ms a generation, each process's
@@ -233,16 +236,19 @@ Phases:
      steps saved from the processes (process 0 writes) and restored here
      bit for bit every process's; (e) granite-moe-3b-a800m's sharded
      serve of phase 13 (c) (full width, bf16, capacity factor 8, B 8, a
-     512-token prompt, 16 greedy tokens, one shard a process): every
+     512-token prompt, 8 greedy tokens, one shard a process): every
      process's tokens and last logits bit for bit phase 13 (c)'s, prefill
      ms, decode ms a token, tokens/s, each card's peak MB, the bytes a
-     process sent and received in a decode step (the cache rows'
-     reckoned), CUDA launches and idle share of one profiled decode step
-     on process 0; (f) granite's train step of phase 12 (b) (B 8 x S 512
+     process sent and received in a decode step, those its cache reads
+     received apart (0: each model rank reads its own part, else the
+     phase fails), CUDA launches and idle share of one profiled decode
+     step on process 0; (f) granite's train step of phase 12 (b) (B 8 x S 512
      in 4 micro-batches, AdamW) on (data 2, model 2): every process's
      losses the same, the first bit for bit the same step in the parent
      process (phase 12 (b)'s one-device loss beside it),
-     every expert FFN on E_loc = 20 experts, step ms, tokens/s, peak MB,
+     every expert FFN on E_loc = 20 experts, step ms after a warm step
+     and tokens/s (on one card, where the step is the single
+     controller's, only the first step, cold, as `cold_step_ms`), peak MB,
      one profiled step on process 0 where W > 1, one device's figures
      beside; (g)
      reduced granite in f32 (capacity factor 1.0, 2 micro-batches): 2
@@ -1331,7 +1337,7 @@ POSTFIX_RUNS = (  # (label, session options, kernels the run must launch, overfl
 
 def postfix_paths():
     """Phase 6 -> {label: run}: kat7 with postfix genomes at full width
-    (P = 100, depth 5, F = 9, D = 10,000, kernel c, CLASSIFY_SET), 30
+    (P = 100, depth 5, F = 9, D = 10,000, kernel c, CLASSIFY_SET), 10
     generations per run, the first 2 card == CPU bitwise (the plain
     postfix stack machine on the CPU takes seconds a generation). Every
     exact/off run's history must equal the dedup-off run's (dedup is
@@ -1339,7 +1345,7 @@ def postfix_paths():
     dedup off)."""
     runs = {}
     for label, kw, expect, overflow in POSTFIX_RUNS:
-        run = run_dataset("kat7", 100, 30, 2, block_check=True, expect=expect,
+        run = run_dataset("kat7", 100, 10, 2, block_check=True, expect=expect,
                           overflow=overflow, genome="postfix", **kw)
         runs[label] = run
         emit("postfix_path", run=label, **run)
@@ -1406,7 +1412,7 @@ def _first_generation_vs_cpu(kernel):
 
 def two_pass_paths():
     """Phase 6b -> {label: run}: kat7 at full width (P = 100, depth 5, F =
-    9, D = 10,000, CLASSIFY_SET), 20 generations each, under pearson on
+    9, D = 10,000, CLASSIFY_SET), 10 generations each, under pearson on
     the heap path (B1), on postfix genomes with dedup off (B2) and exact
     at caps 1,400 (the table + B3) and 6,301 (the table + B4), and under
     r2 on the heap path: each history finite and non-increasing, no
@@ -1416,7 +1422,7 @@ def two_pass_paths():
     within 1e-4."""
     runs = {}
     for label, kw, expect, overflow in TWO_PASS_RUNS:
-        run = run_dataset("kat7", 100, 20, 0, block_check=label == "pearson_heap",
+        run = run_dataset("kat7", 100, 10, 0, block_check=label == "pearson_heap",
                           expect=expect, overflow=overflow, **kw)
         runs[label] = run
         emit("two_pass_path", run=label, **run)
@@ -1500,9 +1506,9 @@ def _island_run(gens, expect, block_check=False, **kw):
 
 
 def _island_resume(main_state):
-    """10 generations with checkpoints every 5 and a Tracer, then a new
-    session resuming from the checkpoint for 10 more: its state must
-    equal the uninterrupted 20-generation run's bit for bit, and the
+    """5 generations with checkpoints every 5 and a Tracer, then a new
+    session resuming from the checkpoint for 5 more: its state must
+    equal the uninterrupted 10-generation run's bit for bit, and the
     Tracer's JSON must validate and hold the session's spans."""
     from repro_torch.obs import Tracer, validate_trace
 
@@ -1511,12 +1517,12 @@ def _island_resume(main_state):
     kw = _island_kw(checkpoint_dir=str(ck), checkpoint_every=5, tracer=tracer)
     first = GPSession.from_dataset("kat7", **kw)
     first.init(key=prng.PRNGKey(0))
-    first.evolve(10)
+    first.evolve(5)
     second = GPSession.from_dataset("kat7", **kw)
     second.init(key=prng.PRNGKey(0))
-    if second.generation != 10:
-        raise AssertionError(f"resumed at generation {second.generation}, want 10")
-    second.evolve(10)
+    if second.generation != 5:
+        raise AssertionError(f"resumed at generation {second.generation}, want 5")
+    second.evolve(5)
     for name, a, b in zip(engine.GPState._fields, second.state, main_state):
         if not torch.equal(a, b):
             raise AssertionError(f"resumed run's GPState.{name} differs from the "
@@ -1528,7 +1534,7 @@ def _island_resume(main_state):
         raise AssertionError(f"trace: {problems}, spans {sorted(names)}")
     return dict(saved_steps=first._manager.saved_steps + second._manager.saved_steps,
                 trace_events=len(payload["traceEvents"]), spans=sorted(names),
-                check="10 + 10 generations from a checkpoint == 20 uninterrupted, bitwise")
+                check="5 + 5 generations from a checkpoint == 10 uninterrupted, bitwise")
 
 
 def _island_cli():
@@ -1557,7 +1563,7 @@ def island_paths():
     shutil.rmtree(SCRATCH, ignore_errors=True)
     SCRATCH.mkdir(parents=True)
     runs = {}
-    main_state, main_isl, runs["ring"] = _island_run(20, {"eval_fitness": 20},
+    main_state, main_isl, runs["ring"] = _island_run(10, {"eval_fitness": 10},
                                                      block_check=True)
     cpu = GPSession.from_dataset("kat7", generations=2, device="cpu", **_island_kw())
     cpu.init(key=prng.PRNGKey(0))
@@ -2086,12 +2092,12 @@ def _service_block_probe(svc, extra):
 
 
 def _service_scale():
-    """(a) serve_gp's synthetic stream of 48 jobs through 64 slots of 64
+    """(a) serve_gp's synthetic stream of 32 jobs through 64 slots of 64
     depth-5 trees (4,096 trees a block generation) on the card."""
     from repro_torch.launch.serve_gp import synthetic_stream
     from repro_torch.service import DONE, GPService
 
-    jobs = synthetic_stream(48, seed=0)
+    jobs = synthetic_stream(32, seed=0)
     svc = GPService(slots=SVC_SLOTS, pop_size=SVC_POP, max_depth=5, n_features=3,
                     data_cap=SVC_CAP, block_size=SVC_BLOCK)
     assert svc.backend == "cuda", svc.backend
@@ -2366,7 +2372,7 @@ def _profiled_generation(sess):
                 wall_ms=wall * 1e3, device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3))
 
 
-def _mesh_islands(gens=10):
+def _mesh_islands(gens=5):
     """(a) kat7 4 x 200 islands (phase 7's options) on (pod 2, data 2,
     model 2): B1 exactly 8 launches a generation (one a shard) and no other
     kernel, one block under set_sync_debug_mode("error"), the first
@@ -3134,6 +3140,70 @@ def _raw_trace(prof):
     return launches, busy / 1e6, len(dev), top
 
 
+def _device_split(prof) -> dict:
+    """The device ms of a torch.profiler window by kind of kernel, each
+    kernel's duration summed (overlapping kernels count twice): NCCL's
+    collectives, matrix products (cuBLAS and CUTLASS gemm kernels), copies
+    and fills, and the rest."""
+    from torch.autograd import DeviceType
+
+    out = {"nccl": 0.0, "gemm": 0.0, "memcpy_memset": 0.0, "other": 0.0}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        n = e.name().lower()
+        kind = ("nccl" if "nccl" in n else
+                "gemm" if any(w in n for w in ("gemm", "cutlass", "xmma", "sm90_", "cublas"))
+                else "memcpy_memset" if n.startswith(("memcpy", "memset")) else "other")
+        out[kind] += e.duration_ns() / 1e6
+    return out
+
+
+class _HostTimes:
+    """Host ms and calls of each of `targets` ({name: (owner, attribute)},
+    a function or method) while on: wall time from entry to return, each
+    call whole (a timed call inside another counts in both)."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.ms = {k: 0.0 for k in targets}
+        self.calls = {k: 0 for k in targets}
+
+    def __enter__(self):
+        self.saved = {k: getattr(o, a) for k, (o, a) in self.targets.items()}
+        for k, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._timed(k, self.saved[k]))
+        return self
+
+    def _timed(self, k, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.ms[k] += (time.perf_counter() - t0) * 1e3
+                self.calls[k] += 1
+        return timed
+
+    def __exit__(self, *exc):
+        for k, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self.saved[k])
+
+
+def _lm_host_targets():
+    """The host spans of an LM step over a mesh that `_HostTimes` reads:
+    the weights' gathers over the batch axes (`gather_tree`), the
+    gradients' reduce-scatter (`ShardedLM.settle`), the model group's sums
+    (`AxisGroup._reduce`, also inside `sum`'s and `fanout`'s autograd
+    Functions), the group's byte exchanges (`_swap`) and every
+    `all_to_all_single`."""
+    import torch.distributed as dist
+
+    return {"gather_tree": (lm_SH, "gather_tree"), "settle": (lm_SH.ShardedLM, "settle"),
+            "axis_reduce": (lm_mesh.AxisGroup, "_reduce"), "axis_swap": (lm_mesh, "_swap"),
+            "all_to_all_single": (dist, "all_to_all_single")}
+
+
 def _agree(a, b, tag, atol):
     """Two runs' losses: equal bit for bit, else within `atol`."""
     bitwise = a == b
@@ -3457,7 +3527,7 @@ def _lm_mesh_reshard(holder, pcfg, B=4, S=1024):
                 bitwise=True, step_loss=loss)
 
 
-def _lm_mesh_serve(B=8, P=512, tokens=16):
+def _lm_mesh_serve(B=8, P=512, tokens=8):
     """(c) granite-moe-3b-a800m at full width, capacity factor 8 (no
     drops): the params placed on (data 2, model 2), prefill of B x P and
     `tokens` greedy tokens in bf16 with the cache split by `cache_specs` (a
@@ -3585,6 +3655,32 @@ def _lm_mesh_cp_decode(S=32_768, cur_lens=CP_LENS):
                 cp_ms=[t[0] for t in times], attn_decode_ms=[t[1] for t in times])
 
 
+# the figures recorded before tensor parallelism for the runs it changes
+# (PERF.md §5-§6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's under "prior": then each pass gathered the model axis's weights
+# and cache rows
+def _prior(key, cards=1):
+    """TP_PRIOR[key], marked comparable where it was taken on as many
+    cards as this run's `cards`."""
+    prior = TP_PRIOR[key]
+    return {**prior, "comparable": prior.get("cards", 1) == cards}
+
+
+TP_PRIOR = {
+    "13b": dict(source="PERF.md §5 (step ms, launches), §6 (peak)", step_ms=1568.0,
+                cuda_launches_per_step=40761, peak_mb=46676, bytes_received_per_step=0),
+    "14c": dict(source="PERF.md §5-§6", cards=4, step_ms=[826.5, 846.0], peak_mb=16481),
+    "14e": dict(source="PERF.md §5-§6", cards=4, decode_ms_per_token=[408.6, 409.2],
+                decode_step_bytes_received=4162743344, decode_step_collectives=259,
+                decode_step_cache_bytes_received=69.3e6, idle_share=0.870),
+    "14f": dict(source="PERF.md §5-§6", cards=4, seq=512, step_ms=[7924, 7997],
+                peak_mb=[19883, 19888]),
+    "15c": dict(source="PERF.md §5-§6", sent=3458081840, received=4162743344, calls=259),
+    "15d": dict(source="PERF.md §5-§6", argument_bytes=238608388, temp_gb=48.78,
+                received_gb=39.38, collective_calls=420),
+}
+
+
 def lm_mesh_paths(single):
     """Phase 13: the LM mesh on one card (`launch.sharding`, the sharded
     train step, `moe_apply_sharded`, `launch.serving`, `ckpt.elastic`)
@@ -3602,7 +3698,9 @@ def lm_mesh_paths(single):
     runs["train_gemma-2b"]["placed_state_bytes"] = sum(
         lm_dryrun._storages(holder["state"]).values())
     emit("lm_mesh", run="train_bf16", arch="gemma-2b", nvidia_smi=card,
-         run_s=time.perf_counter() - t0, **runs["train_gemma-2b"])
+         run_s=time.perf_counter() - t0, bytes_received_per_step=0,
+         bytes_note="one process: the model ranks run in turn, nothing crosses processes",
+         prior=_prior("13b"), **runs["train_gemma-2b"])
     t0 = time.perf_counter()
     runs["reshard"] = _lm_mesh_reshard(holder, pcfg)
     emit("lm_mesh", run="reshard", nvidia_smi=card, run_s=time.perf_counter() - t0,
@@ -3621,7 +3719,7 @@ def lm_mesh_paths(single):
 
 # --- phase 14: the mesh over processes -----------------------------------------------
 
-MP_GENS = 10  # (a): phase 10 (a)'s generations
+MP_GENS = 5  # (a): phase 10 (a)'s generations
 MP_POSTFIX_GENS = 5  # (b)
 MP_TIMEOUT_S = 600
 
@@ -3675,7 +3773,10 @@ def _mp_train(profile, B=4, S=1024, steps=2):
     """(c) gemma-2b at full width in bf16 on (data 2, model 2) (phase 13
     (b)'s seed-0 state and batches): one warm step and `steps` timed by
     CUDA events on every process, then one more, profiled on process 0;
-    every step's loss, as phase 13 (b) records them."""
+    every step's loss, as phase 13 (b) records them. The split of a step:
+    the host ms of the last timed step in the mesh's spans
+    (`_lm_host_targets`) beside its wall ms, and the profiled step's
+    device ms by kind of kernel (`_device_split`)."""
     from torch.profiler import ProfilerActivity, profile as profiler
 
     cfg = lm_configs.get_config("gemma-2b")
@@ -3685,19 +3786,28 @@ def _mp_train(profile, B=4, S=1024, steps=2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
+    host = _HostTimes(_lm_host_targets())
     for i in range(steps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        if i == steps:  # the last timed step: its host spans
+            host.__enter__()
+            t0 = time.perf_counter()
         ev[0].record()
         state, m = step(state, batches[i])
         ev[1].record()
         losses.append(m["loss"].item())
+        if i == steps:
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            host.__exit__()
         if i:
             times.append(ev[0].elapsed_time(ev[1]))
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     torch.cuda.synchronize()
     out = dict(local_shards=list(mesh.local), batch=B, seq=S, losses=losses,
                step_ms=statistics.median(times), step_ms_all=times,
-               tokens_per_s=B * S / statistics.median(times) * 1e3, peak_mb=peak_mb)
+               tokens_per_s=B * S / statistics.median(times) * 1e3, peak_mb=peak_mb,
+               host_split_ms=host.ms, host_split_calls=host.calls,
+               host_split_step_ms=times[-1], host_split_wall_ms=wall_ms)
     if not profile:
         state, m = step(state, batches[steps + 1])
         losses.append(m["loss"].item())
@@ -3711,7 +3821,8 @@ def _mp_train(profile, B=4, S=1024, steps=2):
     launches, busy, n_dev, top_ops = _raw_trace(prof)
     out.update(cuda_launches_per_step=launches, device_events_per_step=n_dev,
                profiled_step_ms=wall * 1e3, device_busy_ms=busy,
-               idle_share=1 - busy / (wall * 1e3), top_ops=top_ops)
+               idle_share=1 - busy / (wall * 1e3), top_ops=top_ops,
+               device_split_ms=_device_split(prof))
     return out
 
 
@@ -3802,11 +3913,11 @@ class _Moved:
             setattr(dist, name, fn)
 
 
-def _mp_serve(profile, B=8, P=512, tokens=16):
+def _mp_serve(profile, B=8, P=512, tokens=8):
     """(e) phase 13 (c)'s serve over the processes: granite-moe-3b-a800m at
     full width, bf16, capacity factor 8, its seed-0 weights placed on
     (data 2, model 2) (this process's parts only), B 8, a 512-token prompt
-    and 16 greedy tokens; prefill and decode timed by CUDA events, then one
+    and 8 greedy tokens; prefill and decode timed by CUDA events, then one
     more decode step (profiled on process 0) with the bytes its
     collectives moved. Returns the figures with the tokens and the last
     logits' digest."""
@@ -3840,22 +3951,32 @@ def _mp_serve(profile, B=8, P=512, tokens=16):
     last = _sha(logits[:, -1])
     prefill_ms, decode_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / tokens
     tok = logits.argmax(-1).to(torch.int32)
-    # the cache rows a step fetches: each local part's rows from every
-    # other process of its model group (reckoned from the layout)
-    groups = {s: next(g for g in mesh.groups("model") if s in g) for s in mesh.local}
-    cache_rx = sum(sh.parts[s].numel() * sh.parts[s].element_size()
-                   * sum(not mesh.is_local(m) for m in groups[s])
-                   for c in cache._tree.values() for sh in c.values() for s in mesh.local)
-    with _Moved() as moved:
-        if profile:
-            with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
+    # the bytes the step's cache reads receive (`ShardedCache.rows`,
+    # counted apart): each rank reads its own part
+    rows, cache_rx = lm_SH.ShardedCache.rows, [0]
+
+    def counted_rows(*a, **k):
+        with _Moved() as m:
+            out = rows(*a, **k)
+        cache_rx[0] += m.received
+        return out
+
+    lm_SH.ShardedCache.rows = counted_rows
+    try:
+        with _Moved() as moved:
+            if profile:
+                with profiler(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    lm_model.decode_step(pcfg, sharded, cache, tok, cur)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            else:
                 lm_model.decode_step(pcfg, sharded, cache, tok, cur)
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        else:
-            lm_model.decode_step(pcfg, sharded, cache, tok, cur)
-            torch.cuda.synchronize()
+    finally:
+        lm_SH.ShardedCache.rows = rows
+    cache_rx = cache_rx[0]
     out = dict(local_shards=list(mesh.local), batch=B, prompt=P, tokens=tokens,
                tokens_all=torch.cat(toks, 1).tolist(), last_logits_sha256=last,
                prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
@@ -3873,11 +3994,12 @@ def _mp_serve(profile, B=8, P=512, tokens=16):
     return out
 
 
-def _mp_train_granite(profile, third=True, B=8, S=512):
+def _mp_train_granite(profile, third=True, warm=True, B=8, S=512):
     """(f) phase 12 (b)'s granite step over the processes: granite-moe-3b-a800m
     at full width, bf16, B 8 x S 512 in its 4 micro-batches, AdamW, on
     (data 2, model 2) from the seed-0 state (`launch.train.build`) and
-    phase 12 (b)'s batches: one warm step, one timed by CUDA events, and
+    phase 12 (b)'s batches: one warm step and one timed by CUDA events
+    (`step_ms`; without `warm` the first step alone, `cold_step_ms`), and
     with `third` a third (under torch.profiler with `profile`, on one
     process); each expert FFN call's buffer and weight shapes."""
     from torch.profiler import ProfilerActivity, profile as profiler
@@ -3897,18 +4019,20 @@ def _mp_train_granite(profile, third=True, B=8, S=512):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses = []
-        state, m = step(state, batches[0])
-        losses.append(m["loss"].item())
+        if warm:
+            state, m = step(state, batches[0])
+            losses.append(m["loss"].item())
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        state, m = step(state, batches[1])
+        state, m = step(state, batches[len(losses)])
         ev[1].record()
         losses.append(m["loss"].item())
         step_ms = ev[0].elapsed_time(ev[1])
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         out = dict(local_shards=list(mesh.local), batch=B, seq=S,
-                   accum_steps=cfg.accum_steps, step_ms=step_ms,
-                   tokens_per_s=B * S / step_ms * 1e3, peak_mb=peak_mb)
+                   accum_steps=cfg.accum_steps, peak_mb=peak_mb,
+                   **(dict(step_ms=step_ms, tokens_per_s=B * S / step_ms * 1e3) if warm
+                      else dict(cold_step_ms=step_ms)))
         torch.cuda.synchronize()
         if profile:
             with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4020,12 +4144,15 @@ def _mp_cp_decode(world, S=32_768, cur_lens=CP_LENS):
                 cache_slice_bytes=2 * n * 256 * 4)
 
 
-def _mp_child(rank, world, addr, outdir):
+MP_PARTS = ("islands", "postfix", "train", "checkpoint", "serve", "granite", "bits", "cp")
+
+
+def _mp_child(rank, world, addr, outdir, parts=MP_PARTS):
     """One process of phase 14: the launch environment a user sets, then
     `init_cluster()` (NCCL, its card cuda:{rank mod cards}), the kernels'
-    library (built once by the parent), (a)-(d), and its figures written
-    to outdir/rank{rank}.json. An error ends the process with a non-zero
-    code, which fails the phase."""
+    library (built once by the parent), (a)-(h) (`parts`: those named),
+    and its figures written to outdir/rank{rank}.json. An error ends the
+    process with a non-zero code, which fails the phase."""
     from repro_torch.ckpt import checkpoint as lm_ckpt
     from repro_torch.launch import cluster
 
@@ -4034,31 +4161,42 @@ def _mp_child(rank, world, addr, outdir):
     os.environ.update(COORDINATOR_ADDRESS=addr, NUM_PROCESSES=str(world),
                       PROCESS_ID=str(rank))
     cluster.init_cluster()
-    build.load("gp_eval")
+    if "islands" in parts or "postfix" in parts:
+        build.load("gp_eval")
     out = dict(rank=rank, world=dist.get_world_size(), backend=dist.get_backend(),
                card=str(torch.device("cuda", torch.cuda.current_device())))
     t0 = time.perf_counter()
-    out["islands"] = _mp_islands()
-    out["postfix"] = _mp_postfix()
-    out["train"] = _mp_train(profile=rank == 0)
-    host = _mp_reduced_state()
-    lm_ckpt.save(host, os.path.join(outdir, "ckpt"), 2)
-    out["checkpoint"] = _mp_digests(host)
+    if "islands" in parts:
+        out["islands"] = _mp_islands()
+    if "postfix" in parts:
+        out["postfix"] = _mp_postfix()
+    if "train" in parts:
+        out["train"] = _mp_train(profile=rank == 0)
+    if "checkpoint" in parts:
+        host = _mp_reduced_state()
+        lm_ckpt.save(host, os.path.join(outdir, "ckpt"), 2)
+        out["checkpoint"] = _mp_digests(host)
     out["run_s"] = time.perf_counter() - t0
-    out["serve"] = _mp_serve(profile=rank == 0)
-    # on one card (W = 1) the step is the single controller's, whose
-    # profile and trace cost more than the rest of (f): runs with W > 1
-    # profile it
-    out["granite"] = _mp_train_granite(profile=rank == 0 and world > 1, third=world > 1)
-    out["bits"] = _mp_bits()
-    out["cp"] = _mp_cp_decode(world)
+    if "serve" in parts:
+        out["serve"] = _mp_serve(profile=rank == 0)
+    if "granite" in parts:
+        # on one card (W = 1) the step is the single controller's, whose
+        # profile and trace cost more than the rest of (f): runs with W > 1
+        # profile it, and time a step after a warm one; one card times its
+        # first step (the one held to the parent's), cold
+        out["granite"] = _mp_train_granite(profile=rank == 0 and world > 1,
+                                           third=world > 1, warm=world > 1)
+    if "bits" in parts:
+        out["bits"] = _mp_bits()
+    if "cp" in parts:
+        out["cp"] = _mp_cp_decode(world)
     out["run_efgh_s"] = time.perf_counter() - t0 - out["run_s"]
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     cluster.close_cluster()
 
 
-def _mp_spawn(world, outdir):
+def _mp_spawn(world, outdir, parts=MP_PARTS):
     """Start `world` processes of `_mp_child` (multiprocessing's spawn) and
     wait for them: one that fails stops the others (they would wait for
     it in a collective) and fails the phase."""
@@ -4069,7 +4207,8 @@ def _mp_spawn(world, outdir):
         sk.bind(("localhost", 0))
         addr = f"localhost:{sk.getsockname()[1]}"
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_mp_child, args=(r, world, addr, outdir)) for r in range(world)]
+    procs = [ctx.Process(target=_mp_child, args=(r, world, addr, outdir, parts))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + MP_TIMEOUT_S
@@ -4089,6 +4228,35 @@ def _mp_spawn(world, outdir):
         with open(os.path.join(outdir, f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def mp_profile_main():
+    """`python3 chip_smoke.py --mp-profile`: phase 14 (c), (e) and (f) alone
+    over min(4, cards) processes, for their figures on four cards: every
+    process's (c) and (f) losses and (e) tokens the same and (e)'s cache
+    reads receiving nothing (the bitwise checks against one process are
+    the whole script's); one line each with (c)'s split of a step."""
+    card = card_line()
+    print(card, flush=True)
+    world = min(4, torch.cuda.device_count())
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    outdir = tempfile.mkdtemp(prefix="mp-", dir=root)
+    t0 = time.perf_counter()
+    try:
+        ranks = _mp_spawn(world, outdir, ("train", "serve", "granite"))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for part, key in (("train", "losses"), ("serve", "tokens_all"), ("granite", "losses")):
+        if any(r[part][key] != ranks[0][part][key] for r in ranks):
+            raise AssertionError(f"mp profile: the processes' {part} {key} differ")
+    if any(r["serve"]["decode_step_cache_bytes_received"] for r in ranks):
+        raise AssertionError("mp profile: a decode step's cache reads received bytes")
+    for part in ("train", "serve", "granite"):
+        emit("mp_profile", run=part, nvidia_smi=card, ranks=world,
+             **{k: [r[part].get(k) for r in ranks] for k in sorted(ranks[0][part])
+                if k not in ("tokens_all", "expert_ffn_shapes")})
+    emit("mp_profile", run="done", spawn_s=time.perf_counter() - t0)
 
 
 def mp_paths(islands, gemma, serve, granite):
@@ -4180,6 +4348,10 @@ def mp_paths(islands, gemma, serve, granite):
             if any(b[0] != e_loc or w[0] != e_loc for b, w in f["expert_ffn_shapes"]):
                 raise AssertionError(f"mp granite train, process {r['rank']}: expert FFN "
                                      f"shapes {f['expert_ffn_shapes']}, not {e_loc} experts")
+        cache_rx = [r["serve"]["decode_step_cache_bytes_received"] for r in ranks]
+        if any(cache_rx):
+            raise AssertionError(f"mp serve: a decode step's cache reads received {cache_rx} "
+                                 "B: a rank reads its own part")
         bits = _mp_bits()  # the single controller, this process
         for r in ranks:
             if r["bits"] != bits:
@@ -4219,8 +4391,13 @@ def mp_paths(islands, gemma, serve, granite):
          step_ms=[x["step_ms"] for x in t], step_ms_all=[x["step_ms_all"] for x in t],
          tokens_per_s=t[0]["tokens_per_s"], peak_mb=[x["peak_mb"] for x in t],
          **{k: t[0][k] for k in ("cuda_launches_per_step", "device_events_per_step",
-                                 "profiled_step_ms", "device_busy_ms", "idle_share")},
-         single_process_step_ms=gemma["step_ms"], single_process_peak_mb=gemma["peak_mb"])
+                                 "profiled_step_ms", "device_busy_ms", "idle_share",
+                                 "device_split_ms")},
+         host_split_ms=[x["host_split_ms"] for x in t], host_split_calls=t[0]["host_split_calls"],
+         host_split_step_ms=[x["host_split_step_ms"] for x in t],
+         host_split_wall_ms=[x["host_split_wall_ms"] for x in t],
+         single_process_step_ms=gemma["step_ms"], single_process_peak_mb=gemma["peak_mb"],
+         prior=_prior("14c", world))
     emit("mp", run="checkpoint", nvidia_smi=card, **multi, restored_bitwise=True,
          one_process_bitwise=True, spawn_s=spawn_s, child_run_s=[r["run_s"] for r in ranks])
     e = [r["serve"] for r in ranks]
@@ -4237,7 +4414,7 @@ def mp_paths(islands, gemma, serve, granite):
          decode_step_collectives=[x["decode_step_collectives"] for x in e],
          **{k: e[0][k] for k in ("cuda_launches_per_decode_step", "profiled_decode_step_ms",
                                  "device_busy_ms", "idle_share")},
-         single_process_serve_s=serve["serve_s"])
+         single_process_serve_s=serve["serve_s"], prior=_prior("14e", world))
     f = [r["granite"] for r in ranks]
     emit("mp", run="train_granite_bf16", arch="granite-moe-3b-a800m", nvidia_smi=card,
          **multi, batch=f[0]["batch"], seq=f[0]["seq"], accum_steps=f[0]["accum_steps"],
@@ -4246,8 +4423,8 @@ def mp_paths(islands, gemma, serve, granite):
          single_device_note=("one device's step is another function: its MoE dispatch "
                              "takes capacity and aux statistics over the micro-batch's "
                              "tokens, a shard over its own"),
-         step_ms=[x["step_ms"] for x in f],
-         tokens_per_s=f[0]["tokens_per_s"], peak_mb=[x["peak_mb"] for x in f],
+         **{k: [x[k] for x in f] for k in ("step_ms", "cold_step_ms") if k in f[0]},
+         tokens_per_s=f[0].get("tokens_per_s"), peak_mb=[x["peak_mb"] for x in f],
          expert_ffn_shapes=[x["expert_ffn_shapes"] for x in f], experts_per_process=e_loc,
          **{k: f[0].get(k) for k in ("cuda_launches_per_step", "device_events_per_step",
                                      "profiled_step_ms", "device_busy_ms", "idle_share")},
@@ -4259,7 +4436,8 @@ def mp_paths(islands, gemma, serve, granite):
          single_device_peak_mb=granite["peak_mb"],
          single_device_cuda_launches=granite["cuda_launches_per_step"],
          single_device_idle_share=granite["idle_share"],
-         single_device_expert_buffer="moe_apply: [40, C, 1536], all 40 experts")
+         single_device_expert_buffer="moe_apply: [40, C, 1536], all 40 experts",
+         prior=_prior("14f", world))
     emit("mp", run="bits_granite_f32", nvidia_smi=card, **multi,
          metrics=ranks[0]["bits"]["metrics"], state_leaves=len(bits["state"]),
          logits_steps=len(bits["logits"]), bitwise_one_process=True)
@@ -4277,7 +4455,7 @@ def mp_paths(islands, gemma, serve, granite):
 # --- phase 15: the dry run held against the card ----------------------------------------
 
 DRY_TRAIN = dict(B=4, S=1024)  # phase 13 (b)'s step (`_lm_mesh_train_timed`)
-DRY_SERVE = dict(B=8, P=512, tokens=16)  # phase 14 (e)'s decode (`_mp_serve`)
+DRY_SERVE = dict(B=8, P=512, tokens=8)  # phase 14 (e)'s decode (`_mp_serve`)
 DRY_RANKS = 4  # (c): the ranks of phase 14 on four cards
 DRY_TIMEOUT_S = 900
 
@@ -4407,12 +4585,13 @@ def dryrun_paths(child, islands, gemma, mp):
          multi_rank=multi, **({} if multi else {"multi_rank_reason": (
              f"phase 14 ran {mp['world']} process(es): no byte crossed, so each rank's "
              "dry-run bytes print alone")}),
-         dry_sent_received_calls=dry, phase14_equal=multi or None,
+         dry_sent_received_calls=dry, phase14_equal=multi or None, prior=_prior("15c"),
          collective_bytes=[x["collective_bytes"] for x in c],
          memory=[x["memory"] for x in c], trace_s=[x["trace_s"] for x in c])
     # (d) one production cell
     d = res["d"]
-    emit("dryrun", run="d_gemma_train_4k_sp", nvidia_smi=card, record=d, trace_s=d["trace_s"])
+    emit("dryrun", run="d_gemma_train_4k_sp", nvidia_smi=card, record=d, trace_s=d["trace_s"],
+         prior=_prior("15d"))
     emit("dryrun", run="done", child_s=res["child_s"], waited_s=waited,
          phase_s=time.perf_counter() - t_phase)
     return res
@@ -4726,5 +4905,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun"]:
         _dryrun_child(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--mp-profile"]:
+        mp_profile_main()
     else:
         main()

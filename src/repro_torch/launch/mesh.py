@@ -22,11 +22,10 @@ reduction is an all-gather of the members followed by the in-order sum,
 min or max. GP moments and norms are small; an LM gradient, which is
 large, is reduced by an all-to-all of the blocks each process holds
 followed by the same in-order sum (`Sharded.settle`). Where work splits
-over a group's ranks rather than replicating (the MoE's experts over the
-model axis), `AxisGroup` runs a process's own ranks and its
-differentiable collectives (`all_to_all`, the join of the ranks' slices,
-the in-order sum of a shared weight's gradients) move only what the
-ranks exchange.
+over a group's ranks (tensor parallelism over the model axis, the MoE's
+experts), `AxisGroup` runs a process's own ranks and its differentiable
+collectives (`fanout`, `split`, `sum`, `gather`, `all_to_all`) move only
+activations between them, every sum in rank order.
 
 Axes, in the reference's order (`pod` first, and only when it is > 1):
 
@@ -272,16 +271,19 @@ class Mesh:
         holds (a replica's copy is the same) is read here, the others come
         from their owners, with no host read.
 
-        With `window` (axis, r), where the spec names a dimension by
-        `axis` alone, only the slice of that dimension rank r holds is
-        joined, from the shards of rank r on `axis`; over several
-        processes their blocks come from the processes holding that slice,
-        each of which joins it too."""
+        With `window` (axis, r), only the shards of rank r on `axis` are
+        read: where the spec names a dimension by `axis` alone, the slice
+        of that dimension rank r holds, else the whole tensor from rank
+        r's replicas; over several processes their blocks come from the
+        processes holding rank r, each of which joins it too (a gather
+        over the other axes only)."""
         dev = self.home if device is None else torch.device(device)
         owners, procs = self.owners(spec), self.processes
         if window is not None:
             axis, r = window
-            owners = [s for s in owners if self.rank(s, axis) == r]
+            named = {a for part in spec for a in _names(part)}
+            owners = [s for s in range(self.size) if self.rank(s, axis) == r and all(
+                k == 0 for a, k in self.coords(s).items() if a not in named and a != axis)]
             procs = tuple(sorted({self.procs[s] for s in range(self.size)
                                   if self.rank(s, axis) == r}))
             spec = PartitionSpec(*(None if part == axis else part for part in spec))
@@ -307,11 +309,11 @@ class Mesh:
         key = ("axis_group", tuple(group))
         if key not in self._plans:
             if len(set(owners)) == 1:
-                self._plans[key] = AxisGroup(len(group))
+                self._plans[key] = AxisGroup(len(group), members=group)
             else:
                 self._plans[key] = AxisGroup(
                     len(group), [r for r, q in enumerate(owners) if q == self.process],
-                    owners, self.process)
+                    owners, self.process, members=group)
         return self._plans[key]
 
     def _holder(self, o: int, spec, procs=None):
@@ -592,28 +594,51 @@ def _swap(procs, send: list, recv_sizes: list, device) -> list:
     return list(recv.split(recv_sizes))
 
 
+class Blocks(list):
+    """A tensor as its model ranks' blocks, one a rank a pass runs
+    (`AxisGroup.ranks`), split along `dim`: a leaf the specs split over
+    the model axis as a tensor-parallel pass reads it
+    (`launch.sharding.gather_tree`, `ShardedCache.rows`, which take `dim`
+    from the spec), and what a pass computes from such blocks. Code that
+    takes a tensor whole or as blocks reads the split from `dim`."""
+
+    def __init__(self, blocks, dim: int):
+        super().__init__(blocks)
+        self.dim = dim
+
+    def map(self, fn, shift: int = 0) -> "Blocks":
+        """`fn` of each block; `shift` where `fn` adds (+) or drops (-)
+        leading dims."""
+        return Blocks([fn(b) for b in self], self.dim + shift)
+
+
 class AxisGroup:
     """The ranks of one axis group (a data shard's model group) that this
     process runs, and differentiable collectives between them. Each
     collective takes and returns one value a rank this process runs
-    (`ranks`, ascending). In one process `ranks` is every rank and the
-    collectives are plain list functions; where the group spans processes
-    (`owners`: each rank's process) a process runs its own ranks and the
-    collectives cross the group's processes (`all_to_all_single` over
-    their subgroup, of the tensors' bytes) with the same bits: they move
-    data, and the one sum (`fanout`'s backward) adds every rank's term in
-    rank order on every process.
+    (`ranks`, ascending; `members`, where the mesh made the group, are
+    the shards of every rank). In one process `ranks` is every rank and
+    the collectives are plain list functions; where the group spans
+    processes (`owners`: each rank's process) a process runs its own ranks
+    and the collectives cross the group's processes (`all_to_all_single`
+    over their subgroup, of the tensors' bytes) with the same bits: they
+    move data, and every sum (`sum`, `fanout`'s backward) adds every
+    rank's term in rank order on every process.
 
-    The gradients are those of a loss every rank of the group computes
-    alike (the model axis replicates the dense compute): `split` of a
-    replicated tensor hands each rank its slice and its backward joins
-    every rank's slice of the gradient, `gather` joins the ranks' slices
-    and its backward keeps each rank its own, `fanout` hands each rank a
-    replicated weight and its backward adds the ranks' gradients."""
+    Tensor parallelism is built from four of them, Megatron's pairs: a
+    replicated activation enters a rank's block through `fanout` (copies
+    forward, the in-order sum of the ranks' gradients backward) or `split`
+    (each rank its slice; the backward joins the slices), and leaves it
+    through `sum` (a row-parallel product's partials added in rank order;
+    the backward hands every rank the gradient) or `gather` (the ranks'
+    blocks joined; the backward keeps each rank its own). Every rank of
+    the group computes the replicated parts alike, so each process holds
+    the whole gradient of a replicated tensor."""
 
-    def __init__(self, size: int, ranks=None, owners=None, me: int = 0):
+    def __init__(self, size: int, ranks=None, owners=None, me: int = 0, members=None):
         self.size = size
         self.ranks = tuple(range(size)) if ranks is None else tuple(ranks)
+        self.members = None if members is None else tuple(members)
         self.owners = owners
         self.spans = owners is not None
         if self.spans:
@@ -624,12 +649,12 @@ class AxisGroup:
     def __repr__(self):
         return f"AxisGroup(size={self.size}, ranks={self.ranks})"
 
-    def split(self, x, dim: int) -> list:
+    def split(self, x, dim: int) -> Blocks:
         """This process's ranks' slices of `x` (the same on every rank)
         along `dim`, rank r the r-th of `size`."""
         if not self.spans:
-            return list(torch.split(x, x.shape[dim] // self.size, dim))
-        return list(_SplitOwn.apply(self, dim, x))
+            return Blocks(torch.split(x, x.shape[dim] // self.size, dim), dim)
+        return Blocks(_SplitOwn.apply(self, dim, x), dim)
 
     def gather(self, xs: list, dim: int):
         """Every rank's slice joined along `dim` in rank order (the same
@@ -638,9 +663,19 @@ class AxisGroup:
             return torch.cat(xs, dim)
         return _GatherCat.apply(self, dim, *xs)
 
+    def sum(self, xs: list):
+        """Every rank's partial added in rank order (the same tensor on
+        every rank); the backward hands each rank the whole gradient."""
+        if not self.spans:
+            return self._reduce(xs)
+        return _SumParts.apply(self, *xs)
+
     def fanout(self, w) -> list:
         """`w` (the same on every rank) for each rank this process runs;
-        the gradients of every rank add up into `w`'s in rank order."""
+        the gradients of every rank add up into `w`'s in rank order.
+        Outside autograd's recording it is `w` itself for each rank."""
+        if not (torch.is_grad_enabled() and w.requires_grad):
+            return [w] * len(self.ranks)
         return list(_Fanout.apply(self, w))
 
     def all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
@@ -665,14 +700,64 @@ class AxisGroup:
             return list(xs)
         like = xs[0]
         n = _bytes(like).numel()
-        got = _swap(self.procs, [list(xs)] * len(self.procs),
-                    [len(self.of[q]) * n for q in self.procs], like.device)
+        got = _swap(self.procs, [[] if q == self.me else list(xs) for q in self.procs],
+                    [0 if q == self.me else len(self.of[q]) * n for q in self.procs],
+                    like.device)
         out = [None] * self.size
         for q, buf in zip(self.procs, got):
             for i, r in enumerate(self.of[q]):
                 out[r] = (xs[self.ranks.index(r)] if q == self.me else
                           _from_bytes(buf[i * n:(i + 1) * n], like))
         return out
+
+    def _reduce(self, xs: list):
+        """The sum of every rank's `xs` (this process's ranks' given) in
+        rank order, on every process. Over processes each partial is cut
+        into `size` chunks and rank j's process adds up chunk j of every
+        rank in rank order (one all-to-all), then the sums are gathered
+        (another): each element is added in the single controller's
+        order, and a process receives 2 (size - 1) / size of a partial
+        a rank instead of size - 1."""
+        if not self.spans:
+            total = xs[0]
+            for x in xs[1:]:
+                total = total + x.to(total.device)
+            return total
+        like, n = xs[0], xs[0].numel()
+        c = -(-n // self.size)
+        flat = {r: torch.nn.functional.pad(x.reshape(-1), (0, c * self.size - n)).view(
+            self.size, c) for r, x in zip(self.ranks, xs)}
+        row = flat[self.ranks[0]][0]
+        nb = c * like.element_size()
+        got = _swap(self.procs, [[] if q == self.me else [flat[r][j] for r in self.ranks
+                                                          for j in self.of[q]]
+                                 for q in self.procs],
+                    [0 if q == self.me else len(self.of[q]) * len(self.ranks) * nb
+                     for q in self.procs], like.device)
+        chunk = {(r, j): flat[r][j] for r in self.ranks for j in self.ranks}
+        for q, buf in zip(self.procs, got):
+            if q == self.me:
+                continue
+            k = 0
+            for r in self.of[q]:
+                for j in self.ranks:
+                    chunk[r, j] = _from_bytes(buf[k * nb:(k + 1) * nb], row)
+                    k += 1
+        sums = {}
+        for j in self.ranks:
+            total = chunk[0, j]
+            for r in range(1, self.size):
+                total = total + chunk[r, j]
+            sums[j] = total
+        got = _swap(self.procs, [[] if q == self.me else [sums[j] for j in self.ranks]
+                                 for q in self.procs],
+                    [0 if q == self.me else len(self.of[q]) * nb for q in self.procs],
+                    like.device)
+        for q, buf in zip(self.procs, got):
+            if q != self.me:
+                for i, j in enumerate(self.of[q]):
+                    sums[j] = _from_bytes(buf[i * nb:(i + 1) * nb], row)
+        return torch.cat([sums[j] for j in range(self.size)])[:n].view(like.shape)
 
     def _all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
         chunks = {r: x.chunk(self.size, split_dim) for r, x in zip(self.ranks, xs)}
@@ -728,6 +813,20 @@ class _GatherCat(torch.autograd.Function):
         return (None, None, *(grad.narrow(ctx.dim, r * n, n) for r in ctx.g.ranks))
 
 
+class _SumParts(torch.autograd.Function):
+    """`AxisGroup.sum` across processes: the in-order sum forward, the
+    gradient to every rank backward."""
+
+    @staticmethod
+    def forward(ctx, g, *xs):
+        ctx.n = len(xs)
+        return g._reduce(list(xs))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, *(grad for _ in range(ctx.n)))
+
+
 class _Fanout(torch.autograd.Function):
     """`AxisGroup.fanout`: copies forward, the in-order sum of every
     rank's gradient backward."""
@@ -739,7 +838,7 @@ class _Fanout(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        return None, psum(ctx.g._every(_filled(grads)))[0]
+        return None, ctx.g._reduce(_filled(grads))
 
 
 class _AllToAll(torch.autograd.Function):
@@ -771,7 +870,10 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sh, device, key, window, *local):
-        ctx.sh, ctx.key, ctx.window = sh, key, window
+        # a window on an axis the spec does not name reads rank r's
+        # replicas; the gradient goes to every replica, as without one
+        ctx.sh, ctx.key = sh, key
+        ctx.window = window if window is not None and sh.names(window[0]) else None
         return sh.mesh.join(sh.parts, sh.spec, device, window)
 
     @staticmethod
@@ -854,6 +956,17 @@ class Sharded:
         return self.mesh._block(s, shape, P(*(None if part == axis else part
                                                for part in self.spec)))
 
+    def names(self, axis) -> bool:
+        """Does the spec split a dimension over `axis`?"""
+        return any(axis in _names(part) for part in self.spec)
+
+    def window_shape(self, window=None) -> tuple:
+        """The shape of the global tensor's `window` (`Mesh.join`)."""
+        if window is None:
+            return tuple(self.shape)
+        return tuple(n // self.mesh.axis_size(window[0]) if part == window[0] else n
+                     for n, part in zip(self.shape, (*self.spec, *[None] * self.ndim)))
+
     def in_window(self, s: int, window) -> bool:
         return window is None or self.mesh.rank(s, window[0]) == window[1]
 
@@ -865,10 +978,11 @@ class Sharded:
                               self.spec, device)
 
     def gather(self, device=None, key=None, window=None) -> torch.Tensor:
-        """The global tensor on `device`, or its `window` (`Mesh.join`),
-        differentiable in the parts. On a mesh of several processes `key`
-        names the pass (a batch rank) the gather serves: its gradient
-        waits for `settle`."""
+        """The global tensor on `device`, or its `window` (`Mesh.join`:
+        rank r's slice where the spec names the window's axis, else the
+        whole tensor read from rank r's replicas), differentiable in the
+        parts. On a mesh of several processes `key` names the pass (a
+        batch rank) the gather serves: its gradient waits for `settle`."""
         dev = self.mesh.home if device is None else torch.device(device)
         local = self.local()
         if any(p.requires_grad for p in local) and torch.is_grad_enabled():

@@ -22,13 +22,13 @@ per-shard parts split by its spec (the counterpart of `device_put` with a
 `NamedSharding`). A stack in the port's layout (a list of groups) takes
 each group's slice of the stacked spec (the spec minus its lead).
 `ShardedLM` is the parameter tree of a train state placed so, and
-`ShardedCache` a serving cache placed by `cache_specs`. Over several
-processes both hold this process's parts only: a pass gathers a group's
-weights from the parts (an MoE's experts only for the pass's own model
-ranks where the expert dim lies on the model axis, `gather_tree`), a
-cache is placed from each process's own passes and a data shard's rows
-are joined from its model group's parts, the other processes' fetched
-(`ShardedCache.rows`).
+`ShardedCache` a serving cache placed by `cache_specs`. A pass gathers a
+group's weights over the batch axes only: a leaf the specs split over
+the model axis as its model ranks' blocks (`gather_tree`), which the
+layers compute with tensor parallel; a decode reads each rank's own
+cache part (`ShardedCache.rows`). Over several processes both hold this
+process's parts only, and a cache is placed from each process's own
+passes.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch.mesh import Mesh, P, Sharded, _names, batch_axes, exchange
+from repro_torch.launch.mesh import Blocks, Mesh, P, Sharded, _names, batch_axes
 
 _TP = "model"
 
@@ -324,33 +324,33 @@ def map_sharded(fn, tree):
     return fn(tree) if isinstance(tree, Sharded) else tree
 
 
-EXPERT_LEAVES = ("w_up", "w_gate", "w_down")
-
-
-def gather_tree(tree, device, dtype=None, key=None, experts=None):
+def gather_tree(tree, device, dtype=None, key=None, ranks=None):
     """Every `Sharded` leaf of `tree` gathered onto `device` (autograd
     records the gather where the parts require grad), a floating leaf cast
     to `dtype` after the gather: one group's weights, in a ZeRO-3 step
     (for pass `key` over several processes, `Sharded.gather`). With
-    `experts` (the model ranks a pass runs of a model group that spans
-    processes) an MoE's expert stacks whose expert dim lies on the model
-    axis come as a list, each rank's slice gathered over the batch axes
-    only: a process never gathers another rank's experts."""
+    `ranks` (the model ranks a tensor-parallel pass runs) a leaf whose
+    spec names the model axis comes as `Blocks` (split along the spec's
+    model dim), each rank's block gathered over the batch axes only, and
+    any other leaf whole, read from the replicas of the pass's first
+    rank: no leaf is gathered over the model axis, and a process never
+    fetches another model rank's block."""
     def one(sh, window=None):
         t = sh.gather(device, key, window)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
     def walk(node):
         if isinstance(node, Sharded):
-            return one(node)
+            if ranks is None:
+                return one(node)
+            if node.names(_TP):
+                return Blocks([one(node, (_TP, r)) for r in ranks], _tp_dim(node.spec))
+            return one(node, (_TP, ranks[0]))
         if isinstance(node, list):
             return [walk(v) for v in node]
-        if not isinstance(node, dict):
-            return node
-        moe = experts is not None and "router" in node
-        return {k: [one(v, (_TP, r)) for r in experts]
-                if moe and k in EXPERT_LEAVES and v.spec[0] == _TP else walk(v)
-                for k, v in node.items()}
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
 
     return walk(tree)
 
@@ -402,10 +402,11 @@ class ShardedLM:
         return self.mesh.home
 
 
-def _overlap(sh: Sharded, s: int, dim: int, rows: slice):
+def _overlap(sh: Sharded, s: int, dim: int, rows: slice, window=None):
     """(the part's slices, the window's slices) of the block shard `s`
-    holds within `rows` of dimension `dim`, or None."""
-    blk = sh.block(s)
+    holds within `rows` of dimension `dim` (in the coordinates of
+    `window`, `Sharded.block`), or None."""
+    blk = sh.block(s, window)
     lo, hi = max(blk[dim].start, rows.start), min(blk[dim].stop, rows.stop)
     if lo >= hi:
         return None
@@ -416,38 +417,33 @@ def _overlap(sh: Sharded, s: int, dim: int, rows: slice):
     return tuple(src), tuple(dst)
 
 
-def join_rows(sh: Sharded, dim: int, rows: slice, device) -> torch.Tensor:
-    """Rows `rows` of dimension `dim` of the global tensor, joined onto
-    `device` from the parts that hold them (each block once)."""
-    shape = list(sh.shape)
-    shape[dim] = rows.stop - rows.start
-    out = torch.empty(shape, dtype=sh.dtype, device=device)
-    for s in sh.owners():
-        hit = _overlap(sh, s, dim, rows)
-        if hit is not None:
-            out[hit[1]] = sh.parts[s][hit[0]].to(device)
-    return out
-
-
-def write_rows(sh: Sharded, dim: int, rows: slice, value) -> None:
-    """Write `value` (rows `rows` of dimension `dim` of the global tensor)
-    into every part of this process that holds them, the replicas too."""
+def write_rows(sh: Sharded, dim: int, rows: slice, value, window=None) -> None:
+    """Write `value` (rows `rows` of dimension `dim` of the global tensor,
+    or of its `window`) into every part of this process that holds them,
+    the replicas too; a part that is `value` itself is left as it is."""
     for s in sh.mesh.local:
         part = sh.parts[s]
-        hit = _overlap(sh, s, dim, rows)
+        if part is value or (window is not None and not sh.in_window(s, window)):
+            continue
+        hit = _overlap(sh, s, dim, rows, window)
         if hit is not None:
             part[hit[0]] = value[hit[1]].to(part.device)
+
+
+def _tp_dim(spec):
+    return next((d for d, part in enumerate(spec) if _TP in _names(part)), None)
 
 
 class ShardedCache:
     """A serving cache (`{"b{i}": {name: [n_groups, B, ...]}}`) placed on
     a mesh by `cache_specs`, each leaf a `Sharded`. A data shard's decode
-    reads its rows (dim 1) joined from the parts (`rows`) and writes them
-    back (`write_rows`). Over several processes a process holds its own
-    parts only, as a `Sharded` does: a data shard's rows are joined from
-    its model group's parts, the other processes' fetched from them, and
-    each process writes back its own; the whole cache is never built on
-    one process."""
+    reads its rows (dim 1) from the parts (`rows`) and writes them back
+    (`write_rows`). With tensor parallelism a pass reads each model rank's
+    own block of a leaf the specs split over the model axis: the rank's
+    part itself where it holds the pass's rows, so the decode writes into
+    it in place and no cache crosses the model axis. Over several
+    processes a process holds its own parts only, as a `Sharded` does,
+    and the whole cache is never built on one process."""
 
     def __init__(self, mesh: Mesh, tree: dict):
         self.mesh, self._tree = mesh, tree
@@ -455,25 +451,48 @@ class ShardedCache:
     @classmethod
     def place(cls, mesh: Mesh, spec_tree, passes: list, B: int) -> "ShardedCache":
         """The cache of a batch of B rows computed in passes (`passes`:
-        [(rows, the rows' cache)], this process's, in row order) placed by
-        `spec_tree`: each of this process's parts cut from the passes that
-        computed its rows."""
+        [(rows, the rows' cache, the pass's model group, which a pass of
+        whole leaves may leave out)], this process's, in row order) placed
+        by `spec_tree`: each of this process's parts
+        cut from the passes that computed its rows. A leaf a pass computed
+        by rank (`Blocks`) gives each part its own rank's block, or, where
+        the spec splits it along another dim or not over the model axis,
+        is joined over the pass's ranks first (an activation gather)."""
+        passes = [(*item, None)[:3] for item in passes]
         tree = {}
         for b, leaves in passes[0][1].items():
             tree[b] = {}
             for n, first in leaves.items():
-                shape = (first.shape[0], B, *first.shape[2:])
                 spec = P(*spec_tree[b][n])
+                D = _tp_dim(spec)
+                vals = []
+                for r, c, g in passes:
+                    v = c[b][n]
+                    if isinstance(v, Blocks) and v.dim != D:
+                        v = g.gather(v, v.dim)
+                    vals.append((r, v, g))
+                like = vals[0][1]
+                shape = [*(like[0] if isinstance(like, list) else like).shape]
+                if isinstance(like, list):
+                    shape[D] *= mesh.axis_size(_TP)
+                shape[1] = B
                 parts = [None] * mesh.size
                 for s in mesh.local:
                     blk = mesh._block(s, shape, spec)
-                    got = [c[b][n][:, max(blk[1].start, r.start) - r.start:
-                                   min(blk[1].stop, r.stop) - r.start]
-                           for r, c in passes if r.start < blk[1].stop and blk[1].start < r.stop]
-                    if sum(g.shape[1] for g in got) != blk[1].stop - blk[1].start:
+                    got = []
+                    for r, v, g in vals:
+                        if not (r.start < blk[1].stop and blk[1].start < r.stop):
+                            continue
+                        if isinstance(v, list):
+                            v = v[g.ranks.index(mesh.rank(s, _TP))]
+                        got.append(v[:, max(blk[1].start, r.start) - r.start:
+                                     min(blk[1].stop, r.stop) - r.start])
+                    if sum(t.shape[1] for t in got) != blk[1].stop - blk[1].start:
                         raise ValueError(f"{b}/{n}: shard {s}'s rows {blk[1]} span passes of "
                                          "other processes (a cache not split by batch)")
-                    src = torch.cat(got, 1)[(slice(None), slice(None), *blk[2:])]
+                    cut = [slice(None) if d == D and isinstance(vals[0][1], list) else blk[d]
+                           for d in range(2, len(shape))]
+                    src = torch.cat(got, 1)[(slice(None), slice(None), *cut)]
                     parts[s] = torch.empty(src.shape, dtype=src.dtype,
                                            device=mesh.devices[s]).copy_(src)
                 tree[b][n] = Sharded(mesh, spec, parts, shape)
@@ -485,38 +504,48 @@ class ShardedCache:
     def __iter__(self):
         return iter(self._tree)
 
-    def rows(self, rows: slice, device, group=None) -> dict:
-        """Rows `rows` (dim 1) of every leaf on `device`. Over several
-        processes `group` lists the shards to read them from (a data
-        shard's model group, whose processes each call this for the same
-        rows): this process's parts read here, the others' fetched in one
-        exchange over the group's processes; without `group`, every
-        process joins whole leaves (a batch run as one pass)."""
-        if not self.mesh.multi:
-            return {b: {n: join_rows(sh, 1, rows, device) for n, sh in c.items()}
-                    for b, c in self._tree.items()}
-        if group is None:
-            return {b: {n: sh.join(device)[:, rows] for n, sh in c.items()}
-                    for b, c in self._tree.items()}
-        leaves = [sh for c in self._tree.values() for sh in c.values()]
-        mine = {s: tuple(sh.parts[s][_overlap(sh, s, 1, rows)[0]] for sh in leaves)
-                for s in group if self.mesh.is_local(s)}
-        got = exchange(self.mesh, group, mine)
-        outs = []
-        for i, sh in enumerate(leaves):
-            shape = list(sh.shape)
-            shape[1] = rows.stop - rows.start
-            out = torch.empty(shape, dtype=sh.dtype, device=device)
-            for s in group:
-                out[_overlap(sh, s, 1, rows)[1]] = got[s][i].to(device)
-            outs.append(out)
-        it = iter(outs)
-        return {b: {n: next(it) for n in c} for b, c in self._tree.items()}
+    def rows(self, rows: slice, device, group) -> dict:
+        """Rows `rows` (dim 1) of every leaf on `device` for a pass of the
+        model group `group` (`launch.mesh.AxisGroup`, whose `members` are
+        its ranks' shards): with tensor parallelism (`group.size` > 1) a
+        leaf the specs split over the model axis comes as the pass's ranks'
+        `Blocks` (split along the spec's model dim), and any other leaf
+        whole, from the pass's first rank. A block is its shard's part
+        itself where that part holds just these rows on `device` (a view:
+        the decode writes into it in place), else it is joined over the
+        batch axes only (a batch run as one pass, a sequence-sharded cache;
+        over several processes with the other processes of the block's
+        model rank)."""
+        tp = group.size
+        first = group.ranks[0]
 
-    def write_rows(self, rows: slice, local: dict) -> None:
+        def block(sh, r):
+            window = (_TP, r) if tp > 1 else None
+            s = group.members[r]
+            part = sh.parts[s]
+            if part is not None and part.device == torch.device(device):
+                blk, whole = sh.block(s, window), sh.window_shape(window)
+                if blk[1] == rows and all(blk[d] == slice(0, whole[d])
+                                          for d in range(sh.ndim) if d != 1):
+                    return part
+            return sh.mesh.join(sh.parts, sh.spec, device, window)[:, rows]
+
+        return {b: {n: Blocks([block(sh, r) for r in group.ranks], _tp_dim(sh.spec))
+                    if tp > 1 and sh.names(_TP) else block(sh, first) for n, sh in c.items()}
+                for b, c in self._tree.items()}
+
+    def write_rows(self, rows: slice, local: dict, group) -> None:
+        """Write a pass's rows back (`rows`' structure): into every part of
+        this process holding them, but the parts the decode wrote in
+        place."""
         for b, c in self._tree.items():
             for n, sh in c.items():
-                write_rows(sh, 1, rows, local[b][n])
+                v = local[b][n]
+                if isinstance(v, list):
+                    for r, t in zip(group.ranks, v):
+                        write_rows(sh, 1, rows, t, (_TP, r))
+                else:
+                    write_rows(sh, 1, rows, v)
 
     def join(self, device=None) -> dict:
         """The global cache (a plain one) on `device` (default: home)."""

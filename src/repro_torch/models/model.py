@@ -12,35 +12,38 @@ backward. Entry points run on the card unless given `device="cpu"`.
 Under a ShardingPolicy (`cfg.with_policy`) the entry points take an
 `LM` as before (the MoE then dispatches per shard, `moe_apply_sharded`)
 or a `ShardedLM`, the parameters placed on a mesh as per-shard parts
-(`launch/sharding.py`). On a mesh the port runs the reference's
-ZeRO-3 layout in turn, in one process:
+(`launch/sharding.py`). On a mesh the port runs the reference's FSDP x
+TP layout, in one process in turn:
 
   * each data shard runs its rows of the batch on its model-rank-0
     shard's device, with the policy as one data shard sees it (dp 1);
-    a batch that does not divide over the data shards runs whole, and
-    its MoE takes `moe_apply`, as the reference's does;
+    a batch that does not divide over the data shards runs as one pass
+    (its MoE on `moe_apply`'s global dispatch, as the reference's);
   * each group's weights are gathered from their parts inside the
-    group's remat unit, and the gather's backward adds each data shard's
-    gradient into the parts (the reduce-scatter); the whole model is
-    never gathered at once;
-  * the dense layers' model axis is storage only in compute (a split
-    matmul would change only the order of a sum); the MoE's expert
-    parallelism runs per shard.
+    group's remat unit over the batch axes only, and the gather's
+    backward adds each data shard's gradient into the parts (the
+    reduce-scatter); the whole model is never gathered at once;
+  * tensor parallelism over the model axis, as the reference's
+    partitioning of its pinned layout: a leaf the specs split over the
+    model axis reaches the layers as its model ranks' blocks (heads,
+    FFN hidden, experts or their hidden, SSM heads, vocab), each rank
+    computes with its own block, and only activations cross the ranks
+    (`launch.mesh.AxisGroup`: `fanout`/`split` in, `sum`/`gather` out);
+    a decode reads each rank's own cache part. No leaf's model block is
+    gathered over the model axis.
 
 A data shard's loss is its nll sum over the whole batch's mask count plus
 its share of the aux loss (the reference's `pmean`), so the shards'
 parts add up to the reference's loss.
 
 Over several processes (`launch.cluster.init_cluster`, one a card) each
-process runs its own data shards' passes (`_shard_plan`): the processes
-of a data shard's model group run its rows through the same dense
-weights, and each runs its own model ranks of the MoE, gathering only
-those ranks' experts (`launch.mesh.AxisGroup` carries the all-to-alls
-across the group). `make_train_step`, `forward_train`, `prefill` and
-`decode_step` all run there: a process keeps its own parts of the state
-and of the cache (`ShardedCache`), and every process returns the single
-controller's losses, metrics and [B, 1, V] logits bit for bit, gathered
-over the batch axes.
+process runs its own data shards' passes and, in each, its own model
+ranks (`_shard_plan`; the pass's `AxisGroup` carries the activations
+across the model group's processes). `make_train_step`,
+`forward_train`, `prefill` and `decode_step` all run there: a process
+keeps its own parts of the state and of the cache (`ShardedCache`), and
+every process returns the single controller's losses, metrics and [B,
+1, V] logits bit for bit, gathered over the batch axes.
 """
 from __future__ import annotations
 
@@ -300,32 +303,34 @@ def _shard_plan(cfg, params, B: int) -> list:
     each data shard in turn (its rows, its model-rank-0 shard's device,
     the policy as one data shard sees it, 1/dp of the aux loss), or one
     pass over all rows on the mesh's home where B does not divide over the
-    data shards. Over several processes a process runs its own data
-    shards' passes, each keyed by its batch rank so that
-    `ShardedLM.settle` adds the passes' gradients in rank order: the
-    processes of one data shard's model group run the same rows through
-    the same dense weights (the model axis stores, it does not split the
-    dense compute), and each runs its own model ranks of the MoE (the
-    pass's policy carries its model group, `AxisGroup`)."""
+    data shards. A pass's policy carries its model group
+    (`launch.mesh.AxisGroup`): the model ranks it runs, every rank in one
+    process and a process's own over several, each computing its own
+    blocks (tensor parallelism where the model axis is > 1). Over several
+    processes a process runs its own data shards' passes, each keyed by
+    its batch rank so that `ShardedLM.settle` adds the passes' gradients
+    in rank order."""
     if not isinstance(params, SH.ShardedLM):
         return [(slice(0, B), params.device, cfg, 1.0, None)]
     dp, tp = cfg.policy.dp_size, cfg.policy.tp_size
     mesh = params.mesh
+
+    def grouped(c, s):
+        return c.with_policy(c.policy.with_group(mesh.axis_group(cfg.policy.model, s)))
+
     if B % dp:
-        return [(slice(0, B), mesh.home, cfg, 1.0, None)]
+        return [(slice(0, B), mesh.home, grouped(cfg, mesh.local[0]), 1.0, None)]
     local = cfg.with_policy(dataclasses.replace(cfg.policy, dp_size=1))
     n = B // dp
     if not mesh.multi:
-        return [(slice(d * n, (d + 1) * n), mesh.devices[d * tp], local, 1.0 / dp, None)
-                for d in range(dp)]
+        return [(slice(d * n, (d + 1) * n), mesh.devices[d * tp], grouped(local, d * tp),
+                 1.0 / dp, None) for d in range(dp)]
     axes = TM.batch_axes(mesh)
     mine = {}
     for s in mesh.local:
         mine.setdefault(mesh.batch_rank(s, axes), s)
-    return [(slice(d * n, (d + 1) * n), mesh.devices[mine[d]],
-             local.with_policy(local.policy.with_group(mesh.axis_group(cfg.policy.model,
-                                                                       mine[d]))), 1.0 / dp, d)
-            for d in sorted(mine)]
+    return [(slice(d * n, (d + 1) * n), mesh.devices[mine[d]], grouped(local, mine[d]),
+             1.0 / dp, d) for d in sorted(mine)]
 
 
 def _weights(cfg, params, device, cast, key=None):
@@ -333,17 +338,17 @@ def _weights(cfg, params, device, cast, key=None):
     `final_norm` weights in the compute dtype): an `LM` through `cast`
     (`_train_cast` in the graph to train, `_cast`'s cached copy to serve),
     or a `ShardedLM`'s parts with a hook that gathers a group onto
-    `device` (for pass `key` over several processes; where the pass's
-    model group spans processes, the MoE's experts of its own ranks
-    only)."""
+    `device` over the batch axes (for pass `key` over several processes):
+    with tensor parallelism each leaf the specs split over the model axis
+    as the blocks of the pass's ranks (`launch.sharding.gather_tree`)."""
     dtype = _dtype(cfg)
     if isinstance(params, SH.ShardedLM):
         p = params.tree()
         group = cfg.policy.group
-        experts = group.ranks if group is not None and group.spans else None
+        ranks = group.ranks if group is not None and group.size > 1 else None
 
         def gather(tree):
-            return SH.gather_tree(tree, device, dtype, key, experts)
+            return SH.gather_tree(tree, device, dtype, key, ranks)
 
         return p, gather, gather(p["tok"]), gather(p["final_norm"])
     p = cast(params, dtype)
@@ -419,16 +424,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
                               getattr(torch, cfg.cache_dtype), resolve_device(device))
 
 
-def _cache_rows(cache, rows, device, key=None):
+def _cache_rows(cache, rows, device, pcfg):
     """The rows of a cache (dim 1 of its stacked leaves): a slice view of a
-    plain cache, or joined onto `device` from a sharded one's parts (over
-    several processes, pass `key`'s from its data shard's model group)."""
+    plain cache, or a sharded one's blocks for the pass of `pcfg` (its
+    model group's, `ShardedCache.rows`)."""
     if isinstance(cache, SH.ShardedCache):
-        mesh, group = cache.mesh, None
-        if mesh.multi and key is not None:
-            axes = TM.batch_axes(mesh)
-            group = next(g for g in mesh.groups("model") if mesh.batch_rank(g[0], axes) == key)
-        return cache.rows(rows, device, group)
+        return cache.rows(rows, device, pcfg.policy.group)
     return {b: {n: a[:, rows] for n, a in c.items()} for b, c in cache.items()}
 
 
@@ -474,11 +475,11 @@ def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
     is consumed. Nothing in a step reads the device back.
 
     On a mesh (`ShardedLM` params and the `ShardedCache` `prefill` made)
-    each data shard decodes its rows in turn: its cache rows joined from
-    their parts (the model axis is storage only), the step run, the rows
-    written back into the parts. Over several processes a process steps
-    its own data shards' rows: it reads them from its model group's parts
-    (the other processes' fetched), writes back its own parts, and gets
+    each data shard decodes its rows in turn, each model rank on its own
+    part of the cache, written in place (`ShardedCache.rows`; a batch run
+    as one pass, or a sequence-sharded cache, joins a rank's block over
+    the batch axes and writes it back). Over several processes a process
+    steps its own data shards' rows with its own model ranks and gets
     every pass's logits over the batch axes: every process returns the
     single controller's [B, 1, V]."""
     plan = _shard_plan(cfg, params, token.shape[0])
@@ -487,10 +488,10 @@ def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
     outs = []
     for rows, dev, pcfg, _, key in plan:
         pos = cur_len.to(dev) if isinstance(cur_len, torch.Tensor) else cur_len
-        local = _cache_rows(cache, rows, dev, key)
+        local = _cache_rows(cache, rows, dev, pcfg)
         logits, local = _decode(pcfg, params, local, token[rows].to(dev), pos, dev)
         if isinstance(cache, SH.ShardedCache):  # a plain cache's rows are views
-            cache.write_rows(rows, local)
+            cache.write_rows(rows, local, pcfg.policy.group)
         outs.append(logits)
     return _gather_passes(params, [k for *_, k in plan], outs), cache
 
@@ -498,7 +499,8 @@ def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
 def cache_max_len(cache) -> int:
     for k in cache:
         if "k" in cache[k]:
-            return cache[k]["k"].shape[2]
+            a = cache[k]["k"]
+            return (a[0] if isinstance(a, list) else a).shape[2]
     return 1
 
 
@@ -516,6 +518,16 @@ def _prefill(cfg, params, batch, max_len, device):
                                      gather=gather)
     x = T._apply_norm(cfg, norm, x)
     return T.logits_last(cfg, tok, x[:, -1:]), cache
+
+
+def _cache_shape(a, B: int, mesh):
+    """The global shape (on `meta`) of a prefill pass's cache leaf `a`:
+    whole, or its ranks' blocks (`launch.mesh.Blocks`)."""
+    one = a[0] if isinstance(a, list) else a
+    shape = [one.shape[0], B, *one.shape[2:]]
+    if isinstance(a, TM.Blocks):
+        shape[a.dim] *= mesh.axis_size("model")
+    return torch.empty(shape, dtype=one.dtype, device="meta")
 
 
 @torch.no_grad()
@@ -537,10 +549,9 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int):
     for rows, dev, pcfg, _, _ in plan:
         lg, c = _prefill(pcfg, params, _rows(batch, rows), max_len, dev)
         logits.append(lg)
-        passes.append((rows, c))
-    first = passes[0][1]
-    shapes = {b: {n: torch.empty((a.shape[0], B, *a.shape[2:]), dtype=a.dtype, device="meta")
-                  for n, a in c.items()} for b, c in first.items()}
+        passes.append((rows, c, pcfg.policy.group))
+    shapes = {b: {n: _cache_shape(a, B, params.mesh) for n, a in c.items()}
+              for b, c in passes[0][1].items()}
     specs = SH.cache_specs(cfg, shapes, params.mesh,
                            seq_shard=cfg.policy.seq_axis_for_cache is not None)
     return (_gather_passes(params, [k for *_, k in plan], logits),

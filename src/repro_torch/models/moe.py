@@ -39,7 +39,7 @@ import math
 import torch
 
 from repro_torch.launch import mesh as Mesh
-from repro_torch.models.layers import _act, _recording, _remat, dense_init
+from repro_torch.models.layers import _act, _recording, _remat, dense_init, tp_group
 
 
 def moe_init(gen, d_model: int, d_ff: int, n_experts: int, *, gated=True,
@@ -139,17 +139,56 @@ def _dispatch_combine(xt, logits, top_k: int, C: int, E: int, ffn):
     return _combine(ffn(buf), xt, routing), aux
 
 
-def moe_apply(p, x, *, top_k: int, act: str = "silu", capacity_factor: float = 1.25):
-    """Reference path. x: [B, S, d] -> (y [B, S, d], aux_loss scalar)."""
+def moe_apply(p, x, *, top_k: int, act: str = "silu", capacity_factor: float = 1.25,
+              policy=None):
+    """Reference path. x: [B, S, d] -> (y [B, S, d], aux_loss scalar). In
+    a tensor-parallel pass (a batch run as one pass) whose expert stacks
+    come as the ranks' blocks, each rank runs its block on this one
+    global dispatch (`_ranks_ffn`)."""
     B, S, d = x.shape
     T = B * S
     E = p["router"].shape[1]
     C = capacity(T, top_k, E, capacity_factor)
     xt = x.reshape(T, d)
     logits = _router_logits(xt, p["router"], E)
-    ffn = lambda buf: _expert_ffn(buf, p["w_up"], p.get("w_gate"), p["w_down"], act)  # noqa: E731
+    if isinstance(p["w_up"], list):
+        group = tp_group(policy)
+        ws = {k: p[k] for k in ("w_up", "w_gate", "w_down") if k in p}
+
+        def ffn(buf):
+            return _ranks_ffn(buf, ws, group, E, act)
+    else:
+        def ffn(buf):
+            return _expert_ffn(buf, p["w_up"], p.get("w_gate"), p["w_down"], act)
     y, aux = _dispatch_combine(xt, logits, top_k, C, E, ffn)
     return y.reshape(B, S, d), aux
+
+
+def _by_ff(ws) -> bool:
+    """Do the ranks' blocks `ws` (`launch.mesh.Blocks`) split each
+    expert's hidden dim (the specs' fallback where the experts do not
+    divide the model axis), not the experts (dim 0)?"""
+    return ws["w_up"].dim != 0
+
+
+def _rank_ffn(buf, ws, j, act):
+    return _expert_ffn(buf, ws["w_up"][j], ws["w_gate"][j] if "w_gate" in ws else None,
+                       ws["w_down"][j], act)
+
+
+def _ranks_ffn(buf, ws, group, E: int, act: str, record: bool = False):
+    """The expert FFN of a whole [E', C, d] buffer (E' >= E: the experts
+    and any dead padding) over the ranks' blocks `ws`: by expert, each
+    rank its slice of the buffer, the slices joined; by hidden dim, each
+    rank every live expert on its hidden block (column/row-parallel), the
+    partials added in rank order, the dead experts' rows zero."""
+    if not _by_ff(ws):
+        return group.gather([_remat(_rank_ffn, b, ws, j, act, record=record)
+                             for j, b in enumerate(group.split(buf, 0))], 0)
+    live = group.fanout(buf[:E])
+    out = group.sum([_remat(_rank_ffn, b, ws, j, act, record=record)
+                     for j, b in enumerate(live)])
+    return _pad_e(out, buf.shape[0])
 
 
 def _router_logits(xt, router, E_pad: int):
@@ -207,10 +246,7 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
     ws = {k: _expert_slices(p[k], group, E_pad) for k in ("w_up", "w_gate", "w_down")
           if k in p}
     record = _recording(x, *(t for v in ws.values() for t in v))
-
-    def expert_ffn(buf, j):
-        return _expert_ffn(buf, ws["w_up"][j], ws["w_gate"][j] if "w_gate" in ws else None,
-                           ws["w_down"][j], act)
+    by_ff = _by_ff(ws)
 
     ys, auxes = [], []
     for i in range(dp):
@@ -219,11 +255,16 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
             xts = [r.reshape(T_loc, d) for r in group.split(rows, 1)]
             sent = [_dispatch(xt, _router_logits(xt, router, E_pad), top_k, C_loc, E_pad)
                     for xt, router in zip(xts, group.fanout(p["router"]))]
-            # experts to their owner rank; every rank's tokens concatenate on
-            # the capacity axis: [E_loc, C_loc * tp, d] a rank
-            bufs = group.all_to_all([b for b, _, _ in sent], 0, 1)
-            outs = [_remat(expert_ffn, b, j, record=record) for j, b in enumerate(bufs)]
-            back = group.all_to_all(outs, 1, 0)  # [E_pad, C_loc, d]
+            if by_ff:  # every rank's tokens, each rank every expert on its hidden block
+                back = group.split(_ranks_ffn(group.gather([b for b, _, _ in sent], 1), ws,
+                                              group, E, act, record), 1)
+            else:
+                # experts to their owner rank; every rank's tokens concatenate
+                # on the capacity axis: [E_loc, C_loc * tp, d] a rank
+                bufs = group.all_to_all([b for b, _, _ in sent], 0, 1)
+                outs = [_remat(_rank_ffn, b, ws, j, act, record=record)
+                        for j, b in enumerate(bufs)]
+                back = group.all_to_all(outs, 1, 0)  # [E_pad, C_loc, d]
             ys.append(group.gather([_combine(o, xt, r).reshape(Bl, Sl, d)
                                     for o, xt, (_, _, r) in zip(back, xts, sent)], 1))
             auxes.extend(group.every([a for _, a, _ in sent]))
@@ -231,19 +272,18 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
             xt = rows.reshape(T_loc, d)
             buf, aux, routing = _dispatch(xt, _router_logits(xt, p["router"], E_pad), top_k,
                                           C_loc, E_pad)
-            outs = [_remat(expert_ffn, b, j, record=record)
-                    for j, b in enumerate(group.split(buf, 0))]  # [E_loc, C_loc, d] a rank
-            ys.append(_combine(group.gather(outs, 0), xt, routing).reshape(Bl, S, d))
+            out = _ranks_ffn(buf, ws, group, E, act, record)  # [E_pad, C_loc, d]
+            ys.append(_combine(out, xt, routing).reshape(Bl, S, d))
             auxes.append(aux)
     return torch.cat(ys, 0), Mesh.pmean(auxes)[0]
 
 
-def _expert_slices(w, group, E_pad) -> list:
-    """The expert slices [E_loc, ...] of `w` for the ranks `group` runs:
-    `w` as given where it is already the list of them (a pass over
-    processes gathers only its ranks' experts), else split from the
-    zero-padded whole."""
-    if isinstance(w, list):
+def _expert_slices(w, group, E_pad) -> Mesh.Blocks:
+    """The ranks' blocks of `w` for the ranks `group` runs: `w` as given
+    where it is already them (a pass's gather: by expert, or by hidden
+    dim where the experts do not divide the model axis), else the expert
+    slices [E_loc, ...] split from the zero-padded whole."""
+    if isinstance(w, Mesh.Blocks):
         return w
     return group.split(_pad_e(w, E_pad), 0)
 

@@ -21,7 +21,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _pad_seq, dense_init, rms_norm
+from repro_torch.launch.mesh import Blocks
+from repro_torch.models.layers import (_heads_of, _pad_seq, blocks, dense_init, rms_norm,
+                                       tp_group, whole)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +107,8 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, h0=None, policy=None):
     B, C: [b,l,g,n]  D: [h]  h0: [b,h,n,p] initial state (macro-block carry)
     → (y [b,l,h,p], final_state [b,h,n,p])
 
-    `policy` is accepted as the reference's: its `shard_h` pins the head
-    dim to the model axis, a layout with no numeric effect in one process.
+    `policy` is accepted as the reference's; its `shard_h` (the head dim
+    on the model axis) is `_ssm_tp`'s split of the heads over the ranks.
     """
     b, l0, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -160,13 +162,33 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int, h0=None, policy=None):
     return y[:, :l0], final
 
 
+def _scan(xs, dt, A_log, Bm, Cm, D, dims: SSMDims):
+    """`ssd_chunked` over [B, L, h, p] heads, in macro-blocks that carry
+    the state where L is longer than `dims.scan_block` (and a multiple of
+    it), bounding the SSD transients to one block, as the reference's
+    `lax.scan` does -> (y, final state)."""
+    B, L, h, hp = xs.shape
+    blk = dims.scan_block
+    if not (L > blk and L % blk == 0):
+        return ssd_chunked(xs, dt, A_log, Bm, Cm, D, dims.chunk)
+    state = torch.zeros((B, h, dims.d_state, hp), dtype=torch.float32, device=xs.device)
+    ys = []
+    for i in range(L // blk):
+        s = slice(i * blk, (i + 1) * blk)
+        y_b, state = ssd_chunked(xs[:, s], dt[:, s], A_log, Bm[:, s], Cm[:, s], D,
+                                 dims.chunk, h0=state)
+        ys.append(y_b)
+    return torch.cat(ys, dim=1), state
+
+
 def ssm_apply(p, x, dims: SSMDims, policy=None):
     """Train/prefill. x: [B, L, d] → (y [B, L, d], final_state, conv_tail).
-
-    Sequences longer than `dims.scan_block` (and a multiple of it) run in
-    macro-blocks that carry the state, bounding the SSD transients to one
-    block, as the reference's `lax.scan` does."""
+    In a tensor-parallel pass whose heads divide the model axis each rank
+    runs its own heads (`_ssm_tp`)."""
     B, L, _ = x.shape
+    group = tp_group(policy)
+    if group is not None and any(isinstance(p[n], list) for n in ("in_proj", "out_proj")):
+        return _ssm_tp(p, x, None, None, dims, group)
     zxbcdt = x @ p["in_proj"]
     z, xBC, dt = _split_zxbcdt(zxbcdt, dims)
     conv_tail = xBC[:, -(dims.d_conv - 1):, :]  # decode warm-start
@@ -176,28 +198,35 @@ def ssm_apply(p, x, dims: SSMDims, policy=None):
     Bm = xBC[..., di:di + gn].reshape(B, L, dims.n_groups, dims.d_state)
     Cm = xBC[..., di + gn:].reshape(B, L, dims.n_groups, dims.d_state)
     dt = softplus(dt.float() + p["dt_bias"])
-
-    blk = dims.scan_block
-    if L > blk and L % blk == 0:
-        state = torch.zeros((B, dims.n_heads, dims.d_state, dims.headdim),
-                            dtype=torch.float32, device=x.device)
-        ys = []
-        for i in range(L // blk):
-            s = slice(i * blk, (i + 1) * blk)
-            y_b, state = ssd_chunked(xs[:, s], dt[:, s], p["A_log"], Bm[:, s], Cm[:, s],
-                                     p["D"], dims.chunk, h0=state)
-            ys.append(y_b)
-        y, final = torch.cat(ys, dim=1), state
-    else:
-        y, final = ssd_chunked(xs, dt, p["A_log"], Bm, Cm, p["D"], dims.chunk)
+    y, final = _scan(xs, dt, p["A_log"], Bm, Cm, p["D"], dims)
     y = y.reshape(B, L, di)
     y = rms_norm(y * F.silu(z), p["norm"])
     return y @ p["out_proj"], final, conv_tail
 
 
-def ssm_decode(p, x, ssm_state, conv_state, dims: SSMDims):
+def _step(xs, Bm, Cm, dt, A_log, D, dt_bias, ssm_state, dims: SSMDims, n_groups: int):
+    """One token's state update and readout over h heads: xs [B, h, P],
+    Bm, Cm [B, g, N] (head i reads group i // (h / g)), dt [B, h] before
+    the softplus -> (y [B, h, P] f32, new state)."""
+    rep = xs.shape[1] // n_groups
+    Bh = Bm.repeat_interleave(rep, dim=1).float()  # [B, H, N]
+    Ch = Cm.repeat_interleave(rep, dim=1).float()
+    dt = softplus(dt.float() + dt_bias)  # [B, H]
+    dA = torch.exp(-torch.exp(A_log)[None] * dt)  # [B, H]
+    upd = (dt[..., None] * Bh)[..., :, None] * xs.float()[:, :, None, :]
+    new_state = ssm_state * dA[..., None, None] + upd  # [B,H,N,P]
+    y = torch.einsum("bhn,bhnp->bhp", Ch, new_state) + D[None, :, None] * xs
+    return y, new_state
+
+
+def ssm_decode(p, x, ssm_state, conv_state, dims: SSMDims, policy=None):
     """Single-token recurrence. x: [B, 1, d]; ssm_state: [B, H, N, P] f32;
-    conv_state: [B, d_conv-1, conv_dim]. Returns (y, new_ssm, new_conv)."""
+    conv_state: [B, d_conv-1, conv_dim]. Returns (y, new_ssm, new_conv).
+    In a tensor-parallel pass the states may come as the ranks' blocks
+    (of heads, of conv channels; `ShardedCache.rows`) and come back so."""
+    group = tp_group(policy)
+    if group is not None and any(isinstance(p[n], list) for n in ("in_proj", "out_proj")):
+        return _ssm_tp(p, x, ssm_state, conv_state, dims, group)
     B = x.shape[0]
     zxbcdt = x @ p["in_proj"]
     z, xBC, dt = _split_zxbcdt(zxbcdt, dims)
@@ -208,14 +237,106 @@ def ssm_decode(p, x, ssm_state, conv_state, dims: SSMDims):
     xs = conv_out[:, :di].reshape(B, dims.n_heads, dims.headdim)
     Bm = conv_out[:, di:di + gn].reshape(B, dims.n_groups, dims.d_state)
     Cm = conv_out[:, di + gn:].reshape(B, dims.n_groups, dims.d_state)
-    rep = dims.n_heads // dims.n_groups
-    Bh = Bm.repeat_interleave(rep, dim=1).float()  # [B, H, N]
-    Ch = Cm.repeat_interleave(rep, dim=1).float()
-    dt = softplus(dt[:, 0].float() + p["dt_bias"])  # [B, H]
-    dA = torch.exp(-torch.exp(p["A_log"])[None] * dt)  # [B, H]
-    upd = (dt[..., None] * Bh)[..., :, None] * xs.float()[:, :, None, :]
-    new_state = ssm_state * dA[..., None, None] + upd  # [B,H,N,P]
-    y = torch.einsum("bhn,bhnp->bhp", Ch, new_state) + p["D"][None, :, None] * xs
+    y, new_state = _step(xs, Bm, Cm, dt[:, 0], p["A_log"], p["D"], p["dt_bias"], ssm_state,
+                         dims, dims.n_groups)
     y = y.reshape(B, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     return y @ p["out_proj"], new_state, new_conv
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: each model rank its heads (the reference's shard_h)
+# --------------------------------------------------------------------------
+
+
+def _ssm_tp(p, x, ssm_state, conv_state, dims: SSMDims, group):
+    """`ssm_apply` (states None) or `ssm_decode` in a tensor-parallel pass.
+    `in_proj` is column-parallel: its column blocks do not line up with
+    z/x/B/C/dt, so the ranks' blocks of zxbcdt join over the ranks (an
+    activation all-gather); the depthwise conv runs on each rank's
+    channel block of `conv_w`, its blocks joined likewise. Where the heads
+    divide the model axis each rank then runs its own heads (their x, dt,
+    z, and the B/C groups they read), the gated norm takes its mean square
+    from the ranks' partial sums (in rank order) and `out_proj` is
+    row-parallel; else every rank runs every head. -> (y, final state or
+    new ssm state, conv tail or new conv state), a state in the layout it
+    came in (blocks or whole)."""
+    B, L, _ = x.shape
+    H, P, G, N = dims.n_heads, dims.headdim, dims.n_groups, dims.d_state
+    di, gn, K = dims.d_inner, G * dims.d_state, dims.d_conv
+    tp = group.size
+    if isinstance(p["in_proj"], list):
+        zxbcdt = group.gather([xr @ w for xr, w in zip(group.fanout(x), p["in_proj"])], 2)
+    else:
+        zxbcdt = x @ p["in_proj"]
+    z, xBC, dt = _split_zxbcdt(zxbcdt, dims)
+    decode = ssm_state is not None
+    if decode:  # the conv over the cached window, per channel block where it is split
+        blocked = isinstance(conv_state, list)
+        if isinstance(p["conv_w"], list):
+            cs = blocks(conv_state, group, 2)
+            wins = [torch.cat([c, xb.to(c.dtype)], 1)
+                    for c, xb in zip(cs, blocks(xBC, group, 2))]
+            new_conv = Blocks([w_[:, 1:] for w_ in wins], 2)
+            conv = group.gather([F.silu((w_ * cw[None]).sum(1) + cb) for w_, cw, cb in zip(
+                wins, p["conv_w"], blocks(p["conv_b"], group, 0))], 1)
+            if not blocked:
+                new_conv = group.gather(new_conv, 2)
+        else:
+            cs = whole(conv_state, group, 2)
+            win = torch.cat([cs, xBC.to(cs.dtype)], 1)
+            new_conv = win[:, 1:]
+            conv = F.silu((win * p["conv_w"][None]).sum(1) + whole(p["conv_b"], group, 0))
+            if blocked:
+                new_conv = blocks(new_conv, group, 2)
+        conv = conv[:, None]  # [B, 1, Cd]
+    else:
+        tail = xBC[:, -(K - 1):, :]  # decode warm-start
+        if isinstance(p["conv_w"], list):
+            conv = group.gather([_causal_conv(xb, cw, cb) for xb, cw, cb in zip(
+                blocks(xBC, group, 2), p["conv_w"], blocks(p["conv_b"], group, 0))], 2)
+        else:
+            conv = _causal_conv(xBC, p["conv_w"], whole(p["conv_b"], group, 0))
+    xs = conv[..., :di].reshape(B, L, H, P)
+    Bm = conv[..., di:di + gn].reshape(B, L, G, N)
+    Cm = conv[..., di + gn:].reshape(B, L, G, N)
+    if H % tp:  # every rank every head; out_proj row-parallel where it is split
+        if decode:
+            y, new_state = _step(xs[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0], p["A_log"], p["D"],
+                                 p["dt_bias"], whole(ssm_state, group, 1), dims, G)
+            new_state = blocks(new_state, group, 1) if isinstance(ssm_state, list) else new_state
+        else:
+            y, new_state = _scan(xs, softplus(dt.float() + p["dt_bias"]), p["A_log"], Bm, Cm,
+                                 p["D"], dims)
+        y = rms_norm(y.reshape(B, L, di).to(x.dtype) * F.silu(z), p["norm"])
+        if isinstance(p["out_proj"], list):
+            out = group.sum([a @ w for a, w in zip(blocks(y, group, 2), p["out_proj"])])
+        else:
+            out = y @ p["out_proj"]
+        return out, new_state, (new_conv if decode else tail)
+    Hr = H // tp
+    heads = [blocks(t, group, 2) for t in (xs, dt)]
+    per = [blocks(p[n], group, 0) for n in ("A_log", "D", "dt_bias")]
+    Bs, Cs = ([_heads_of(t, r * Hr, Hr, H // G) for r, t in zip(group.ranks, group.fanout(a))]
+              for a in (Bm, Cm))
+    states = blocks(ssm_state, group, 1) if decode else [None] * len(group.ranks)
+    ys, finals = [], []
+    for i, (xr, dr, Br, Cr) in enumerate(zip(*heads, Bs, Cs)):
+        A_log, D, dt_bias = (a[i] for a in per)
+        if decode:
+            y, st = _step(xr[:, 0], Br[:, 0], Cr[:, 0], dr[:, 0], A_log, D, dt_bias,
+                          states[i], dims, Br.shape[2])
+        else:
+            y, st = _scan(xr, softplus(dr.float() + dt_bias), A_log, Br, Cr, D, dims)
+        ys.append(y.reshape(B, L, Hr * P).to(x.dtype))
+        finals.append(st)
+    # the gated RMSNorm over d_inner: the ranks' sums of squares in rank order
+    gated = [y * F.silu(zr) for y, zr in zip(ys, blocks(z, group, 2))]
+    ms = group.sum([(g.float() * g.float()).sum(-1, keepdim=True) for g in gated]) / di
+    inv = torch.rsqrt(ms + 1e-6)
+    normed = [(g.float() * iv).to(x.dtype) * s.to(x.dtype) for g, iv, s in zip(
+        gated, group.fanout(inv), blocks(p["norm"], group, 0))]
+    out = group.sum([a @ w for a, w in zip(normed, blocks(p["out_proj"], group, 0))])
+    if decode and not isinstance(ssm_state, list):
+        return out, group.gather(finals, 1), new_conv
+    return out, Blocks(finals, 1), (new_conv if decode else tail)

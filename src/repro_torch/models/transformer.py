@@ -23,13 +23,16 @@ remats each group (the reference's `jax.checkpoint(group_body)`) while
 autograd records, and `chunked_ce_loss` is the loss head.
 
 Under a ShardingPolicy the MoE takes `moe_apply_sharded` wherever
-`sharded_path_ok` says so, as the reference's does. The reference's
-other policy effects (`_shard`, `_residual_spec`: sharding constraints
-on the residual stream and the logits) are layouts, with no counterpart
-in the single-controller port. The stack functions take a `gather` hook:
-on a mesh, each group's weights are gathered from their parts inside the
-group's remat unit (`launch/sharding.gather_tree`), so no step holds more
-than one group's gathered weights.
+`sharded_path_ok` says so, as the reference's does. In a pass on a mesh
+the policy carries the pass's model group, and the layers run tensor
+parallel over it: the logits and the loss vocab-parallel (the
+reference's `_shard` of the logits), attention, FFN and SSM heads per
+rank. The Megatron-SP residual (`_residual_spec`: the residual stream
+sequence-sharded between blocks) is not ported; the residual is
+replicated over the model ranks. The stack functions take a `gather`
+hook: on a mesh, each group's weights are gathered from their parts
+inside the group's remat unit (`launch/sharding.gather_tree`), so no
+step holds more than one group's gathered weights.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import functools
 import torch
 from torch import nn
 
-from repro_torch.launch.mesh import Sharded
+from repro_torch.launch.mesh import Blocks, Sharded
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -53,7 +56,9 @@ from repro_torch.models import ssm as S
 class ShardingPolicy:
     """Mesh-axis names and sizes of a sharded run. None = one device.
     The sizes pick the MoE's sharded path and its per-shard capacity, and
-    `replicate_kv`'s kv repeat; the axis names are layouts."""
+    `replicate_kv`'s kv repeat; on a mesh a pass's policy also carries
+    its model group (`group`), over which the layers run tensor
+    parallel."""
 
     batch: tuple = ("data",)  # axes sharding the batch dim
     model: str = "model"  # tensor-parallel axis
@@ -156,7 +161,7 @@ def _apply_mlp(cfg, p, x, mlp_kind: str):
         return x, 0.0
     h = _apply_norm(cfg, p["norm2"], x)
     if mlp_kind == "dense":
-        return x + L.mlp_apply(p["mlp"], h, act=cfg.act), 0.0
+        return x + L.mlp_apply(p["mlp"], h, act=cfg.act, policy=cfg.policy), 0.0
     if M.sharded_path_ok(cfg.policy, h.shape, cfg.moe_experts):
         # its own remat unit, as the reference's: the expert hiddens are
         # recomputed in the backward pass, and with them, over processes,
@@ -172,7 +177,7 @@ def _apply_mlp(cfg, p, x, mlp_kind: str):
                           record=L._recording(h, *_tensors(p["mlp"])))
     else:
         y, aux = M.moe_apply(p["mlp"], h, top_k=cfg.moe_top_k, act=cfg.act,
-                             capacity_factor=cfg.moe_capacity_factor)
+                             capacity_factor=cfg.moe_capacity_factor, policy=cfg.policy)
     return x + y, aux
 
 
@@ -186,7 +191,7 @@ def block_apply_train(cfg, p, x, mixer: str, mlp_kind: str, memory=None, causal=
                              causal=(mixer == "attn") and causal,
                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, policy=cfg.policy)
     elif mixer == "cross":
-        ck, cv = L.cross_kv(p["attn"], memory, cfg.attn_dims)
+        ck, cv = L.cross_kv(p["attn"], memory, cfg.attn_dims, policy=cfg.policy)
         x = x + L.cross_attn_apply(p["attn"], h, ck, cv, cfg.attn_dims,
                                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                                    policy=cfg.policy)
@@ -215,21 +220,29 @@ def block_cache_init(cfg, mixer: str, batch: int, max_len: int, dtype, device=No
     raise ValueError(mixer)
 
 
+def _copy_into(dst, src) -> None:
+    """`dst.copy_(src)`, block by block for the ranks' blocks."""
+    for d, s in zip(dst, src) if isinstance(dst, list) else ((dst, src),):
+        d.copy_(s)
+
+
 def block_apply_decode(cfg, p, x, cache, cur_len, mixer: str, mlp_kind: str):
     """x: [B,1,d]; `cache` is this block's (one group's views of the stacked
-    leaves), written in place. Returns (x, cache)."""
+    leaves; in a tensor-parallel pass a leaf may be the ranks' blocks),
+    written in place. Returns (x, cache)."""
     h = _apply_norm(cfg, p["norm1"], x)
     if mixer in ("attn", "attn_full"):
         o, nk, nv = L.attn_decode(p["attn"], h, cache["k"], cache["v"], cur_len,
-                                  cfg.attn_dims)
+                                  cfg.attn_dims, policy=cfg.policy)
         x, cache = x + o, {"k": nk, "v": nv}
     elif mixer == "cross":
         x = x + L.cross_attn_apply(p["attn"], h, cache["ck"], cache["cv"], cfg.attn_dims,
-                                   q_chunk=1, kv_chunk=cfg.kv_chunk)
+                                   q_chunk=1, kv_chunk=cfg.kv_chunk, policy=cfg.policy)
     elif mixer == "mamba":
-        o, ns, nc = S.ssm_decode(p["ssm"], h, cache["ssm"], cache["conv"], cfg.ssm_dims)
-        cache["ssm"].copy_(ns)
-        cache["conv"].copy_(nc)
+        o, ns, nc = S.ssm_decode(p["ssm"], h, cache["ssm"], cache["conv"], cfg.ssm_dims,
+                                 policy=cfg.policy)
+        _copy_into(cache["ssm"], ns)
+        _copy_into(cache["conv"], nc)
         x = x + o
     x, _ = _apply_mlp(cfg, p, x, mlp_kind)
     return x, cache
@@ -290,35 +303,46 @@ def block_apply_prefill(cfg, p, x, mixer: str, mlp_kind: str, max_len: int,
     d = cfg.attn_dims
     h = _apply_norm(cfg, p["norm1"], x)
     if mixer in ("attn", "attn_full"):
-        pos = torch.arange(Sq, device=x.device)
-        q, k, v = L._qkv(p["attn"], h, d, pos)
-        kr, vr = L.replicate_kv(k, v, d.n_heads, d.n_kv,
-                                cfg.policy.tp_size if cfg.policy else 0)
-        o = L.chunked_attention(q, kr, vr, causal=(mixer == "attn"),
-                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-                                policy=cfg.policy)
-        x = x + L._proj_out(o, p["attn"]["wo"])
+        o, k, v = L.attn_forward(p["attn"], h, d, causal=(mixer == "attn"),
+                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                 policy=cfg.policy)
+        x = x + o
         pad = max_len - Sq
-        cache = {"k": L._pad_seq(k.to(cache_dtype), pad),
-                 "v": L._pad_seq(v.to(cache_dtype), pad)}
+        cache = {"k": _each(k, lambda t: L._pad_seq(t.to(cache_dtype), pad)),
+                 "v": _each(v, lambda t: L._pad_seq(t.to(cache_dtype), pad))}
     elif mixer == "cross":
-        ck, cv = L.cross_kv(p["attn"], memory, d)
+        ck, cv = L.cross_kv(p["attn"], memory, d, policy=cfg.policy)
         x = x + L.cross_attn_apply(p["attn"], h, ck, cv, d,
                                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                                    policy=cfg.policy)
-        cache = {"ck": ck.to(cache_dtype), "cv": cv.to(cache_dtype)}
+        cache = {"ck": _each(ck, lambda t: t.to(cache_dtype)),
+                 "cv": _each(cv, lambda t: t.to(cache_dtype))}
     elif mixer == "mamba":
         o, final, conv_tail = S.ssm_apply(p["ssm"], h, cfg.ssm_dims, policy=cfg.policy)
         x = x + o
-        cache = {"ssm": final, "conv": conv_tail.to(cache_dtype)}
+        cache = {"ssm": final, "conv": conv_tail.to(cache_dtype)}  # final: f32
     else:
         raise ValueError(mixer)
     x, _ = _apply_mlp(cfg, p, x, mlp_kind)
     return x, cache
 
 
+def _each(t, fn, shift: int = 0):
+    """`fn` of `t`, or of each of the ranks' blocks where `t` is `Blocks`
+    (`shift`: the leading dims `fn` adds or drops)."""
+    return t.map(fn, shift) if isinstance(t, Blocks) else fn(t)
+
+
 def _stack_leaves(per_group: list) -> dict:
-    return {b: {n: torch.stack([g[b][n] for g in per_group]) for n in per_group[0][b]}
+    """The groups' caches stacked on a leading [n_groups] axis (a leaf of
+    the ranks' blocks stacked block by block)."""
+    def stack(ts):
+        if isinstance(ts[0], Blocks):
+            return Blocks([torch.stack([t[i] for t in ts]) for i in range(len(ts[0]))],
+                          ts[0].dim + 1)
+        return torch.stack(ts)
+
+    return {b: {n: stack([g[b][n] for g in per_group]) for n in per_group[0][b]}
             for b in per_group[0]}
 
 
@@ -349,7 +373,7 @@ def stack_apply_decode(cfg, gparams, x, cache, cur_len, pattern, gather=None):
     for g, gp in enumerate(gparams):
         gp = _group(gp, gather)
         for i, (mx, ml) in enumerate(pattern):
-            bc = {n: a[g] for n, a in cache[f"b{i}"].items()}
+            bc = {n: _each(a, lambda t: t[g], -1) for n, a in cache[f"b{i}"].items()}
             x, _ = block_apply_decode(cfg, gp[f"b{i}"], x, bc, cur_len, mx, ml)
     return x, cache
 
@@ -374,7 +398,24 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
 
 
 def embed_tokens(cfg, params, tokens):
-    x = params["embed"][tokens]
+    """The token embeddings [B, S, d]. In a tensor-parallel pass whose
+    `embed` comes as the ranks' vocab blocks, each rank looks up the tokens
+    of its block (zero elsewhere) and the ranks add in rank order: one
+    term is not zero, so the sum is exact."""
+    e = params["embed"]
+    if isinstance(e, list):
+        group = L.tp_group(cfg.policy)
+        parts = []
+        for r, w in zip(group.ranks, e):
+            n = w.shape[0]
+            local = tokens - r * n
+            hit = (local >= 0) & (local < n)
+            rows = w[local.clamp(0, n - 1)]
+            parts.append(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                       device=rows.device)))
+        x = group.sum(parts)
+    else:
+        x = e[tokens]
     if cfg.embed_scale:
         # the scale rounded to the compute dtype first, as the reference's
         # asarray(d ** 0.5, x.dtype)
@@ -383,7 +424,12 @@ def embed_tokens(cfg, params, tokens):
 
 
 def _unembed_matrix(cfg, params):
-    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    """[d, V], or in a tensor-parallel pass the list of the ranks' [d,
+    V/tp] vocab blocks."""
+    if cfg.tie_embeddings:
+        e = params["embed"]
+        return [w.T for w in e] if isinstance(e, list) else e.T
+    return params["unembed"]
 
 
 def _ce_chunk(xc, W, yc, mc):
@@ -397,28 +443,60 @@ def _ce_chunk(xc, W, yc, mc):
     return nll.sum(), mc.sum()
 
 
+def _ce_chunk_tp(group, xc, yc, mc, *Ws):
+    """`_ce_chunk` over the vocab blocks of a tensor-parallel pass: each
+    rank its block's logits, the log-sum-exp from the ranks' maxima and
+    their sums of exponentials (added in rank order), the gold logit from
+    the rank whose block holds the label."""
+    logits = [x.float() @ w.float() for x, w in zip(group.fanout(xc), Ws)]
+    top = group.gather([t.detach().amax(-1, keepdim=True) for t in logits], -1).amax(-1)
+    lse = top + torch.log(group.sum([torch.exp(t - top[..., None]).sum(-1) for t in logits]))
+    golds = []
+    for r, t in zip(group.ranks, logits):
+        n = t.shape[-1]
+        local = yc.long() - r * n
+        hit = (local >= 0) & (local < n)
+        g = torch.gather(t, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        golds.append(torch.where(hit, g, torch.zeros((), dtype=g.dtype, device=g.device)))
+    nll = (lse - group.sum(golds)) * mc
+    return nll.sum(), mc.sum()
+
+
 def chunked_ce_loss(cfg, params, x, labels, mask, *, chunk: int = 512, count=None):
     """Cross-entropy without a [B,S,V] resident: a loop over seq chunks,
     each a remat unit while autograd records (the backward recomputes the
     [B, chunk, V] logits block rather than keeping one a chunk). `count`
     (a data shard's part of a sharded batch) is the whole batch's mask
     sum: the shard's nll sum over it, so that the shards' parts add up to
-    the reference's Σ nll / Σ mask."""
+    the reference's Σ nll / Σ mask. In a tensor-parallel pass each rank
+    computes its vocab block's logits (`_ce_chunk_tp`)."""
     B, Sq, d = x.shape
     W = _unembed_matrix(cfg, params)
     chunk = min(chunk, Sq)
     assert Sq % chunk == 0
     mask = mask.to(torch.float32)
-    record = L._recording(x, W)
+    Ws = W if isinstance(W, list) else [W]
+    record = L._recording(x, *Ws)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(Sq // chunk):
         s = slice(i * chunk, (i + 1) * chunk)
-        nll, m = L._remat(_ce_chunk, x[:, s], W, labels[:, s], mask[:, s], record=record)
+        if isinstance(W, list):
+            nll, m = L._remat(functools.partial(_ce_chunk_tp, L.tp_group(cfg.policy)),
+                              x[:, s], labels[:, s], mask[:, s], *W, record=record)
+        else:
+            nll, m = L._remat(_ce_chunk, x[:, s], W, labels[:, s], mask[:, s], record=record)
         tot, cnt = tot + nll, cnt + m
     return tot / torch.clamp_min(cnt if count is None else count, 1.0)
 
 
 def logits_last(cfg, params, x_last):
-    """x_last: [B, 1, d] → [B, 1, V] f32 (decode head; the product in f32)."""
-    return x_last.float() @ _unembed_matrix(cfg, params).float()
+    """x_last: [B, 1, d] → [B, 1, V] f32 (decode head; the product in f32).
+    In a tensor-parallel pass each rank its vocab block, the blocks joined
+    over the ranks."""
+    W = _unembed_matrix(cfg, params)
+    if isinstance(W, list):
+        group = L.tp_group(cfg.policy)
+        return group.gather([x.float() @ w.float()
+                             for x, w in zip(group.fanout(x_last), W)], -1)
+    return x_last.float() @ W.float()

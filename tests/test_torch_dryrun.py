@@ -34,11 +34,14 @@ from repro_torch.configs import get_reduced
 from repro_torch.gp import GPSession
 from repro_torch.kernels import gp_eval
 from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as TM
 from repro_torch.launch import sharding as SH
+from repro_torch.models import model as Md
 from repro_torch.optim.adamw import for_config
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
-from torch_dryrun_child import CLI_CELL, CUDA_CELL, CUDA_K, fixtures
-from torch_lm_mesh_ref import F32, TRAIN, Reference
+from torch_dryrun_child import (CLI_CELL, CUDA_CELL, CUDA_K, TP_CELLS, TP_MESH, TP_RANKS,
+                                 _reduced, fixtures)
+from torch_lm_mesh_ref import DRY_DECODE, F32, TRAIN, Reference
 
 torch.set_num_threads(2)
 
@@ -182,7 +185,81 @@ def test_single_controller_holds_every_shard(dry):
     per_rank = dry["cell.lm.gemma-2b.train.0"]["memory"]["argument_gb"] * GB
     assert per_rank == SH.shard_bytes(SH.train_state_specs(pcfg, shapes, mesh), shapes,
                                       mesh)[0] + batch // 2
-    assert rec["flops"] == 2 * dry["cell.lm.gemma-2b.train.0"]["flops"]
+    # both data shards' passes, each the pass of a process that holds that
+    # shard's two model ranks
+    assert rec["flops"] == 2 * dry["cell.lm.gemma-2b.train.group0"]["flops"]
+    # a rank's FLOPs are the part the model axis replicates, R (gemma's one
+    # kv head's projections), and 1/tp of the part it splits, X: f2 = R +
+    # X/2 on (data 2, model 2), f4 = R + X/4 on (data 2, model 4). A data
+    # shard's whole work, R + X, one process a shard on (data 2, model 1),
+    # is then 3 f2 - 2 f4
+    ranks = [dry[f"cell.lm.gemma-2b.train.{r}"]["flops"] for r in range(4)]
+    f4 = [dry[f"cell.tp.gemma-2b.train.{r}"]["flops"] for r in TP_RANKS]
+    assert len(set(ranks)) == 1 and len(set(f4)) == 1
+    assert dry["cell.lm.gemma-2b.train.dp.0"]["flops"] == 3 * ranks[0] - 2 * f4[0]
+
+
+def _gather_reckoning(cfg, kind, r) -> int:
+    """The bytes rank `r` of `TP_MESH` (one process a shard) receives in
+    one step's weight gathers when only the batch axes are gathered: a
+    leaf's block of the rank over the data shards (its part's bytes from
+    each other data shard, in 8-byte rows: `exchange`), stack groups one
+    gather a group (train: twice, the remat unit's forward and its
+    recomputation), none where the spec splits no batch axis."""
+    mesh = TM.Mesh(TP_MESH, ["meta"] * math.prod(TP_MESH.values()))
+    pcfg = cfg.with_policy(SH.policy_for(mesh))
+    shapes = SH.ref_layout(Md.init_params(pcfg, 0, device="meta").tree())
+    specs = SH.param_specs(pcfg, shapes, mesh)
+    total = 0
+    for (path, leaf), spec in zip(_with_paths(shapes), SH._leaves(
+            specs, is_leaf=lambda x: isinstance(x, SH.P))):
+        names = [a for part in spec for a in TM._names(part)]
+        blocks = math.prod(mesh.axis_size(a) for a in names if a in ("pod", "data"))
+        if blocks == 1:
+            continue
+        part = SH.shard_bytes({"x": spec}, {"x": leaf}, mesh)[r]
+        groups = leaf.shape[0] if "stack" in path else 1
+        times = 2 if kind == "train" and "stack" in path else 1
+        total += groups * times * (blocks - 1) * -(-(part // groups) // 8) * 8
+    return total
+
+
+def _with_paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _with_paths(v, path + (k,))]
+    return [(path, tree)]
+
+
+@pytest.mark.parametrize("cell", sorted(TP_CELLS))
+def test_tp_gathers_the_batch_axes_only(dry, cell):
+    """Tensor parallelism on (data 2, model 4), one process a shard: the
+    bytes a rank receives in a reduced decode step's and train step's
+    weight gathers are exactly the reckoning of its blocks gathered over
+    the data axis alone (no leaf's model block crosses the model axis),
+    and a decode step's cache reads receive nothing (each rank reads its
+    own part)."""
+    name, kind, B, S = TP_CELLS[cell]
+    cfg = _reduced(name, kind)
+    for r in TP_RANKS:
+        rec = dry[f"cell.{cell}.{r}"]
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["gather_received"] == _gather_reckoning(cfg, kind, r), (cell, r)
+        assert rec["gather_received"] > 0 and rec["cache_received"] == 0
+        assert rec["received_bytes"] > rec["gather_received"]  # the activations, the logits
+
+
+def test_tp_decode_memory_matches_xla(dry, ref):
+    """The counted tensor-parallel decode cell (reduced gemma-2b, B 4, a
+    12-row cache, (data 2, model 4)) as rank 0 of 8 against XLA's
+    memory_analysis of the reference's cell on a device: the arguments
+    exactly, the temp within 4x (the port's `MemTracker` peak: the gathered
+    weights of a group and the step's activations)."""
+    arg, _, _, temp = (int(x) for x in ref[f"dryrun.{DRY_DECODE['name']}.decode.memory"])
+    assert TP_CELLS["tp.gemma-2b.decode"][2:] == (DRY_DECODE["batch"], DRY_DECODE["seq"])
+    assert tuple(TP_MESH.values()) == DRY_DECODE["mesh"]
+    rec = dry["cell.tp.gemma-2b.decode.0"]
+    assert rec["memory"]["argument_gb"] * GB == arg
+    assert 0 < rec["memory"]["temp_gb"] * GB < 4 * temp
 
 
 @pytest.mark.parametrize("cell", ["lm.gemma-2b.train", "lm.granite-moe-3b-a800m.train",

@@ -15,7 +15,10 @@ Tolerances, all f32: the MoE's output at rtol/atol 2e-5 and its aux at
 and 1e-6 (cache), as tests/test_serving.py holds the reference; train
 steps at rtol 1e-4 / atol 1e-5 (jamba's and mamba2's params at atol
 1e-4, ROADMAP C 22 and 25), the sum orders of the data shards' losses, gradients and norms
-being the port's own (ROADMAP C 25); resharding bit for bit."""
+being the port's own (ROADMAP C 25); resharding bit for bit. Tensor
+parallelism (the model ranks' partial sums in rank order, ROADMAP C 27):
+each layer against one device at 1e-5, the embedding bitwise, serving
+against the reference's sharded serving at 1e-4."""
 import dataclasses
 import functools
 import importlib
@@ -37,7 +40,7 @@ from repro_torch.models import model as Md
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import ShardingPolicy
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
-from torch_lm_mesh_ref import CP, F32, MOE, TRAIN, TRAIN_STEPS, Reference
+from torch_lm_mesh_ref import CP, F32, MOE, SERVE, TRAIN, TRAIN_STEPS, Reference
 from torch_dryrun_child import fixtures, moved_as_dry
 from torch_mp import run_processes
 
@@ -387,6 +390,37 @@ def test_sharded_serving_equals_the_policy_path(cf):
         torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", SERVE["names"])
+def test_tp_serving_matches_reference(ref, name):
+    """Reduced granite's and qwen's prefill and 3 decode steps on (data 2,
+    model 4), tensor-parallel, from the reference's params and fed its
+    greedy tokens: every step's logits within 1e-4 (f32) of the
+    reference's sharded run under its own specs; the cache a
+    `ShardedCache` split over the model axis by kv heads (qwen's 4) or,
+    where they do not divide it, by head dim (granite's 2)."""
+    mesh = TM.make_host_mesh(data=2, model=4, device="cpu")
+    cfg = dataclasses.replace(get_reduced(name), **F32)
+    pcfg = cfg.with_policy(SH.policy_for(mesh))
+    params = convert.params_from_reference(cfg, _tree(ref, f"serve.{name}.p"))
+    sharded = SH.ShardedLM.place(pcfg, mesh, params, SH.param_specs(
+        pcfg, SH.ref_layout(params.tree()), mesh))
+    tag = f"serve.{name}"
+    logits, cache = Md.prefill(pcfg, sharded, {"tokens": _t(ref[tag + ".tokens"])},
+                               max_len=SERVE["max_len"])
+    got = [logits]
+    for i in range(SERVE["steps"]):
+        logits, cache = Md.decode_step(pcfg, sharded, cache, _t(ref[f"{tag}.token{i}"]),
+                                       SERVE["P"] + i)
+        got.append(logits)
+    for i, g in enumerate(got):
+        np.testing.assert_allclose(g.numpy(), ref[f"{tag}.logits{i}"], rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{name} step {i}")
+    assert isinstance(cache, SH.ShardedCache)
+    assert tuple(cache["b0"]["k"].spec) == ((None, "data", None, "model", None)
+                                            if cfg.n_kv % 4 == 0 else
+                                            (None, "data", None, None, "model"))
+
+
 # `launch/dryrun.py`'s records of the steps the gloo processes count
 _dryruns, dry = fixtures()
 
@@ -488,12 +522,14 @@ def test_serving_over_gloo_processes(dry, tmp_path):
     granite's train steps where the sequence does not divide the model
     axis (5 experts) and where the expert dim lies on the model axis (6),
     and `cp_decode_attention` on (data 4, model 1) (its output, and each
-    process's cache slices). Every expert FFN of the sharded dispatch
-    runs on E_loc = 3 experts' buffer and weights, in a process as in the
-    single controller (the one-pass B 3 takes `moe_apply`'s 5, as the
-    reference's does), and with 6 experts each process gathers its 3
-    alone (the single controller gathers the 6 and splits them); a cp
-    decode layer sends only the partials (o, m, l); the bytes each
+    process's cache slices). All of it runs tensor-parallel (the ranks'
+    partial sums counted on every process). Granite's 5 experts do not
+    divide the model axis, so their stacks are split by hidden dim and
+    every expert FFN runs the 5 live experts on a rank's hidden block
+    (the one-pass B 3 on `moe_apply`'s dispatch, as the reference's);
+    with 6 experts each expert FFN runs E_loc = 3 experts and a pass
+    gathers its ranks' 3 alone, in a process as in the single
+    controller; a cp decode layer sends only the partials (o, m, l); the bytes each
     process sends and receives in a decode step of reduced granite and
     gemma-2b (B 4, a 12-row cache) are the dry run's of that step as the
     same rank (`launch/dryrun.py`)."""
@@ -503,14 +539,19 @@ def test_serving_over_gloo_processes(dry, tmp_path):
     outs = run_processes(tmp_path, "serve", inputs)
     want, experts = {}, {}
     serve_runs(inputs, want, experts)
+    assert experts.pop("tp") > 0
     for run, sizes in experts.items():
-        assert sizes == ({(5, 5)} if run.endswith(".B3") else {(3, 3)}), (run, sizes)
+        assert sizes == ({3} if run.startswith("window.") else
+                         {(3, 3)} if run == "train.e6_s16" else {(5, 5)}), (run, sizes)
+    assert sorted(k for k in experts if k.startswith("window.")) == ["window.train.e6_s16"]
     n = CP["S"] // 4
     for r, o in enumerate(outs):
-        assert o["experts"].tolist() == sorted([*experts, "window.train.e6_s16"]), r
+        assert o["tp_sums"] > 0, r
+        assert o["experts"].tolist() == sorted(experts), r
         for run, sizes in experts.items():
-            assert {tuple(e) for e in o[f"experts.{run}"]} == sizes, f"process {r} {run}"
-        assert o["experts.window.train.e6_s16"].tolist() == [3], r
+            got = o[f"experts.{run}"]
+            assert ({int(e) for e in got} if got.ndim == 1 else
+                    {tuple(e) for e in got}) == sizes, f"process {r} {run}"
         for k, v in want.items():
             if k.startswith("cp.") and k.split(".")[1] in "kv":
                 continue
@@ -524,3 +565,184 @@ def test_serving_over_gloo_processes(dry, tmp_path):
         assert partials < slice_bytes
         for name in ("granite-moe-3b-a800m", "gemma-2b"):
             moved_as_dry(o, f"serve.{name}.decode", dry, r)
+
+
+# --- tensor parallelism, layer by layer (port only) -----------------------------------
+
+TP = 4
+TP_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _tp_policy():
+    """A pass's policy on (data 1, model 4) in one process: every rank in turn."""
+    return ShardingPolicy(batch=("data",), model="model", tp_size=TP, dp_size=1).with_group(
+        TM.AxisGroup(TP))
+
+
+def _leaves(seed, shapes, scale=0.3):
+    """f32 leaves from a numpy seed, each requiring grad."""
+    rng = np.random.RandomState(seed)
+    return {k: torch.from_numpy((rng.randn(*s) * scale).astype(np.float32)).requires_grad_(True)
+            for k, s in shapes.items()}
+
+
+def _by_rank(p, dims):
+    """Each leaf of `p` named in `dims` ({name: dim}) as its TP ranks' blocks
+    along that dim (views: their gradients reach the leaf)."""
+    return {k: _blocks(v, dims[k]) if k in dims else v for k, v in p.items()}
+
+
+def _blocks(t, dim):
+    """`t` as the TP ranks' blocks along `dim`, as a pass reads a leaf the
+    specs split over the model axis."""
+    return TM.Blocks(torch.chunk(t, TP, dim), dim)
+
+
+def _grads(ts):
+    out = [torch.zeros_like(t) if t.grad is None else t.grad.clone() for t in ts]
+    for t in ts:
+        t.grad = None
+    return out
+
+
+def _fwd_bwd(fn, inputs, probe_seed=9):
+    """fn()'s output and the gradients of a fixed random projection of it
+    in every tensor of `inputs`."""
+    out = fn()
+    w = torch.from_numpy(np.random.RandomState(probe_seed).randn(*out.shape).astype(np.float32))
+    (out * w).sum().backward()
+    return out.detach(), _grads(inputs)
+
+
+def _close_all(got, want, tag, **tol):
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, msg=lambda m: f"{tag} {i}: {m}", **(tol or TP_TOL))
+
+
+ATTN_TP = {"kv heads": (4, 4), "one kv head": (4, 1), "row split": (6, 6)}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_TP))
+def test_tp_attention_matches_one_device(case):
+    """`attn_apply` on (data 1, model 4) against one device, forward and
+    gradients at 1e-5 (f32): q heads split (kv heads split with them, or
+    one kv head every rank reads), and 6 heads, which do not divide the
+    axis: each rank the rows of every q chunk (the reference's row pin)."""
+    H, KV = ATTN_TP[case]
+    dims = L.AttnDims(d_model=32, n_heads=H, n_kv=KV, d_head=8, qkv_bias=True)
+    p = _leaves(0, {"wq": (32, H, 8), "wk": (32, KV, 8), "wv": (32, KV, 8),
+                    "wo": (H, 8, 32), "bq": (H, 8), "bk": (KV, 8), "bv": (KV, 8)})
+    x = _leaves(1, {"x": (2, 16, 32)})["x"]
+    split = {**({"wq": 1, "bq": 0, "wo": 0} if H % TP == 0 else {}),
+             **({"wk": 1, "wv": 1, "bk": 0, "bv": 0} if KV % TP == 0 else {})}
+    ins = [x, *p.values()]
+    kw = dict(causal=True, q_chunk=8, kv_chunk=8)
+    got = _fwd_bwd(lambda: L.attn_apply(_by_rank(p, split), x, dims, policy=_tp_policy(),
+                                        **kw), ins)
+    want = _fwd_bwd(lambda: L.attn_apply(p, x, dims, **kw), ins)
+    _close_all([got[0], *got[1]], [want[0], *want[1]], case)
+
+
+def test_tp_decode_attention_on_a_head_dim_cache():
+    """`attn_decode` on (data 1, model 4) with 2 kv heads, which do not
+    divide the axis: the cache is split by head dim, as `cache_specs`
+    places it, each rank writing its slice of the new k, v and taking
+    partial scores over it. The output at 1e-5 and the written cache
+    exactly against one device's, over three steps."""
+    dims = L.AttnDims(d_model=32, n_heads=4, n_kv=2, d_head=16)
+    p = {k: v.detach() for k, v in _leaves(2, {"wq": (32, 4, 16), "wk": (32, 2, 16),
+                                                "wv": (32, 2, 16), "wo": (4, 16, 32)}).items()}
+    rng = np.random.RandomState(3)
+    ck, cv = (torch.from_numpy(rng.randn(2, 12, 2, 16).astype(np.float32)) for _ in "kv")
+    tk, tv = ck.clone(), cv.clone()
+    bk, bv = (_blocks(c.clone(), 3) for c in (ck, cv))
+    for t in (5, 6, 7):
+        x = torch.from_numpy(rng.randn(2, 1, 32).astype(np.float32))
+        with torch.no_grad():
+            o, bk, bv = L.attn_decode(_by_rank(p, {"wq": 1, "wo": 0}), x, bk, bv,
+                                      torch.tensor(t), dims, policy=_tp_policy())
+            want, tk, tv = L.attn_decode(p, x, tk, tv, torch.tensor(t), dims)
+        torch.testing.assert_close(o, want, **TP_TOL)
+        assert torch.equal(torch.cat(bk, 3), tk) and torch.equal(torch.cat(bv, 3), tv)
+
+
+def test_tp_mlp_matches_one_device():
+    """`mlp_apply` column/row-parallel on (data 1, model 4): forward and
+    gradients at 1e-5 against one device."""
+    p = _leaves(4, {"w_up": (32, 64), "w_gate": (32, 64), "w_down": (64, 32)})
+    x = _leaves(5, {"x": (2, 8, 32)})["x"]
+    ins = [x, *p.values()]
+    got = _fwd_bwd(lambda: L.mlp_apply(_by_rank(p, {"w_up": 1, "w_gate": 1, "w_down": 0}), x,
+                                       policy=_tp_policy()), ins)
+    want = _fwd_bwd(lambda: L.mlp_apply(p, x), ins)
+    _close_all([got[0], *got[1]], [want[0], *want[1]], "mlp")
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_tp_ssm_matches_one_device(groups):
+    """`ssm_apply` on (data 1, model 4), 8 heads (2 a rank) in 1 or 2
+    B/C groups: `in_proj` column-parallel (its blocks joined), the conv on
+    each rank's channel block, the rank's heads, the gated norm from the
+    ranks' partial sums, `out_proj` row-parallel. Forward, final state and
+    gradients at 1e-5; then `ssm_decode` from that state and the conv
+    tail, each rank its heads' state block and its conv channels."""
+    from repro_torch.models import ssm as Sm
+
+    dims = Sm.SSMDims(d_model=32, d_state=8, headdim=8, n_groups=groups, chunk=8)
+    d_in = 2 * dims.d_inner + 2 * groups * dims.d_state + dims.n_heads
+    shapes = {"in_proj": (32, d_in), "conv_w": (dims.d_conv, dims.conv_dim),
+              "conv_b": (dims.conv_dim,), "A_log": (dims.n_heads,), "D": (dims.n_heads,),
+              "dt_bias": (dims.n_heads,), "norm": (dims.d_inner,),
+              "out_proj": (dims.d_inner, 32)}
+    p = _leaves(6, shapes)
+    x = _leaves(7, {"x": (2, 16, 32)})["x"]
+    split = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "out_proj": 0}
+    ins = [x, *p.values()]
+    got, want = [], []
+    for out, q, pol in ((got, _by_rank(p, split), _tp_policy()), (want, p, None)):
+        y, final, tail = Sm.ssm_apply(q, x, dims, policy=pol)
+        w = torch.from_numpy(np.random.RandomState(9).randn(*y.shape).astype(np.float32))
+        ((y * w).sum() + torch.cat(final, 1).sum() if pol else (y * w).sum()
+         + final.sum()).backward()
+        out += [y.detach(), (torch.cat(final, 1) if pol else final).detach(), tail.detach(),
+                *_grads(ins)]
+    _close_all(got, want, f"ssm g{groups}")
+    xd = torch.from_numpy(np.random.RandomState(8).randn(2, 1, 32).astype(np.float32))
+    with torch.no_grad():
+        q = _by_rank({k: v.detach() for k, v in p.items()}, split)
+        state, conv = got[1], got[2]
+        y, ns, nc = Sm.ssm_decode(q, xd, _blocks(state, 1), _blocks(conv, 2), dims,
+                                  policy=_tp_policy())
+        wy, ws, wc = Sm.ssm_decode({k: v.detach() for k, v in p.items()}, xd, want[1],
+                                   want[2], dims)
+    _close_all([y, torch.cat(ns, 1), torch.cat(nc, 2)], [wy, ws, wc], f"ssm decode g{groups}")
+
+
+def test_tp_vocab_parallel_head_matches_one_device():
+    """The vocab-parallel embedding (bitwise: one rank's lookup is not
+    zero), `logits_last` (each rank its vocab block, the blocks joined)
+    and `chunked_ce_loss` (the log-sum-exp from the ranks' maxima and
+    sums, the gold logit from its rank) on (data 1, model 4), tied and
+    untied: forward and gradients at 1e-5 against one device."""
+    from repro_torch.models import transformer as T
+
+    rng = np.random.RandomState(10)
+    tokens = torch.from_numpy(rng.randint(0, 256, (2, 16)))
+    labels = torch.from_numpy(rng.randint(0, 256, (2, 16)))
+    mask = torch.from_numpy((rng.rand(2, 16) > 0.2).astype(np.float32))
+    for tie in (True, False):
+        cfg = dataclasses.replace(get_reduced("gemma-2b"), **F32, tie_embeddings=tie)
+        p = _leaves(11, {"embed": (256, 64), **({} if tie else {"unembed": (64, 256)})})
+        tp_cfg = cfg.with_policy(_tp_policy())
+        q = _by_rank(p, {"embed": 0, "unembed": 1})
+        with torch.no_grad():
+            assert torch.equal(T.embed_tokens(tp_cfg, q, tokens), T.embed_tokens(cfg, p, tokens))
+        ins = list(p.values())
+        for tag, fn in (("embed", lambda c, w: T.embed_tokens(c, w, tokens)),
+                        ("logits", lambda c, w: T.logits_last(
+                            c, w, T.embed_tokens(c, w, tokens)[:, -1:])),
+                        ("ce", lambda c, w: T.chunked_ce_loss(
+                            c, w, T.embed_tokens(c, w, tokens), labels, mask, chunk=8)[None])):
+            got = _fwd_bwd(lambda: fn(tp_cfg, q), ins)
+            want = _fwd_bwd(lambda: fn(cfg, p), ins)
+            _close_all([got[0], *got[1]], [want[0], *want[1]], f"{tag} tie={tie}")

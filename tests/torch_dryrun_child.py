@@ -13,8 +13,14 @@ What it runs (the keys of the JSON):
                                 cell on the production meshes (no step)
   cell.{name}.{rank}            the records of the cells the gloo tests
                                 count (`GLOO_LM`, the GP block), ranks 0-3 of 4 on
-                                (data 2, model 2), and reduced gemma-2b's
-                                train cell as the single controller
+                                (data 2, model 2), reduced gemma-2b's
+                                train cell as the single controller, as
+                                a process holding one data shard's model
+                                ranks (`group0`) and on (data 2, model 1)
+                                (`dp.0`), and
+                                the `TP_CELLS` on (data 2, model 4), ranks
+                                `TP_RANKS` of 8, with their gather and
+                                cache bytes
   cuda                          a GP cell on `meta` with the `cuda`
                                 backend (`CUDA_CELL`), rank 0 of 2
   cli                           `main` on one production cell: its exit
@@ -38,6 +44,13 @@ GLOO_LM = {"lm.gemma-2b.train": ("gemma-2b", "train", 4, 32),
            "lm.granite-moe-3b-a800m.train": ("granite-moe-3b-a800m", "train", 4, 32),
            "serve.granite-moe-3b-a800m.decode": ("granite-moe-3b-a800m", "decode", 4, 12),
            "serve.gemma-2b.decode": ("gemma-2b", "decode", 4, 12)}
+# tensor-parallel cells on (data 2, model 4) whose bytes the tests reckon
+# (`test_torch_dryrun.py`): each rank's bytes received inside the weights'
+# gathers (`gather_received`) and inside the cache's reads (`cache_received`)
+TP_CELLS = {"tp.gemma-2b.decode": ("gemma-2b", "decode", 4, 12),
+            "tp.gemma-2b.train": ("gemma-2b", "train", 4, 32),
+            "tp.granite-moe-3b-a800m.decode": ("granite-moe-3b-a800m", "decode", 4, 12)}
+TP_MESH, TP_RANKS = {"data": 2, "model": 4}, (0, 5)
 GP_BLOCK = 1  # the gp scenario's counted block (generations)
 # a GP cell on the cuda backend: 140,000 trees on (data 2, model 2), two
 # launches of B1 a shard a generation (`pop_chunks`: 70,000 trees a shard)
@@ -116,6 +129,55 @@ def _strip(rec):
     return {k: v for k, v in rec.items() if k not in ("trace", "not_portable")}
 
 
+def _model_group_process():
+    """Reduced gemma-2b's train cell on (data 2, model 2) as process 0 of
+    2, each process placed on one data shard's two model ranks (shards 0
+    and 1; the mesh's own placement gives a process a model rank of each
+    data shard): the single controller's pass of that shard."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as TM
+
+    with D.fake_group(2, 0):
+        mesh = TM.Mesh({"data": 2, "model": 2}, [torch.device("meta")] * 4, procs=[0, 0, 1, 1])
+        cell = D.lower_cell(_reduced("gemma-2b", "train"), {"kind": "train", "batch": 4,
+                                                             "seq": 32}, mesh)
+        return {"status": "ok", **_strip(D.analyze(cell))}
+
+
+def _tp_cells(res):
+    """The `TP_CELLS`, each rank's record with the bytes it received inside
+    `gather_tree` and inside `ShardedCache.rows` (a second `_Wire` around
+    each call)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import sharding as SH
+
+    got = {}
+    originals = SH.gather_tree, SH.ShardedCache.rows
+
+    def counted(tag, fn):
+        def wrapped(*a, **k):
+            with D._Wire() as wire:
+                out = fn(*a, **k)
+            got[tag] = got.get(tag, 0) + wire.received
+            return out
+        return wrapped
+
+    SH.gather_tree = counted("gather_received", originals[0])
+    SH.ShardedCache.rows = counted("cache_received", originals[1])
+    try:
+        for key, (name, kind, B, S) in TP_CELLS.items():
+            for r in TP_RANKS:
+                got.clear()
+                rec = _strip(D.run_cell(name, {"kind": kind, "batch": B, "seq": S}, False, "",
+                                        rank=r, cfg=_reduced(name, kind), mesh=TP_MESH))
+                res[f"cell.{key}.{r}"] = {**rec, "gather_received": got.get("gather_received", 0),
+                                          "cache_received": got.get("cache_received", 0)}
+    finally:
+        SH.gather_tree, SH.ShardedCache.rows = originals
+
+
 def main(out):
     import torch
     import torch.distributed as dist
@@ -134,10 +196,15 @@ def main(out):
     res["cell.lm.gemma-2b.train.single"] = _strip(D.run_cell(
         "gemma-2b", {"kind": "train", "batch": 4, "seq": 32}, False, "", processes=1,
         cfg=_reduced("gemma-2b", "train"), mesh=mesh))
+    res["cell.lm.gemma-2b.train.group0"] = _model_group_process()
+    res["cell.lm.gemma-2b.train.dp.0"] = _strip(D.run_cell(
+        "gemma-2b", {"kind": "train", "batch": 4, "seq": 32}, False, "", rank=0,
+        cfg=_reduced("gemma-2b", "train"), mesh={"data": 2, "model": 1}))
     for r in range(4):
         res[f"cell.gp.block.{r}"] = _strip(D.run_gp_cell(gp_block_cell(), False, "",
                                                          block_steps=GP_BLOCK, rank=r,
                                                          processes=4))
+    _tp_cells(res)
     res["cuda"] = _strip(D.run_gp_cell(CUDA_CELL, False, "", eval_impl="cuda",
                                        block_steps=CUDA_K, processes=CUDA_PROCESSES))
     _arguments(res)

@@ -26,10 +26,16 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 32, 2
 # shards drop
 MOE = dict(d=16, ff=32, B=4, S=(8, 64), top_k=2)
 CP = dict(d_model=32, n_heads=4, n_kv=2, d_head=8, B=2, S=64, cur_lens=(0, 7, 13, 40, 63))
+# the reference's sharded serving on (data 2, model 4): reduced configs in
+# f32, B prompts of P tokens, then `steps` greedy decode steps
+SERVE = dict(names=("granite-moe-3b-a800m", "qwen1.5-32b"), B=4, P=8, steps=3, max_len=12)
+# the dry run's counted decode cell, compiled for memory_analysis: (data 2,
+# model 4), reduced gemma-2b in f32, B 4 and a 12-row cache
+DRY_DECODE = dict(name="gemma-2b", batch=4, seq=12, mesh=(2, 4))
 GROUPS = {"moe,cp,elastic": ("moe", "cp", "elastic"),
           "gemma,mamba2": ("gemma-2b", "mamba2-370m"),
           "granite": ("granite-moe-3b-a800m",), "jamba": ("jamba-1.5-large-398b",),
-          "dryrun": ("dryrun",)}
+          "dryrun,serve": ("dryrun", "serve")}
 
 out = {}
 
@@ -230,6 +236,54 @@ def scen_dryrun():
     out["dryrun.gemma-2b.memory"] = np.asarray(
         [mem.argument_size_in_bytes, mem.output_size_in_bytes, mem.alias_size_in_bytes,
          mem.temp_size_in_bytes], np.int64)
+    dd = DRY_DECODE
+    JMd.SHAPES["decode_counted"] = dict(kind="decode", seq=dd["seq"], batch=dd["batch"])
+    cfg = dataclasses.replace(get_reduced(dd["name"]), **F32)
+    data, model = dd["mesh"]
+    mem = JD.lower_cell(cfg, "decode_counted",
+                        make_host_mesh(data=data, model=model)).compile().memory_analysis()
+    out[f"dryrun.{dd['name']}.decode.memory"] = np.asarray(
+        [mem.argument_size_in_bytes, mem.output_size_in_bytes, mem.alias_size_in_bytes,
+         mem.temp_size_in_bytes], np.int64)
+
+
+def scen_serve():
+    """Reduced granite's and qwen's prefill and `SERVE["steps"]` greedy
+    decode steps on (data 2, model 4), the params placed by the
+    reference's specs and its policy installed (XLA partitions the
+    model axis as the specs and pins say): the params, the prompt, each
+    step's token and logits."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import compat
+    from repro.configs import get_reduced
+    from repro.launch import sharding as SH
+    from repro.launch.dryrun import make_policy
+    from repro.launch.mesh import make_host_mesh
+    from repro.models import model as Md
+
+    mesh = make_host_mesh(data=2, model=4)
+    B, P, max_len = SERVE["B"], SERVE["P"], SERVE["max_len"]
+    for name in SERVE["names"]:
+        cfg = dataclasses.replace(get_reduced(name), **F32).with_policy(make_policy(mesh))
+        params = Md.init_params(cfg, jax.random.PRNGKey(0))
+        put_tree(f"serve.{name}.p", params)
+        params = jax.device_put(params, jax.tree.map(
+            lambda s: SH.NamedSharding(mesh, s), SH.param_specs(cfg, params, mesh),
+            is_leaf=lambda x: isinstance(x, SH.P)))
+        tokens = np.random.RandomState(4).randint(0, cfg.vocab, (B, P)).astype(np.int32)
+        out[f"serve.{name}.tokens"] = tokens
+        with compat.set_mesh(mesh):
+            logits, cache = jax.jit(lambda p, t: Md.prefill(cfg, p, {"tokens": t}, max_len))(
+                params, jnp.asarray(tokens))
+            step = jax.jit(lambda p, c, t, n: Md.decode_step(cfg, p, c, t, n))
+            out[f"serve.{name}.logits0"] = np.asarray(logits)
+            for i in range(SERVE["steps"]):
+                tok = jnp.argmax(logits, -1).astype(jnp.int32)
+                out[f"serve.{name}.token{i}"] = np.asarray(tok)
+                logits, cache = step(params, cache, tok, jnp.asarray(P + i, jnp.int32))
+                out[f"serve.{name}.logits{i + 1}"] = np.asarray(logits)
 
 
 def _start(path):
@@ -307,7 +361,8 @@ if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     for scen in GROUPS[sys.argv[2]]:
-        {"moe": scen_moe, "cp": scen_cp, "elastic": scen_elastic, "dryrun": scen_dryrun}.get(
+        {"moe": scen_moe, "cp": scen_cp, "elastic": scen_elastic, "dryrun": scen_dryrun,
+         "serve": scen_serve}.get(
             scen, lambda: scen_train(scen))()
     np.savez(sys.argv[1], **out)
     print("REFERENCE_OK")

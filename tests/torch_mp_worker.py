@@ -238,8 +238,10 @@ def serve_runs(inputs, out, experts=None):
     through the cur_lens of `inputs["cp"]` (the outputs, the cache
     slices). `experts`, a dict, gets each run's set of (the expert
     buffer's, the weights') leading sizes over its expert FFN calls, and
-    under "window.{run}" the leading sizes of the slices gathered alone
-    (`Sharded.gather` with a window)."""
+    under "window.{run}" the leading sizes of the expert slices a pass
+    gathered (`gather_tree`: an expert stack split over the model axis by
+    expert comes as the ranks' slices); under "tp" the count of the
+    ranks' partial sums (`AxisGroup.sum`) tensor parallelism added."""
     from repro_torch.configs import get_reduced
     from repro_torch.launch import mesh as TM
     from repro_torch.launch import sharding as SH
@@ -251,19 +253,27 @@ def serve_runs(inputs, out, experts=None):
     from repro_torch.models import moe as M
     from torch_lm_mesh_ref import F32
 
-    ffn, gather, run = M._expert_ffn, TM.Sharded.gather, [None]
+    ffn, gather, tp_sum, run = M._expert_ffn, SH.gather_tree, TM.AxisGroup.sum, [None]
     if experts is not None:
         def recording(buf, w_up, w_gate, w_down, act):
             experts.setdefault(run[0], set()).add((buf.shape[0], w_up.shape[0]))
             return ffn(buf, w_up, w_gate, w_down, act)
 
-        def gathering(sh, device=None, key=None, window=None):
-            t = gather(sh, device, key, window)
-            if window is not None:
-                experts.setdefault(f"window.{run[0]}", set()).add(t.shape[0])
-            return t
+        def gathering(tree, *a, **k):
+            got = gather(tree, *a, **k)
+            for name, b in tree.items() if isinstance(tree, dict) else ():
+                moe = b.get("mlp") if isinstance(b, dict) else None
+                if (isinstance(moe, dict) and "router" in moe and moe["w_up"].spec[0] == "model"
+                        and isinstance(got[name]["mlp"]["w_up"], list)):
+                    experts.setdefault(f"window.{run[0]}", set()).update(
+                        t.shape[0] for t in got[name]["mlp"]["w_up"])
+            return got
 
-        M._expert_ffn, TM.Sharded.gather = recording, gathering
+        def summing(self, xs):
+            experts["tp"] = experts.get("tp", 0) + 1
+            return tp_sum(self, xs)
+
+        M._expert_ffn, SH.gather_tree, TM.AxisGroup.sum = recording, gathering, summing
     try:
         mesh = TM.make_host_mesh(data=2, model=2, device="cpu")
 
@@ -320,7 +330,7 @@ def serve_runs(inputs, out, experts=None):
                 out[f"cp.{tag}.{s}"] = (c.parts[s] if hasattr(c, "parts") else
                                         c[:, s * n:(s + 1) * n]).numpy()
     finally:
-        M._expert_ffn, TM.Sharded.gather = ffn, gather
+        M._expert_ffn, SH.gather_tree, TM.AxisGroup.sum = ffn, gather, tp_sum
     return cmesh, dims, p
 
 
@@ -352,6 +362,7 @@ def serve(tmp, inputs, out):
         with Moved() as moved:
             Md.decode_step(pcfg, sharded, cache, logits.argmax(-1), torch.tensor(8))
         moved.put(out, f"serve.{name}.decode")
+    out["tp_sums"] = np.asarray(experts.pop("tp", 0))
     for run, sizes in experts.items():
         out[f"experts.{run}"] = np.asarray(sorted(sizes), np.int64)
     out["experts"] = np.asarray(sorted(experts))

@@ -2,10 +2,11 @@
 x shape on (data 16, model 16) and (pod 2, data 16, model 16), and the
 GP pod cells on both, one process a cell, JOBS at a time, on the CPU:
 
-    python3 tools/dryrun_sweep.py OUT [--jobs 4] [--table]
+    python3 tools/dryrun_sweep.py OUT [--jobs 4] [--table] [--only SUBSTR,...]
 
-A cell whose record is in OUT already is not run again; the cheap shapes
-run first (long_500k, decode_32k, the GP cells, train_4k, prefill_32k).
+A cell whose record is in OUT already is not run again, and with
+`--only` only the cells whose name holds one of the substrings run; the
+cheap shapes run first (long_500k, decode_32k, the GP cells, train_4k, prefill_32k).
 Each cell's output goes to OUT/log_{cell}.txt. Then, or with --table
 alone, it prints the markdown table of OUT's records: a row a cell,
 each mesh's argument + temp GB a card (marked where it passes the
@@ -43,9 +44,10 @@ def cells() -> list:
     return out
 
 
-def run(out: Path, jobs: int) -> None:
+def run(out: Path, jobs: int, only=None) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    todo = [(stem, argv) for stem, argv in cells() if not (out / f"{stem}.json").exists()]
+    todo = [(stem, argv) for stem, argv in cells() if not (out / f"{stem}.json").exists()
+            and (only is None or any(s in stem for s in only))]
 
     def one(cell):
         stem, argv = cell
@@ -119,7 +121,9 @@ def main():
     out.mkdir(parents=True, exist_ok=True)
     if "--table" not in sys.argv:
         jobs = int(sys.argv[sys.argv.index("--jobs") + 1]) if "--jobs" in sys.argv else 4
-        run(out, jobs)
+        only = (sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv
+                else None)
+        run(out, jobs, only)
     print(table(out))
 
 
