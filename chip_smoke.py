@@ -192,11 +192,13 @@ Phases:
      its checkpoint continues the uninterrupted history
   13. the LM mesh on the one card (`launch.sharding`'s specs, the
      sharded train step of `launch.train.build`, tensor parallelism over
-     the model axis (each model rank its own blocks, the ranks in turn),
+     the model axis (each model rank its own blocks, the ranks in turn)
+     with the residual sequence-parallel between blocks (each rank its
+     rows, where the sequence divides over the ranks),
      `moe_apply_sharded`, `launch.serving.cp_decode_attention`,
      `ckpt.elastic.reshard_state`; no Pallas kernel, no kernel added to
      the `kernels` line; each run's figures printed beside those before
-     tensor parallelism under "prior"): (a) the ten
+     sequence parallelism under "prior"): (a) the ten
      reduced configs in f32 on (data 2, model 2), qwen3-moe and granite at
      capacity factor 1.0: one sharded train step card against CPU from the
      same seeded state, metrics, gradients, params and optimizer state as
@@ -213,10 +215,18 @@ Phases:
      model 2) and the cache split by `cache_specs`, every MoE call
      sharded, twice with the tokens bitwise equal, the same weights on one
      device fed the same tokens within 2e-3 in f32 (in bf16 the difference
-     reported); (d) `cp_decode_attention` at gemma-2b's
+     reported), peak MB; (d) `cp_decode_attention` at gemma-2b's
      attention dims, a 32,768-token cache on data 8, cur_len 0, 7,
      16,383, 16,384 and 32,767, against `attn_decode` (out 2e-5, cache
-     1e-6)
+     1e-6); (f) the long-context decode: gemma-2b at full width, B 1, an
+     8,192-token prompt (its prefill sequence-parallel) into a
+     32,768-row cache whose sequence lies on the data axis (`cache_specs`
+     with `seq_shard`) on (data 2, model 2), 8 greedy tokens in bf16,
+     twice with the tokens bitwise equal; each decode step reads the
+     cache's slices in place (no cache leaf joined: a join inside the
+     cache's reads fails the phase) and merges the flash partials; the
+     same weights on one device fed the same tokens within 2e-3 in f32
+     (prefill and 2 decode steps); prefill ms, decode ms a token, peak MB
   14. the mesh over processes (`launch.cluster.init_cluster`, one process
      a card, NCCL): W = the smaller of 4 and the card count processes
      from multiprocessing's spawn, each given COORDINATOR_ADDRESS,
@@ -257,11 +267,16 @@ Phases:
      (h) `cp_decode_attention` at phase 13 (d)'s dims and cur_lens on
      data W: against `attn_decode` (out 2e-5, cache 1e-6), bit for bit
      the same calls in this process, the bytes a process sent in one
-     layer (the partials' only). A process that fails fails the phase
+     layer (the partials' only); (i) phase 13 (f)'s long-context decode
+     (bf16) over the processes: every process's tokens and last logits
+     bit for bit phase 13 (f)'s, prefill ms, decode ms a token, peak MB,
+     and in one more decode step the bytes a process sent and received
+     (those its cache reads received apart: 0, else the phase fails). A
+     process that fails fails the phase
   15. the dry run held against the card (`repro_torch.launch.dryrun`:
      the port's own code on `meta` tensors, as process r of a fake
      process group; no value computed, no byte moved). One child process
-     (`--dryrun`, started after phase 10 and read here; CUDA is never
+     (`--dryrun`, started after phase 11 and read here; CUDA is never
      initialized in it; a failed child fails the phase) runs: (a) phase
      13 (b)'s gemma-2b bf16 step (B 4 x S 1,024 on (data 2, model 2)) as
      the single controller: its argument bytes must equal the bytes
@@ -274,7 +289,11 @@ Phases:
      14 each process's bytes sent and received and its collectives must
      equal the dry run's of its rank, with one card they print with
      `"multi_rank": false`; (d) gemma-2b's train_4k cell on (data 16,
-     model 16), rank 0: its record and trace_s
+     model 16), rank 0: its record and trace_s; (e) phase 14 (i)'s long
+     decode step (gemma-2b, B 1, a 32,768-row cache) as each rank of 4:
+     its cache reads receive nothing, and with four processes each
+     process's bytes sent and received and its collectives must equal
+     the dry run's of its rank
 
 Options:
   --parent DIR  also runs phase 2 of another tree of the repo (e.g. the
@@ -284,6 +303,12 @@ Options:
                 (B1-B4, the table, the probe) ms, device_ms and CUDA
                 launches per call in both trees at every shape, beside
                 the bound
+  --lm-mesh     instead runs phase 10 (a) and phases 12-15 alone, with
+                every check they make in the whole script: run on four
+                cards, phase 13's single controller spreads its shards
+                over the cards and phase 14 holds four processes (NCCL)
+                bit for bit against it and each rank's bytes against
+                phase 15's dry run; prints no kernels line
   --profile     instead profiles three kat7 generations of the heap main
                 path and of four postfix paths with torch.profiler, then of
                 the heap and cap-6,301 paths under pearson, then of the
@@ -3571,12 +3596,15 @@ def _lm_mesh_serve(B=8, P=512, tokens=8):
 
     lm_moe.moe_apply_sharded = counting("sharded", orig[0])
     lm_moe.moe_apply = counting("whole", orig[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     try:
         got, toks, cache, first_s = run(pcfg, sharded)
         routed = dict(calls)
         _, again, _, second_s = run(pcfg, sharded)
     finally:
         lm_moe.moe_apply_sharded, lm_moe.moe_apply = orig
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     if not isinstance(cache, lm_SH.ShardedCache) or routed["whole"] or not routed["sharded"]:
         raise AssertionError(f"lm mesh serve: cache {type(cache).__name__}, MoE calls {routed}")
     if not torch.equal(toks, again):
@@ -3599,7 +3627,7 @@ def _lm_mesh_serve(B=8, P=512, tokens=8):
                bf16_logit_scale=float(want.abs().max()),
                bf16_greedy_tokens_as_single_device=same_tokens,
                serve_s=second_s, first_serve_s=first_s, single_device_serve_s=single_s,
-               first_tokens=toks[0, :8].tolist(), tokens_all=toks.tolist(),
+               peak_mb=peak_mb, first_tokens=toks[0, :8].tolist(), tokens_all=toks.tolist(),
                last_logits_sha256=_sha(got[:, -1]))
     del params, sharded, got, want, got32, want32
     torch.cuda.empty_cache()
@@ -3655,30 +3683,129 @@ def _lm_mesh_cp_decode(S=32_768, cur_lens=CP_LENS):
                 cp_ms=[t[0] for t in times], attn_decode_ms=[t[1] for t in times])
 
 
-# the figures recorded before tensor parallelism for the runs it changes
-# (PERF.md §5-§6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
-# run's under "prior": then each pass gathered the model axis's weights
-# and cache rows
+# the figures recorded with tensor parallelism before the residual was
+# sequence-parallel, for the runs that change (PERF.md §5-§6; NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's under "prior": then a
+# pass kept its residual whole on every model rank
 def _prior(key, cards=1):
-    """TP_PRIOR[key], marked comparable where it was taken on as many
-    cards as this run's `cards`."""
-    prior = TP_PRIOR[key]
+    """PRIOR[key], marked comparable where it was taken on as many cards
+    as this run's `cards`."""
+    prior = PRIOR[key]
     return {**prior, "comparable": prior.get("cards", 1) == cards}
 
 
-TP_PRIOR = {
-    "13b": dict(source="PERF.md §5 (step ms, launches), §6 (peak)", step_ms=1568.0,
-                cuda_launches_per_step=40761, peak_mb=46676, bytes_received_per_step=0),
-    "14c": dict(source="PERF.md §5-§6", cards=4, step_ms=[826.5, 846.0], peak_mb=16481),
-    "14e": dict(source="PERF.md §5-§6", cards=4, decode_ms_per_token=[408.6, 409.2],
-                decode_step_bytes_received=4162743344, decode_step_collectives=259,
-                decode_step_cache_bytes_received=69.3e6, idle_share=0.870),
-    "14f": dict(source="PERF.md §5-§6", cards=4, seq=512, step_ms=[7924, 7997],
-                peak_mb=[19883, 19888]),
-    "15c": dict(source="PERF.md §5-§6", sent=3458081840, received=4162743344, calls=259),
-    "15d": dict(source="PERF.md §5-§6", argument_bytes=238608388, temp_gb=48.78,
-                received_gb=39.38, collective_calls=420),
+PRIOR = {
+    "13b": dict(source="PERF.md §5-§6", step_ms=[1994.2, 2500.9],
+                cuda_launches_per_step=57685, peak_mb=[45297, 45304]),
+    "14c": dict(source="PERF.md §5-§6", cards=4, step_ms=[959.2, 967.6], peak_mb=13605),
+    "14e": dict(source="PERF.md §5-§6", cards=4, decode_ms_per_token=[343.7, 344.8],
+                decode_step_bytes_received=3389137968, decode_step_cache_bytes_received=0),
+    "14f": dict(source="PERF.md §5-§6", cards=4, seq=512, step_ms=[5801.7, 5846.3]),
+    "15c": dict(source="PERF.md §6", received=3389137968),
+    "15d": dict(source="PERF.md §6", argument_gb=0.222, temp_gb=8.601, received_gb=36.1),
 }
+
+
+LONG_DECODE = dict(P=8192, S=32_768, tokens=8)  # (f) and phase 14 (i)
+LONG_F32_ATOL = 2e-3  # (f): the sharded decode against one device's, in f32
+
+
+def _long_run(c, p, batch, S, steps, feed=None):
+    """Prefill `batch` (B 1) into an S-row cache and `steps` greedy decode
+    steps (or those of the tokens `feed`) -> (logits [1, 1 + steps, V],
+    tokens [1, steps], prefill ms, decode ms a token, the cache)."""
+    dev = batch["tokens"].device
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, cache = lm_model.prefill(c, p, batch, max_len=S)
+    ev[1].record()
+    cur = torch.tensor(batch["tokens"].shape[1], dtype=torch.int32, device=dev)
+    outs, toks = [logits], []
+    for t in range(steps):
+        tok = feed[:, t:t + 1] if feed is not None else logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        logits, cache = lm_model.decode_step(c, p, cache, tok, cur)
+        outs.append(logits)
+        cur = cur + 1
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (torch.cat(outs, 1), torch.cat(toks, 1), ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / max(steps, 1), cache)
+
+
+def _long_placed(mesh):
+    """gemma-2b's seed-0 weights placed on `mesh`, with the policy that
+    places a prefill's cache with its sequence on the batch axes ->
+    (config, one-device config, one-device LM or None, ShardedLM)."""
+    cfg = lm_configs.get_config("gemma-2b")
+    pcfg = cfg.with_policy(dataclasses.replace(lm_SH.policy_for(mesh),
+                                               seq_axis_for_cache="data"))
+    params = lm_model.init_params(cfg, 0, device=mesh.home)
+    sharded = lm_SH.ShardedLM.place(pcfg, mesh, params, lm_SH.param_specs(
+        pcfg, lm_SH.ref_layout(params.tree()), mesh))
+    return pcfg, cfg, params, sharded
+
+
+def _lm_mesh_long_decode(P=LONG_DECODE["P"], S=LONG_DECODE["S"],
+                         tokens=LONG_DECODE["tokens"]):
+    """(f) gemma-2b's long-context decode on (data 2, model 2): B 1, a
+    P-token prompt into an S-row cache placed with its sequence on the
+    data axis, `tokens` greedy tokens in bf16, twice, the tokens bitwise
+    equal; no `Mesh.join` inside the cache's reads (each rank's slices
+    are its parts, written in place); the same weights on one device fed
+    the same tokens in f32 (prefill and F32_STEPS steps) within
+    LONG_F32_ATOL."""
+    mesh = lm_mesh.make_host_mesh(**LM_MESH, device=DEV)
+    pcfg, cfg, params, sharded = _long_placed(mesh)
+    batch = _lm_inputs(cfg, 1, P, DEV)
+    join, rows = lm_mesh.Mesh.join, lm_SH.ShardedCache.rows
+    joins, inside, kinds = [0], [False], set()
+
+    def counting(self, *a, **k):
+        joins[0] += inside[0]
+        return join(self, *a, **k)
+
+    def reading(self, *a, **k):
+        inside[0] = True
+        try:
+            got = rows(self, *a, **k)
+        finally:
+            inside[0] = False
+        kinds.update(type(v[0] if isinstance(v, lm_mesh.Blocks) else v).__name__
+                     for c in got.values() for v in c.values())
+        return got
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm_mesh.Mesh.join, lm_SH.ShardedCache.rows = counting, reading
+    try:
+        got, toks, prefill_ms, decode_ms, _ = _long_run(pcfg, sharded, batch, S, tokens)
+        again, toks2, _, _, _ = _long_run(pcfg, sharded, batch, S, tokens)
+    finally:
+        lm_mesh.Mesh.join, lm_SH.ShardedCache.rows = join, rows
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    if joins[0] or kinds != {"Slices"}:
+        raise AssertionError(f"long decode: {joins[0]} joins inside the cache's reads, "
+                             f"leaves read as {kinds}")
+    if not torch.equal(toks, toks2):
+        raise AssertionError("long decode: two runs' greedy tokens differ")
+    f32 = dict(compute_dtype="float32", cache_dtype="float32")
+    got32 = _long_run(dataclasses.replace(pcfg, **f32), sharded, batch, S, F32_STEPS,
+                      feed=toks)[0]
+    want32 = _long_run(dataclasses.replace(cfg, **f32), params, batch, S, F32_STEPS,
+                       feed=toks)[0]
+    err = float((got32 - want32).abs().max())
+    if not err <= LONG_F32_ATOL:
+        raise AssertionError(f"long decode: f32 logits {err} from the single-device run's")
+    out = dict(mesh=mesh.shape, batch=1, prompt=P, cache=S, tokens=tokens,
+               cache_leaves_read_as=sorted(kinds), joins_in_cache_reads=joins[0],
+               tokens_equal=True, f32_max_abs_err=err, f32_atol=LONG_F32_ATOL,
+               f32_decode_steps=F32_STEPS, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               peak_mb=peak_mb, tokens_all=toks.tolist(), last_logits_sha256=_sha(got[:, -1]),
+               runs_bitwise=torch.equal(got, again))
+    del params, sharded, got, again, got32, want32
+    torch.cuda.empty_cache()
+    return out
 
 
 def lm_mesh_paths(single):
@@ -3713,6 +3840,10 @@ def lm_mesh_paths(single):
     runs["cp_decode"] = _lm_mesh_cp_decode()
     emit("lm_mesh", run="cp_decode", nvidia_smi=card, run_s=time.perf_counter() - t0,
          **runs["cp_decode"])
+    t0 = time.perf_counter()
+    runs["long_decode"] = _lm_mesh_long_decode()
+    emit("lm_mesh", run="long_decode_bf16", arch="gemma-2b", nvidia_smi=card,
+         run_s=time.perf_counter() - t0, **runs["long_decode"])
     emit("lm_mesh", run="done", phase_s=time.perf_counter() - t_phase)
     return runs
 
@@ -4144,7 +4275,51 @@ def _mp_cp_decode(world, S=32_768, cur_lens=CP_LENS):
                 cache_slice_bytes=2 * n * 256 * 4)
 
 
-MP_PARTS = ("islands", "postfix", "train", "checkpoint", "serve", "granite", "bits", "cp")
+def _mp_long(P=LONG_DECODE["P"], S=LONG_DECODE["S"], tokens=LONG_DECODE["tokens"]):
+    """(i) phase 13 (f)'s long-context decode in bf16 over the processes
+    (this process's parts only): prefill ms, decode ms a token, the tokens
+    and the last logits' digest, peak MB, then one more decode step with
+    the bytes its collectives moved and those its cache reads received
+    (`ShardedCache.rows`, counted apart)."""
+    mesh = lm_mesh.make_host_mesh(**LM_MESH)
+    pcfg, cfg, params, sharded = _long_placed(mesh)
+    del params
+    torch.cuda.empty_cache()
+    batch = _lm_inputs(cfg, 1, P, mesh.home)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got, toks, prefill_ms, decode_ms, cache = _long_run(pcfg, sharded, batch, S, tokens)
+    rows, cache_rx = lm_SH.ShardedCache.rows, [0]
+
+    def counted_rows(*a, **k):
+        with _Moved() as m:
+            out = rows(*a, **k)
+        cache_rx[0] += m.received
+        return out
+
+    cur = torch.tensor(P + tokens, dtype=torch.int32, device=mesh.home)
+    lm_SH.ShardedCache.rows = counted_rows
+    try:
+        with _Moved() as moved:
+            lm_model.decode_step(pcfg, sharded, cache, got[:, -1:].argmax(-1).to(torch.int32),
+                                 cur)
+            torch.cuda.synchronize()
+    finally:
+        lm_SH.ShardedCache.rows = rows
+    out = dict(local_shards=list(mesh.local), batch=1, prompt=P, cache=S, tokens=tokens,
+               tokens_all=toks.tolist(), last_logits_sha256=_sha(got[:, -1]),
+               prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+               decode_step_bytes_received=moved.received, decode_step_bytes_sent=moved.sent,
+               decode_step_cache_bytes_received=cache_rx[0],
+               decode_step_collectives=moved.calls)
+    del sharded, cache, got
+    torch.cuda.empty_cache()
+    return out
+
+
+MP_PARTS = ("islands", "postfix", "train", "checkpoint", "serve", "granite", "bits", "cp",
+            "long")
 
 
 def _mp_child(rank, world, addr, outdir, parts=MP_PARTS):
@@ -4190,6 +4365,8 @@ def _mp_child(rank, world, addr, outdir, parts=MP_PARTS):
         out["bits"] = _mp_bits()
     if "cp" in parts:
         out["cp"] = _mp_cp_decode(world)
+    if "long" in parts:
+        out["long"] = _mp_long()
     out["run_efgh_s"] = time.perf_counter() - t0 - out["run_s"]
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -4259,7 +4436,7 @@ def mp_profile_main():
     emit("mp_profile", run="done", spawn_s=time.perf_counter() - t0)
 
 
-def mp_paths(islands, gemma, serve, granite):
+def mp_paths(islands, gemma, serve, granite, long):
     """Phase 14: the mesh over processes, one a card (W = the smaller of 4
     and the card count): (a) phase 10 (a)'s session on every process, the
     history and per-island history bit for bit `islands`' (phase 10 (a),
@@ -4279,7 +4456,9 @@ def mp_paths(islands, gemma, serve, granite):
     process's metrics and digests bit for bit the same run in this one
     process; (h) `cp_decode_attention` on data W against `attn_decode` and
     bit for bit the same calls in this one process, only the partials
-    sent. -> {run: figures} (launches from process 0)."""
+    sent; (i) phase 13 (f)'s long-context decode (`long`), every
+    process's tokens and last logits bit for bit its, 0 B received in the
+    cache's reads. -> {run: figures} (launches from process 0)."""
     import gc
 
     from repro_torch.ckpt import checkpoint as lm_ckpt
@@ -4369,6 +4548,15 @@ def mp_paths(islands, gemma, serve, granite):
                 raise AssertionError(f"mp cp decode, process {r['rank']}: sent "
                                      f"{c['layer_bytes_sent']} B in a layer, not the "
                                      f"partials' {c['partial_bytes']}")
+            i = r["long"]
+            if (i["tokens_all"] != long["tokens_all"]
+                    or i["last_logits_sha256"] != long["last_logits_sha256"]):
+                raise AssertionError(f"mp long decode, process {r['rank']}: tokens "
+                                     f"{i['tokens_all']} vs one process's {long['tokens_all']}, "
+                                     "or the last logits differ")
+            if i["decode_step_cache_bytes_received"]:
+                raise AssertionError(f"mp long decode, process {r['rank']}: the cache's reads "
+                                     f"received {i['decode_step_cache_bytes_received']} B")
         here_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
@@ -4441,6 +4629,19 @@ def mp_paths(islands, gemma, serve, granite):
     emit("mp", run="bits_granite_f32", nvidia_smi=card, **multi,
          metrics=ranks[0]["bits"]["metrics"], state_leaves=len(bits["state"]),
          logits_steps=len(bits["logits"]), bitwise_one_process=True)
+    i = [r["long"] for r in ranks]
+    emit("mp", run="long_decode_bf16", arch="gemma-2b", nvidia_smi=card, **multi,
+         batch=1, prompt=i[0]["prompt"], cache=i[0]["cache"], tokens=i[0]["tokens"],
+         tokens_bitwise_phase13=True, last_logits_bitwise_phase13=True,
+         prefill_ms=[x["prefill_ms"] for x in i],
+         decode_ms_per_token=[x["decode_ms_per_token"] for x in i],
+         peak_mb=[x["peak_mb"] for x in i],
+         decode_step_bytes_received=[x["decode_step_bytes_received"] for x in i],
+         decode_step_bytes_sent=[x["decode_step_bytes_sent"] for x in i],
+         decode_step_cache_bytes_received=[x["decode_step_cache_bytes_received"] for x in i],
+         decode_step_collectives=[x["decode_step_collectives"] for x in i],
+         single_process_prefill_ms=long["prefill_ms"],
+         single_process_decode_ms_per_token=long["decode_ms_per_token"])
     c = [r["cp"] for r in ranks]
     emit("mp", run="cp_decode", nvidia_smi=card, **multi, shards=world, cache=cp["cache"],
          cur_lens=cp["cur_lens"], out_max_abs_err=[x["out_max_abs_err"] for x in c],
@@ -4449,7 +4650,7 @@ def mp_paths(islands, gemma, serve, granite):
          child_run_efgh_s=[r["run_efgh_s"] for r in ranks], parent_check_s=here_s,
          phase_s=time.perf_counter() - t_phase)
     return {"islands": ranks[0]["islands"], "postfix": ranks[0]["postfix"], "serve": e,
-            "world": world}
+            "long": i, "world": world}
 
 
 # --- phase 15: the dry run held against the card ----------------------------------------
@@ -4486,6 +4687,10 @@ def _dryrun_child(out_path, gens):
                                          processes=DRY_RANKS, cfg=granite, mesh=LM_MESH))
                 for r in range(DRY_RANKS)]
     res["d"] = strip(lm_dryrun.run_cell("gemma-2b", "train_4k", False, ""))
+    long = {"kind": "decode", "batch": 1, "seq": LONG_DECODE["S"]}
+    res["e"] = [strip(lm_dryrun.run_cell("gemma-2b", long, False, "", rank=r,
+                                         processes=DRY_RANKS, mesh=LM_MESH))
+                for r in range(DRY_RANKS)]
     res["child_s"] = time.perf_counter() - t0
     res["cuda_initialized"] = torch.cuda.is_initialized()
     with open(out_path, "w") as f:
@@ -4493,7 +4698,7 @@ def _dryrun_child(out_path, gens):
 
 
 def _dryrun_start(gens):
-    """Start phase 15's child (it runs while phases 11-14 use the card)
+    """Start phase 15's child (it runs while phases 12-14 use the card)
     -> (the process, its output path, its start time)."""
     SCRATCH.mkdir(parents=True, exist_ok=True)
     out = SCRATCH / "dryrun.json"
@@ -4530,7 +4735,7 @@ def dryrun_paths(child, islands, gemma, mp):
         res = json.load(f)
     out.unlink()
     bad = [k for k in "abd" if res[k]["status"] != "ok"] + [
-        f"c{r}" for r, c in enumerate(res["c"]) if c["status"] != "ok"]
+        f"{k}{r}" for k in "ce" for r, c in enumerate(res[k]) if c["status"] != "ok"]
     if bad or res["cuda_initialized"]:
         raise AssertionError(f"dry run: cells {bad} failed or CUDA was initialized: "
                              f"{[res[k].get('error') for k in 'abd']}")
@@ -4592,6 +4797,29 @@ def dryrun_paths(child, islands, gemma, mp):
     d = res["d"]
     emit("dryrun", run="d_gemma_train_4k_sp", nvidia_smi=card, record=d, trace_s=d["trace_s"],
          prior=_prior("15d"))
+    # (e) the long decode step's bytes against phase 14 (i)'s processes
+    i = mp["long"]
+    e_ = res["e"]
+    dry = [[x["sent_bytes"], x["received_bytes"], x["collective_calls"]] for x in e_]
+    if any(x["cache_received_bytes"] for x in e_):
+        raise AssertionError(f"dry run (e): the cache's reads received "
+                             f"{[x['cache_received_bytes'] for x in e_]} B")
+    if multi:
+        got = [[x["decode_step_bytes_sent"], x["decode_step_bytes_received"],
+                x["decode_step_collectives"]] for x in i]
+        if got != dry:
+            raise AssertionError(f"dry run (e): processes {got}, dry run {dry}")
+    emit("dryrun", run="e_gemma_long_decode_ranks", nvidia_smi=card, ranks=DRY_RANKS,
+         cache=LONG_DECODE["S"], multi_rank=multi, **({} if multi else {"multi_rank_reason": (
+             f"phase 14 ran {mp['world']} process(es): no byte crossed, so each rank's "
+             "dry-run bytes print alone")}),
+         dry_sent_received_calls=dry, phase14_equal=multi or None,
+         phase14_sent_received_calls=[[x["decode_step_bytes_sent"],
+                                       x["decode_step_bytes_received"],
+                                       x["decode_step_collectives"]] for x in i],
+         cache_received_bytes=[x["cache_received_bytes"] for x in e_],
+         collective_bytes=[x["collective_bytes"] for x in e_],
+         memory=[x["memory"] for x in e_], trace_s=[x["trace_s"] for x in e_])
     emit("dryrun", run="done", child_s=res["child_s"], waited_s=waited,
          phase_s=time.perf_counter() - t_phase)
     return res
@@ -4725,6 +4953,52 @@ def _registers():
             for (n, t, two), v in sorted(fitness.items())}, same and bool(fitness)
 
 
+class Laps(dict):
+    """Each phase's seconds: `lap(name)` ends the phase begun at the last
+    call (or at `t0`)."""
+
+    def __init__(self, t0):
+        super().__init__()
+        self.last = t0
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self[name] = now - self.last
+        self.last = now
+
+
+def lm_mesh_phases(islands, lap):
+    """Phases 12-15, given phase 10 (a)'s `islands`; phase 15's child runs
+    beside phases 12-14 -> phase 14's runs."""
+    dry_child = _dryrun_start(islands["generations"])
+    lm_train_runs = lm_train_paths()
+    lap("12 lm train")
+    lm_mesh_runs = lm_mesh_paths(lm_train_runs["train_gemma-2b"])
+    lap("13 lm mesh")
+    mp_runs = mp_paths(islands, lm_mesh_runs["train_gemma-2b"], lm_mesh_runs["serve_granite"],
+                       lm_train_runs["train_granite-moe-3b-a800m"], lm_mesh_runs["long_decode"])
+    lap("14 mesh over processes")
+    dryrun_paths(dry_child, islands, lm_mesh_runs["train_gemma-2b"], mp_runs)
+    lap("15 dry run")
+    return mp_runs
+
+
+def lm_mesh_main():
+    """`python3 chip_smoke.py --lm-mesh`: phase 10 (a), then phases 12-15
+    (`lm_mesh_phases`), each with its checks; ends with its timing line."""
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    build.load("gp_eval")
+    lap = Laps(t0)
+    _, _, islands = _mesh_islands()
+    emit("mesh", run="islands", nvidia_smi=card, **islands)
+    lap("10 (a) islands")
+    mp_runs = lm_mesh_phases(islands, lap)
+    emit("timing", nvidia_smi=card, cards=torch.cuda.device_count(), ranks=mp_runs["world"],
+         phase_s=lap, total_s=time.perf_counter() - t0)
+
+
 def main():
     if "--profile" in sys.argv[1:]:
         print(card_line(), flush=True)
@@ -4735,13 +5009,7 @@ def main():
     t0 = time.perf_counter()
     build.load("gp_eval")
     build_s = time.perf_counter() - t0
-    laps, last = {}, [t0]
-
-    def lap(name):  # each phase's seconds, printed before the kernels line
-        now = time.perf_counter()
-        laps[name] = now - last[0]
-        last[0] = now
-
+    lap = Laps(t0)
     registers, unchanged = _registers()
     emit("card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -4794,19 +5062,10 @@ def main():
     lap("9 service")
     mesh_runs = mesh_paths()
     lap("10 mesh")
-    dry_child = _dryrun_start(mesh_runs["islands"]["generations"])
     lm_paths()
     lap("11 lm serve")
-    lm_train_runs = lm_train_paths()
-    lap("12 lm train")
-    lm_mesh_runs = lm_mesh_paths(lm_train_runs["train_gemma-2b"])
-    lap("13 lm mesh")
-    mp_runs = mp_paths(mesh_runs["islands"], lm_mesh_runs["train_gemma-2b"],
-                       lm_mesh_runs["serve_granite"], lm_train_runs["train_granite-moe-3b-a800m"])
-    lap("14 mesh over processes")
-    dryrun_paths(dry_child, mesh_runs["islands"], lm_mesh_runs["train_gemma-2b"], mp_runs)
-    lap("15 dry run")
-    emit("timing", phase_s=laps, total_s=time.perf_counter() - t0)
+    mp_runs = lm_mesh_phases(mesh_runs["islands"], lap)
+    emit("timing", phase_s=lap, total_s=time.perf_counter() - t0)
     # the mesh path's launches (phase 10), from the run whose work each
     # kernel does there; the probe is not on it (mesh steps carry no cache)
     mesh_of = {"eval_fitness": "islands", "eval_fitness_postfix": "postfix_off",
@@ -4907,5 +5166,7 @@ if __name__ == "__main__":
         _dryrun_child(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--mp-profile"]:
         mp_profile_main()
+    elif sys.argv[1:2] == ["--lm-mesh"]:
+        lm_mesh_main()
     else:
         main()

@@ -42,6 +42,9 @@ them); what each column is here:
                      what this process sends and receives, counted as
                      `chip_smoke.py`'s `_Moved` counts a real run's
                      (a collective's own part of its output is neither)
+  cache_received_bytes
+                     of a decode cell, the part of received_bytes inside
+                     the cache's reads (`ShardedCache.rows`); else null
   memory.argument_gb this process's parts of the state, params or cache,
                      and its blocks of the inputs (the batch rows, the
                      tokens its shards read), as the reference's per-device
@@ -278,6 +281,21 @@ def make_policy(mesh):
     return SH.policy_for(mesh)
 
 
+class _CountedCache(SH.ShardedCache):
+    """A decode cell's cache, counting the bytes this process receives
+    inside its reads (`rows`): the record's `cache_received_bytes`, 0
+    where each rank reads its own parts (a sequence-sharded cache's
+    slices, in place)."""
+
+    received = 0
+
+    def rows(self, *a, **k):
+        with _Wire() as wire:
+            out = super().rows(*a, **k)
+        self.received += wire.received
+        return out
+
+
 @dataclasses.dataclass
 class Cell:
     """One cell ready to step on `meta`: `run()` steps it once; `held`
@@ -327,7 +345,7 @@ def lower_cell(cfg, shape, mesh) -> Cell:
                     _batch_inputs(cfg, specs), mesh)
     seq_shard = s["batch"] == 1  # long-context: the cache's sequence over the batch axes
     cache_specs = SH.cache_specs(cfg, specs["cache"], mesh, seq_shard=seq_shard)
-    cache = SH.ShardedCache(mesh, SH.zeros(mesh, cache_specs, specs["cache"]))
+    cache = _CountedCache(mesh, SH.zeros(mesh, cache_specs, specs["cache"]))
     token, cur_len = specs["token"], specs["cur_len"]
     step = Md.make_serve_step(cfg)
     inputs = [(token, P(None, None) if seq_shard else P(b_axes, None)), (cur_len, P())]
@@ -364,6 +382,8 @@ def analyze(cell: Cell, *, want_hlo: bool = False) -> dict:
         peak = _total(tracker.get_tracker_snapshot("peak"))
     trace_s = time.perf_counter() - t0
     produced = _storages(out)
+    cache = next((h for h in (cell.held if isinstance(cell.held, tuple) else ())
+                  if isinstance(h, _CountedCache)), None)
     rec = {
         "trace_s": trace_s,
         "flops": float(flops.get_total_flops()),
@@ -373,6 +393,7 @@ def analyze(cell: Cell, *, want_hlo: bool = False) -> dict:
         "sent_bytes": wire.sent,
         "received_bytes": wire.received,
         "collective_calls": wire.calls,
+        "cache_received_bytes": None if cache is None else cache.received,
         "memory": {
             "argument_gb": argument / 2**30,
             "output_gb": sum(produced.values()) / 2**30,
@@ -525,6 +546,12 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--keep-hlo", action="store_true")
     ap.add_argument("--out", default="benchmarks/artifacts/dryrun")
+    ap.add_argument("--seq", type=int,
+                    help="with --arch/--shape: this sequence instead of the shape's (its kind "
+                         "and batch kept)")
+    ap.add_argument("--layers", type=int,
+                    help="with --arch/--shape: this depth instead of the config's (n_layers, "
+                         "a multiple of its pattern); the record is {arch}-L{layers}_...")
     args = ap.parse_args(argv)
 
     if args.gp:
@@ -537,9 +564,16 @@ def main(argv=None):
              [(a, s) for a in all_arch_names() for s in Md.SHAPES])
     if not args.all and not (args.arch and args.shape):
         ap.error("need --arch+--shape, --gp, or --all")
+    cfg = None
+    if args.seq or args.layers:  # one cell, cut or stretched
+        shape = {**Md.SHAPES[args.shape], **({"seq": args.seq} if args.seq else {})}
+        cfg = get_config(args.arch)
+        if args.layers:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cells = [(args.arch + (f"-L{args.layers}" if args.layers else ""), shape)]
     failures = 0
     for arch, shape in cells:
-        rec = run_cell(arch, shape, args.multi_pod, args.out, args.keep_hlo)
+        rec = run_cell(arch, shape, args.multi_pod, args.out, args.keep_hlo, cfg=cfg)
         line = {k: rec.get(k) for k in ("arch", "shape", "status", "trace_s",
                                         "flops", "error")}
         print(json.dumps(line), flush=True)

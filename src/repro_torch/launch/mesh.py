@@ -24,8 +24,11 @@ large, is reduced by an all-to-all of the blocks each process holds
 followed by the same in-order sum (`Sharded.settle`). Where work splits
 over a group's ranks (tensor parallelism over the model axis, the MoE's
 experts), `AxisGroup` runs a process's own ranks and its differentiable
-collectives (`fanout`, `split`, `sum`, `gather`, `all_to_all`) move only
-activations between them, every sum in rank order.
+collectives (`fanout`, `split`, `sum`, `gather`, `all_to_all`, and
+sequence parallelism's `gather_fanout` and `sum_scatter`) move only
+activations between them, every sum in rank order. A cache whose
+sequence lies on the batch axes is read as its `Slices`, merged by a
+group function over those axes (`over`).
 
 Axes, in the reference's order (`pod` first, and only when it is > 1):
 
@@ -612,6 +615,28 @@ class Blocks(list):
         return Blocks([fn(b) for b in self], self.dim + shift)
 
 
+class Slices(list):
+    """A cache leaf's sequence slices that this process holds, one a shard
+    of `shards`, each the shard's part itself on its device: a leaf whose
+    sequence the specs split over the batch axes (`axes`), as a decode
+    pass reads it (`launch.sharding.ShardedCache.rows`) and writes it in
+    place. `offsets` are the slices' first rows of the sequence, `length`
+    the whole sequence's; the shards run in batch-rank order, and a group
+    function over `axes` (`over`) merges what each slice computes. In a
+    tensor-parallel pass a leaf the specs also split over the model axis
+    comes as `Blocks` of one `Slices` a rank."""
+
+    def __init__(self, parts, shards, offsets, length: int, mesh, axes):
+        super().__init__(parts)
+        self.shards, self.offsets, self.length = tuple(shards), tuple(offsets), length
+        self.mesh, self.axes = mesh, axes
+
+    def map(self, fn) -> "Slices":
+        """`fn` of each slice (a group's view of a stacked leaf's)."""
+        return Slices([fn(t) for t in self], self.shards, self.offsets, self.length,
+                      self.mesh, self.axes)
+
+
 class AxisGroup:
     """The ranks of one axis group (a data shard's model group) that this
     process runs, and differentiable collectives between them. Each
@@ -633,7 +658,12 @@ class AxisGroup:
     the backward hands every rank the gradient) or `gather` (the ranks'
     blocks joined; the backward keeps each rank its own). Every rank of
     the group computes the replicated parts alike, so each process holds
-    the whole gradient of a replicated tensor."""
+    the whole gradient of a replicated tensor. Megatron's sequence
+    parallelism keeps an activation as the ranks' rows between blocks:
+    it enters through `gather_fanout` (the rows joined, a copy a rank;
+    the backward a reduce-scatter) and leaves through `sum_scatter` (the
+    partials added in rank order, each rank keeping its rows; the
+    backward an all-gather)."""
 
     def __init__(self, size: int, ranks=None, owners=None, me: int = 0, members=None):
         self.size = size
@@ -669,6 +699,33 @@ class AxisGroup:
         if not self.spans:
             return self._reduce(xs)
         return _SumParts.apply(self, *xs)
+
+    def sum_scatter(self, xs: list, dim: int) -> Blocks:
+        """Every rank's partial added in rank order, each rank keeping its
+        slice along `dim` (rank r the r-th of `size`): bitwise `sum(xs)`
+        split along `dim`. The backward hands each rank the gradient
+        joined from every rank's slice. Over processes a process receives
+        (size - 1) / size of a partial a rank (`_scatter`), half of
+        `sum`'s."""
+        if not self.spans:
+            total = self._reduce(xs)
+            return Blocks(torch.split(total, total.shape[dim] // self.size, dim), dim)
+        return Blocks(_SumScatter.apply(self, dim, *xs), dim)
+
+    def gather_fanout(self, xs: list, dim: int):
+        """(every rank's slice joined along `dim`, that tensor for each rank
+        this process runs): `gather` then `fanout` in one step. The first
+        serves what every rank computes alike, the copies what each rank
+        computes with its own block. The backward adds the copies'
+        gradients in rank order, then the first's, and hands each rank its
+        slice: over processes a reduce-scatter (`_scatter`), as
+        `sum_scatter`'s forward. Outside autograd's recording the copies
+        are the joined tensor itself."""
+        if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+            whole = self.gather(xs, dim)
+            return whole, [whole] * len(self.ranks)
+        out = _GatherFanout.apply(self, dim, *xs)
+        return out[0], list(out[1:])
 
     def fanout(self, w) -> list:
         """`w` (the same on every rank) for each rank this process runs;
@@ -759,23 +816,46 @@ class AxisGroup:
                     sums[j] = _from_bytes(buf[i * nb:(i + 1) * nb], row)
         return torch.cat([sums[j] for j in range(self.size)])[:n].view(like.shape)
 
-    def _all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
-        chunks = {r: x.chunk(self.size, split_dim) for r, x in zip(self.ranks, xs)}
+    def _route(self, xs: list, dim: int) -> dict:
+        """{(r, j): chunk j of rank r's x along `dim`} for every rank r and
+        each rank j this process runs: one all-to-all, chunk j of each of
+        this process's ranks to rank j's process."""
+        chunks = {r: x.chunk(self.size, dim) for r, x in zip(self.ranks, xs)}
         like = chunks[self.ranks[0]][0]
         n = like.numel() * like.element_size()
-        send = [[chunks[r][j] for r in self.ranks for j in self.of[q]] for q in self.procs]
-        got = _swap(self.procs, send, [len(self.of[q]) * len(self.ranks) * n
+        send = [[] if q == self.me else [chunks[r][j] for r in self.ranks for j in self.of[q]]
+                for q in self.procs]
+        got = _swap(self.procs, send, [0 if q == self.me else
+                                       len(self.of[q]) * len(self.ranks) * n
                                        for q in self.procs], like.device)
-        recv = {}
+        recv = {(r, j): chunks[r][j] for r in self.ranks for j in self.ranks}
         for q, buf in zip(self.procs, got):
+            if q == self.me:
+                continue
             k = 0
             for r in self.of[q]:
                 for j in self.ranks:
-                    recv[r, j] = (chunks[r][j] if q == self.me else
-                                  _from_bytes(buf[k * n:(k + 1) * n], like))
+                    recv[r, j] = _from_bytes(buf[k * n:(k + 1) * n], like)
                     k += 1
+        return recv
+
+    def _all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
+        recv = self._route(xs, split_dim)
         return [torch.cat([recv[r, j] for r in range(self.size)], concat_dim)
                 for j in self.ranks]
+
+    def _scatter(self, xs: list, dim: int) -> list:
+        """For each rank j this process runs, chunk j along `dim` of every
+        rank's `xs` added in rank order: `_reduce`'s first all-to-all,
+        cut along `dim`."""
+        recv = self._route(xs, dim)
+        out = []
+        for j in self.ranks:
+            total = recv[0, j]
+            for r in range(1, self.size):
+                total = total + recv[r, j]
+            out.append(total)
+        return out
 
 
 def _filled(grads) -> list:
@@ -825,6 +905,47 @@ class _SumParts(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return (None, *(grad for _ in range(ctx.n)))
+
+
+class _SumScatter(torch.autograd.Function):
+    """`AxisGroup.sum_scatter` across processes: the reduce-scatter
+    forward, every rank's slice of the gradient joined backward."""
+
+    @staticmethod
+    def forward(ctx, g, dim, *xs):
+        ctx.g, ctx.dim, ctx.n = g, dim, len(xs)
+        return tuple(g._scatter(list(xs), dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        full = torch.cat(ctx.g._every(_filled(grads)), ctx.dim)
+        return (None, None, *(full for _ in range(ctx.n)))
+
+
+class _GatherFanout(torch.autograd.Function):
+    """`AxisGroup.gather_fanout`: the slices joined and copied forward;
+    backward, the copies' gradients added in rank order (a reduce-scatter
+    over processes), then the joined tensor's, each rank its slice."""
+
+    @staticmethod
+    def forward(ctx, g, dim, *xs):
+        ctx.g, ctx.dim, ctx.n = g, dim, xs[0].shape[dim]
+        whole = torch.cat(g._every(list(xs)), dim)
+        return (whole, *(whole.clone() for _ in g.ranks))
+
+    @staticmethod
+    def backward(ctx, grad, *grads):
+        g, dim, n = ctx.g, ctx.dim, ctx.n
+        if all(t is None for t in grads):
+            per = [grad.narrow(dim, r * n, n) for r in g.ranks]
+        else:
+            if g.spans:
+                per = g._scatter(_filled(grads), dim)
+            else:
+                per = list(torch.split(g._reduce(_filled(grads)), n, dim))
+            if grad is not None:
+                per = [t + grad.narrow(dim, r * n, n) for t, r in zip(per, g.ranks)]
+        return (None, None, *per)
 
 
 class _Fanout(torch.autograd.Function):

@@ -18,78 +18,17 @@ of a sequence group runs in turn, and the merge is the mesh module's
 partials over its own cache slices, the partials alone cross processes
 (one exchange over the group), and every process merges them in the
 same rank order: the single controller's bits, with the cache slices
-never leaving their process. As in the reference, `decode_step` does
-not use it; numerics are held against `layers.attn_decode`.
+never leaving their process. The partial, the owner's write and the
+merge live in `models/layers.py`, whose decode attention runs the same
+merge on a `ShardedCache` of this layout (`decode_step` at batch 1);
+numerics are held against `layers.attn_decode`.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
-from repro_torch.launch.mesh import P, Sharded, over, pmax, psum
-from repro_torch.models.layers import AttnDims, _positions, _proj_out, _qkv
-
-
-def _local_attend(q, k, v, valid, scale):
-    """q:[B,1,H,hd]; k,v:[B,S_loc,KV,hd]; valid:[S_loc] bool.
-    Returns (o [B,1,H,hd] f32 unnormalized, m [B,1,H], l [B,1,H])."""
-    groups = q.shape[2] // k.shape[2]
-    kq = k.repeat_interleave(groups, dim=2)
-    vq = v.repeat_interleave(groups, dim=2)
-    s = torch.einsum("bthk,bshk->bhts", q.float(), kq.to(q.dtype).float()) * scale
-    s = torch.where(valid[None, None, None, :], s, -math.inf)
-    m = s.amax(-1)  # [B,H,1]
-    m_safe = torch.where(torch.isfinite(m), m, -1e30)
-    p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), 0.0)
-    l = p.sum(-1)
-    o = torch.einsum("bhts,bshk->bthk", p.to(vq.dtype).float(), vq.float())
-    return o, m_safe.transpose(1, 2), l.transpose(1, 2)
-
-
-def _write_owned(cache, new, cur_len, offset: int):
-    """Write `new` ([B,1,...]) at row cur_len - offset of this shard's
-    cache slice, in place, only where the shard owns cur_len (the row is
-    clamped into the slice, and a shard that does not own it writes its
-    own row back). `cur_len` is an int or a 0-d device tensor."""
-    S_loc = cache.shape[1]
-    new = new.to(cache.dtype)
-    if not isinstance(cur_len, torch.Tensor):
-        if offset <= int(cur_len) < offset + S_loc:
-            cache[:, int(cur_len) - offset:int(cur_len) - offset + 1] = new
-        return cache
-    idx = (cur_len - offset).reshape(1).clamp(0, S_loc - 1).to(torch.long)
-    owns = (cur_len >= offset) & (cur_len < offset + S_loc)
-    cache.index_copy_(1, idx, torch.where(owns, new, cache.index_select(1, idx)))
-    return cache
-
-
-def _cp_partial(dims: AttnDims, p, x, ck, cv, cur_len, rank: int):
-    """One shard's part of a decode-attention layer over its cache slices
-    [B,S_loc,KV,hd] (rank `rank` along the sequence axis): the owner's
-    write of the new k, v (in place), then the partial attention ->
-    ((o, m, l), ck, cv)."""
-    S_loc = ck.shape[1]
-    offset = rank * S_loc
-    q, k, v = _qkv(p, x, dims, _positions(cur_len, x.shape[0], x.device))
-    ck = _write_owned(ck, k, cur_len, offset)
-    cv = _write_owned(cv, v, cur_len, offset)
-    valid = (torch.arange(S_loc, device=x.device) + offset) <= cur_len
-    return _local_attend(q, ck, cv, valid, 1.0 / math.sqrt(dims.d_head)), ck, cv
-
-
-def _cp_merge(partials: list, ps: list, xs: list) -> list:
-    """The flash merge of one sequence group's partials (o, m, l), in rank
-    order: O(B·H·hd) a shard -> the attention output [B,1,d] of each rank
-    whose x is given (None for the others)."""
-    ms = [m for _, m, _ in partials]
-    m_g = pmax(ms)
-    cs = [torch.exp(m - mg) for m, mg in zip(ms, m_g)]
-    l_g = psum([l * c for (_, _, l), c in zip(partials, cs)])
-    o_g = psum([o * c[..., None] for (o, _, _), c in zip(partials, cs)])
-    return [None if x is None else
-            _proj_out((o / torch.clamp_min(l, 1e-30)[..., None]).to(x.dtype), p["wo"])
-            for o, l, x, p in zip(o_g, l_g, xs, ps)]
+from repro_torch.launch.mesh import P, Sharded, over
+from repro_torch.models.layers import AttnDims, _cp_merge, _cp_partial
 
 
 def make_cp_decode_attention(dims: AttnDims, seq_axis: str = "data"):

@@ -37,7 +37,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch.mesh import Blocks, Mesh, P, Sharded, _names, batch_axes
+from repro_torch.launch.mesh import Blocks, Mesh, P, Sharded, Slices, _names, batch_axes
 
 _TP = "model"
 
@@ -434,6 +434,13 @@ def _tp_dim(spec):
     return next((d for d, part in enumerate(spec) if _TP in _names(part)), None)
 
 
+def _seq_split(sh: Sharded) -> bool:
+    """Does the spec put a stacked cache leaf's sequence (dim 2 of
+    [G, B, S, ...] k/v) on the batch axes (the long-context layout)?"""
+    axes = set(batch_axes(sh.mesh))
+    return sh.ndim == 5 and len(sh.spec) > 2 and bool(axes & set(_names(sh.spec[2])))
+
+
 class ShardedCache:
     """A serving cache (`{"b{i}": {name: [n_groups, B, ...]}}`) placed on
     a mesh by `cache_specs`, each leaf a `Sharded`. A data shard's decode
@@ -443,7 +450,10 @@ class ShardedCache:
     part itself where it holds the pass's rows, so the decode writes into
     it in place and no cache crosses the model axis. Over several
     processes a process holds its own parts only, as a `Sharded` does,
-    and the whole cache is never built on one process."""
+    and the whole cache is never built on one process. A leaf whose
+    sequence the specs put on the batch axes (`seq_sharded`, the
+    long-context layout) is read as this process's slices of it, in
+    place (`launch.mesh.Slices`)."""
 
     def __init__(self, mesh: Mesh, tree: dict):
         self.mesh, self._tree = mesh, tree
@@ -501,6 +511,11 @@ class ShardedCache:
     def __getitem__(self, b):
         return self._tree[b]
 
+    @property
+    def seq_sharded(self) -> bool:
+        """Does a leaf lie with its sequence on the batch axes?"""
+        return any(_seq_split(sh) for c in self._tree.values() for sh in c.values())
+
     def __iter__(self):
         return iter(self._tree)
 
@@ -513,11 +528,23 @@ class ShardedCache:
         whole, from the pass's first rank. A block is its shard's part
         itself where that part holds just these rows on `device` (a view:
         the decode writes into it in place), else it is joined over the
-        batch axes only (a batch run as one pass, a sequence-sharded cache;
-        over several processes with the other processes of the block's
-        model rank)."""
+        batch axes only (a batch run as one pass; over several processes
+        with the other processes of the block's model rank). A leaf whose
+        sequence lies on the batch axes comes as a rank's `Slices`: the
+        parts of this process's shards of that model rank themselves (their
+        rows `rows` as views), in batch-rank order; nothing is joined."""
         tp = group.size
         first = group.ranks[0]
+        mesh = self.mesh
+
+        def slices(sh, r):
+            axes = batch_axes(mesh)
+            shards = sorted((s for s in mesh.local if mesh.rank(s, _TP) == r),
+                            key=lambda s: mesh.batch_rank(s, axes))
+            parts = [sh.parts[s] if rows == slice(0, sh.parts[s].shape[1]) else
+                     sh.parts[s][:, rows] for s in shards]
+            return Slices(parts, shards, [sh.block(s)[2].start for s in shards],
+                          sh.shape[2], mesh, axes)
 
         def block(sh, r):
             window = (_TP, r) if tp > 1 else None
@@ -530,17 +557,23 @@ class ShardedCache:
                     return part
             return sh.mesh.join(sh.parts, sh.spec, device, window)[:, rows]
 
-        return {b: {n: Blocks([block(sh, r) for r in group.ranks], _tp_dim(sh.spec))
-                    if tp > 1 and sh.names(_TP) else block(sh, first) for n, sh in c.items()}
-                for b, c in self._tree.items()}
+        def leaf(sh):
+            one = slices if _seq_split(sh) else block
+            if tp > 1 and sh.names(_TP):
+                return Blocks([one(sh, r) for r in group.ranks], _tp_dim(sh.spec))
+            return one(sh, first)
+
+        return {b: {n: leaf(sh) for n, sh in c.items()} for b, c in self._tree.items()}
 
     def write_rows(self, rows: slice, local: dict, group) -> None:
         """Write a pass's rows back (`rows`' structure): into every part of
         this process holding them, but the parts the decode wrote in
-        place."""
+        place (a sequence-sharded leaf's slices are those parts)."""
         for b, c in self._tree.items():
             for n, sh in c.items():
                 v = local[b][n]
+                if _seq_split(sh):
+                    continue
                 if isinstance(v, list):
                     for r, t in zip(group.ranks, v):
                         write_rows(sh, 1, rows, t, (_TP, r))

@@ -19,11 +19,25 @@ it carries a pass's model group (`tp_group`) the layers run tensor
 parallel, as XLA partitions the reference's pinned layouts: a weight the
 specs split over the model axis arrives as the ranks' blocks, q/k/v are
 column-parallel by heads and `wo` row-parallel, where the heads do not
-divide the axis each rank takes its rows of every q chunk (the
-reference's `pin(allow_row_shard=True)`), a head-dim-split cache is read
-by partial scores, and the FFN is column/row-parallel. Without a group
+divide the axis each rank attends with its own rows of the sequence (the
+reference's `pin(allow_row_shard=True)`, `_attend_rows`), a head-dim-split
+cache is read by partial scores, and the FFN is column/row-parallel. Without a group
 `replicate_kv` repeats kv heads up to the model axis as the reference
 does.
+
+Megatron's sequence parallelism (`seq_parallel`, the reference's
+`_residual_spec`): where a tensor-parallel pass keeps its sequence as
+the model ranks' rows between blocks, a layer takes its input as those
+rows (`launch.mesh.Blocks` along dim 1), joins them on the way in
+(`_enter`: an all-gather) and leaves its output as the ranks' rows: the
+row-parallel partials through a reduce-scatter (`_sum_out`), an output
+every rank computes alike cut to each rank's rows (`_cut`, no traffic).
+
+A decode over a cache whose sequence lies on the batch axes (the
+long-context layout, `launch.mesh.Slices`) runs the reference's flash
+merge (`launch/serving.py`) inside the layer (`_attend_slices`): each
+slice its partial on its own device, the partials merged over the batch
+axes; no cache row moves.
 
 Training differentiates these functions with autograd. Where the
 reference remats (`jax.checkpoint`) the port does too, through `_remat`
@@ -41,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import Blocks
+from repro_torch.launch.mesh import Blocks, Slices, over, pmax, psum
 
 # --------------------------------------------------------------------------
 # initializers / norms
@@ -288,14 +302,26 @@ def attn_forward(p, x, dims: AttnDims, *, causal=True, positions=None, q_chunk=5
     """Training / prefill self-attention. x: [B, S, d] -> (out [B, S, d],
     k, v): k and v as a cache keeps them ([B, S, n_kv, hd]; in a
     tensor-parallel pass the ranks' `Blocks` of kv heads where `wk` is
-    split over the model axis)."""
-    B, S, _ = x.shape
-    pos = positions if positions is not None else torch.arange(S, device=x.device)
+    split over the model axis). In a sequence-parallel pass x and out are
+    the ranks' rows, k and v the whole sequence's."""
     group = tp_group(policy)
+    S = seq_len(x, group)
+    dev = x[0].device if isinstance(x, Blocks) else x.device
+    pos = positions if positions is not None else torch.arange(S, device=dev)
+    if group is not None and isinstance(x, Blocks) and not isinstance(p["wq"], list):
+        # heads that do not divide the axis (nor, then, kv heads): k and v
+        # from the joined rows, each rank attends with its own rows
+        k, v = _heads_proj(p, group.gather(x, x.dim), dims, group, ("wk", "wv"))
+        if use_rope:
+            k = rope(k, pos, theta=dims.rope_theta)
+        out = _attend_rows(p, x, k, v, dims, group, causal=causal, pos=pos, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk, use_rope=use_rope, policy=policy)
+        return out, k, v
     if group is not None:
         q, k, v = _qkv_tp(p, x, dims, pos, group, use_rope=use_rope)
         out = _attend_tp(q, k, v, p["wo"], dims, group, causal=causal, pos=pos,
-                         q_chunk=q_chunk, kv_chunk=kv_chunk, policy=policy)
+                         q_chunk=q_chunk, kv_chunk=kv_chunk, policy=policy,
+                         sp=isinstance(x, Blocks))
         return out, k, v
     tp = policy.tp_size if policy else 0
     q, k, v = _qkv(p, x, dims, pos, use_rope=use_rope)
@@ -318,14 +344,18 @@ def cross_attn_apply(p, x, kv_cache_k, kv_cache_v, dims: AttnDims,
     a tensor-parallel pass the ranks' `Blocks` of kv heads or, from a
     cache, of the head dim, `cross_kv`)."""
     group = tp_group(policy)
+    if group is not None and isinstance(x, Blocks) and not isinstance(p["wq"], list):
+        return _attend_rows(p, x, kv_cache_k, kv_cache_v, dims, group, causal=False, pos=None,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk, use_rope=False, policy=policy)
     if group is not None:
+        sp = isinstance(x, Blocks)
         (q,) = _heads_proj(p, x, dims, group, ("wq",))
         if isinstance(kv_cache_k, Blocks) and kv_cache_k.dim == 3:
             o = _attend_hd_blocks(whole(q, group, 2), kv_cache_k, kv_cache_v, None,
-                                  dims.d_head, group, x.dtype)
-            return _out_tp(o, p["wo"], group)
+                                  dims.d_head, group, (x[0] if sp else x).dtype)
+            return _out_tp(o, p["wo"], group, sp)
         return _attend_tp(q, kv_cache_k, kv_cache_v, p["wo"], dims, group, causal=False,
-                          pos=None, q_chunk=q_chunk, kv_chunk=kv_chunk, policy=policy)
+                          pos=None, q_chunk=q_chunk, kv_chunk=kv_chunk, policy=policy, sp=sp)
     q = _proj_in(x, p["wq"])
     if dims.qkv_bias:
         q = q + p["bq"]
@@ -399,9 +429,13 @@ def attn_decode(p, x, cache_k, cache_v, cur_len, dims: AttnDims, *, use_rope=Tru
     masked; nothing reads the device back. In a tensor-parallel pass the
     cache comes as the ranks' blocks (`ShardedCache.rows`), of kv heads or
     of the head dim, or whole: each rank writes and reads its own block
-    (`_attn_decode_tp`).
+    (`_attn_decode_tp`). A cache whose sequence lies on the batch axes
+    comes as its slices (`launch.mesh.Slices`, in `Blocks` where the model
+    axis splits it too) and is read by the flash merge (`_attend_slices`).
     """
     group = tp_group(policy)
+    if group is None and _sliced(cache_k):  # a model axis of 1
+        group = policy.group
     if group is not None:
         return _attn_decode_tp(p, x, cache_k, cache_v, cur_len, dims, group, use_rope)
     B = x.shape[0]
@@ -425,6 +459,50 @@ def tp_group(policy):
     policy, an unsharded `LM` (no group), or a model axis of 1."""
     group = getattr(policy, "group", None)
     return group if group is not None and group.size > 1 else None
+
+
+def seq_parallel(policy, S: int) -> bool:
+    """Does a pass of `policy` keep a sequence of S rows as its model
+    ranks' rows between blocks (Megatron-SP, the reference's
+    `_residual_spec`)? In a tensor-parallel pass whose policy asks for it
+    (`seq_shard_residual`) and whose sequence divides over the ranks;
+    else (decode's one row, a prompt of another length) the residual
+    stays replicated, where XLA would pad the uneven shard instead."""
+    group = tp_group(policy)
+    return group is not None and policy.seq_shard_residual and S % group.size == 0
+
+
+def seq_len(x, group) -> int:
+    """The sequence length of x [B, S, ...], or of the whole tensor whose
+    ranks' rows x is (`Blocks` along dim 1: this process's ranks')."""
+    return x[0].shape[1] * group.size if isinstance(x, Blocks) else x.shape[1]
+
+
+def _enter(x, group, fan: bool):
+    """A tensor-parallel layer's input: (x whole, x for each rank this
+    process runs, or None without `fan`). A replicated x is fanned out
+    (`AxisGroup.fanout`); a sequence-parallel pass's rows (`Blocks`) are
+    joined, an all-gather (`AxisGroup.gather_fanout`, whose backward is
+    the reduce-scatter; without `fan`, `gather`: every rank computes
+    from x alike)."""
+    if isinstance(x, Blocks):
+        if fan:
+            return group.gather_fanout(x, x.dim)
+        return group.gather(x, x.dim), None
+    return x, (group.fanout(x) if fan else None)
+
+
+def _sum_out(parts: list, group, sp: bool):
+    """The ranks' row-parallel partials added in rank order: whole, or in
+    a sequence-parallel pass each rank its rows (`sum_scatter`)."""
+    return group.sum_scatter(parts, 1) if sp else group.sum(parts)
+
+
+def _cut(y, group, sp: bool):
+    """An output every rank computes alike: whole, or in a
+    sequence-parallel pass each rank its rows (a cut; its backward joins
+    the ranks' gradients)."""
+    return group.split(y, 1) if sp else y
 
 
 def blocks(t, group, dim: int) -> list:
@@ -454,7 +532,7 @@ def _heads_proj(p, x, dims: AttnDims, group, names) -> list:
     (`Blocks` along dim 2) where the weight is split over the model axis
     (column-parallel, x fanned out to the ranks), else whole; with the
     weights' biases."""
-    xs = group.fanout(x) if any(isinstance(p[n], list) for n in names) else None
+    x, xs = _enter(x, group, any(isinstance(p[n], list) for n in names))
     out = []
     for n in names:
         b = "b" + n[1]
@@ -482,49 +560,66 @@ def _qkv_tp(p, x, dims: AttnDims, positions, group, *, use_rope=True):
     return out
 
 
-def _out_tp(o, wo, group):
+def _out_tp(o, wo, group, sp: bool = False):
     """The output projection of attention output `o` ([B,S,H,hd], whole or
     the ranks' heads): row-parallel where `wo` is split by heads, the
-    ranks' partials added in rank order (`AxisGroup.sum`), else whole."""
+    ranks' partials added in rank order (`_sum_out`), else whole (`_cut`
+    in a sequence-parallel pass)."""
     if isinstance(wo, list):
-        return group.sum([_proj_out(a, w) for a, w in zip(blocks(o, group, 2), wo)])
-    return _proj_out(whole(o, group, 2), wo)
+        return _sum_out([_proj_out(a, w) for a, w in zip(blocks(o, group, 2), wo)], group, sp)
+    return _cut(_proj_out(whole(o, group, 2), wo), group, sp)
 
 
 def _attend_tp(q, k, v, wo, dims: AttnDims, group, *, causal, pos, q_chunk, kv_chunk,
-               policy):
+               policy, sp=False):
     """Chunked attention and its output projection in a tensor-parallel
     pass -> [B, Sq, d]. Where q comes as the ranks' heads, each rank
-    attends with its heads against the kv heads they read, then `_out_tp`.
-    Where q is whole (heads that do not divide the model axis), each rank
-    takes its rows of every q chunk, as the reference's row pin does, runs
-    them against the whole k, v and the whole `wo`, and the rows join;
-    where the chunk does not split (decode), every rank runs it whole."""
-    kw = dict(causal=causal, kv_chunk=kv_chunk, positions_k=pos, policy=policy)
+    attends with its heads against the kv heads they read; where q is
+    whole (heads that do not divide the model axis, with a replicated x:
+    decode, a sequence that does not divide) every rank attends alike
+    (a sequence-parallel pass's rows take `_attend_rows`). Then `_out_tp`
+    (with `sp` the output is the ranks' rows)."""
+    kw = dict(causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk, positions_q=pos,
+              positions_k=pos, policy=policy)
     if isinstance(q, list):
         Hr, g = q[0].shape[2], dims.n_heads // dims.n_kv
         if not isinstance(k, list):
             k, v = ([_heads_of(t, r * Hr, Hr, g) for r, t in zip(group.ranks, group.fanout(a))]
                     for a in (k, v))
-        o = [chunked_attention(qr, kr, vr, q_chunk=q_chunk, positions_q=pos, **kw)
-             for qr, kr, vr in zip(q, k, v)]
-        return _out_tp(o, wo, group)
-    k, v = whole(k, group, 2), whole(v, group, 2)
-    B, Sq = q.shape[:2]
-    qc = min(q_chunk, Sq)
-    if Sq % qc or qc % group.size or isinstance(wo, list):
-        o = chunked_attention(q, k, v, q_chunk=q_chunk, positions_q=pos, **kw)
-        return _out_tp(o, wo, group)
-    nq, m = Sq // qc, qc // group.size
-    pq = (pos if pos is not None else torch.arange(Sq, device=q.device)).reshape(nq, qc)
-    rows = blocks(q.unflatten(1, (nq, qc)), group, 2)  # [B, nq, m, H, hd] a rank
+        o = [chunked_attention(qr, kr, vr, **kw) for qr, kr, vr in zip(q, k, v)]
+    else:
+        o = chunked_attention(q, whole(k, group, 2), whole(v, group, 2), **kw)
+    return _out_tp(o, wo, group, sp)
+
+
+def _attend_rows(p, x, k, v, dims: AttnDims, group, *, causal, pos, q_chunk, kv_chunk,
+                 use_rope, policy):
+    """Attention and its output projection in a sequence-parallel pass
+    whose heads do not divide the model axis (`wq`, `wo` whole): each rank
+    its own rows of the sequence (x, the ranks' `Blocks` along dim 1)
+    against the whole k, v (each rank's view: `fanout`), with its own view
+    of `wq`, `bq` and `wo`, whose gradients add over the ranks in rank
+    order (the reference's row pin with a rank's rows its sequence block),
+    so the output leaves as the ranks' rows and nothing is joined on the
+    way out."""
+    n = x[0].shape[1]
+    dev = x[0].device
+    names = ["wq", "wo"] + (["bq"] if dims.qkv_bias else [])
+    views = {m: group.fanout(whole(p[m], group, 0)) for m in names}
     outs = []
-    for r, qr, kr, vr, w in zip(group.ranks, rows, group.fanout(k), group.fanout(v),
-                                group.fanout(wo)):
-        o = chunked_attention(qr.flatten(1, 2), kr, vr, q_chunk=m,
-                              positions_q=pq[:, r * m:(r + 1) * m].reshape(-1), **kw)
-        outs.append(_proj_out(o, w).unflatten(1, (nq, m)))
-    return group.gather(outs, 2).flatten(1, 2)
+    for i, (r, xr, kr, vr) in enumerate(zip(group.ranks, x, group.fanout(k), group.fanout(v))):
+        rows = (pos[r * n:(r + 1) * n] if pos is not None else
+                torch.arange(r * n, (r + 1) * n, device=dev))
+        q = _proj_in(xr, views["wq"][i])
+        if dims.qkv_bias:
+            q = q + views["bq"][i]
+        if use_rope:
+            q = rope(q, rows, theta=dims.rope_theta)
+        o = chunked_attention(q, kr, vr, causal=causal, q_chunk=min(q_chunk, n),
+                              kv_chunk=kv_chunk, positions_q=rows, positions_k=pos,
+                              policy=policy)
+        outs.append(_proj_out(o, views["wo"][i]))
+    return Blocks(outs, 1)
 
 
 def _attend_hd_blocks(q, ks, vs, valid, d_head: int, group, dtype):
@@ -549,12 +644,16 @@ def _attn_decode_tp(p, x, cache_k, cache_v, cur_len, dims: AttnDims, group, use_
     """`attn_decode` in a tensor-parallel pass. The cache is the ranks'
     `Blocks` of kv heads (dim 2: each rank attends with its q heads over
     its own block), of the head dim (dim 3, `_attend_hd_blocks`), or whole
-    (one cache; each rank its q heads over the kv heads they read)."""
+    (one cache; each rank its q heads over the kv heads they read), or
+    its sequence slices (`_attend_slices`)."""
     B = x.shape[0]
     blocked = isinstance(cache_k, Blocks)
-    S = (cache_k[0] if blocked else cache_k).shape[1]
     q, k, v = _qkv_tp(p, x, dims, _positions(cur_len, B, x.device), group,
                       use_rope=use_rope)
+    if _sliced(cache_k):
+        o = _attend_slices(q, k, v, cache_k, cache_v, cur_len, dims, group, x.dtype)
+        return _out_tp(o, p["wo"], group), cache_k, cache_v
+    S = (cache_k[0] if blocked else cache_k).shape[1]
     by_hd = blocked and cache_k.dim == 3
     if by_hd:
         k, v = (blocks(whole(t, group, 2), group, 3) for t in (k, v))
@@ -585,6 +684,147 @@ def _attn_decode_tp(p, x, cache_k, cache_v, cur_len, dims: AttnDims, group, use_
 
 
 # --------------------------------------------------------------------------
+# context-parallel decode: the flash merge over a sequence-sharded cache
+# --------------------------------------------------------------------------
+
+
+def _sliced(cache) -> bool:
+    """Is `cache` a leaf's sequence slices (`Slices`, or the model ranks'
+    `Blocks` of them)?"""
+    return isinstance(cache[0] if isinstance(cache, Blocks) else cache, Slices)
+
+
+def _scores(q, k):
+    """q [B,1,H,hd] . k [B,S,KV,hd] -> [B,H,1,S] f32 (unscaled), head h
+    reading kv head h // (H / KV)."""
+    kq = k.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    return torch.einsum("bthk,bshk->bhts", q.float(), kq.to(q.dtype).float())
+
+
+def _flash_partial(s, v, valid):
+    """One slice's partial attention from its scaled scores s [B,H,1,S_loc]
+    f32 and values v [B,S_loc,KV,hd], rows past `valid` ([S_loc] bool)
+    masked -> (o [B,1,H,hd] f32 unnormalized, m [B,1,H], l [B,1,H])."""
+    vq = v.repeat_interleave(s.shape[1] // v.shape[2], dim=2)
+    s = torch.where(valid[None, None, None, :], s, -math.inf)
+    m = s.amax(-1)  # [B,H,1]
+    m_safe = torch.where(torch.isfinite(m), m, -1e30)
+    p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("bhts,bshk->bthk", p.to(vq.dtype).float(), vq.float())
+    return o, m_safe.transpose(1, 2), l.transpose(1, 2)
+
+
+def _local_attend(q, k, v, valid, scale):
+    """q:[B,1,H,hd]; k,v:[B,S_loc,KV,hd]; valid:[S_loc] bool.
+    Returns (o [B,1,H,hd] f32 unnormalized, m [B,1,H], l [B,1,H])."""
+    return _flash_partial(_scores(q, k) * scale, v, valid)
+
+
+def _write_owned(cache, new, cur_len, offset: int):
+    """Write `new` ([B,1,...]) at row cur_len - offset of this shard's
+    cache slice, in place, only where the shard owns cur_len (the row is
+    clamped into the slice, and a shard that does not own it writes its
+    own row back). `cur_len` is an int or a 0-d device tensor."""
+    S_loc = cache.shape[1]
+    new = new.to(cache.dtype)
+    if not isinstance(cur_len, torch.Tensor):
+        if offset <= int(cur_len) < offset + S_loc:
+            cache[:, int(cur_len) - offset:int(cur_len) - offset + 1] = new
+        return cache
+    idx = (cur_len - offset).reshape(1).clamp(0, S_loc - 1).to(torch.long)
+    owns = (cur_len >= offset) & (cur_len < offset + S_loc)
+    dst = cache.view(torch.uint8) if cache.element_size() == 1 else cache  # float8
+    src = new.view(torch.uint8) if cache.element_size() == 1 else new
+    dst.index_copy_(1, idx, torch.where(owns, src, dst.index_select(1, idx)))
+    return cache
+
+
+def _cp_partial(dims: AttnDims, p, x, ck, cv, cur_len, rank: int):
+    """One shard's part of a decode-attention layer over its cache slices
+    [B,S_loc,KV,hd] (rank `rank` along the sequence axis): the owner's
+    write of the new k, v (in place), then the partial attention ->
+    ((o, m, l), ck, cv)."""
+    S_loc = ck.shape[1]
+    offset = rank * S_loc
+    q, k, v = _qkv(p, x, dims, _positions(cur_len, x.shape[0], x.device))
+    ck = _write_owned(ck, k, cur_len, offset)
+    cv = _write_owned(cv, v, cur_len, offset)
+    valid = (torch.arange(S_loc, device=x.device) + offset) <= cur_len
+    return _local_attend(q, ck, cv, valid, 1.0 / math.sqrt(dims.d_head)), ck, cv
+
+
+def _flash_merge(partials: list) -> list:
+    """The flash merge of one sequence group's partials (o, m, l), in rank
+    order -> the normalized attention output [B,1,H,hd] f32, a copy a
+    member: m = max m_i, l = sum l_i exp(m_i - m), o = sum o_i exp(m_i -
+    m) / l."""
+    ms = [m for _, m, _ in partials]
+    m_g = pmax(ms)
+    cs = [torch.exp(m - mg) for m, mg in zip(ms, m_g)]
+    l_g = psum([l * c for (_, _, l), c in zip(partials, cs)])
+    o_g = psum([o * c[..., None] for (o, _, _), c in zip(partials, cs)])
+    return [o / torch.clamp_min(l, 1e-30)[..., None] for o, l in zip(o_g, l_g)]
+
+
+def _cp_merge(partials: list, ps: list, xs: list) -> list:
+    """The flash merge of one sequence group's partials (o, m, l), in rank
+    order: O(B·H·hd) a shard -> the attention output [B,1,d] of each rank
+    whose x is given (None for the others)."""
+    return [None if x is None else _proj_out(o.to(x.dtype), p["wo"])
+            for o, x, p in zip(_flash_merge(partials), xs, ps)]
+
+
+def _attend_slices(q, k, v, cache_k, cache_v, cur_len, dims: AttnDims, group, dtype):
+    """One token's attention over a cache whose sequence lies on the batch
+    axes, as this process's slices of it (`Slices`: the long-context
+    layout, `cache_specs` with `seq_shard`): the reference's flash merge
+    (`launch/serving.py`) in the decode layer. Each slice writes the new
+    row where it owns `cur_len` (in place) and computes its partial (o,
+    m, l) on its own device; the partials merge over the batch axes in
+    rank order (`launch.mesh.over`: over processes only the partials
+    cross; no cache row moves). A cache split over the model axis by kv
+    heads (`Blocks` along dim 2) merges each rank's heads; by head dim
+    (dim 3) the ranks' partial scores add first within each slice, in
+    rank order as `_attend_hd_blocks` adds them, and each rank's partial
+    reads its own v slice. q, k, v: the new token's ([B,1,H|KV,hd], whole
+    or the ranks' heads) -> o [B,1,H,hd] in `dtype`, whole or the ranks'
+    heads."""
+    scale = 1.0 / math.sqrt(dims.d_head)
+    by_hd = isinstance(cache_k, Blocks) and cache_k.dim == 3
+    if by_hd:
+        qs, ks, vs = (blocks(whole(t, group, 2), group, 3) for t in (q, k, v))
+    elif isinstance(cache_k, Blocks):
+        qs, ks, vs = (blocks(t, group, 2) for t in (q, k, v))
+    else:  # not split over the model axis: every rank the whole token
+        qs, ks, vs = ([whole(t, group, 2)] for t in (q, k, v))
+        cache_k, cache_v = [cache_k], [cache_v]
+    scores, valid = [], []
+    for qr, ck, cv, kr, vr in zip(qs, cache_k, cache_v, ks, vs):
+        row = []
+        for ct, vt, off in zip(ck, cv, ck.offsets):
+            n = cur_len.to(ct.device) if isinstance(cur_len, torch.Tensor) else cur_len
+            _write_owned(ct, kr.to(ct.device), n, off)
+            _write_owned(vt, vr.to(vt.device), n, off)
+            row.append(_scores(qr.to(ct.device), ct))
+            if len(valid) < len(ck):
+                valid.append((torch.arange(ct.shape[1], device=ct.device) + off) <= n)
+        scores.append(row)
+    if by_hd:  # the ranks' partial scores of each slice, added in rank order
+        summed = [group.sum([row[i] for row in scores]) for i in range(len(valid))]
+        scores = [summed] * len(scores)
+    partials = {}  # each on its slice's device (a rank's shard may sit on another card)
+    for row, cv in zip(scores, cache_v):
+        for s, vt, m, ok in zip(row, cv, cv.shards, valid):
+            partials[m] = _flash_partial(s.to(vt.device) * scale, vt, ok.to(vt.device))
+    merged = over(cache_v[0].mesh, cache_v[0].axes, _flash_merge, partials)
+    o = [merged[cv.shards[0]].to(qr.device, dtype) for cv, qr in zip(cache_v, qs)]
+    if by_hd:
+        return group.gather(o, 3)
+    return Blocks(o, 2) if isinstance(cache_v, Blocks) else o[0]
+
+
+# --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
 
@@ -609,9 +849,12 @@ def _mlp(p, x, act: str):
 def mlp_apply(p, x, *, act: str = "silu", policy=None):
     """The FFN. In a tensor-parallel pass whose weights come as the ranks'
     blocks of the hidden dim: column-parallel `w_up`/`w_gate`, row-parallel
-    `w_down`, the ranks' partials added in rank order."""
+    `w_down`, the ranks' partials added in rank order (in a
+    sequence-parallel pass x and the output are the ranks' rows)."""
     group = tp_group(policy)
+    sp = isinstance(x, Blocks)  # a sequence-parallel pass's rows
     if group is None or not isinstance(p["w_up"], list):
-        return _mlp(p, x, act)
+        return _cut(_mlp(p, group.gather(x, 1), act), group, True) if sp else _mlp(p, x, act)
     ranks = [{k: w[i] for k, w in p.items()} for i in range(len(p["w_up"]))]
-    return group.sum([_mlp(pr, xr, act) for pr, xr in zip(ranks, group.fanout(x))])
+    _, xs = _enter(x, group, True)
+    return _sum_out([_mlp(pr, xr, act) for pr, xr in zip(ranks, xs)], group, sp)

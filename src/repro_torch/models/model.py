@@ -30,7 +30,17 @@ TP layout, in one process in turn:
     computes with its own block, and only activations cross the ranks
     (`launch.mesh.AxisGroup`: `fanout`/`split` in, `sum`/`gather` out);
     a decode reads each rank's own cache part. No leaf's model block is
-    gathered over the model axis.
+    gathered over the model axis;
+  * sequence parallelism between blocks (Megatron-SP, the reference's
+    `_residual_spec`): where the sequence divides over the model ranks
+    a training or prefill pass keeps its residual as the ranks' rows
+    (`transformer.embed_tokens` to the final norm), so a group's remat
+    unit saves a rank's rows;
+  * a cache whose sequence lies on the batch axes (the long-context
+    layout, batch 1) is decoded in one pass where it lies: each model
+    rank's slices of it attend in place on their own shards and merge
+    by the flash identity (`layers._attend_slices`); no cache row
+    crosses.
 
 A data shard's loss is its nll sum over the whole batch's mask count plus
 its share of the aux loss (the reference's `pmean`), so the shards'
@@ -288,16 +298,16 @@ def _encode_memory(cfg, params, batch, gather=None, device=None):
     if cfg.family == "encdec":
         mem = batch["frames"].to(dev, _dtype(cfg))
         mem = mem + _sinusoidal(mem.shape[1], cfg.d_model, mem.dtype, dev)[None]
-        mem, _ = T.stack_apply_train(cfg, params["enc_stack"], mem, ENC_PATTERN,
-                                     causal=False, gather=gather)
+        mem, _ = T.stack_apply_train(cfg, params["enc_stack"], T.seq_rows(cfg, mem),
+                                     ENC_PATTERN, causal=False, gather=gather)
         norm = params["enc_norm"] if gather is None else gather(params["enc_norm"])
-        return T._apply_norm(cfg, norm, mem)
+        return T.seq_whole(cfg, T._apply_norm(cfg, norm, mem))
     if cfg.family == "vlm":
         return batch["memory"].to(dev, _dtype(cfg))
     return None
 
 
-def _shard_plan(cfg, params, B: int) -> list:
+def _shard_plan(cfg, params, B: int, one_pass: bool = False) -> list:
     """The passes of a batch of B rows: [(rows, device, cfg, aux share,
     pass key)]. One pass on the params' device for an `LM`. On a mesh,
     each data shard in turn (its rows, its model-rank-0 shard's device,
@@ -309,7 +319,8 @@ def _shard_plan(cfg, params, B: int) -> list:
     blocks (tensor parallelism where the model axis is > 1). Over several
     processes a process runs its own data shards' passes, each keyed by
     its batch rank so that `ShardedLM.settle` adds the passes' gradients
-    in rank order."""
+    in rank order. `one_pass` takes the one-pass branch whatever B (a
+    decode on a cache whose sequence lies on the batch axes)."""
     if not isinstance(params, SH.ShardedLM):
         return [(slice(0, B), params.device, cfg, 1.0, None)]
     dp, tp = cfg.policy.dp_size, cfg.policy.tp_size
@@ -318,7 +329,7 @@ def _shard_plan(cfg, params, B: int) -> list:
     def grouped(c, s):
         return c.with_policy(c.policy.with_group(mesh.axis_group(cfg.policy.model, s)))
 
-    if B % dp:
+    if B % dp or one_pass:
         return [(slice(0, B), mesh.home, grouped(cfg, mesh.local[0]), 1.0, None)]
     local = cfg.with_policy(dataclasses.replace(cfg.policy, dp_size=1))
     n = B // dp
@@ -355,13 +366,22 @@ def _weights(cfg, params, device, cast, key=None):
     return p, None, p["tok"], p["final_norm"]
 
 
+def _embed(cfg, tok, tokens, device):
+    """The tokens' embeddings with the sinusoidal positions where the
+    config adds them: [B, S, d], or a sequence-parallel pass's rows."""
+    x = T.embed_tokens(cfg, tok, tokens)
+    if cfg.pos_embed == "sinusoidal":
+        S = tokens.shape[1]
+        pe = _sinusoidal(S, cfg.d_model, _dtype(cfg), device)[None]
+        x = T._add(x, T.seq_rows(cfg, pe))
+    return x
+
+
 def _forward(cfg, params, batch, device, count=None, key=None):
     """forward_train's (ce, aux) of one pass of `_shard_plan`."""
     p, gather, tok, norm = _weights(cfg, params, device, _train_cast, key)
     tokens = batch["tokens"].to(device)
-    x = T.embed_tokens(cfg, tok, tokens)
-    if cfg.pos_embed == "sinusoidal":
-        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, device)[None]
+    x = _embed(cfg, tok, tokens, device)
     memory = _encode_memory(cfg, p, batch, gather, device)
     x, aux = T.stack_apply_train(cfg, p["stack"], x, cfg.pattern, memory=memory,
                                  gather=gather)
@@ -477,12 +497,17 @@ def decode_step(cfg: ArchConfig, params, cache, token, cur_len):
     On a mesh (`ShardedLM` params and the `ShardedCache` `prefill` made)
     each data shard decodes its rows in turn, each model rank on its own
     part of the cache, written in place (`ShardedCache.rows`; a batch run
-    as one pass, or a sequence-sharded cache, joins a rank's block over
-    the batch axes and writes it back). Over several processes a process
+    as one pass joins a rank's block over the batch axes and writes it
+    back). A cache whose sequence lies on the batch axes (the
+    long-context layout) is decoded in one pass where it lies: each of a
+    model rank's sequence slices attends on its own shard, the owner
+    writes the new row in place, and the partials merge by the flash
+    identity; no cache row crosses. Over several processes a process
     steps its own data shards' rows with its own model ranks and gets
     every pass's logits over the batch axes: every process returns the
     single controller's [B, 1, V]."""
-    plan = _shard_plan(cfg, params, token.shape[0])
+    plan = _shard_plan(cfg, params, token.shape[0],
+                       one_pass=isinstance(cache, SH.ShardedCache) and cache.seq_sharded)
     if len(plan) == 1 and not isinstance(cache, SH.ShardedCache):
         return _decode(plan[0][2], params, cache, token, cur_len, plan[0][1])
     outs = []
@@ -500,7 +525,8 @@ def cache_max_len(cache) -> int:
     for k in cache:
         if "k" in cache[k]:
             a = cache[k]["k"]
-            return (a[0] if isinstance(a, list) else a).shape[2]
+            a = a[0] if isinstance(a, TM.Blocks) else a
+            return a.length if isinstance(a, TM.Slices) else a.shape[2]
     return 1
 
 
@@ -508,26 +534,25 @@ def cache_max_len(cache) -> int:
 def _prefill(cfg, params, batch, max_len, device):
     p, gather, tok, norm = _weights(cfg, params, device, _cast)
     tokens = batch["tokens"].to(device)
-    Sq = tokens.shape[1]
-    x = T.embed_tokens(cfg, tok, tokens)
-    if cfg.pos_embed == "sinusoidal":
-        x = x + _sinusoidal(Sq, cfg.d_model, x.dtype, device)[None]
+    x = _embed(cfg, tok, tokens, device)
     memory = _encode_memory(cfg, p, batch, gather, device)
     x, cache = T.stack_apply_prefill(cfg, p["stack"], x, cfg.pattern, max_len,
                                      getattr(torch, cfg.cache_dtype), memory=memory,
                                      gather=gather)
     x = T._apply_norm(cfg, norm, x)
-    return T.logits_last(cfg, tok, x[:, -1:]), cache
+    return T.logits_last(cfg, tok, T.last_row(cfg, x)), cache
 
 
 def _cache_shape(a, B: int, mesh):
-    """The global shape (on `meta`) of a prefill pass's cache leaf `a`:
-    whole, or its ranks' blocks (`launch.mesh.Blocks`)."""
+    """The global shape of a prefill pass's cache leaf `a` (whole, or its
+    ranks' blocks, `launch.mesh.Blocks`), for `cache_specs`: a `meta`
+    stand-in with one element of storage (an expanded scalar), so that
+    no memory count sees the whole batch's cache."""
     one = a[0] if isinstance(a, list) else a
     shape = [one.shape[0], B, *one.shape[2:]]
     if isinstance(a, TM.Blocks):
         shape[a.dim] *= mesh.axis_size("model")
-    return torch.empty(shape, dtype=one.dtype, device="meta")
+    return torch.empty((), dtype=one.dtype, device="meta").expand(shape)
 
 
 @torch.no_grad()

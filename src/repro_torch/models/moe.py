@@ -18,6 +18,14 @@ Two dispatch paths, as the reference's:
                      decides which tokens drop, so its output is the
                      reference's sharded output, not `moe_apply`'s.
 
+In a sequence-parallel pass (the residual as the model ranks' rows,
+`layers.seq_parallel`) `moe_apply_sharded` takes each rank's rows as its
+tokens and returns each rank's output rows: no split and no join of the
+sequence. `moe_apply` joins the rows (an all-gather) and cuts its output
+back to them: the combine reads every expert's whole output, a sum over
+the ranks' hidden blocks where they split it, so the output is the
+replicated layout's, bit for bit, cut, not reduce-scattered.
+
 In one process the model ranks run in turn on the tokens' device, and
 the collectives are plain list functions in rank order. Over several
 processes (`launch.cluster.init_cluster`, one a card) the process of
@@ -144,7 +152,15 @@ def moe_apply(p, x, *, top_k: int, act: str = "silu", capacity_factor: float = 1
     """Reference path. x: [B, S, d] -> (y [B, S, d], aux_loss scalar). In
     a tensor-parallel pass (a batch run as one pass) whose expert stacks
     come as the ranks' blocks, each rank runs its block on this one
-    global dispatch (`_ranks_ffn`)."""
+    global dispatch (`_ranks_ffn`). In a sequence-parallel pass x and y
+    are the model ranks' rows (`Blocks`), joined on the way in and cut on
+    the way out."""
+    sp = isinstance(x, Mesh.Blocks)
+    if sp:
+        group = tp_group(policy)
+        y, aux = moe_apply(p, group.gather(x, x.dim), top_k=top_k, act=act,
+                           capacity_factor=capacity_factor, policy=policy)
+        return group.split(y, 1), aux
     B, S, d = x.shape
     T = B * S
     E = p["router"].shape[1]
@@ -228,10 +244,15 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
 
     The ranks are the policy's `group` (`launch.mesh.AxisGroup`): all of
     them in turn in one process, its own over processes. `aux` is the
-    mean over the shards (the reference's `pmean`), in rank order."""
-    B, S, d = x.shape
+    mean over the shards (the reference's `pmean`), in rank order. In a
+    sequence-parallel pass x comes as the ranks' rows (`Blocks` along dim
+    1), which are the ranks' tokens as they stand, and y leaves as them:
+    the sequence is neither split nor joined."""
     E = p["router"].shape[1]
     tp = policy.tp_size
+    sp = isinstance(x, Mesh.Blocks)
+    B, S, d = x[0].shape if sp else x.shape
+    S = S * tp if sp else S
     dp = policy.dp_size
     E_pad = -(-E // tp) * tp  # zero-pad dead experts (granite: 40 -> 48)
     # split tokens over the model axis too when the sequence divides: each
@@ -245,14 +266,14 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
     group = policy.group if policy.group is not None else Mesh.AxisGroup(tp)
     ws = {k: _expert_slices(p[k], group, E_pad) for k in ("w_up", "w_gate", "w_down")
           if k in p}
-    record = _recording(x, *(t for v in ws.values() for t in v))
+    record = _recording(*(x if sp else [x]), *(t for v in ws.values() for t in v))
     by_ff = _by_ff(ws)
 
     ys, auxes = [], []
     for i in range(dp):
-        rows = x[i * Bl:(i + 1) * Bl]
+        rows = [r[i * Bl:(i + 1) * Bl] for r in x] if sp else x[i * Bl:(i + 1) * Bl]
         if seq_sharded:
-            xts = [r.reshape(T_loc, d) for r in group.split(rows, 1)]
+            xts = [r.reshape(T_loc, d) for r in (rows if sp else group.split(rows, 1))]
             sent = [_dispatch(xt, _router_logits(xt, router, E_pad), top_k, C_loc, E_pad)
                     for xt, router in zip(xts, group.fanout(p["router"]))]
             if by_ff:  # every rank's tokens, each rank every expert on its hidden block
@@ -265,8 +286,9 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
                 outs = [_remat(_rank_ffn, b, ws, j, act, record=record)
                         for j, b in enumerate(bufs)]
                 back = group.all_to_all(outs, 1, 0)  # [E_pad, C_loc, d]
-            ys.append(group.gather([_combine(o, xt, r).reshape(Bl, Sl, d)
-                                    for o, xt, (_, _, r) in zip(back, xts, sent)], 1))
+            outs = [_combine(o, xt, r).reshape(Bl, Sl, d)
+                    for o, xt, (_, _, r) in zip(back, xts, sent)]
+            ys.append(outs if sp else group.gather(outs, 1))
             auxes.extend(group.every([a for _, a, _ in sent]))
         else:
             xt = rows.reshape(T_loc, d)
@@ -275,6 +297,9 @@ def moe_apply_sharded(p, x, *, top_k: int, act: str = "silu",
             out = _ranks_ffn(buf, ws, group, E, act, record)  # [E_pad, C_loc, d]
             ys.append(_combine(out, xt, routing).reshape(Bl, S, d))
             auxes.append(aux)
+    if sp:
+        return Mesh.Blocks([torch.cat([y[j] for y in ys], 0) for j in range(len(ys[0]))],
+                           1), Mesh.pmean(auxes)[0]
     return torch.cat(ys, 0), Mesh.pmean(auxes)[0]
 
 

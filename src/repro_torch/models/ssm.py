@@ -22,8 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import Blocks
-from repro_torch.models.layers import (_heads_of, _pad_seq, blocks, dense_init, rms_norm,
-                                       tp_group, whole)
+from repro_torch.models.layers import (_cut, _enter, _heads_of, _pad_seq, _sum_out, blocks,
+                                       dense_init, rms_norm, tp_group, whole)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,14 +184,20 @@ def _scan(xs, dt, A_log, Bm, Cm, D, dims: SSMDims):
 def ssm_apply(p, x, dims: SSMDims, policy=None):
     """Train/prefill. x: [B, L, d] → (y [B, L, d], final_state, conv_tail).
     In a tensor-parallel pass whose heads divide the model axis each rank
-    runs its own heads (`_ssm_tp`)."""
-    B, L, _ = x.shape
+    runs its own heads (`_ssm_tp`). In a sequence-parallel pass x and y
+    are the model ranks' rows: the scan needs the whole sequence, so the
+    rows are joined first."""
     group = tp_group(policy)
     if group is not None and any(isinstance(p[n], list) for n in ("in_proj", "out_proj")):
         return _ssm_tp(p, x, None, None, dims, group)
+    if isinstance(x, Blocks):  # weights not split: every rank runs the sequence
+        y, final, tail = ssm_apply(p, group.gather(x, x.dim), dims)
+        return _cut(y, group, True), final, tail
+    B, L, _ = x.shape
     zxbcdt = x @ p["in_proj"]
     z, xBC, dt = _split_zxbcdt(zxbcdt, dims)
-    conv_tail = xBC[:, -(dims.d_conv - 1):, :]  # decode warm-start
+    # decode warm-start: a copy, so that the cache does not keep xBC alive
+    conv_tail = xBC[:, -(dims.d_conv - 1):, :].clone()
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     di, gn = dims.d_inner, dims.n_groups * dims.d_state
     xs = xBC[..., :di].reshape(B, L, dims.n_heads, dims.headdim)
@@ -260,13 +266,17 @@ def _ssm_tp(p, x, ssm_state, conv_state, dims: SSMDims, group):
     from the ranks' partial sums (in rank order) and `out_proj` is
     row-parallel; else every rank runs every head. -> (y, final state or
     new ssm state, conv tail or new conv state), a state in the layout it
-    came in (blocks or whole)."""
+    came in (blocks or whole). In a sequence-parallel pass (x the ranks'
+    rows) the rows are joined on the way in and y leaves as the ranks'
+    rows (`_sum_out`, `_cut`)."""
+    sp = isinstance(x, Blocks)
+    x, xs = _enter(x, group, isinstance(p["in_proj"], list))
     B, L, _ = x.shape
     H, P, G, N = dims.n_heads, dims.headdim, dims.n_groups, dims.d_state
     di, gn, K = dims.d_inner, G * dims.d_state, dims.d_conv
     tp = group.size
     if isinstance(p["in_proj"], list):
-        zxbcdt = group.gather([xr @ w for xr, w in zip(group.fanout(x), p["in_proj"])], 2)
+        zxbcdt = group.gather([xr @ w for xr, w in zip(xs, p["in_proj"])], 2)
     else:
         zxbcdt = x @ p["in_proj"]
     z, xBC, dt = _split_zxbcdt(zxbcdt, dims)
@@ -291,7 +301,7 @@ def _ssm_tp(p, x, ssm_state, conv_state, dims: SSMDims, group):
                 new_conv = blocks(new_conv, group, 2)
         conv = conv[:, None]  # [B, 1, Cd]
     else:
-        tail = xBC[:, -(K - 1):, :]  # decode warm-start
+        tail = xBC[:, -(K - 1):, :].clone()  # decode warm-start (not a view of zxbcdt)
         if isinstance(p["conv_w"], list):
             conv = group.gather([_causal_conv(xb, cw, cb) for xb, cw, cb in zip(
                 blocks(xBC, group, 2), p["conv_w"], blocks(p["conv_b"], group, 0))], 2)
@@ -310,9 +320,10 @@ def _ssm_tp(p, x, ssm_state, conv_state, dims: SSMDims, group):
                                  p["D"], dims)
         y = rms_norm(y.reshape(B, L, di).to(x.dtype) * F.silu(z), p["norm"])
         if isinstance(p["out_proj"], list):
-            out = group.sum([a @ w for a, w in zip(blocks(y, group, 2), p["out_proj"])])
+            out = _sum_out([a @ w for a, w in zip(blocks(y, group, 2), p["out_proj"])], group,
+                           sp)
         else:
-            out = y @ p["out_proj"]
+            out = _cut(y @ p["out_proj"], group, sp)
         return out, new_state, (new_conv if decode else tail)
     Hr = H // tp
     heads = [blocks(t, group, 2) for t in (xs, dt)]
@@ -336,7 +347,7 @@ def _ssm_tp(p, x, ssm_state, conv_state, dims: SSMDims, group):
     inv = torch.rsqrt(ms + 1e-6)
     normed = [(g.float() * iv).to(x.dtype) * s.to(x.dtype) for g, iv, s in zip(
         gated, group.fanout(inv), blocks(p["norm"], group, 0))]
-    out = group.sum([a @ w for a, w in zip(normed, blocks(p["out_proj"], group, 0))])
+    out = _sum_out([a @ w for a, w in zip(normed, blocks(p["out_proj"], group, 0))], group, sp)
     if decode and not isinstance(ssm_state, list):
         return out, group.gather(finals, 1), new_conv
     return out, Blocks(finals, 1), (new_conv if decode else tail)

@@ -27,9 +27,18 @@ Under a ShardingPolicy the MoE takes `moe_apply_sharded` wherever
 the policy carries the pass's model group, and the layers run tensor
 parallel over it: the logits and the loss vocab-parallel (the
 reference's `_shard` of the logits), attention, FFN and SSM heads per
-rank. The Megatron-SP residual (`_residual_spec`: the residual stream
-sequence-sharded between blocks) is not ported; the residual is
-replicated over the model ranks. The stack functions take a `gather`
+rank. Between blocks the residual stream is sequence-parallel, as the
+reference's `_residual_spec` (Megatron-SP): where the policy asks for it
+(`seq_shard_residual`) and the sequence divides over the model ranks
+(`layers.seq_parallel`), the residual is the ranks' rows (`Blocks`
+along dim 1) from `embed_tokens`' reduce-scatter to the final norm. A
+block's norm and residual add run on a rank's rows (the norm weights'
+gradients added over the ranks in rank order); its mixer and FFN join
+the rows on the way in and leave them through a reduce-scatter; a
+group's remat unit saves a rank's rows. The loss head joins the
+sequence back, prefill's logits read the last row. Elsewhere (decode's
+one row, a sequence that does not divide) the residual is replicated
+over the model ranks. The stack functions take a `gather`
 hook: on a mesh, each group's weights are gathered from their parts
 inside the group's remat unit (`launch/sharding.gather_tree`), so no
 step holds more than one group's gathered weights.
@@ -42,7 +51,7 @@ import functools
 import torch
 from torch import nn
 
-from repro_torch.launch.mesh import Blocks, Sharded
+from repro_torch.launch.mesh import Blocks, Sharded, Slices
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -128,6 +137,18 @@ def _norm_init(cfg, dtype, device):
 
 
 def _apply_norm(cfg, p, x):
+    """The norm of x [.., d]; of each rank's rows where x is a
+    sequence-parallel pass's (`Blocks`), each rank with its own view of
+    the weights (`fanout`: their gradients add over the ranks in rank
+    order, on every process)."""
+    if isinstance(x, Blocks):
+        views = {n: L.tp_group(cfg.policy).fanout(w) for n, w in p.items()}
+        return Blocks([_norm(cfg, {n: v[i] for n, v in views.items()}, t)
+                       for i, t in enumerate(x)], x.dim)
+    return _norm(cfg, p, x)
+
+
+def _norm(cfg, p, x):
     if cfg.norm == "ln":
         return L.layer_norm(x, p["scale"], p["bias"])
     return L.rms_norm(x, p["scale"], plus_one=cfg.norm_plus_one)
@@ -161,8 +182,8 @@ def _apply_mlp(cfg, p, x, mlp_kind: str):
         return x, 0.0
     h = _apply_norm(cfg, p["norm2"], x)
     if mlp_kind == "dense":
-        return x + L.mlp_apply(p["mlp"], h, act=cfg.act, policy=cfg.policy), 0.0
-    if M.sharded_path_ok(cfg.policy, h.shape, cfg.moe_experts):
+        return _add(x, L.mlp_apply(p["mlp"], h, act=cfg.act, policy=cfg.policy)), 0.0
+    if M.sharded_path_ok(cfg.policy, _shape(cfg, h), cfg.moe_experts):
         # its own remat unit, as the reference's: the expert hiddens are
         # recomputed in the backward pass, and with them, over processes,
         # the unit's collectives, which every process of the model group
@@ -174,31 +195,60 @@ def _apply_mlp(cfg, p, x, mlp_kind: str):
                                        policy=cfg.policy)
 
         y, aux = L._remat(moe_fn, p["mlp"], h,
-                          record=L._recording(h, *_tensors(p["mlp"])))
+                          record=L._recording(*_tensors(h), *_tensors(p["mlp"])))
     else:
         y, aux = M.moe_apply(p["mlp"], h, top_k=cfg.moe_top_k, act=cfg.act,
                              capacity_factor=cfg.moe_capacity_factor, policy=cfg.policy)
-    return x + y, aux
+    return _add(x, y), aux
 
 
 def block_apply_train(cfg, p, x, mixer: str, mlp_kind: str, memory=None, causal=True):
     """Forward of one block over a whole sequence (whisper's encoder, the
-    decode == forward checks). x: [B,S,d]; memory: [B,M,d] for cross
-    blocks. Returns (x, aux_loss)."""
+    decode == forward checks). x: [B,S,d], or a sequence-parallel pass's
+    rows (`Blocks`); memory: [B,M,d] for cross blocks. Returns (x,
+    aux_loss)."""
     h = _apply_norm(cfg, p["norm1"], x)
     if mixer in ("attn", "attn_full"):
-        x = x + L.attn_apply(p["attn"], h, cfg.attn_dims,
-                             causal=(mixer == "attn") and causal,
-                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, policy=cfg.policy)
+        x = _add(x, L.attn_apply(p["attn"], h, cfg.attn_dims,
+                                 causal=(mixer == "attn") and causal, q_chunk=cfg.q_chunk,
+                                 kv_chunk=cfg.kv_chunk, policy=cfg.policy))
     elif mixer == "cross":
         ck, cv = L.cross_kv(p["attn"], memory, cfg.attn_dims, policy=cfg.policy)
-        x = x + L.cross_attn_apply(p["attn"], h, ck, cv, cfg.attn_dims,
-                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-                                   policy=cfg.policy)
+        x = _add(x, L.cross_attn_apply(p["attn"], h, ck, cv, cfg.attn_dims,
+                                       q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                       policy=cfg.policy))
     elif mixer == "mamba":
         o, _, _ = S.ssm_apply(p["ssm"], h, cfg.ssm_dims, policy=cfg.policy)
-        x = x + o
+        x = _add(x, o)
     return _apply_mlp(cfg, p, x, mlp_kind)
+
+
+def _add(x, y):
+    """x + y, rank by rank where both are a sequence-parallel pass's rows."""
+    if isinstance(x, Blocks):
+        return Blocks([a + b for a, b in zip(x, y)], x.dim)
+    return x + y
+
+
+def _shape(cfg, x) -> tuple:
+    """x's shape, or the whole tensor's where x is a sequence-parallel
+    pass's rows."""
+    if isinstance(x, Blocks):
+        return (x[0].shape[0], L.seq_len(x, L.tp_group(cfg.policy)), *x[0].shape[2:])
+    return tuple(x.shape)
+
+
+def seq_rows(cfg, x):
+    """x [B, S, ..] as the model ranks' rows where a pass of `cfg` keeps its
+    sequence sequence-parallel (`layers.seq_parallel`: a cut), else x."""
+    if L.seq_parallel(cfg.policy, x.shape[1]):
+        return L.tp_group(cfg.policy).split(x, 1)
+    return x
+
+
+def seq_whole(cfg, x):
+    """x whole: a sequence-parallel pass's rows joined (an all-gather)."""
+    return L.tp_group(cfg.policy).gather(x, x.dim) if isinstance(x, Blocks) else x
 
 
 def block_cache_init(cfg, mixer: str, batch: int, max_len: int, dtype, device=None):
@@ -281,7 +331,9 @@ def stack_apply_train(cfg, gparams, x, pattern, memory=None, causal=True, gather
     """The groups in order; while autograd records, each group is one
     remat unit (its activations recomputed in the backward pass), as the
     reference's checkpointed scan body. `gather` (on a mesh) turns a
-    group's parts into its weights inside the unit."""
+    group's parts into its weights inside the unit. x is [B, S, d] or a
+    sequence-parallel pass's rows (`Blocks`), which is what a unit then
+    takes and saves: a rank's rows."""
     def group_body(h, aux, gp):
         gp = _group(gp, gather)
         for i, (mx, ml) in enumerate(pattern):
@@ -291,35 +343,36 @@ def stack_apply_train(cfg, gparams, x, pattern, memory=None, causal=True, gather
 
     aux = 0.0
     for gp in gparams:
-        record = torch.is_grad_enabled() and L._recording(x, *_tensors(gp))
+        record = torch.is_grad_enabled() and L._recording(*_tensors(x), *_tensors(gp))
         x, aux = L._remat(functools.partial(group_body, gp=gp), x, aux, record=record)
     return x, aux
 
 
 def block_apply_prefill(cfg, p, x, mixer: str, mlp_kind: str, max_len: int,
                         cache_dtype, memory=None):
-    """Train-path compute + cache construction. x: [B,S,d] → (x, cache)."""
-    B, Sq, _ = x.shape
+    """Train-path compute + cache construction. x: [B,S,d] (or a
+    sequence-parallel pass's rows) → (x, cache): the cache of the whole
+    sequence."""
+    Sq = _shape(cfg, x)[1]
     d = cfg.attn_dims
     h = _apply_norm(cfg, p["norm1"], x)
     if mixer in ("attn", "attn_full"):
         o, k, v = L.attn_forward(p["attn"], h, d, causal=(mixer == "attn"),
                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                                  policy=cfg.policy)
-        x = x + o
+        x = _add(x, o)
         pad = max_len - Sq
         cache = {"k": _each(k, lambda t: L._pad_seq(t.to(cache_dtype), pad)),
                  "v": _each(v, lambda t: L._pad_seq(t.to(cache_dtype), pad))}
     elif mixer == "cross":
         ck, cv = L.cross_kv(p["attn"], memory, d, policy=cfg.policy)
-        x = x + L.cross_attn_apply(p["attn"], h, ck, cv, d,
-                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-                                   policy=cfg.policy)
+        x = _add(x, L.cross_attn_apply(p["attn"], h, ck, cv, d, q_chunk=cfg.q_chunk,
+                                       kv_chunk=cfg.kv_chunk, policy=cfg.policy))
         cache = {"ck": _each(ck, lambda t: t.to(cache_dtype)),
                  "cv": _each(cv, lambda t: t.to(cache_dtype))}
     elif mixer == "mamba":
         o, final, conv_tail = S.ssm_apply(p["ssm"], h, cfg.ssm_dims, policy=cfg.policy)
-        x = x + o
+        x = _add(x, o)
         cache = {"ssm": final, "conv": conv_tail.to(cache_dtype)}  # final: f32
     else:
         raise ValueError(mixer)
@@ -328,9 +381,12 @@ def block_apply_prefill(cfg, p, x, mixer: str, mlp_kind: str, max_len: int,
 
 
 def _each(t, fn, shift: int = 0):
-    """`fn` of `t`, or of each of the ranks' blocks where `t` is `Blocks`
-    (`shift`: the leading dims `fn` adds or drops)."""
-    return t.map(fn, shift) if isinstance(t, Blocks) else fn(t)
+    """`fn` of `t`, or of each of the ranks' blocks where `t` is `Blocks`,
+    or of each sequence slice where it is `Slices` (`shift`: the leading
+    dims `fn` adds or drops)."""
+    if isinstance(t, Blocks):
+        return t.map(lambda b: _each(b, fn, shift), shift)
+    return t.map(fn) if isinstance(t, Slices) else fn(t)
 
 
 def _stack_leaves(per_group: list) -> dict:
@@ -401,10 +457,14 @@ def embed_tokens(cfg, params, tokens):
     """The token embeddings [B, S, d]. In a tensor-parallel pass whose
     `embed` comes as the ranks' vocab blocks, each rank looks up the tokens
     of its block (zero elsewhere) and the ranks add in rank order: one
-    term is not zero, so the sum is exact."""
+    term is not zero, so the sum is exact. In a sequence-parallel pass
+    (`layers.seq_parallel`) the sum is a reduce-scatter and the embeddings
+    the ranks' rows (`Blocks` along dim 1; a whole table's lookup is
+    cut)."""
     e = params["embed"]
+    sp = L.seq_parallel(cfg.policy, tokens.shape[1])
+    group = L.tp_group(cfg.policy)
     if isinstance(e, list):
-        group = L.tp_group(cfg.policy)
         parts = []
         for r, w in zip(group.ranks, e):
             n = w.shape[0]
@@ -413,13 +473,14 @@ def embed_tokens(cfg, params, tokens):
             rows = w[local.clamp(0, n - 1)]
             parts.append(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                                        device=rows.device)))
-        x = group.sum(parts)
+        x = L._sum_out(parts, group, sp)
     else:
-        x = e[tokens]
+        x = L._cut(e[tokens], group, sp)
     if cfg.embed_scale:
         # the scale rounded to the compute dtype first, as the reference's
         # asarray(d ** 0.5, x.dtype)
-        x = x * _rounded(cfg.d_model ** 0.5, x.dtype)
+        scale = _rounded(cfg.d_model ** 0.5, e[0].dtype if isinstance(e, list) else e.dtype)
+        x = _each(x, lambda t: t * scale)
     return x
 
 
@@ -469,7 +530,9 @@ def chunked_ce_loss(cfg, params, x, labels, mask, *, chunk: int = 512, count=Non
     (a data shard's part of a sharded batch) is the whole batch's mask
     sum: the shard's nll sum over it, so that the shards' parts add up to
     the reference's Σ nll / Σ mask. In a tensor-parallel pass each rank
-    computes its vocab block's logits (`_ce_chunk_tp`)."""
+    computes its vocab block's logits (`_ce_chunk_tp`); a
+    sequence-parallel pass's rows are joined first."""
+    x = seq_whole(cfg, x)
     B, Sq, d = x.shape
     W = _unembed_matrix(cfg, params)
     chunk = min(chunk, Sq)
@@ -488,6 +551,15 @@ def chunked_ce_loss(cfg, params, x, labels, mask, *, chunk: int = 512, count=Non
             nll, m = L._remat(_ce_chunk, x[:, s], W, labels[:, s], mask[:, s], record=record)
         tot, cnt = tot + nll, cnt + m
     return tot / torch.clamp_min(cnt if count is None else count, 1.0)
+
+
+def last_row(cfg, x):
+    """x[:, -1:], the last row of the sequence: from a sequence-parallel
+    pass's rows the last rank's, each rank's last row joined (one row a
+    rank crosses, not the sequence)."""
+    if isinstance(x, Blocks):
+        return L.tp_group(cfg.policy).gather([t[:, -1:] for t in x], 1)[:, -1:]
+    return x[:, -1:]
 
 
 def logits_last(cfg, params, x_last):

@@ -39,8 +39,8 @@ from repro_torch.launch import sharding as SH
 from repro_torch.models import model as Md
 from repro_torch.optim.adamw import for_config
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
-from torch_dryrun_child import (CLI_CELL, CUDA_CELL, CUDA_K, TP_CELLS, TP_MESH, TP_RANKS,
-                                 _reduced, fixtures)
+from torch_dryrun_child import (CLI_CELL, CUDA_CELL, CUDA_K, LONG_CELLS, TP_CELLS, TP_MESH,
+                                 TP_RANKS, _reduced, fixtures)
 from torch_lm_mesh_ref import DRY_DECODE, F32, TRAIN, Reference
 
 torch.set_num_threads(2)
@@ -246,6 +246,21 @@ def test_tp_gathers_the_batch_axes_only(dry, cell):
         assert rec["gather_received"] == _gather_reckoning(cfg, kind, r), (cell, r)
         assert rec["gather_received"] > 0 and rec["cache_received"] == 0
         assert rec["received_bytes"] > rec["gather_received"]  # the activations, the logits
+
+
+@pytest.mark.parametrize("cell", sorted(LONG_CELLS))
+def test_long_decode_reads_no_cache_row(dry, cell):
+    """The long-context decode (reduced jamba, batch 1, a 16-row cache
+    with its sequence over the data axis) on (data 2, model 4), one
+    process a shard: each rank's step receives nothing inside the cache's
+    reads (the record's own count and a second count around them), while
+    it gathers its weights and merges the attention partials."""
+    for r in TP_RANKS:
+        rec = dry[f"cell.{cell}.{r}"]
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["cache_received"] == 0 and rec["cache_received_bytes"] == 0, (cell, r)
+        assert rec["gather_received"] > 0
+        assert rec["received_bytes"] > rec["gather_received"]
 
 
 def test_tp_decode_memory_matches_xla(dry, ref):

@@ -18,7 +18,11 @@ steps at rtol 1e-4 / atol 1e-5 (jamba's and mamba2's params at atol
 being the port's own (ROADMAP C 25); resharding bit for bit. Tensor
 parallelism (the model ranks' partial sums in rank order, ROADMAP C 27):
 each layer against one device at 1e-5, the embedding bitwise, serving
-against the reference's sharded serving at 1e-4."""
+against the reference's sharded serving at 1e-4. Sequence parallelism
+(Megatron-SP): `sum_scatter` and `gather_fanout` bitwise their plain
+counterparts, each block kind against one device at 1e-5 with the same
+tolerance, the long-context decode (batch 1, the cache's sequence over
+the data axis) against the reference's at 1e-4."""
 import dataclasses
 import functools
 import importlib
@@ -40,7 +44,7 @@ from repro_torch.models import model as Md
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import ShardingPolicy
 from jax_release import release_jax_programs  # noqa: F401  (frees compiled programs)
-from torch_lm_mesh_ref import CP, F32, MOE, SERVE, TRAIN, TRAIN_STEPS, Reference
+from torch_lm_mesh_ref import CP, F32, LONG, MOE, SERVE, TRAIN, TRAIN_STEPS, Reference
 from torch_dryrun_child import fixtures, moved_as_dry
 from torch_mp import run_processes
 
@@ -503,7 +507,12 @@ def _serve_inputs():
     p = {k: v.numpy() for k, v in L.attn_init(g, L.AttnDims(**dims), torch.float32,
                                               "cpu").items()}
     kv = (CP["B"], CP["S"], CP["n_kv"], CP["d_head"])
+    sp = {"x": rng.randn(2, 2, 2, 8, 3), "w": rng.randn(2, 2, 2, 4, 3),
+          "y": rng.randn(2, 2, 2, 4, 3), "wa": rng.randn(2, 2, 2, 8, 3),
+          "wb": rng.randn(2, 2, 8, 3)}
     return {"prompts": {B: rng.randint(0, 256, (B, 8)) for B in (4, 3)},
+            "sp": {k: v.astype(np.float32) for k, v in sp.items()},
+            "long": rng.randint(0, 256, (1, 8)),
             "forward": {n: batch(4, 16) for n in ("gemma-2b", "granite-moe-3b-a800m")},
             "train": {tag: [batch(*shape) for _ in range(2)] for tag, _, shape in SERVE_TRAIN},
             "cp": {"dims": dims, "p": p, "cur_lens": CP["cur_lens"],
@@ -522,7 +531,12 @@ def test_serving_over_gloo_processes(dry, tmp_path):
     granite's train steps where the sequence does not divide the model
     axis (5 experts) and where the expert dim lies on the model axis (6),
     and `cp_decode_attention` on (data 4, model 1) (its output, and each
-    process's cache slices). All of it runs tensor-parallel (the ranks'
+    process's cache slices), `sum_scatter` and `gather_fanout` (each
+    rank's value and gradient, and the single controller's the plain
+    sum split), and reduced gemma's and jamba's long-context decode
+    (batch 1, the cache's sequence over the data axis; its prefill
+    sequence-parallel), with 0 B received inside the cache's reads
+    and every cache part written in place. All of it runs tensor-parallel (the ranks'
     partial sums counted on every process). Granite's 5 experts do not
     divide the model axis, so their stacks are split by hidden dim and
     every expert FFN runs the 5 live experts on a rank's hidden block
@@ -553,9 +567,13 @@ def test_serving_over_gloo_processes(dry, tmp_path):
             assert ({int(e) for e in got} if got.ndim == 1 else
                     {tuple(e) for e in got}) == sizes, f"process {r} {run}"
         for k, v in want.items():
-            if k.startswith("cp.") and k.split(".")[1] in "kv":
+            if k.startswith("cp.") and k.split(".")[1] in "kv" or k.startswith("sp.rank."):
                 continue
             np.testing.assert_array_equal(o[k], v, err_msg=f"process {r} {k}")
+        mine = sorted(k for k in o if k.startswith("sp.rank."))
+        assert len(mine) == 4  # its one model rank's four results
+        for k in mine:
+            np.testing.assert_array_equal(o[k], want[k], err_msg=f"process {r} {k}")
         for tag in "kv":
             np.testing.assert_array_equal(o[f"cp.{tag}.{r}"], want[f"cp.{tag}.{r}"],
                                           err_msg=f"process {r} cp cache {tag}")
@@ -565,6 +583,22 @@ def test_serving_over_gloo_processes(dry, tmp_path):
         assert partials < slice_bytes
         for name in ("granite-moe-3b-a800m", "gemma-2b"):
             moved_as_dry(o, f"serve.{name}.decode", dry, r)
+        for name in LONG["names"]:
+            assert int(o[f"long.{name}.cache_received"]) == 0 and bool(o[f"long.{name}.in_place"])
+    sp = inputs["sp"]
+    for d in range(2):  # the single controller's: the plain sum, split; the joined rows
+        total = sp["x"][d][0] + sp["x"][d][1]
+        grad = sp["wa"][d][0] + sp["wa"][d][1] + sp["wb"][d]
+        for m in range(2):
+            tag = f"sp.rank.{d}.{m}"
+            np.testing.assert_array_equal(want[f"{tag}.sum"], total[:, 4 * m:4 * m + 4])
+            np.testing.assert_array_equal(want[f"{tag}.sum_grad"],
+                                          np.concatenate(list(sp["w"][d]), 1))
+            np.testing.assert_array_equal(want[f"{tag}.whole"],
+                                          np.concatenate(list(sp["y"][d]), 1))
+            np.testing.assert_array_equal(want[f"{tag}.whole_grad"], grad[:, 4 * m:4 * m + 4])
+    for name in LONG["names"]:
+        assert int(want[f"long.{name}.cache_received"]) == 0
 
 
 # --- tensor parallelism, layer by layer (port only) -----------------------------------
@@ -627,7 +661,8 @@ def test_tp_attention_matches_one_device(case):
     """`attn_apply` on (data 1, model 4) against one device, forward and
     gradients at 1e-5 (f32): q heads split (kv heads split with them, or
     one kv head every rank reads), and 6 heads, which do not divide the
-    axis: each rank the rows of every q chunk (the reference's row pin)."""
+    axis: x comes as the ranks' rows of the sequence and each rank
+    attends with its own rows (the reference's row pin, `_attend_rows`)."""
     H, KV = ATTN_TP[case]
     dims = L.AttnDims(d_model=32, n_heads=H, n_kv=KV, d_head=8, qkv_bias=True)
     p = _leaves(0, {"wq": (32, H, 8), "wk": (32, KV, 8), "wv": (32, KV, 8),
@@ -637,8 +672,16 @@ def test_tp_attention_matches_one_device(case):
              **({"wk": 1, "wv": 1, "bk": 0, "bv": 0} if KV % TP == 0 else {})}
     ins = [x, *p.values()]
     kw = dict(causal=True, q_chunk=8, kv_chunk=8)
-    got = _fwd_bwd(lambda: L.attn_apply(_by_rank(p, split), x, dims, policy=_tp_policy(),
-                                        **kw), ins)
+    pol = _tp_policy()
+
+    def tp():
+        if H % TP == 0:
+            return L.attn_apply(_by_rank(p, split), x, dims, policy=pol, **kw)
+        rows = L.attn_apply(p, pol.group.split(x, 1), dims, policy=pol, **kw)
+        assert isinstance(rows, TM.Blocks) and rows.dim == 1
+        return torch.cat(list(rows), 1)
+
+    got = _fwd_bwd(tp, ins)
     want = _fwd_bwd(lambda: L.attn_apply(p, x, dims, **kw), ins)
     _close_all([got[0], *got[1]], [want[0], *want[1]], case)
 
@@ -720,7 +763,9 @@ def test_tp_ssm_matches_one_device(groups):
 
 def test_tp_vocab_parallel_head_matches_one_device():
     """The vocab-parallel embedding (bitwise: one rank's lookup is not
-    zero), `logits_last` (each rank its vocab block, the blocks joined)
+    zero; S 16 divides the model axis, so it leaves through the
+    reduce-scatter as the ranks' rows, joined here), `logits_last` (each
+    rank its vocab block, the blocks joined; its row the last rank's)
     and `chunked_ce_loss` (the log-sum-exp from the ranks' maxima and
     sums, the gold logit from its rank) on (data 1, model 4), tied and
     untied: forward and gradients at 1e-5 against one device."""
@@ -736,13 +781,224 @@ def test_tp_vocab_parallel_head_matches_one_device():
         tp_cfg = cfg.with_policy(_tp_policy())
         q = _by_rank(p, {"embed": 0, "unembed": 1})
         with torch.no_grad():
-            assert torch.equal(T.embed_tokens(tp_cfg, q, tokens), T.embed_tokens(cfg, p, tokens))
+            rows = T.embed_tokens(tp_cfg, q, tokens)
+            assert [tuple(t.shape) for t in rows] == [(2, 4, 64)] * TP
+            assert torch.equal(T.seq_whole(tp_cfg, rows), T.embed_tokens(cfg, p, tokens))
         ins = list(p.values())
-        for tag, fn in (("embed", lambda c, w: T.embed_tokens(c, w, tokens)),
+        for tag, fn in (("embed", lambda c, w: T.seq_whole(c, T.embed_tokens(c, w, tokens))),
                         ("logits", lambda c, w: T.logits_last(
-                            c, w, T.embed_tokens(c, w, tokens)[:, -1:])),
+                            c, w, T.last_row(c, T.embed_tokens(c, w, tokens)))),
                         ("ce", lambda c, w: T.chunked_ce_loss(
                             c, w, T.embed_tokens(c, w, tokens), labels, mask, chunk=8)[None])):
             got = _fwd_bwd(lambda: fn(tp_cfg, q), ins)
             want = _fwd_bwd(lambda: fn(cfg, p), ins)
             _close_all([got[0], *got[1]], [want[0], *want[1]], f"{tag} tie={tie}")
+
+
+# --- sequence parallelism and the long-context decode ---------------------------------
+
+
+def test_sum_scatter_and_gather_fanout_are_their_plain_counterparts():
+    """`AxisGroup.sum_scatter` is `sum` then split bit for bit, and its
+    gradient the ranks' slices joined; `gather_fanout` is the ranks' rows
+    joined, a copy a rank, and its gradient the copies' gradients added in
+    rank order, then the joined tensor's, split: the reduce-scatter."""
+    g = TM.AxisGroup(TP)
+    rng = np.random.RandomState(12)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).requires_grad_(True)
+
+    xs = [leaf(2, 8, 3) for _ in range(TP)]
+    ws = [torch.from_numpy(rng.randn(2, 2, 3).astype(np.float32)) for _ in range(TP)]
+    rows = g.sum_scatter(xs, 1)
+    assert isinstance(rows, TM.Blocks) and rows.dim == 1
+    want = torch.split(g.sum([x.detach() for x in xs]), 2, 1)
+    assert all(torch.equal(a, b) for a, b in zip(rows, want))
+    sum((r * w).sum() for r, w in zip(rows, ws)).backward()
+    assert all(torch.equal(x.grad, torch.cat(ws, 1)) for x in xs)
+    ys = [leaf(2, 2, 3) for _ in range(TP)]
+    whole, each = g.gather_fanout(ys, 1)
+    assert torch.equal(whole, torch.cat([y.detach() for y in ys], 1))
+    assert len(each) == TP and all(torch.equal(c, whole) for c in each)
+    wa = [torch.from_numpy(rng.randn(2, 8, 3).astype(np.float32)) for _ in range(TP)]
+    wb = torch.from_numpy(rng.randn(2, 8, 3).astype(np.float32))
+    (sum((c * w).sum() for c, w in zip(each, wa)) + (whole * wb).sum()).backward()
+    total = g.sum(wa) + wb
+    assert all(torch.equal(y.grad, t) for y, t in zip(ys, torch.split(total, 2, 1)))
+
+
+# the block kinds under SP: (config, pattern entry, replace)
+SP_BLOCKS = {"attn one kv head": ("gemma-2b", ("attn", "dense"), {}),
+             "attn kv heads": ("minitron-8b", ("attn", "dense"), {}),
+             "attn row split": ("qwen1.5-32b", ("attn", "dense"), {"n_heads": 3, "n_kv": 3}),
+             "cross": ("llama-3.2-vision-90b", ("cross", "dense"), {}),
+             "cross row split": ("llama-3.2-vision-90b", ("cross", "dense"),
+                                 {"n_heads": 3, "n_kv": 1}),
+             "mamba": ("jamba-1.5-large-398b", ("mamba", "dense"), {}),
+             "moe by expert": ("qwen3-moe-30b-a3b", ("attn", "moe"),
+                               {"moe_capacity_factor": 8.0}),
+             "moe by hidden": ("granite-moe-3b-a800m", ("attn", "moe"),
+                               {"moe_capacity_factor": 8.0})}
+SP_MESHES = {"data 1 model 4": (1, 4), "data 2 model 2": (2, 2)}
+
+
+def _rank_tree(cfg, p, tp):
+    """A block's parameters as a tensor-parallel pass reads them: each
+    leaf the specs split over the model axis (`spec_for_param` on (data
+    1, model tp)) as its ranks' blocks (views: their gradients reach the
+    leaf)."""
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        spec = SH.spec_for_param(cfg, path, tuple(node.shape), {"data": 1, "model": tp})
+        dim = next((d for d, a in enumerate(spec) if a == "model"), None)
+        return node if dim is None else TM.Blocks(torch.chunk(node, tp, dim), dim)
+
+    return walk(("block",), p)
+
+
+@pytest.mark.parametrize("mesh", sorted(SP_MESHES))
+@pytest.mark.parametrize("kind", sorted(SP_BLOCKS))
+def test_sp_block_matches_one_device(kind, mesh):
+    """`block_apply_train` on a sequence-parallel pass (B 4 x S 16 as the
+    model ranks' rows, `Blocks` along dim 1) against one device with the
+    same policy: the output (each rank's residual [B, S/tp, d]), the aux
+    loss, and the gradients of x and of every weight at 1e-5 (f32). The
+    kinds: attention with one kv head every rank reads, with kv heads
+    split, with 3 heads and qkv biases (which do not divide the axis:
+    each rank attends with its own rows, the row split of the replicated
+    layout), cross attention with 4 heads and with 3, mamba with a dense
+    FFN, the MoE's sequence-sharded path by expert (8 experts) and by
+    hidden (5). (data 2, model 2) splits heads, FFN hidden and rows in two
+    where (data 1, model 4) splits them in four, and the MoE's dispatch
+    reads its data axis."""
+    from repro_torch.models import transformer as T
+
+    name, (mixer, mlp_kind), extra = SP_BLOCKS[kind]
+    dp, tp = SP_MESHES[mesh]
+    cfg = dataclasses.replace(get_reduced(name), **F32, **extra)
+    pol = ShardingPolicy(batch=("data",), model="model", tp_size=tp, dp_size=dp)
+    one, sp = cfg.with_policy(pol), cfg.with_policy(pol.with_group(TM.AxisGroup(tp)))
+    p = T.block_init(one, torch.Generator().manual_seed(3), mixer, mlp_kind, torch.float32,
+                     "cpu")
+    leaves = {path: t.requires_grad_(True) for path, t in _flat(p).items()}
+    rng = np.random.RandomState(4)
+    B, S, d = 4, 16, cfg.d_model
+    x = torch.from_numpy((rng.randn(B, S, d) * 0.5).astype(np.float32)).requires_grad_(True)
+    memory = torch.from_numpy((rng.randn(B, 16, d) * 0.5).astype(np.float32))
+    # a probe of 0.05 keeps the gradients O(1), as in the `test_tp_*` cases: at
+    # N(0, 1) they reach 90 (the norm rescales x), where both paths' f32 sums
+    # sit ~3e-5 from an f64 run's
+    probe = torch.from_numpy((rng.randn(B, S, d) * 0.05).astype(np.float32))
+    ins = [x, *leaves.values()]
+    outs = []
+    for c, q, xin in ((sp, _rank_tree(sp, p, tp), TM.AxisGroup(tp).split(x, 1)),
+                      (one, p, x)):
+        y, aux = T.block_apply_train(c, q, xin, mixer, mlp_kind, memory=memory)
+        if c is sp:
+            assert isinstance(y, TM.Blocks) and y.dim == 1
+            assert [tuple(t.shape) for t in y] == [(B, S // tp, d)] * tp, kind
+            y = torch.cat(y, 1)
+        ((y * probe).sum() + aux).backward()
+        outs.append([y.detach(), torch.as_tensor(aux).detach(), *_grads(ins)])
+    _close_all(outs[0], outs[1], f"{kind} {mesh}")
+
+
+def _joins(monkeypatch):
+    """A counter of `Mesh.join` calls made inside `ShardedCache.rows`."""
+    calls, inside = [0], [False]
+    join, rows = TM.Mesh.join, SH.ShardedCache.rows
+
+    def counting(self, *a, **k):
+        calls[0] += inside[0]
+        return join(self, *a, **k)
+
+    def reading(self, *a, **k):
+        inside[0] = True
+        try:
+            return rows(self, *a, **k)
+        finally:
+            inside[0] = False
+
+    monkeypatch.setattr(TM.Mesh, "join", counting)
+    monkeypatch.setattr(SH.ShardedCache, "rows", reading)
+    return calls
+
+
+@pytest.mark.parametrize("name", LONG["names"])
+def test_long_decode_matches_reference(ref, name, monkeypatch):
+    """Reduced gemma's and jamba's long-context decode on (data 2, model 2)
+    in f32: a batch-1 prefill (sequence-parallel: its residual the model
+    ranks' rows) into a cache placed with its sequence over the data axis
+    (gemma's split over the model axis by head dim, jamba's by kv heads),
+    then 3 decode steps fed the reference's greedy tokens: every step's
+    logits within 1e-4 of the reference's sharded run; each step reads the
+    cache's parts themselves (`Slices`, no leaf joined) and writes the
+    new row into them in place; the cache at the end within 1e-5 of one
+    device's decode."""
+    mesh = TM.make_host_mesh(data=2, model=2, device="cpu")
+    cfg = dataclasses.replace(get_reduced(name), **F32)
+    pcfg = cfg.with_policy(dataclasses.replace(SH.policy_for(mesh), seq_axis_for_cache="data"))
+    params = convert.params_from_reference(cfg, _tree(ref, f"long.{name}.p"))
+    sharded = SH.ShardedLM.place(pcfg, mesh, params, SH.param_specs(
+        pcfg, SH.ref_layout(params.tree()), mesh))
+    tag, P = f"long.{name}", LONG["P"]
+    tokens = _t(ref[tag + ".tokens"])
+    logits, cache = Md.prefill(pcfg, sharded, {"tokens": tokens}, max_len=LONG["max_len"])
+    assert cache.seq_sharded and tuple(cache["b0"]["k"].spec)[2] == "data"
+    ptrs = {(b, n, s): sh.parts[s].data_ptr() for b, c in cache._tree.items()
+            for n, sh in c.items() for s in mesh.local}
+    joins = _joins(monkeypatch)
+    seen = []
+    rows = SH.ShardedCache.rows
+    monkeypatch.setattr(SH.ShardedCache, "rows",
+                        lambda self, *a, **k: seen.append(rows(self, *a, **k)) or seen[-1])
+    want_logits, want_cache = Md.prefill(cfg, params, {"tokens": tokens},
+                                         max_len=LONG["max_len"])
+    got = [logits]
+    for i in range(LONG["steps"]):
+        tok = _t(ref[f"{tag}.token{i}"])
+        logits, cache = Md.decode_step(pcfg, sharded, cache, tok, P + i)
+        want_logits, want_cache = Md.decode_step(cfg, params, want_cache, tok, P + i)
+        got.append(logits)
+    for i, g in enumerate(got):
+        np.testing.assert_allclose(g.numpy(), ref[f"{tag}.logits{i}"], rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{name} step {i}")
+    assert joins[0] == 0 and len(seen) == LONG["steps"]
+    k = seen[0]["b0"]["k"]
+    assert isinstance(k, TM.Blocks) and all(isinstance(r, TM.Slices) for r in k)
+    sh = cache["b0"]["k"]
+    assert [[t.data_ptr() for t in r] for r in k] == [
+        [sh.parts[s].data_ptr() for s in r.shards] for r in k]
+    assert all(sh.parts[s].data_ptr() == p for (b, n, s), p in ptrs.items()
+               for sh in [cache[b][n]])
+    for b, c in convert.cache_to_numpy(cache).items():
+        for n, a in c.items():
+            np.testing.assert_allclose(a, convert.cache_to_numpy(want_cache)[b][n], rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{name} {b}/{n}")
+
+
+@pytest.mark.parametrize("tp", [0, TP])
+def test_prefill_conv_tail_holds_no_activation(tp):
+    """A mamba block's prefill cache keeps the conv window's last d_conv - 1
+    rows as a tensor of their own, in one device's pass and a
+    tensor-parallel one: a view of the in_proj output would keep that
+    [B, S, conv_dim] activation alive until the cache is placed, a
+    layer's worth a mamba layer (jamba-1.5-large-398b prefill_32k: ≈ 4.3
+    GB each on (data 16, model 16))."""
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_reduced("mamba2-370m"), **F32)
+    if tp:
+        cfg = cfg.with_policy(_tp_policy())
+    p = T.block_init(cfg, torch.Generator().manual_seed(5), "mamba", "none", torch.float32,
+                     "cpu")
+    if tp:
+        p = _rank_tree(cfg, p, tp)
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 16, cfg.d_model).astype(np.float32))
+    with torch.no_grad():
+        _, cache = T.block_apply_prefill(cfg, p, x, "mamba", "none", 16, torch.float32)
+    conv = cache["conv"]
+    assert tuple(conv.shape) == (2, cfg.ssm_dims.d_conv - 1, cfg.ssm_dims.conv_dim)
+    assert conv.untyped_storage().nbytes() == conv.numel() * conv.element_size()

@@ -388,3 +388,21 @@ def test_sharded_cache_holds_a_process_parts(monkeypatch, B):
             want = (G, B // 2, S, KV // 2, hd) if B == 4 else (G, B, S, KV, hd)
             assert tuple(sh.parts[rank].shape) == want
             assert tuple(sh.shape) == (G, B, S, KV, hd)
+
+
+def test_prefill_cache_shapes_hold_no_cache():
+    """`prefill` reads `cache_specs` off the whole batch's cache shapes:
+    those stand-ins (`models.model._cache_shape`) have the global shape
+    and its specs (here qwen1.5-32b's head-dim split on (data 16, model
+    16)) but one element of storage, so a dry run's memory count does
+    not take the whole batch's cache for a prefill's temp (it did: 640
+    GiB of qwen1.5-32b prefill_32k's 721 GiB)."""
+    mesh = TM.make_host_mesh(data=16, model=16, device="meta")
+    cfg = get_config("qwen1.5-32b").with_policy(SH.policy_for(mesh))
+    rank_k = torch.empty((64, 2, 32768, 40, 128), dtype=torch.float8_e4m3fn, device="meta")
+    for a in (rank_k, TM.Blocks([rank_k[..., :8]] * 16, 4)):
+        stand_in = Md._cache_shape(a, 32, mesh)
+        assert tuple(stand_in.shape) == (64, 32, 32768, 40, 128)
+        assert stand_in.untyped_storage().nbytes() == 1
+        specs = SH.cache_specs(cfg, {"b0": {"k": stand_in}}, mesh, seq_shard=False)
+        assert tuple(specs["b0"]["k"]) == (None, "data", None, None, "model")

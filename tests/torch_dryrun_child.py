@@ -51,6 +51,9 @@ TP_CELLS = {"tp.gemma-2b.decode": ("gemma-2b", "decode", 4, 12),
             "tp.gemma-2b.train": ("gemma-2b", "train", 4, 32),
             "tp.granite-moe-3b-a800m.decode": ("granite-moe-3b-a800m", "decode", 4, 12)}
 TP_MESH, TP_RANKS = {"data": 2, "model": 4}, (0, 5)
+# the long-context decode (batch 1: the cache's sequence over the data
+# axis), counted as the TP cells are
+LONG_CELLS = {"long.jamba-1.5-large-398b.decode": ("jamba-1.5-large-398b", "decode", 1, 16)}
 GP_BLOCK = 1  # the gp scenario's counted block (generations)
 # a GP cell on the cuda backend: 140,000 trees on (data 2, model 2), two
 # launches of B1 a shard a generation (`pop_chunks`: 70,000 trees a shard)
@@ -65,7 +68,7 @@ def _reduced(name, kind):
     from torch_lm_mesh_ref import F32, TRAIN
     from torch_mp_worker import DECODE_COUNTED
 
-    extra = TRAIN[name] if kind == "train" else DECODE_COUNTED[name]
+    extra = TRAIN[name] if kind == "train" else DECODE_COUNTED.get(name, {})
     return dataclasses.replace(get_reduced(name), **F32, **extra)
 
 
@@ -147,9 +150,9 @@ def _model_group_process():
 
 
 def _tp_cells(res):
-    """The `TP_CELLS`, each rank's record with the bytes it received inside
-    `gather_tree` and inside `ShardedCache.rows` (a second `_Wire` around
-    each call)."""
+    """The `TP_CELLS` and `LONG_CELLS`, each rank's record with the bytes
+    it received inside `gather_tree` and inside `ShardedCache.rows` (a
+    second `_Wire` around each call)."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import sharding as SH
 
@@ -167,7 +170,7 @@ def _tp_cells(res):
     SH.gather_tree = counted("gather_received", originals[0])
     SH.ShardedCache.rows = counted("cache_received", originals[1])
     try:
-        for key, (name, kind, B, S) in TP_CELLS.items():
+        for key, (name, kind, B, S) in {**TP_CELLS, **LONG_CELLS}.items():
             for r in TP_RANKS:
                 got.clear()
                 rec = _strip(D.run_cell(name, {"kind": kind, "batch": B, "seq": S}, False, "",

@@ -29,6 +29,10 @@ CP = dict(d_model=32, n_heads=4, n_kv=2, d_head=8, B=2, S=64, cur_lens=(0, 7, 13
 # the reference's sharded serving on (data 2, model 4): reduced configs in
 # f32, B prompts of P tokens, then `steps` greedy decode steps
 SERVE = dict(names=("granite-moe-3b-a800m", "qwen1.5-32b"), B=4, P=8, steps=3, max_len=12)
+# the long-context decode (batch 1, the cache's sequence over the data
+# axis) on (data 2, model 2): reduced configs in f32, a P-token prompt into
+# a max_len-row cache, then `steps` greedy decode steps
+LONG = dict(names=("gemma-2b", "jamba-1.5-large-398b"), P=8, steps=3, max_len=16)
 # the dry run's counted decode cell, compiled for memory_analysis: (data 2,
 # model 4), reduced gemma-2b in f32, B 4 and a 12-row cache
 DRY_DECODE = dict(name="gemma-2b", batch=4, seq=12, mesh=(2, 4))
@@ -252,7 +256,10 @@ def scen_serve():
     decode steps on (data 2, model 4), the params placed by the
     reference's specs and its policy installed (XLA partitions the
     model axis as the specs and pins say): the params, the prompt, each
-    step's token and logits."""
+    step's token and logits. Then the long-context decode (`LONG`) on
+    (data 2, model 2): a batch-1 prefill, its cache placed by
+    `cache_specs` with `seq_shard` (the sequence over the data axis, as
+    the reference's long_500k cells), and the greedy decode steps."""
     import jax
     import jax.numpy as jnp
 
@@ -284,6 +291,32 @@ def scen_serve():
                 out[f"serve.{name}.token{i}"] = np.asarray(tok)
                 logits, cache = step(params, cache, tok, jnp.asarray(P + i, jnp.int32))
                 out[f"serve.{name}.logits{i + 1}"] = np.asarray(logits)
+    mesh = make_host_mesh(data=2, model=2)
+    P = LONG["P"]
+    for name in LONG["names"]:
+        cfg = dataclasses.replace(get_reduced(name), **F32).with_policy(make_policy(mesh))
+        params = Md.init_params(cfg, jax.random.PRNGKey(1))
+        put_tree(f"long.{name}.p", params)
+        params = jax.device_put(params, jax.tree.map(
+            lambda s: SH.NamedSharding(mesh, s), SH.param_specs(cfg, params, mesh),
+            is_leaf=lambda x: isinstance(x, SH.P)))
+        tokens = np.random.RandomState(5).randint(0, cfg.vocab, (1, P)).astype(np.int32)
+        out[f"long.{name}.tokens"] = tokens
+        with compat.set_mesh(mesh):
+            logits, cache = jax.jit(lambda p, t: Md.prefill(cfg, p, {"tokens": t},
+                                                            LONG["max_len"]))(
+                params, jnp.asarray(tokens))
+            cache = jax.device_put(cache, jax.tree.map(
+                lambda s: SH.NamedSharding(mesh, s),
+                SH.cache_specs(cfg, cache, mesh, seq_shard=True),
+                is_leaf=lambda x: isinstance(x, SH.P)))
+            step = jax.jit(lambda p, c, t, n: Md.decode_step(cfg, p, c, t, n))
+            out[f"long.{name}.logits0"] = np.asarray(logits)
+            for i in range(LONG["steps"]):
+                tok = jnp.argmax(logits, -1).astype(jnp.int32)
+                out[f"long.{name}.token{i}"] = np.asarray(tok)
+                logits, cache = step(params, cache, tok, jnp.asarray(P + i, jnp.int32))
+                out[f"long.{name}.logits{i + 1}"] = np.asarray(logits)
 
 
 def _start(path):

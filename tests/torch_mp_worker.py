@@ -236,7 +236,12 @@ def serve_runs(inputs, out, experts=None):
     gemma-2b and granite; the SERVE_TRAIN granite train steps (metrics
     and the final state); `cp_decode_attention` on (data 4, model 1)
     through the cur_lens of `inputs["cp"]` (the outputs, the cache
-    slices). `experts`, a dict, gets each run's set of (the expert
+    slices); `AxisGroup.sum_scatter` and `gather_fanout` over each data
+    shard's model group (each rank's value and gradient, under
+    "sp.rank.{data}.{model}"); reduced gemma's and jamba's long-context
+    decode (batch 1, the cache's sequence over the data axis: its logits,
+    the bytes received inside the cache's reads, whether every cache part
+    kept its storage, and the joined cache). `experts`, a dict, gets each run's set of (the expert
     buffer's, the weights') leading sizes over its expert FFN calls, and
     under "window.{run}" the leading sizes of the expert slices a pass
     gathered (`gather_tree`: an expert stack split over the model axis by
@@ -331,7 +336,82 @@ def serve_runs(inputs, out, experts=None):
                                         c[:, s * n:(s + 1) * n]).numpy()
     finally:
         M._expert_ffn, SH.gather_tree, TM.AxisGroup.sum = ffn, gather, tp_sum
+    _sp_collectives(mesh, inputs["sp"], out)
+    _long_decode(mesh, inputs["long"], out)
     return cmesh, dims, p
+
+
+def _sp_collectives(mesh, sp, out):
+    """`sum_scatter` (dim 1) and `gather_fanout` over each data shard's
+    model group this process runs, forward and backward (a projection of
+    the outputs by `sp`'s probes), each rank's result under
+    "sp.rank.{data}.{model}"."""
+    for d in range(mesh.axis_size("data")):
+        shards = [s for s in mesh.local if mesh.rank(s, "data") == d]
+        if not shards:
+            continue
+        g = mesh.axis_group("model", shards[0])
+        xs = [torch.from_numpy(sp["x"][d][r]).requires_grad_(True) for r in g.ranks]
+        rows = g.sum_scatter(xs, 1)
+        sum((o * torch.from_numpy(sp["w"][d][r])).sum() for o, r in zip(rows, g.ranks)).backward()
+        ys = [torch.from_numpy(sp["y"][d][r]).requires_grad_(True) for r in g.ranks]
+        whole, each = g.gather_fanout(ys, 1)
+        (sum((c * torch.from_numpy(sp["wa"][d][r])).sum() for c, r in zip(each, g.ranks))
+         + (whole * torch.from_numpy(sp["wb"][d])).sum()).backward()
+        for r, o, x, y in zip(g.ranks, rows, xs, ys):
+            tag = f"sp.rank.{d}.{r}"
+            out[f"{tag}.sum"], out[f"{tag}.sum_grad"] = o.detach().numpy(), x.grad.numpy()
+            out[f"{tag}.whole"], out[f"{tag}.whole_grad"] = whole.detach().numpy(), y.grad.numpy()
+
+
+def _long_decode(mesh, tokens, out):
+    """The long-context decode of each of `LONG`'s configs (f32): a
+    batch-1 prefill into a cache of `LONG["max_len"]` rows placed with its
+    sequence over the data axis, then `LONG["steps"]` greedy decode steps; the bytes this process's collectives
+    receive inside the cache's reads (`Moved`: 0 where no cache row
+    crosses), whether every local cache part kept its storage (the decode
+    writes in place), the logits and the joined cache."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import convert
+    from repro_torch.models import model as Md
+    from torch_lm_mesh_ref import F32, LONG
+
+    rows, received = SH.ShardedCache.rows, [0]
+
+    def counted(self, *a, **k):
+        with Moved() as moved:
+            got = rows(self, *a, **k)
+        received[0] += moved.received
+        return got
+
+    for name in LONG["names"]:
+        cfg = dataclasses.replace(get_reduced(name), **F32)
+        pcfg = cfg.with_policy(dataclasses.replace(SH.policy_for(mesh),
+                                                   seq_axis_for_cache="data"))
+        params = Md.init_params(cfg, 0, device="cpu")
+        sharded = SH.ShardedLM.place(pcfg, mesh, params, SH.param_specs(
+            pcfg, SH.ref_layout(params.tree()), mesh))
+        logits, cache = Md.prefill(pcfg, sharded, {"tokens": torch.from_numpy(tokens)},
+                                   max_len=LONG["max_len"])
+        ptrs = [p.data_ptr() for c in cache._tree.values() for sh in c.values()
+                for p in sh.local()]
+        outs, received[0] = [logits], 0
+        SH.ShardedCache.rows = counted
+        try:
+            for t in range(LONG["steps"]):
+                logits, cache = Md.decode_step(pcfg, sharded, cache, logits.argmax(-1),
+                                               torch.tensor(tokens.shape[1] + t))
+                outs.append(logits)
+        finally:
+            SH.ShardedCache.rows = rows
+        tag = f"long.{name}"
+        out[f"{tag}.logits"] = torch.cat(outs, 1).numpy()
+        out[f"{tag}.cache_received"] = np.asarray(received[0])
+        out[f"{tag}.in_place"] = np.asarray(ptrs == [p.data_ptr() for c in cache._tree.values()
+                                                     for sh in c.values() for p in sh.local()])
+        for k, v in _flat(convert.cache_to_numpy(cache)).items():
+            out[f"{tag}.cache{k}"] = v
 
 
 def serve(tmp, inputs, out):

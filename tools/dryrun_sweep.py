@@ -76,6 +76,8 @@ def _mesh_cols(rec) -> tuple:
     total = mem["argument_gb"] + mem["temp_gb"]
     kinds = ", ".join(f"{k.split('-')[-1]} {_gb(v / 2**30)}"
                       for k, v in rec["collective_bytes"].items())
+    if rec.get("cache_received_bytes") is not None:
+        kinds += f"; cache {_gb(rec['cache_received_bytes'] / 2**30)}"
     fits = "" if total <= CARD_GB else " **over**"
     return (f"{_gb(mem['argument_gb'])} + {_gb(mem['temp_gb'])} = {_gb(total)}{fits}",
             f"{_gb(rec['received_bytes'] / 2**30)} ({kinds or 'none'})",
@@ -85,7 +87,8 @@ def _mesh_cols(rec) -> tuple:
 def table(out: Path) -> str:
     """A row a cell: per mesh (sp, mp) argument + temp GB a card (over 80
     marked), GB received a step (the kinds' RESULT GB: gather, all,
-    reduce), trace_s; the single-pod TFLOP."""
+    reduce; a decode's GB received inside its cache reads), trace_s; the
+    single-pod TFLOP."""
     recs = {p.stem: json.loads(p.read_text()) for p in out.glob("*.json")}
     lines = ["| cell | sp: arg + temp GB | sp: received GB (result GB by kind) | mp: arg + "
              "temp GB | mp: received GB | TFLOP (sp) | trace_s sp / mp |",
